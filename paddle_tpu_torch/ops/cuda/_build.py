@@ -1,0 +1,132 @@
+"""Build and load the port's CUDA kernels.
+
+``nvcc`` compiles every ``paddle_tpu_torch/csrc/*.cu`` for ``sm_90a``
+into one shared library with a plain C interface, loaded with
+``ctypes`` (pointers from ``Tensor.data_ptr()``, the stream from
+``torch.cuda.current_stream().cuda_stream``). The sources compile in
+parallel, one ``nvcc`` each, and link once. The library goes into
+``paddle_tpu_torch/_build/`` under a name keyed by a hash of the sources
+and flags, so an edited source rebuilds and an unchanged one loads at
+once. Nothing happens at import: the first kernel launch calls
+``load_library``. A missing ``nvcc`` or a failed build raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+from pathlib import Path
+
+__all__ = ["load_library", "build_info", "SRC_DIR", "BUILD_DIR"]
+
+_PKG = Path(__file__).resolve().parents[2]
+SRC_DIR = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+CFLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                 "-Xptxas", "-v"]
+
+_lock = threading.Lock()
+_lib = None
+# filled by load_library: seconds spent compiling (0.0 when the library
+# was already built) and the ptxas resource report per source
+build_info: dict = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    from torch.utils.cpp_extension import CUDA_HOME
+    if CUDA_HOME and os.path.exists(os.path.join(CUDA_HOME, "bin", "nvcc")):
+        return os.path.join(CUDA_HOME, "bin", "nvcc")
+    raise RuntimeError("nvcc not found (no CUDA toolkit on PATH or "
+                       "CUDA_HOME): the port's kernels cannot be built")
+
+
+def _digest(paths) -> str:
+    h = hashlib.sha256(" ".join(CFLAGS).encode())
+    for p in paths:
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _compile(sources, target: Path) -> dict:
+    """One nvcc per source, all started together, then one link."""
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(dir=BUILD_DIR, prefix="tmp_"))
+    try:
+        procs = []
+        for src in sources:
+            obj = tmp / (src.stem + ".o")
+            procs.append((src, obj, subprocess.Popen(
+                [nvcc, *CFLAGS, "-I", str(SRC_DIR), "-c", str(src), "-o",
+                 str(obj)], stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True)))
+        report, failed = {}, []
+        for src, _obj, proc in procs:
+            out, _ = proc.communicate()
+            report[src.name] = out
+            if proc.returncode != 0:
+                failed.append(f"{src.name}:\n{out}")
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        lib_tmp = tmp / target.name
+        link = subprocess.run(
+            [nvcc, *ARCH, "-shared", "-o", str(lib_tmp)]
+            + [str(obj) for _s, obj, _p in procs],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+        os.replace(lib_tmp, target)
+        return report
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _declare(lib):
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.ptt_ragged_paged_attention.argtypes = (
+        [p] * 9 + [i] * 10 + [ctypes.c_float, p])
+    lib.ptt_ragged_paged_attention.restype = i
+    lib.ptt_decode_matmul.argtypes = [p] * 5 + [i] * 6 + [p]
+    lib.ptt_decode_matmul.restype = i
+    lib.ptt_error_string.argtypes = [i]
+    lib.ptt_error_string.restype = ctypes.c_char_p
+
+
+def load_library():
+    """The loaded kernel library, building it first when needed."""
+    global _lib
+    with _lock:
+        if _lib is not None:
+            return _lib
+        sources = sorted(SRC_DIR.glob("*.cu"))
+        target = BUILD_DIR / (
+            "libpaddle_tpu_torch_"
+            + _digest(sorted(SRC_DIR.glob("*.cuh")) + sources) + ".so")
+        t0 = time.perf_counter()
+        report = {}
+        if not target.exists():
+            report = _compile(sources, target)
+        build_info["seconds"] = time.perf_counter() - t0
+        build_info["ptxas"] = report
+        build_info["library"] = target.name
+        lib = ctypes.CDLL(str(target))
+        _declare(lib)
+        _lib = lib
+        return lib
+
+
+def check(lib, code: int, what: str):
+    """Raise on a non-zero status from a launch."""
+    if code != 0:
+        msg = lib.ptt_error_string(code).decode()
+        raise RuntimeError(f"{what} kernel launch failed ({code}): {msg}")
