@@ -9,10 +9,13 @@ failure ends the run with a non-zero exit code and no result:
 1. env           torch / CUDA versions and the card's name and power limit.
 2. build         compiles ``paddle_tpu_torch/csrc/*.cu`` for sm_90a.
 3. kernels       each kernel against its plain PyTorch version on the card
-                 at the Llama-3-8B serving shapes, with its time, the plain
-                 version's time, the time of one PyTorch library call that
-                 computes the same function where there is one, and the
-                 least time the card could take (bound_ms).
+                 at the shapes its main path gives it (Llama-3-8B serving;
+                 llama_mid training attention, plus a 4096 sequence, packed
+                 documents and a causal sq < sk case with ragged edges),
+                 with its time, the plain version's time, the time of one
+                 PyTorch library call that computes the same function where
+                 there is one, and the least time the card could take
+                 (bound_ms). Flash backward runs must be bit-identical.
 4. tiny-parity   llama_tiny (float32, int4 weights) served on the card and,
                  with the same weights, on the CPU through the plain
                  versions: the greedy tokens must be equal, and one
@@ -28,24 +31,54 @@ failure ends the run with a non-zero exit code and no result:
 6. serve-bf16-kv8  the same model with bf16 weights and an int8 KV pool
                  (4 requests): the int8 branch of the attention kernel on
                  the serving path.
+7. tiny-train-parity  llama_tiny(hidden_size=256) in float32 (head_dim 64)
+                 with the same weights on the card and the CPU: 3 TrainSteps
+                 of AdamW(1e-3) give losses within 1e-4 relative, and the
+                 card ran all three flash kernels.
+8. train-mid     THE TRAINING PATH: llama_mid (0.65B) at full width and all
+                 11 layers, bf16 compute, seed 0, batch 4 x seq 2048 (ids as
+                 bench.py makes them), AdamW(1e-4, weight_decay=0.01): 2 warm
+                 and 10 timed TrainSteps. The flash counters are set to 0
+                 just before and read just after: exactly 11 forward, 11 dq
+                 and 11 dk/dv launches per step; every loss finite and the
+                 last below the first. Step ms, tokens/s, MFU by bench.py's
+                 formula against 989 TFLOP/s, peak memory, device time by
+                 kernel family and the idle share.
 
 Then a {"kernels": [...]} line, the card's name and power limit as
 nvidia-smi reports them, and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Bounds use the H100 SXM data sheet: 3.35 TB/s of device memory and
 989 TFLOP/s dense bf16 on the tensor cores.
+Serving and training leave each other's counters alone: each path resets
+and reads only its own kernels' counters.
 """
 import gc
 import json
+import re
 import subprocess
 import sys
 import time
 
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS_PER_S = 989e12
+F32_FLOPS_PER_S = 67e12     # float32 outside the tensor cores
 SHAPES_8B = {"wqkv": (4096, 6144), "wo": (4096, 4096),
              "wgu": (4096, 28672), "wd": (14336, 4096),
              "head": (4096, 128256)}
+# flash attention cases (all causal, bf16 unless named): the llama_mid
+# training shape first; `docs` packed documents plus a padded tail. bf16
+# at d 64/128 runs the tensor-core kernels, the last two cases the
+# CUDA-core ones (float32, and d 256)
+FLASH_CASES = [
+    dict(name="llama_mid", b=4, sq=2048, sk=2048, h=16, hk=8, d=128),
+    dict(name="seq4096", b=2, sq=4096, sk=4096, h=16, hk=8, d=128),
+    dict(name="packed", b=1, sq=2048, sk=2048, h=16, hk=8, d=128, docs=4),
+    dict(name="sq300_sk1000", b=2, sq=300, sk=1000, h=8, hk=2, d=64),
+    dict(name="f32_d128", b=1, sq=512, sk=512, h=4, hk=2, d=128, docs=2,
+         dtype="float32"),
+    dict(name="d256", b=1, sq=300, sk=300, h=4, hk=1, d=256),
+]
 
 
 def _require(cond, msg):
@@ -74,11 +107,12 @@ def _smi():
     return out.stdout.strip().splitlines()[0]
 
 
-def _bound(nbytes, flops):
+def _bound(nbytes, flops, flops_per_s=BF16_FLOPS_PER_S):
     """(least ms the card could take, what bounds it): the larger of the
-    bytes over the memory rate and the flops over the bf16 peak."""
+    bytes over the memory rate and the flops over the peak rate of their
+    type (bf16 unless given)."""
     t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
-    t_ops = 1e3 * flops / BF16_FLOPS_PER_S
+    t_ops = 1e3 * flops / flops_per_s
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -134,7 +168,12 @@ def _device_breakdown(torch, fn, wall_ms):
             fam = "decode_matmul"
         elif "ragged_attention_kernel" in name:
             fam = "ragged_paged_attention"
-        elif any(s in name.lower() for s in ("gemm", "gemv", "nvjet")):
+        elif re.search(r"flash_fwd_kernel|flash_tc::.*fwd_kernel", name):
+            fam = "flash_fwd"
+        elif re.search(r"flash_bwd_|flash_tc::.*d(q|kv)_kernel", name):
+            fam = "flash_bwd"
+        elif any(s in name.lower()
+                 for s in ("gemm", "gemv", "nvjet", "cutlass")):
             fam = "library_gemm"
         else:
             fam = "other"
@@ -146,6 +185,54 @@ def _device_breakdown(torch, fn, wall_ms):
             "idle_share": max(0.0, 1.0 - busy / wall_ms) if busy else None,
             "top_other": dict(sorted(other.items(),
                                      key=lambda kv: -kv[1])[:6])}
+
+
+def _flash_ptxas(report):
+    """ptxas's registers and spills for each flash kernel instantiation."""
+    out, name = {}, None
+    for ln in report.splitlines():
+        m = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv)_kernel)"
+                      r"I(13__nv_bfloat16|f)Li(\d+)E", ln)
+        tc = re.search(r"flash_tc.*?(fwd|dq|dkv)_kernelILi(\d+)E", ln)
+        if m:
+            dt = "f32" if m.group(2) == "f" else "bf16"
+            name = f"{m.group(1)}<{dt},{m.group(3)}>"
+        elif tc:
+            name = f"flash_tc::{tc.group(1)}_kernel<bf16,{tc.group(2)}>"
+        elif name and ("registers" in ln or "spill" in ln):
+            out.setdefault(name, []).append(ln.strip())
+    return out
+
+
+def _flash_inputs(torch, gen, b, sq, sk, h, hk, d, docs=0,
+                  dtype="bfloat16"):
+    """q, k, v, dout of dtype and, with docs, int32 segment ids: `docs`
+    documents of random lengths and a padded tail of sq // 16 tokens (q
+    ids -1, kv ids -2, so the tail sees nothing). Also the visible
+    (query, key) pairs per head under the causal mask, from these ids."""
+    dev = "cuda"
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev) \
+            .to(getattr(torch, dtype))
+
+    q, k, v, dout = rnd(b, sq, h, d), rnd(b, sk, hk, d), rnd(b, sk, hk, d), \
+        rnd(b, sq, h, d)
+    qs = ks = None
+    vis = (torch.arange(sq, device=dev)[:, None] + (sk - sq)
+           >= torch.arange(sk, device=dev)[None, :])[None]
+    if docs:
+        tail = sq // 16
+        cuts = torch.randperm(sq - tail - 1, generator=gen,
+                              device=dev)[:docs - 1] + 1
+        seg = (torch.arange(sq, device=dev)[:, None]
+               >= cuts[None, :]).sum(1).to(torch.int32)
+        qs, ks = seg.clone(), seg.clone()
+        qs[sq - tail:], ks[sq - tail:] = -1, -2
+        qs, ks = qs[None].repeat(b, 1), ks[None].repeat(b, 1)
+        vis = vis & (qs[:, :, None] == ks[:, None, :])
+    pairs = int(vis.sum()) * (1 if vis.shape[0] == b else b)
+    return q, k, v, dout, qs, ks, pairs
 
 
 def _attention_case(torch, gen, quantized, n_decode=24, chunk=64,
@@ -207,12 +294,17 @@ def main():
     import numpy as np
     from paddle_tpu_torch.inference import (PagedLlamaDecoder,
                                             SamplingParams, ServingEngine)
-    from paddle_tpu_torch.models import llama_3_8b, llama_tiny
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import (LlamaForCausalLM, llama_3_8b,
+                                         llama_mid, llama_tiny)
+    from paddle_tpu_torch.ops import flash_attention as pfa
     from paddle_tpu_torch.ops import paged_attention as pa
     from paddle_tpu_torch.ops.cuda import _build
     from paddle_tpu_torch.ops.cuda import decode_matmul as dmm
+    from paddle_tpu_torch.ops.cuda import flash_attention as cfa
     from paddle_tpu_torch.ops.cuda import ragged_paged_attention as rpa
     from paddle_tpu_torch.ops.qweight import QWeight
+    from paddle_tpu_torch.optimizer import AdamW
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -231,8 +323,16 @@ def main():
         ptxas = {src: [ln.strip() for ln in out.splitlines()
                        if "registers" in ln or "spill" in ln][:8]
                  for src, out in _build.build_info.get("ptxas", {}).items()}
+        for src in ("flash_attention.cu", "flash_attention_tc.cu"):
+            ptxas[src] = _flash_ptxas(
+                _build.build_info.get("ptxas", {}).get(src, ""))
+        smem = {f"{kern}<{dn},{d}>": cfa.smem_bytes(kern, d, dt)
+                for kern in ("fwd", "dq", "dkv") for d in cfa.HEAD_DIMS
+                for dn, dt in (("f32", torch.float32),
+                               ("bf16", torch.bfloat16))}
         return {"build_s": round(_build.build_info["seconds"], 3),
-                "library": _build.build_info["library"], "ptxas": ptxas}
+                "library": _build.build_info["library"], "ptxas": ptxas,
+                "flash_dynamic_smem_bytes": smem}
 
     _phase("build", build)
     timer = _Timer(torch)
@@ -318,7 +418,115 @@ def main():
         for kind in ("dense", "int8"):
             for b in (1, 8, 32):
                 gemv_case(kind, "wgu", b)
+        for spec in FLASH_CASES:
+            c = flash_case(**spec)
+            cases.append(c)
+            if spec["name"] == "llama_mid":
+                heads["flash"] = c
+            torch.cuda.empty_cache()
         return {"cases": cases}
+
+    def flash_case(name, b, sq, sk, h, hk, d, docs=0, dtype="bfloat16"):
+        """The three flash kernels against flash_attention_plain (float32
+        leaves, autograd for the grads) on one causal case."""
+        q, k, v, dout, qs, ks, pairs = _flash_inputs(
+            torch, gen, b, sq, sk, h, hk, d, docs, dtype)
+        sc = d ** -0.5
+        fwd = lambda: cfa.flash_fwd_cuda(q, k, v, True, sc, qs, ks)  # noqa
+        out, lse = fwd()
+        delta = cfa.flash_bwd_delta(out, dout)
+        bwd_args = (q, k, v, dout, lse, delta, True, sc, qs, ks)
+        runs = [(cfa.flash_bwd_dq_cuda(*bwd_args),)
+                + cfa.flash_bwd_dkv_cuda(*bwd_args) for _ in range(2)]
+        (dq, dk, dv), again = runs
+        torch.cuda.synchronize()
+        _require(all(torch.equal(a, b_) for a, b_ in zip(runs[0], again)),
+                 f"flash {name}: two backward runs differ")
+        leaves = [t.float().requires_grad_() for t in (q, k, v)]
+        r_out, r_lse = pfa.flash_attention_plain(*leaves, True, sc, qs, ks)
+        (r_out * dout.float()).sum().backward()
+        r_out, r_lse = r_out.detach(), r_lse.detach()
+        for got, ref, what in ((out.float(), r_out, "out"),
+                               (lse, r_lse, "lse")):
+            err = float((got - ref).abs().max())
+            _require(torch.allclose(got, ref, atol=2e-2, rtol=2e-2),
+                     f"flash {name}: {what} differs from the plain "
+                     f"version by {err}")
+        rel = {}
+        for got, leaf, what in ((dq, leaves[0], "dq"), (dk, leaves[1], "dk"),
+                                (dv, leaves[2], "dv")):
+            ref = leaf.grad
+            rel[what] = float((got.float() - ref).abs().max()
+                              / ref.abs().max().clamp(min=1e-9))
+            _require(rel[what] < 2e-2, f"flash {name}: {what} relative max "
+                                       f"error {rel[what]}")
+        _require(not any(bool(torch.isnan(t).any())
+                          for t in (out, lse, dq, dk, dv)),
+                 f"flash {name}: NaN in an output")
+        masked = 0
+        if qs is not None:
+            pad = qs[0] == -1
+            masked = int(pad.sum())
+            _require(bool((out[:, pad] == 0).all())
+                     and bool((dq[:, pad] == 0).all()),
+                     f"flash {name}: fully-masked rows are not 0")
+        err = {"fwd": float((out.float() - r_out).abs().max()),
+               "dq": float((dq.float() - leaves[0].grad).abs().max()),
+               "dkv": max(float((dk - leaves[1].grad).abs().max()),
+                          float((dv - leaves[2].grad).abs().max()))}
+        del leaves, r_out, r_lse
+        ms = {"fwd": timer(fwd),
+              "dq": timer(lambda: cfa.flash_bwd_dq_cuda(*bwd_args)),
+              "dkv": timer(lambda: cfa.flash_bwd_dkv_cuda(*bwd_args))}
+        # the plain version as a caller would run it: bf16 in, forward,
+        # then its autograd backward (dq, dk and dv together)
+        pl = [t.detach().requires_grad_() for t in (q, k, v)]
+        with torch.no_grad():
+            plain_fwd = timer(lambda: pfa.flash_attention_plain(
+                q, k, v, True, sc, qs, ks), iters=3)
+        p_out = pfa.flash_attention_plain(*pl, True, sc, qs, ks)[0]
+        plain_bwd = timer(lambda: torch.autograd.grad(
+            p_out, pl, dout, retain_graph=True), iters=3)
+        del p_out, pl
+        lib = {"fwd": None, "dq": None, "dkv": None}
+        if sq == sk and qs is None:
+            # the yardstick only: one PyTorch call, never used by the port
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            sdpa = torch.nn.functional.scaled_dot_product_attention
+            lib["fwd"] = timer(lambda: sdpa(qt, kt, vt, is_causal=True,
+                                            enable_gqa=True))
+            ll = [t.detach().requires_grad_() for t in (qt, kt, vt)]
+            l_out = sdpa(*ll, is_causal=True, enable_gqa=True)
+            lib["dq"] = lib["dkv"] = timer(lambda: torch.autograd.grad(
+                l_out, ll, dout.transpose(1, 2), retain_graph=True))
+            del l_out, ll
+        # least time: each input read once, each output written once;
+        # products on this run's visible pairs (s, p.v forward; s, dp,
+        # dq for dq; s, dp, dk, dv for dk/dv)
+        hp = pairs * h
+        e_q = q.numel() * q.element_size()
+        e_kv = k.numel() * k.element_size()
+        rows = b * h * sq * 4
+        segb = 0 if qs is None else (qs.numel() + ks.numel()) * 4
+        rate = BF16_FLOPS_PER_S if dtype == "bfloat16" else F32_FLOPS_PER_S
+        bound = {
+            "fwd": _bound(2 * e_q + 2 * e_kv + rows + segb, 4 * d * hp,
+                          rate),
+            "dq": _bound(3 * e_q + 2 * e_kv + 2 * rows + segb, 6 * d * hp,
+                         rate),
+            "dkv": _bound(2 * e_q + 2 * e_kv + 2 * rows + 8 * k.numel()
+                          + segb, 8 * d * hp, rate)}
+        return {"kernel": "flash_attention", "case": name,
+                "shape": dict(b=b, sq=sq, sk=sk, h=h, hk=hk, d=d,
+                              docs=docs, causal=True, dtype=dtype),
+                "visible_pairs_per_head": pairs, "masked_rows": masked,
+                "max_abs_err": err, "grad_rel_err": rel,
+                "bwd_bit_identical": True, "ms": ms,
+                "plain_ms": {"fwd": plain_fwd, "dq": plain_bwd,
+                             "dkv": plain_bwd},
+                "library_ms": lib,
+                "bound_ms": {k_: b_[0] for k_, b_ in bound.items()},
+                "bound_by": {k_: b_[1] for k_, b_ in bound.items()}}
 
     heads = {}
     _phase("kernels", kernels)
@@ -331,6 +539,14 @@ def main():
     def reset_counts():
         rpa.launches = 0
         dmm.launches = 0
+
+    def flash_counts():
+        return {"flash_fwd": cfa.launches_fwd,
+                "flash_bwd_dq": cfa.launches_dq,
+                "flash_bwd_dkv": cfa.launches_dkv}
+
+    def reset_flash():
+        cfa.launches_fwd = cfa.launches_dq = cfa.launches_dkv = 0
 
     # -- tiny model: card against the CPU's plain path -----------------------
     def tiny_parity():
@@ -555,6 +771,102 @@ def main():
                 "sample_tokens": outs[0][:8].tolist()}
 
     _phase("serve-bf16-kv8", serve_bf16_kv8)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- tiny model training: card against the CPU's plain path --------------
+    def tiny_train_parity():
+        cfg = llama_tiny(hidden_size=256)          # head_dim 64
+        cpu = LlamaForCausalLM(cfg, seed=3, device="cpu")
+        gpu = LlamaForCausalLM(cfg, seed=3, device="cuda")
+        gpu.load_numpy_state({n: p.detach().numpy()
+                              for n, p in cpu.named_parameters()})
+        ids = np.random.RandomState(7).randint(0, cfg.vocab_size, (2, 100))
+        losses = []
+        reset_flash()
+        for m in (cpu, gpu):
+            step = TrainStep(m, m.loss, AdamW(learning_rate=1e-3,
+                                              parameters=m.parameters()))
+            x = torch.as_tensor(ids, dtype=torch.int32,
+                                device=m.lm_head.weight.device)
+            losses.append([float(step(x, x)) for _ in range(3)])
+        launched = flash_counts()
+        _require(all(v > 0 for v in launched.values()),
+                 f"tiny-train-parity did not launch every flash kernel: "
+                 f"{launched}")
+        rel = max(abs(a - b) / abs(a) for a, b in zip(*losses))
+        _require(rel < 1e-4, f"tiny-train-parity losses differ: cpu "
+                             f"{losses[0]} vs cuda {losses[1]}")
+        return {"losses_cpu": losses[0], "losses_cuda": losses[1],
+                "max_rel_diff": rel, "launches": launched}
+
+    _phase("tiny-train-parity", tiny_train_parity)
+
+    # -- the training path: llama_mid at full width ---------------------------
+    train_launches = {}
+
+    def train_mid():
+        cfg = llama_mid(dtype="bfloat16")
+        b, s, warm, iters = 4, 2048, 2, 10
+        t0 = time.perf_counter()
+        model = LlamaForCausalLM(cfg, seed=0, device="cuda")
+        opt = AdamW(learning_rate=1e-4, parameters=model.parameters(),
+                    weight_decay=0.01)
+        step = TrainStep(model, model.loss, opt)
+        ids = torch.as_tensor(np.random.RandomState(0).randint(
+            0, cfg.vocab_size, size=(b, s)).astype(np.int32), device="cuda")
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        reset_flash()
+        losses = [step(ids, ids) for _ in range(warm)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses += [step(ids, ids) for _ in range(iters)]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        train_launches.update(flash_counts())
+        serving = counts()
+        n_steps = warm + iters
+        L = cfg.num_hidden_layers
+        _require(train_launches == {k_: L * n_steps for k_ in train_launches},
+                 f"{n_steps} steps launched {train_launches}, expected "
+                 f"{L} of each flash kernel per step")
+        _require(all(v == 0 for v in serving.values()),
+                 f"training launched serving kernels: {serving}")
+        losses = [float(x) for x in losses]
+        _require(all(np.isfinite(losses)), f"non-finite loss: {losses}")
+        _require(losses[-1] < losses[0],
+                 f"the loss did not fall: {losses[0]} -> {losses[-1]}")
+        step_ms = wall * 1e3 / iters
+        tok_s = b * s * iters / wall
+        n_params = model.num_params()
+        fpt = 6 * n_params + 12 * L * cfg.num_attention_heads * (
+            cfg.hidden_size // cfg.num_attention_heads) * s
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        n_prof = 2
+        prof = _device_breakdown(
+            torch, lambda: [step(ids, ids) for _ in range(n_prof)],
+            step_ms * n_prof)
+        for k_ in ("device_ms", "device_kernels", "wall_ms"):
+            prof[k_] /= n_prof
+        prof["device_ms_by_family"] = {
+            k_: v / n_prof for k_, v in prof["device_ms_by_family"].items()}
+        prof["top_other"] = {k_: v / n_prof
+                             for k_, v in prof["top_other"].items()}
+        del model, opt, step
+        return {"model": "llama_mid bf16 compute (float32 Linear/Embedding "
+                         "weights), 11 layers, b4 x s2048, AdamW(1e-4, "
+                         "wd 0.01)",
+                "num_params": n_params, "init_s": init_s,
+                "launches": dict(train_launches), "steps": n_steps,
+                "losses": losses, "step_ms": step_ms, "tokens_per_s": tok_s,
+                "mfu": tok_s * fpt / BF16_FLOPS_PER_S,
+                "flops_per_token": fpt, "peak_mem_gb": peak_gb,
+                "nvidia_smi": smi, "step_profile": prof}
+
+    _phase("train-mid", train_mid)
 
     tpu = "paddle_tpu/ops/pallas/"
     for key, name, launches, src, rep in (
@@ -576,6 +888,19 @@ def main():
             "ms": c["ms"], "plain_ms": c["plain_ms"],
             "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
             "library_ms": c["library_ms"]})
+    f = heads["flash"]
+    for key, name, rep in (
+            ("fwd", "flash_fwd", tpu + "flash_attention.py:69"),
+            ("dq", "flash_bwd_dq", tpu + "flash_attention.py:174"),
+            ("dkv", "flash_bwd_dkv", tpu + "flash_attention.py:229")):
+        kernel_rows.append({
+            "name": name, "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/flash_attention_tc.cu",
+            "replaces": rep, "launches": train_launches[name],
+            "max_abs_err": f["max_abs_err"][key], "ms": f["ms"][key],
+            "plain_ms": f["plain_ms"][key], "bound_ms": f["bound_ms"][key],
+            "bound_by": f["bound_by"][key],
+            "library_ms": f["library_ms"][key]})
     _emit({"kernels": kernel_rows})
     print(smi, flush=True)
     _emit({"ok": True, "device": device})

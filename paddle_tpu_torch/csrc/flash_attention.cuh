@@ -1,0 +1,50 @@
+// Shared by the two flash-attention sources: the masking rules, and the
+// tensor-core kernels' launchers (flash_attention_tc.cu) that the C entry
+// points (flash_attention.cu) call for bfloat16 at head_dim 64 and 128.
+#pragma once
+
+#include "common.cuh"
+
+namespace ptt {
+
+constexpr float kMasked = -1e30f;  // JAX's finite _NEG_INF
+
+// the key tiles [0, n) a query tile [q0, q0 + rows) can see
+__device__ __forceinline__ int key_tiles(int q0, int rows, int sq, int sk,
+                                         int bn, bool causal) {
+  const int n = (sk + bn - 1) / bn;
+  if (!causal) return n;
+  const int last = min(q0 + rows, sq) - 1 + (sk - sq);  // its last key
+  return last < 0 ? 0 : min(n, last / bn + 1);
+}
+
+// query row r sees key c: both in range, causal aligned to the END of the
+// keys, equal segment ids (qs, ks) when segmented
+__device__ __forceinline__ bool visible(int r, int c, int sq, int sk,
+                                        bool causal, bool seg, int qs,
+                                        int ks) {
+  return r < sq && c < sk && (!causal || r + (sk - sq) >= c) &&
+         (!seg || qs == ks);
+}
+
+namespace flash_tc {
+
+// Each returns 0, a cudaError_t, or kUnsupported for a head_dim other
+// than 64 or 128. Layouts as the C entry points of flash_attention.cu.
+int fwd(int d, const void* q, const void* k, const void* v, const int* qseg,
+        const int* kseg, void* out, float* lse, int b, int sq, int sk, int h,
+        int hk, float scale, int causal, cudaStream_t st);
+int bwd_dq(int d, const void* q, const void* k, const void* v,
+           const void* dout, const float* lse, const float* delta,
+           const int* qseg, const int* kseg, void* dq, int b, int sq, int sk,
+           int h, int hk, float scale, int causal, cudaStream_t st);
+int bwd_dkv(int d, const void* q, const void* k, const void* v,
+            const void* dout, const float* lse, const float* delta,
+            const int* qseg, const int* kseg, float* dk, float* dv, int b,
+            int sq, int sk, int h, int hk, float scale, int causal,
+            cudaStream_t st);
+// dynamic shared memory in bytes of kernel 0 (fwd), 1 (dq), 2 (dk/dv)
+int smem_bytes(int kernel, int d);
+
+}  // namespace flash_tc
+}  // namespace ptt

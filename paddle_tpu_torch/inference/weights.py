@@ -13,26 +13,15 @@ from __future__ import annotations
 
 from typing import Optional
 
-import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..numpy_bridge import tensor_from_numpy
 from ..ops.qweight import QWeight
 
 __all__ = ["weights_from_numpy", "tensor_from_numpy"]
 
 _KIND_OF = {"int8": "int8", "int4": "int4_halves"}
-
-
-def tensor_from_numpy(a, device) -> torch.Tensor:
-    """numpy -> torch on ``device``. A bfloat16 array (numpy has no such
-    dtype of its own; JAX hands out an extension dtype named
-    "bfloat16") is carried bit for bit through a 16-bit integer view."""
-    a = np.array(a)        # a writable copy: JAX hands out read-only views
-    if a.dtype.name == "bfloat16":
-        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16) \
-            .to(device)
-    return torch.from_numpy(a).to(device)
 
 
 def weights_from_numpy(tree, *, weight_dtype: Optional[str],

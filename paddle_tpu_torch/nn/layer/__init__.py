@@ -1,0 +1,4 @@
+from .common import Embedding, Linear  # noqa: F401
+from .norm import RMSNorm  # noqa: F401
+
+__all__ = ["Linear", "Embedding", "RMSNorm"]

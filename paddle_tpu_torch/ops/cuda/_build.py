@@ -92,12 +92,19 @@ def _compile(sources, target: Path) -> dict:
 
 
 def _declare(lib):
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.ptt_ragged_paged_attention.argtypes = (
-        [p] * 9 + [i] * 10 + [ctypes.c_float, p])
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.ptt_ragged_paged_attention.argtypes = [p] * 9 + [i] * 10 + [f, p]
     lib.ptt_ragged_paged_attention.restype = i
     lib.ptt_decode_matmul.argtypes = [p] * 5 + [i] * 6 + [p]
     lib.ptt_decode_matmul.restype = i
+    lib.ptt_flash_fwd.argtypes = [p] * 7 + [i] * 8 + [f, p]
+    lib.ptt_flash_fwd.restype = i
+    lib.ptt_flash_bwd_dq.argtypes = [p] * 9 + [i] * 8 + [f, p]
+    lib.ptt_flash_bwd_dq.restype = i
+    lib.ptt_flash_bwd_dkv.argtypes = [p] * 10 + [i] * 8 + [f, p]
+    lib.ptt_flash_bwd_dkv.restype = i
+    lib.ptt_flash_smem_bytes.argtypes = [i, i, i]
+    lib.ptt_flash_smem_bytes.restype = i
     lib.ptt_error_string.argtypes = [i]
     lib.ptt_error_string.restype = ctypes.c_char_p
 

@@ -1,0 +1,192 @@
+"""Wrappers of the CUDA flash-attention kernels
+(``csrc/flash_attention.cu``), which replace the TPU kernels of
+``paddle_tpu/ops/pallas/flash_attention.py``: ``_flash_fwd``
+(``_fwd_kernel``) and the two calls of ``_bwd_pair_call``
+(``_bwd_dq_kernel``, ``_bwd_dkv_kernel``), and ``FlashAttention``, the
+``torch.autograd.Function`` that joins them as ``_fa_fwd``/``_fa_bwd``
+and ``_fas_fwd``/``_fas_bwd`` do.
+
+The plain PyTorch version is
+``paddle_tpu_torch.ops.flash_attention.flash_attention_plain``; the
+dispatchers there send CUDA tensors here.
+"""
+from __future__ import annotations
+
+import torch
+
+from ._build import check, load_library
+
+__all__ = ["flash_fwd_cuda", "flash_bwd_cuda", "flash_bwd_delta",
+           "flash_bwd_dq_cuda", "flash_bwd_dkv_cuda", "FlashAttention",
+           "smem_bytes", "HEAD_DIMS", "launches_fwd", "launches_dq",
+           "launches_dkv"]
+
+# kernel launches since import; callers reset them to 0 to count a run
+launches_fwd = 0
+launches_dq = 0
+launches_dkv = 0
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_DIMS = (64, 128, 256)
+
+
+def _require(cond: bool, msg: str):
+    if not cond:
+        raise ValueError(f"flash attention kernel: {msg}")
+
+
+def _check(q, k, v, q_seg, kv_seg, extra=()):
+    """Validate what every kernel takes; returns (b, sq, sk, h, hk, d)."""
+    _require(q.dim() == 4 and k.dim() == 4 and v.dim() == 4,
+             "q, k and v must be [batch, seq, heads, head_dim]")
+    b, sq, h, d = q.shape
+    _, sk, hk, _ = k.shape
+    _require(tuple(k.shape) == tuple(v.shape) and k.shape[0] == b
+             and k.shape[3] == d, f"k {tuple(k.shape)} / v "
+             f"{tuple(v.shape)} do not fit q {tuple(q.shape)}")
+    _require(q.dtype in _DTYPES and k.dtype == q.dtype
+             and v.dtype == q.dtype,
+             f"q/k/v must share a dtype in {tuple(_DTYPES)}")
+    _require(d in HEAD_DIMS, f"head_dim {d} not in {HEAD_DIMS}")
+    _require(hk > 0 and h % hk == 0,
+             f"num_heads {h} must be a multiple of kv_heads {hk}")
+    _require(sq > 0 and sk > 0, "empty sequence")
+    _require((q_seg is None) == (kv_seg is None),
+             "pass both segment id tensors or neither")
+    tensors = [q, k, v, *extra]
+    if q_seg is not None:
+        _require(q_seg.dtype == torch.int32 and kv_seg.dtype == torch.int32
+                 and tuple(q_seg.shape) == (b, sq)
+                 and tuple(kv_seg.shape) == (b, sk),
+                 "segment ids must be int32 [batch, seq]")
+        tensors += [q_seg, kv_seg]
+    _require(all(t.is_cuda and t.device == q.device for t in tensors),
+             "every operand must lie on q's CUDA device")
+    _require(all(t.is_contiguous() and t.data_ptr() % 16 == 0
+                 for t in tensors),
+             "every operand must be contiguous and 16-byte aligned")
+    return b, sq, sk, h, hk, d
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def flash_fwd_cuda(q, k, v, causal: bool, scale: float, q_seg=None,
+                   kv_seg=None):
+    """q [b, sq, h, d], k/v [b, sk, hk, d] (float32 or bfloat16);
+    optional int32 segment ids [b, sq] / [b, sk]. Returns (out like q,
+    lse float32 [b, h, sq])."""
+    global launches_fwd
+    b, sq, sk, h, hk, d = _check(q, k, v, q_seg, kv_seg)
+    out = torch.empty_like(q)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    lib = load_library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        code = lib.ptt_flash_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(q_seg),
+            _ptr(kv_seg), out.data_ptr(), lse.data_ptr(), b, sq, sk, h, hk,
+            d, _DTYPES[q.dtype], int(causal), float(scale), stream)
+    check(lib, code, "flash_fwd")
+    launches_fwd += 1
+    return out, lse
+
+
+def flash_bwd_delta(out, dout):
+    """delta = sum(out * dout, -1) as float32 [b, h, sq]: plain torch, as
+    JAX computes it outside Pallas (flash_attention.py:398)."""
+    return (out.float() * dout.float()).sum(-1).transpose(1, 2).contiguous()
+
+
+def _check_bwd(q, k, v, dout, lse, delta, q_seg, kv_seg):
+    b, sq, sk, h, hk, d = _check(q, k, v, q_seg, kv_seg,
+                                 extra=(dout, lse, delta))
+    _require(dout.shape == q.shape and dout.dtype == q.dtype,
+             "dout must be like q")
+    _require(all(t.dtype == torch.float32 and tuple(t.shape) == (b, h, sq)
+                 for t in (lse, delta)),
+             "lse and delta must be float32 [batch, heads, seq_q]")
+    return b, sq, sk, h, hk, d
+
+
+def flash_bwd_dq_cuda(q, k, v, dout, lse, delta, causal: bool,
+                      scale: float, q_seg=None, kv_seg=None):
+    """dq like q, given the forward's lse and delta."""
+    global launches_dq
+    b, sq, sk, h, hk, d = _check_bwd(q, k, v, dout, lse, delta, q_seg,
+                                     kv_seg)
+    dq = torch.empty_like(q)
+    lib = load_library()
+    with torch.cuda.device(q.device):
+        code = lib.ptt_flash_bwd_dq(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), _ptr(q_seg), _ptr(kv_seg),
+            dq.data_ptr(), b, sq, sk, h, hk, d, _DTYPES[q.dtype],
+            int(causal), float(scale),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    check(lib, code, "flash_bwd_dq")
+    launches_dq += 1
+    return dq
+
+
+def flash_bwd_dkv_cuda(q, k, v, dout, lse, delta, causal: bool,
+                       scale: float, q_seg=None, kv_seg=None):
+    """(dk, dv) float32 [b, sk, hk, d], each summed over the kv-head's
+    group of query heads, given the forward's lse and delta."""
+    global launches_dkv
+    b, sq, sk, h, hk, d = _check_bwd(q, k, v, dout, lse, delta, q_seg,
+                                     kv_seg)
+    dk = torch.empty((b, sk, hk, d), dtype=torch.float32, device=q.device)
+    dv = torch.empty_like(dk)
+    lib = load_library()
+    with torch.cuda.device(q.device):
+        code = lib.ptt_flash_bwd_dkv(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), _ptr(q_seg), _ptr(kv_seg),
+            dk.data_ptr(), dv.data_ptr(), b, sq, sk, h, hk, d,
+            _DTYPES[q.dtype], int(causal), float(scale),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    check(lib, code, "flash_bwd_dkv")
+    launches_dkv += 1
+    return dk, dv
+
+
+def flash_bwd_cuda(q, k, v, out, lse, dout, causal: bool, scale: float,
+                   q_seg=None, kv_seg=None):
+    """The backward given the forward's out and lse: (dq like q, dk and
+    dv float32 [b, sk, hk, d])."""
+    delta = flash_bwd_delta(out, dout)
+    dq = flash_bwd_dq_cuda(q, k, v, dout, lse, delta, causal, scale, q_seg,
+                           kv_seg)
+    dk, dv = flash_bwd_dkv_cuda(q, k, v, dout, lse, delta, causal, scale,
+                                q_seg, kv_seg)
+    return dq, dk, dv
+
+
+def smem_bytes(kernel: str, head_dim: int, dtype) -> int:
+    """Dynamic shared memory of one block of kernel ("fwd", "dq" or
+    "dkv") at head_dim and dtype, as the launcher asks for it."""
+    return load_library().ptt_flash_smem_bytes(
+        ("fwd", "dq", "dkv").index(kernel), head_dim, _DTYPES[dtype])
+
+
+class FlashAttention(torch.autograd.Function):
+    """Differentiable flash attention through the kernels. Forward saves
+    (q, k, v, segment ids, out, lse); backward runs the dq and dk/dv
+    kernels and returns dq in q's dtype and dk/dv cast from float32 to
+    k's dtype (``_fa_bwd``, flash_attention.py:469-471)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_seg, kv_seg, causal, scale):
+        out, lse = flash_fwd_cuda(q, k, v, causal, scale, q_seg, kv_seg)
+        ctx.save_for_backward(q, k, v, q_seg, kv_seg, out, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, q_seg, kv_seg, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_bwd_cuda(q, k, v, out, lse, dout.contiguous(),
+                                    ctx.causal, ctx.scale, q_seg, kv_seg)
+        return dq, dk.to(k.dtype), dv.to(v.dtype), None, None, None, None

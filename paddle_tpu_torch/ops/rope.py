@@ -1,11 +1,14 @@
-"""Rotary position embedding tables. Counterpart:
-``paddle_tpu/ops/rope.py`` (``build_rope_cache``): float32 tables and
-the same ``inv_freq`` formula; layout [1, seq, 1, head_dim]."""
+"""Rotary position embedding. Counterpart: ``paddle_tpu/ops/rope.py``
+(``rope_reference``, ``build_rope_cache``, ``apply_rotary_pos_emb``):
+float32 tables and the same ``inv_freq`` formula; layout
+[1, seq, 1, head_dim]; the tables are cast to the activation's dtype
+before the multiply."""
 from __future__ import annotations
 
 import torch
 
-__all__ = ["build_rope_cache", "rotate_half"]
+__all__ = ["build_rope_cache", "rotate_half", "rope_reference",
+           "apply_rotary_pos_emb"]
 
 
 def rotate_half(x):
@@ -23,3 +26,22 @@ def build_rope_cache(seq_len: int, head_dim: int, base: float = 10000.0,
     cos = emb.cos()[None, :, None, :].to(dtype)
     sin = emb.sin()[None, :, None, :].to(dtype)
     return cos, sin
+
+
+def rope_reference(x, cos, sin):
+    """x: [b, s, h, d]; cos/sin: broadcastable [1, s, 1, d]."""
+    return x * cos + rotate_half(x) * sin
+
+
+def apply_rotary_pos_emb(q, k, cos=None, sin=None, position_ids=None,
+                         base: float = 10000.0):
+    """Fused-RoPE API: q/k [b, s, h, d]; builds the tables if absent;
+    position_ids [b, s] pick rows of [1, s, 1, d] tables."""
+    if cos is None:
+        cos, sin = build_rope_cache(q.shape[1], q.shape[-1], base,
+                                    q.dtype, device=q.device)
+    if position_ids is not None and cos.shape[0] == 1:
+        cos = cos[0, :, 0][position_ids][:, :, None, :]
+        sin = sin[0, :, 0][position_ids][:, :, None, :]
+    return (rope_reference(q, cos.to(q.dtype), sin.to(q.dtype)),
+            rope_reference(k, cos.to(k.dtype), sin.to(k.dtype)))

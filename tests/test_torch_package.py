@@ -55,6 +55,10 @@ def test_imports_load_no_jax_and_build_nothing():
     assert out["bad"] == [], f"port imports pulled in {out['bad']}"
     assert "paddle_tpu_torch.ops.cuda.decode_matmul" in out["modules"]
     assert "paddle_tpu_torch.inference.serving" in out["modules"]
+    for name in ("ops.cuda.flash_attention", "ops.flash_attention",
+                 "nn.functional.attention", "optimizer.optimizer", "jit",
+                 "models.llama"):
+        assert f"paddle_tpu_torch.{name}" in out["modules"]
     after = sorted(build.iterdir()) if build.exists() else []
     assert after == before
 
@@ -68,7 +72,8 @@ def _entry_points():
     from paddle_tpu_torch import resolve_device
     from paddle_tpu_torch.inference import PagedLlamaDecoder
     from paddle_tpu_torch.inference.weights import weights_from_numpy
-    from paddle_tpu_torch.models import llama_tiny
+    from paddle_tpu_torch.models import LlamaForCausalLM, llama_tiny
+    from paddle_tpu_torch.nn import Linear
     from paddle_tpu_torch.ops.paged_attention import PagedKVCache
     tree = {"embed": np.zeros((4, 2), np.float32), "layers": [],
             "norm": np.ones(2, np.float32), "head": np.zeros((2, 4),
@@ -81,12 +86,15 @@ def _entry_points():
         "weights_from_numpy": lambda: weights_from_numpy(
             tree, weight_dtype=None),
         "PagedKVCache": lambda: PagedKVCache(1, 4, 2, 1, 8),
+        "LlamaForCausalLM": lambda: LlamaForCausalLM(llama_tiny()),
+        "Linear": lambda: Linear(4, 4),
     }
 
 
 @pytest.mark.parametrize("name", ["resolve_device", "from_config",
                                   "from_numpy_weights",
-                                  "weights_from_numpy", "PagedKVCache"])
+                                  "weights_from_numpy", "PagedKVCache",
+                                  "LlamaForCausalLM", "Linear"])
 def test_default_device_without_cuda_raises(name):
     _no_cuda()
     with pytest.raises(RuntimeError, match="device='cpu'"):
