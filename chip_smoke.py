@@ -9,9 +9,14 @@ failure ends the run with a non-zero exit code and no result:
 1. env           torch / CUDA versions and the card's name and power limit.
 2. build         compiles ``paddle_tpu_torch/csrc/*.cu`` for sm_90a.
 3. kernels       each kernel against its plain PyTorch version on the card
-                 at the shapes its main path gives it (Llama-3-8B serving;
-                 llama_mid training attention, plus a 4096 sequence, packed
-                 documents and a causal sq < sk case with ragged edges),
+                 at the shapes its main path gives it (Llama-3-8B serving:
+                 ragged and dense decode, the latter at b 8 and b 4 and at
+                 ctx 1..2100 with a ctx-0 row, float32 at d 64, d 256 and
+                 the int8-pool route; the GEMV at b 1/4/8/32; flash forward
+                 at the dense prefill's b x s of 1 x 256, 4 x 128, 4 x 256
+                 and 1 x 512; llama_mid training attention, plus a 4096
+                 sequence, packed documents and a causal sq < sk case with
+                 ragged edges),
                  with its time, the plain version's time, the time of one
                  PyTorch library call that computes the same function where
                  there is one, and the least time the card could take
@@ -20,7 +25,12 @@ failure ends the run with a non-zero exit code and no result:
                  with the same weights, on the CPU through the plain
                  versions: the greedy tokens must be equal, and one
                  prefill ministep's logits within 1e-3.
-5. serve-int4    THE MAIN PATH: Llama-3-8B at full width and all 32 layers,
+5. tiny-dense-parity  llama_tiny(hidden_size=256) (head_dim 64, int4)
+                 through the dense engine (mid chunks, offset finals) and
+                 generate() on the card and the CPU: equal greedy tokens,
+                 one prefill's logits within 1e-3, and the card ran the
+                 paged-decode, flash forward and GEMV kernels.
+6. serve-int4    THE MAIN PATH: Llama-3-8B at full width and all 32 layers,
                  int4 weights from a seed, bf16 KV pool, block size 64,
                  served by the ragged engine (8 requests of 100..600 prompt
                  tokens, 32 new tokens each, 6 greedy and 2 at temperature
@@ -28,14 +38,29 @@ failure ends the run with a non-zero exit code and no result:
                  read just after; a repeat run must give the same tokens;
                  one pure-decode ministep at W=8 must launch exactly 32
                  attention and 129 GEMV kernels.
-6. serve-bf16-kv8  the same model with bf16 weights and an int8 KV pool
+7. serve-dense-int4  THE DENSE PATH on the same decoder:
+                 ServingEngine(ragged=False, max_batch_size=8, chunk_size=8,
+                 prefill_chunk=256), 8 requests of 100..512 prompt tokens,
+                 32 new each (6 greedy, 2 at 0.8). Counters set to 0 just
+                 before and read just after, and must equal what the run's
+                 dispatches call for: 32 paged-decode and 129 GEMV launches
+                 per decode step, 32 flash forward launches per
+                 _prefill_impl dispatch, the GEMV's share of each prefill
+                 dispatch, no ragged launch. A repeat run gives the same
+                 tokens; one decode step at mb 8 launches exactly 32
+                 paged-decode and 129 GEMV kernels; its wall and device
+                 time beside the ragged ministep of phase 6; generate() at
+                 b 4, prompt 256, 32 new tokens; then both engines on the
+                 same 8 requests, alternately, 4 runs each, and their
+                 decode steps alternately, 3 each (median, min, max).
+8. serve-bf16-kv8  the same model with bf16 weights and an int8 KV pool
                  (4 requests): the int8 branch of the attention kernel on
                  the serving path.
-7. tiny-train-parity  llama_tiny(hidden_size=256) in float32 (head_dim 64)
+9. tiny-train-parity  llama_tiny(hidden_size=256) in float32 (head_dim 64)
                  with the same weights on the card and the CPU: 3 TrainSteps
                  of AdamW(1e-3) give losses within 1e-4 relative, and the
                  card ran all three flash kernels.
-8. train-mid     THE TRAINING PATH: llama_mid (0.65B) at full width and all
+10. train-mid    THE TRAINING PATH: llama_mid (0.65B) at full width and all
                  11 layers, bf16 compute, seed 0, batch 4 x seq 2048 (ids as
                  bench.py makes them), AdamW(1e-4, weight_decay=0.01): 2 warm
                  and 10 timed TrainSteps. The flash counters are set to 0
@@ -68,10 +93,18 @@ SHAPES_8B = {"wqkv": (4096, 6144), "wo": (4096, 4096),
              "head": (4096, 128256)}
 # flash attention cases (all causal, bf16 unless named): the llama_mid
 # training shape first; `docs` packed documents plus a padded tail. bf16
-# at d 64/128 runs the tensor-core kernels, the last two cases the
-# CUDA-core ones (float32, and d 256)
+# at d 64/128 runs the tensor-core kernels, float32 and d 256 the
+# CUDA-core ones. The dense_* cases are the 8B dense prefill's own
+# calls: a mid chunk (b 1 x 256), grouped finals (4 rows of a 128 or 256
+# bucket; generate()'s b 4 x 256) and a lone final of the 512 bucket. Its
+# pad tokens sit at the end of each row and the call is plain causal, so
+# the kernel sees them as ordinary positions that no real token attends.
 FLASH_CASES = [
     dict(name="llama_mid", b=4, sq=2048, sk=2048, h=16, hk=8, d=128),
+    dict(name="dense_b1_s256", b=1, sq=256, sk=256, h=32, hk=8, d=128),
+    dict(name="dense_b4_s128", b=4, sq=128, sk=128, h=32, hk=8, d=128),
+    dict(name="dense_b4_s256", b=4, sq=256, sk=256, h=32, hk=8, d=128),
+    dict(name="dense_b1_s512", b=1, sq=512, sk=512, h=32, hk=8, d=128),
     dict(name="seq4096", b=2, sq=4096, sk=4096, h=16, hk=8, d=128),
     dict(name="packed", b=1, sq=2048, sk=2048, h=16, hk=8, d=128, docs=4),
     dict(name="sq300_sk1000", b=2, sq=300, sk=1000, h=8, hk=2, d=64),
@@ -168,6 +201,8 @@ def _device_breakdown(torch, fn, wall_ms):
             fam = "decode_matmul"
         elif "ragged_attention_kernel" in name:
             fam = "ragged_paged_attention"
+        elif "paged_decode_kernel" in name:
+            fam = "paged_attention_decode"
         elif re.search(r"flash_fwd_kernel|flash_tc::.*fwd_kernel", name):
             fam = "flash_fwd"
         elif re.search(r"flash_bwd_|flash_tc::.*d(q|kv)_kernel", name):
@@ -285,6 +320,113 @@ def _attention_case(torch, gen, quantized, n_decode=24, chunk=64,
     return (q, k, v, tables, row_seq, row_ctx), nbytes, flops
 
 
+# paged decode attention cases: the 8B decode step (b 8 at ctx 512, the
+# kernels line's row), generate()'s last step (b 4 at ctx 287), the ctx
+# values of a serving run with a ctx-0 row, a float32 pool at d 64 /
+# bs 16, head_dim 256, and the int8-pool route (the ragged kernel with
+# one row per sequence)
+DECODE_CASES = [
+    dict(name="8b_b8_ctx512", ctx=[512] * 8),
+    dict(name="8b_b4_ctx287", ctx=[287] * 4),
+    dict(name="8b_ctx_mix", ctx=[1, 37, 512, 600, 2100, 0, 129, 64]),
+    dict(name="f32_d64_bs16", ctx=[1, 17, 200, 1000], nh=8, kvh=2, d=64,
+         bs=16, max_pages=64, dtype="float32"),
+    dict(name="d256", ctx=[5, 300, 1000, 2048], nh=16, kvh=2, d=256,
+         max_pages=32),
+    dict(name="int8_route", ctx=[512] * 8, quantized=True),
+]
+
+
+def _decode_case(torch, gen, ctx, nh=32, kvh=8, d=128, bs=64,
+                 max_pages=128, dtype="bfloat16", quantized=False,
+                 name=""):
+    """One-token decode attention inputs at the 8B shapes unless named:
+    every sequence's visible pages distinct, the rest of its table
+    pointing anywhere. Also the bytes the function must move (q and out
+    once, each visible K/V position of each kv-head once, scales
+    included, the table entries it reads, the lengths) and its flops."""
+    dev = "cuda"
+    b = len(ctx)
+    need = [-(-c // bs) for c in ctx]
+    nb = sum(need) + 1
+    perm = torch.randperm(nb, generator=gen, device=dev).tolist()
+    tables = torch.randint(0, nb, (b, max_pages), generator=gen,
+                           device=dev, dtype=torch.int32)
+    at = 0
+    for i, n in enumerate(need):
+        tables[i, :n] = torch.tensor(perm[at:at + n], device=dev,
+                                     dtype=torch.int32)
+        at += n
+    dt = getattr(torch, dtype)
+    q = torch.randn((b, nh, d), generator=gen, device=dev).to(dt)
+
+    def plane():
+        if quantized:
+            return (torch.randint(-127, 128, (nb, kvh, bs, d), generator=gen,
+                                  device=dev).to(torch.int8),
+                    (torch.rand((nb, kvh, bs), generator=gen, device=dev)
+                     * 0.05 + 0.001))
+        return torch.randn((nb, kvh, bs, d), generator=gen, device=dev) \
+            .to(dt)
+
+    k, v = plane(), plane()
+    ctx_t = torch.tensor(ctx, dtype=torch.int32, device=dev)
+    pos = sum(min(max(c, 0), max_pages * bs) for c in ctx)
+    per_pos = kvh * d * (1 if quantized else q.element_size()) \
+        + (kvh * 4 if quantized else 0)
+    nbytes = 2 * q.numel() * q.element_size() + 2 * pos * per_pos \
+        + 4 * sum(need) + 4 * b
+    flops = 4 * nh * d * pos
+    return (q, k, v, tables, ctx_t), nbytes, flops
+
+
+def _decode_check(torch, gen, timer, spec):
+    """The paged decode kernel (for an int8 pool, the dispatcher's ragged
+    route) against paged_attention_decode_reference on one case of
+    DECODE_CASES: raises unless the outputs agree within the stated
+    tolerance (1e-4 float32, 1e-2 bf16, absolute and relative), hold no
+    NaN and are exact zeros on ctx-0 rows; returns the case's errors and
+    times (L2 flushed before each launch) beside its bound."""
+    from paddle_tpu_torch.ops import paged_attention as pa
+    from paddle_tpu_torch.ops.cuda import paged_attention_decode as pdc
+    args, nbytes, flops = _decode_case(torch, gen, **spec)
+    quantized = spec.get("quantized", False)
+    f32 = spec.get("dtype") == "float32"
+    if quantized:
+        def kern():
+            return pa.paged_attention_decode(*args)
+    else:
+        def kern():
+            return pdc.paged_attention_decode_cuda(*args)
+    out = kern()
+    ref = pa.paged_attention_decode_reference(*args)
+    torch.cuda.synchronize()
+    err = float((out.float() - ref.float()).abs().max())
+    tol = 1e-4 if f32 else 1e-2
+    _require(torch.allclose(out.float(), ref.float(), atol=tol, rtol=tol),
+             f"paged_attention_decode {spec['name']} differs from its "
+             f"plain version: max abs err {err}")
+    _require(not bool(torch.isnan(out).any()),
+             f"paged_attention_decode {spec['name']}: NaN")
+    empty = args[4] <= 0
+    _require(bool((out[empty] == 0).all()),
+             f"paged_attention_decode {spec['name']}: ctx-0 rows are not "
+             f"exact zeros")
+    case = {"kernel": "paged_attention_decode", "case": spec["name"],
+            "route": "ragged kernel (int8 pool)" if quantized
+            else "decode kernel",
+            "shape": {k: v for k, v in spec.items() if k != "name"},
+            "tolerance": tol, "max_abs_err": err,
+            "ctx0_rows_zero": int(empty.sum()),
+            "ms": timer(kern, iters=20),
+            "plain_ms": timer(
+                lambda: pa.paged_attention_decode_reference(*args), iters=3),
+            "library_ms": None}
+    case["bound_ms"], case["bound_by"] = _bound(
+        nbytes, flops, F32_FLOPS_PER_S if f32 else BF16_FLOPS_PER_S)
+    return case
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -302,6 +444,7 @@ def main():
     from paddle_tpu_torch.ops.cuda import _build
     from paddle_tpu_torch.ops.cuda import decode_matmul as dmm
     from paddle_tpu_torch.ops.cuda import flash_attention as cfa
+    from paddle_tpu_torch.ops.cuda import paged_attention_decode as pdc
     from paddle_tpu_torch.ops.cuda import ragged_paged_attention as rpa
     from paddle_tpu_torch.ops.qweight import QWeight
     from paddle_tpu_torch.optimizer import AdamW
@@ -410,14 +553,21 @@ def main():
             cases.append(case)
             return case
 
+        # b 4: generate()'s decode steps and the head product of a
+        # grouped final (PREFILL_GROUP rows)
         for name in SHAPES_8B:
-            for b in (1, 8, 32):
+            for b in (1, 4, 8, 32):
                 c = gemv_case("int4_halves", name, b)
                 if name == "wgu" and b == 8:
                     heads["int4"] = c
         for kind in ("dense", "int8"):
             for b in (1, 8, 32):
                 gemv_case(kind, "wgu", b)
+        for spec in DECODE_CASES:
+            c = _decode_check(torch, gen, timer, spec)
+            cases.append(c)
+            if spec["name"] == "8b_b8_ctx512":
+                heads["paged_decode"] = c
         for spec in FLASH_CASES:
             c = flash_case(**spec)
             cases.append(c)
@@ -548,9 +698,9 @@ def main():
     def reset_flash():
         cfa.launches_fwd = cfa.launches_dq = cfa.launches_dkv = 0
 
-    # -- tiny model: card against the CPU's plain path -----------------------
-    def tiny_parity():
-        cfg = llama_tiny()
+    def cpu_and_card(cfg):
+        """A seeded int4 decoder on the CPU and the same weights on the
+        card (64 blocks of 8)."""
         cpu = PagedLlamaDecoder.from_config(cfg, seed=3, weight_dtype="int4",
                                             num_blocks=64, block_size=8,
                                             device="cpu")
@@ -567,13 +717,19 @@ def main():
                               for lw in cpu.weights["layers"]]}
         gpu = PagedLlamaDecoder(cfg, weights, weight_dtype="int4",
                                 num_blocks=64, block_size=8, device="cuda")
+        return cpu, gpu
+
+    # -- tiny model: card against the CPU's plain path -----------------------
+    def tiny_parity():
+        cfg = llama_tiny()
+        cpu, gpu = cpu_and_card(cfg)
         rng = np.random.RandomState(5)
         prompts = [rng.randint(0, cfg.vocab_size, n) for n in (5, 12, 30)]
         outs = []
         reset_counts()
         for dec in (cpu, gpu):
-            eng = ServingEngine(dec, max_batch_size=3, chunk_size=4,
-                                prefill_chunk=8)
+            eng = ServingEngine(dec, ragged=True, max_batch_size=3,
+                                chunk_size=4, prefill_chunk=8)
             rids = [eng.add_request(p, SamplingParams(max_new_tokens=8))
                     for p in prompts]
             eng.run_to_completion()
@@ -613,6 +769,71 @@ def main():
 
     _phase("tiny-parity", tiny_parity)
 
+    def dense_counts():
+        return {"paged_attention_decode": pdc.launches,
+                "ragged_paged_attention": rpa.launches,
+                "decode_matmul": dmm.launches,
+                "flash_fwd": cfa.launches_fwd}
+
+    def reset_dense():
+        pdc.launches = rpa.launches = dmm.launches = 0
+        reset_flash()
+
+    def tiny_dense_parity():
+        """The dense engine and generate() on the card against the CPU,
+        at head_dim 64 (the flash and decode kernels take 64/128/256)."""
+        cfg = llama_tiny(hidden_size=256)
+        cpu, gpu = cpu_and_card(cfg)
+        rng = np.random.RandomState(6)
+        prompts = [rng.randint(0, cfg.vocab_size, n) for n in (5, 12, 30)]
+        ids = rng.randint(0, cfg.vocab_size, (2, 16))
+        outs, gens = [], []
+        reset_dense()
+        for dec in (cpu, gpu):
+            eng = ServingEngine(dec, ragged=False, max_batch_size=3,
+                                chunk_size=4, prefill_chunk=8,
+                                prompt_buckets=(8, 16, 32))
+            rids = [eng.add_request(p, SamplingParams(max_new_tokens=8))
+                    for p in prompts]
+            eng.run_to_completion()
+            outs.append([eng.result(r).tolist() for r in rids])
+            eng.close()
+            dec.cache.debug_check()
+            gens.append(dec.generate(ids, max_new_tokens=8).tolist())
+        launched = dense_counts()
+        _require(launched["paged_attention_decode"] > 0
+                 and launched["decode_matmul"] > 0
+                 and launched["flash_fwd"] > 0
+                 and launched["ragged_paged_attention"] == 0,
+                 f"tiny-dense-parity launched {launched}")
+        # one prefill on identical rows of a fresh allocation
+        logits = []
+        row = rng.randint(0, cfg.vocab_size, (1, 16))
+        for dec in (cpu, gpu):
+            dev = dec.device
+            dec.cache.allocate(100, 16)
+            slots = [[dec.cache.extend(100) for _ in range(16)]]
+            with torch.inference_mode():
+                lg, _, _ = dec._prefill_impl(
+                    dec.weights, dec.cache.k, dec.cache.v,
+                    torch.as_tensor(row, dtype=torch.int32, device=dev),
+                    torch.as_tensor(slots, dtype=torch.int32, device=dev))
+            logits.append(lg.float().cpu())
+            dec.cache.free(100)
+        err = float((logits[0] - logits[1]).abs().max())
+        _require(err < 1e-3, f"tiny-dense-parity prefill logits differ by "
+                             f"{err}")
+        _require(outs[0] == outs[1], f"tiny-dense-parity engine tokens "
+                                     f"differ: cpu {outs[0]} vs cuda "
+                                     f"{outs[1]}")
+        _require(gens[0] == gens[1], f"tiny-dense-parity generate() "
+                                     f"differs: cpu {gens[0]} vs cuda "
+                                     f"{gens[1]}")
+        return {"tokens_equal": True, "generate_equal": True,
+                "prefill_logits_max_abs_err": err, "launches": launched}
+
+    _phase("tiny-dense-parity", tiny_dense_parity)
+
     # -- the main path: 8B int4 serving --------------------------------------
     cfg = llama_3_8b(dtype="bfloat16")
     rng = np.random.RandomState(0)
@@ -620,12 +841,21 @@ def main():
                for n in rng.randint(100, 601, 8)]
     temps = [0.0] * 6 + [0.8] * 2
 
-    def serve(dec, n_req, seed=0):
-        eng = ServingEngine(dec, max_batch_size=8, prefill_chunk=256,
-                            chunk_size=8, seed=seed)
+    def serve(dec, n_req, seed=0, ragged=True, reqs=None):
+        """Serve n_req requests (serve-int4's prompts unless given) with
+        32 new tokens each through a fresh engine on dec: (tokens, wall
+        seconds, stats). The ragged engine takes prompts up to 1024."""
+        if ragged:
+            eng = ServingEngine(dec, ragged=True, max_batch_size=8,
+                                prefill_chunk=256, chunk_size=8, seed=seed,
+                                prompt_buckets=(32, 64, 128, 256, 512, 1024))
+        else:
+            eng = ServingEngine(dec, ragged=False, max_batch_size=8,
+                                prefill_chunk=256, chunk_size=8, seed=seed)
+        reqs = reqs or list(zip(prompts[:n_req], temps[-n_req:]))
         rids = [eng.add_request(p, SamplingParams(max_new_tokens=32,
                                                   temperature=t))
-                for p, t in zip(prompts[:n_req], temps[-n_req:])]
+                for p, t in reqs]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         eng.run_to_completion()
@@ -643,11 +873,11 @@ def main():
         dec.cache.debug_check()
         return outs, wall, st
 
-    def decode_ministep(dec, w=8, ctx=512):
+    def decode_ministep(dec, w=8, ctx=512, profile=True):
         """One pure-decode ministep of w rows at context ctx on real
         pages: (launch counts of one ministep, mean wall ms of a
         ministep including the greedy sample, its device time by kernel
-        family per ministep)."""
+        family per ministep, or None without ``profile``)."""
         cache = dec.cache
         ids = list(range(1000, 1000 + w))
         for sid in ids:
@@ -685,14 +915,17 @@ def main():
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3 / n
             prof = _device_breakdown(
-                torch, lambda: [ministep() for _ in range(n)], wall_ms * n)
+                torch, lambda: [ministep() for _ in range(n)], wall_ms * n) \
+                if profile else None
+        for sid in ids:
+            cache.free(sid)
+        if prof is None:
+            return one, wall_ms, None
         for k in ("device_ms", "device_kernels", "wall_ms"):
             prof[k] /= n
         prof["device_ms_by_family"] = {
             k: v / n for k, v in prof["device_ms_by_family"].items()}
         prof["top_other"] = {k: v / n for k, v in prof["top_other"].items()}
-        for sid in ids:
-            cache.free(sid)
         return one, wall_ms, prof
 
     main_launches = {}
@@ -745,10 +978,194 @@ def main():
                     1e3 * weight_bytes / HBM_BYTES_PER_S,
                 "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
                 "sample_tokens": outs1[0][:8].tolist()}
-        del dec
+        shared["dec"] = dec
+        shared["ragged_step"] = {"launches": one, "wall_ms": wall_ms,
+                                 "device_ms": step_profile["device_ms"],
+                                 "idle_share": step_profile["idle_share"]}
         return info
 
+    shared = {}
     _phase("serve-int4", serve_int4)
+
+    def dense_decode_step(dec, b=8, ctx=512, profile=True):
+        """One dense decode step of b slots at context ctx on real pages:
+        (launch counts of one step, mean wall ms of a step including the
+        greedy sample, its device time by kernel family per step, or
+        None without ``profile``)."""
+        cache = dec.cache
+        ids = list(range(2000, 2000 + b))
+        for sid in ids:
+            cache.allocate(sid, ctx + 1)
+            for _ in range(ctx):
+                cache.extend(sid)
+        slots = [cache.extend(sid) for sid in ids]
+        tables = np.stack([cache.block_table(sid, dec.max_pages)
+                           for sid in ids])
+        dev = dec.device
+        args = (torch.randint(0, cfg.vocab_size, (b,), generator=gen,
+                              device=dev, dtype=torch.int32),
+                torch.as_tensor(tables, device=dev),
+                torch.full((b,), ctx, dtype=torch.int32, device=dev),
+                torch.as_tensor(slots, dtype=torch.int32, device=dev))
+
+        def step():
+            lg, _, _ = dec._decode_logits(dec.weights, cache.k, cache.v,
+                                          *args)
+            return lg.argmax(dim=-1)
+
+        with torch.inference_mode():
+            reset_dense()
+            step()
+            torch.cuda.synchronize()
+            one = dense_counts()
+            t0 = time.perf_counter()
+            n = 10
+            for _ in range(n):
+                step()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / n
+            prof = _device_breakdown(
+                torch, lambda: [step() for _ in range(n)], wall_ms * n) \
+                if profile else None
+        for sid in ids:
+            cache.free(sid)
+        if prof is None:
+            return one, wall_ms, None
+        for k in ("device_ms", "device_kernels", "wall_ms"):
+            prof[k] /= n
+        prof["device_ms_by_family"] = {
+            k: v / n for k, v in prof["device_ms_by_family"].items()}
+        prof["top_other"] = {k: v / n for k, v in prof["top_other"].items()}
+        return one, wall_ms, prof
+
+    def engines_alternated(dec, reqs, reps=4):
+        """Both engines on the same requests, run alternately (ragged,
+        dense, ragged, ...) reps times each, then their decode steps at
+        8 rows and ctx 512 alternately 3 times each: per engine, each
+        run's numbers and their median, min and max. The host's time
+        drifts within a call, so only this interleaving compares them."""
+        runs = {"ragged": [], "dense": []}
+        for _ in range(reps):
+            for name in runs:
+                _, wall, st = serve(dec, 8, ragged=name == "ragged",
+                                    reqs=reqs)
+                runs[name].append({
+                    "tok_per_s": st["generated_tokens"] / wall,
+                    "ttft_p50_s": st["ttft_p50_s"],
+                    "itl_p50_s": st["itl_p50_s"],
+                    "itl_p99_s": st["itl_p99_s"]})
+        steps = {"ragged": [], "dense": []}
+        for _ in range(3):
+            steps["ragged"].append(decode_ministep(dec, profile=False)[1])
+            steps["dense"].append(dense_decode_step(dec, profile=False)[1])
+        def spread(xs):
+            return {"runs": xs, "median": float(np.median(xs)),
+                    "min": min(xs), "max": max(xs)}
+
+        return {name: dict({key: spread([r[key] for r in rs])
+                            for key in rs[0]},
+                           step_wall_ms=spread(steps[name]))
+                for name, rs in runs.items()}
+
+    dense_launches = {}
+
+    def serve_dense_int4():
+        """THE DENSE PATH: serve-int4's decoder (a decoder reused across
+        engines keeps its scratch page) behind ServingEngine(ragged=
+        False), then generate()."""
+        dec = shared["dec"]
+        drng = np.random.RandomState(1)
+        reqs = list(zip([drng.randint(0, cfg.vocab_size, int(n))
+                         for n in drng.randint(100, 513, 8)], temps))
+        L = cfg.num_hidden_layers
+        # every prefill dispatch of the run: (program, rows, logits)
+        calls = []
+
+        def counted(impl, kind):
+            def run(weights, k_pool, v_pool, ids, *a, **k):
+                calls.append((kind, ids.numel(), k.get("logits", True)))
+                return impl(weights, k_pool, v_pool, ids, *a, **k)
+            return run
+
+        reset_dense()
+        dec._prefill_impl = counted(dec._prefill_impl, "flash")
+        dec._prefill_prefix_impl = counted(dec._prefill_prefix_impl,
+                                           "prefix")
+        try:
+            outs1, wall1, st1 = serve(dec, 8, ragged=False, reqs=reqs)
+        finally:
+            del dec._prefill_impl, dec._prefill_prefix_impl
+        dense_launches.update(dense_counts())
+        n_flash = sum(kind == "flash" for kind, _, _ in calls)
+        # GEMV launches: 4 L + 1 per decode step; a prefill dispatch of at
+        # most 32 token rows sends its 4 L layer products to the GEMV
+        # too, and a final (logits) its head product of <= 4 rows
+        expect = {
+            "paged_attention_decode": L * st1["decode_steps"],
+            "ragged_paged_attention": 0,
+            "decode_matmul": (4 * L + 1) * st1["decode_steps"] + sum(
+                4 * L * (rows <= 32) + int(lg) for _, rows, lg in calls),
+            "flash_fwd": L * n_flash}
+        _require(dense_launches == expect,
+                 f"the dense path ({st1['decode_steps']} decode steps, "
+                 f"prefill dispatches {calls}) launched {dense_launches}, "
+                 f"expected {expect}")
+        outs2, wall2, st2 = serve(dec, 8, ragged=False, reqs=reqs)
+        for i, (a, b) in enumerate(zip(outs1, outs2)):
+            _require(np.array_equal(a, b),
+                     f"dense request {i} (temperature {temps[i]}) differs "
+                     f"between two runs with the same seed")
+        serve_profile = _device_breakdown(
+            torch, lambda: serve(dec, 8, ragged=False, reqs=reqs),
+            wall2 * 1e3)
+        one, wall_ms, step_profile = dense_decode_step(dec)
+        _require(one == {"paged_attention_decode": 32, "decode_matmul": 129,
+                         "ragged_paged_attention": 0, "flash_fwd": 0},
+                 f"one dense decode step at mb 8 launched {one}, expected "
+                 f"32 paged-decode and 129 GEMV kernels")
+        gids = np.random.RandomState(2).randint(0, cfg.vocab_size, (4, 256))
+        timings = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gen_out = dec.generate(gids, max_new_tokens=32, timings=timings)
+        gen_wall = time.perf_counter() - t0
+        _require(gen_out.shape == (4, 288)
+                 and np.array_equal(gen_out[:, :256], gids)
+                 and gen_out.min() >= 0 and gen_out.max() < cfg.vocab_size,
+                 f"generate() returned {gen_out.shape} with bad tokens")
+        dec.cache.debug_check()
+        alternated = engines_alternated(dec, reqs)
+        info = {"model": "llama_3_8b int4 (halves), bf16 KV pool, 32 "
+                         "layers, dense engine",
+                "launches": dict(dense_launches),
+                "decode_steps": st1["decode_steps"],
+                "prefill_dispatches": calls,
+                "wall_s": [wall1, wall2],
+                "tok_per_s": st2["generated_tokens"] / wall2,
+                "generated_tokens": st2["generated_tokens"],
+                "device_dispatches": st2["device_dispatches"],
+                "ttft_p50_s": st2["ttft_p50_s"],
+                "itl_p50_s": st2["itl_p50_s"],
+                "itl_p99_s": st2["itl_p99_s"],
+                "time_prefill_s": st2["time_prefill_s"],
+                "time_decode_stall_s": st2["time_decode_stall_s"],
+                "time_host_s": st2["time_host_s"],
+                "decode_utilization": st2["decode_utilization"],
+                "decode_step_launches": one,
+                "decode_step_mb8_ctx512_wall_ms": wall_ms,
+                "decode_step_profile": step_profile,
+                "ragged_ministep_same_call": shared["ragged_step"],
+                "engines_alternated": alternated,
+                "serve_profile": serve_profile,
+                "generate_b4_p256_n32": {
+                    "timings": timings, "wall_s": gen_wall,
+                    "tok_per_s": 4 * 32 / gen_wall},
+                "sample_tokens": outs1[0][:8].tolist()}
+        del dec
+        shared.clear()
+        return info
+
+    _phase("serve-dense-int4", serve_dense_int4)
     gc.collect()
     torch.cuda.empty_cache()
     kv8_launches = {}
@@ -880,7 +1297,11 @@ def main():
              tpu + "ragged_paged_attention.py:201"),
             ("int4", "decode_matmul[int4]", main_launches["decode_matmul"],
              "paddle_tpu_torch/csrc/decode_matmul.cu",
-             tpu + "decode_matmul.py:135")):
+             tpu + "decode_matmul.py:135"),
+            ("paged_decode", "paged_attention_decode",
+             dense_launches["paged_attention_decode"],
+             "paddle_tpu_torch/csrc/paged_attention_decode.cu",
+             tpu + "paged_attention.py:125")):
         c = heads[key]
         kernel_rows.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,

@@ -1,8 +1,9 @@
-"""Paged-KV decoder for Llama-family models: the ragged serving step.
+"""Paged-KV decoder for Llama-family models: the ragged serving step and
+the dense per-phase programs.
 
 Counterpart: ``paddle_tpu/inference/paged_decode.py`` (single device
-only: no tensor parallel, speculative-decoding or LoRA mixins, and no
-dense per-phase programs yet). The decoder holds a dict of tensors with
+only: no tensor parallel, speculative-decoding or LoRA mixins). The
+decoder holds a dict of tensors with
 the same shape as the JAX ``weights`` tree — ``embed``, ``layers`` (each
 with ``ln1``, ``ln2``, fused ``wqkv``, ``wo``, fused ``wgu``, ``wd``),
 ``norm`` and ``head`` — so weights carry across one-to-one. Matmul
@@ -12,12 +13,26 @@ names its layout.
 ``_ragged_logits`` is one ministep of the ragged serving engine: every
 row's K/V is written to the pool (in place) before attention, so the
 per-row visible length ``row_ctx`` is the whole causal mask.
+
+The dense per-phase programs serve ``ServingEngine(ragged=False)`` and
+``generate()``: ``_prefill_impl`` (a bucketed, right-padded prompt
+through causal flash attention), ``_prefill_prefix_impl`` (a prompt
+chunk at an offset, attending the pages already written as its prefix;
+with ``logits=False`` it is JAX's no-sample ``_prefill_chunk_impl``)
+and ``_decode_logits`` (one token per sequence through
+``paged_attention_decode``). JAX compiles each as
+one program; here each is a Python function that launches its kernels
+in order, and JAX's ``lax.scan`` over decode steps is a Python loop
+whose sampled token stays on the device from step to step.
 """
 from __future__ import annotations
 
+import math
+import time
 import zlib
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -25,7 +40,9 @@ from ..device import resolve_device
 from ..models.llama import LlamaConfig
 from ..ops.cuda.decode_matmul import (_MAX_ROWS, decode_matmul,
                                       unpack_int4_halves)
-from ..ops.paged_attention import (PagedKVCache, pool_index,
+from ..ops.flash_attention import flash_attention
+from ..ops.paged_attention import (PagedKVCache, _dequantize_gather,
+                                   paged_attention_decode, pool_index,
                                    ragged_paged_attention,
                                    reshape_and_cache)
 from ..ops.qweight import QWeight
@@ -95,6 +112,54 @@ def _mm(x, w):
             return y * w.scale.to(x.dtype)
         return (x @ w.q.to(x.dtype)) * w.scale.to(x.dtype)
     return x @ w
+
+
+def _prefix_suffix_attention(q, k_suf, v_suf, k_pre, v_pre, n_cached,
+                             scale: Optional[float] = None):
+    """Causal attention of a SUFFIX prefill over a cached prefix, in
+    float32 (the JAX function of the same name is einsums too, so no
+    kernel belongs to it).
+
+    The suffix's queries sit at positions ``n_cached + i``; their keys
+    are the prefix K/V (gathered pool pages, flattened) then the
+    suffix's own. Every prefix key at a position < n_cached is visible
+    to every suffix query, and suffix against suffix is causal, which
+    also hides right-padded rows from real queries.
+    q / k_suf / v_suf [b, s, (kv)h, d]; k_pre / v_pre [b, kvh, P, d];
+    n_cached [b] int32. Returns [b, s, nh, d] in q's dtype."""
+    b, s, nh, d = q.shape
+    kvh = k_suf.shape[2]
+    group = nh // kvh
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    p = k_pre.shape[2]
+    dev = q.device
+    qg = q.reshape(b, s, kvh, group, d).to(torch.float32)
+    neg = torch.full((), -1e30, dtype=torch.float32, device=dev)
+    sp = torch.einsum("bskgd,bkpd->bskgp", qg,
+                      k_pre.to(torch.float32)) * scale
+    pvalid = torch.arange(p, device=dev)[None] < n_cached.long()[:, None]
+    sp = torch.where(pvalid[:, None, None, None, :], sp, neg)
+    ss = torch.einsum("bskgd,btkd->bskgt", qg,
+                      k_suf.to(torch.float32)) * scale
+    causal = torch.arange(s, device=dev)[:, None] \
+        >= torch.arange(s, device=dev)[None, :]
+    ss = torch.where(causal[None, :, None, None, :], ss, neg)
+    probs = torch.softmax(torch.cat([sp, ss], dim=-1), dim=-1)
+    out = torch.einsum("bskgp,bkpd->bskgd", probs[..., :p],
+                       v_pre.to(torch.float32)) \
+        + torch.einsum("bskgt,btkd->bskgd", probs[..., p:],
+                       v_suf.to(torch.float32))
+    return out.reshape(b, s, nh, d).to(q.dtype)
+
+
+def _gather_prefix_pages(pool, prefix_tables):
+    """A pool plane [num_blocks, kvh, bs, d] (or an int8 tuple, which
+    dequantizes at the gather) and page ids [b, P] -> the rows' prefix
+    K/V as one contiguous [b, kvh, P * bs, d]."""
+    g = _dequantize_gather(pool, prefix_tables)    # [b, P, kvh, bs, d]
+    b, p, kvh, bs, d = g.shape
+    return g.transpose(1, 2).reshape(b, kvh, p * bs, d)
 
 
 def _fuse_out(ws):
@@ -258,13 +323,16 @@ class PagedLlamaDecoder:
         return _mm(F.silu(g_) * u_, w["wd"])
 
     def _rope_tables(self, positions, dtype):
-        """(cos, sin) [rows, 1, head_dim] at positions, in dtype."""
-        return (self._cos[positions][:, None, :].to(dtype),
-                self._sin[positions][:, None, :].to(dtype))
+        """(cos, sin) [*positions.shape, 1, head_dim] at positions, in
+        dtype."""
+        return (self._cos[positions][..., None, :].to(dtype),
+                self._sin[positions][..., None, :].to(dtype))
 
     def _rope(self, x, positions, tables=None):
-        """x [rows, heads, head_dim] at positions [rows]; ``tables`` are
-        the ``_rope_tables`` of those positions when already gathered."""
+        """x [..., heads, head_dim] at positions broadcasting over its
+        leading dims ([rows] for [rows, heads, head_dim], [s] or [b, s]
+        for [b, s, heads, head_dim]); ``tables`` are the
+        ``_rope_tables`` of those positions when already gathered."""
         cos, sin = tables or self._rope_tables(positions, x.dtype)
         return x * cos + rotate_half(x) * sin
 
@@ -300,3 +368,208 @@ class PagedLlamaDecoder:
         h = rms_norm(h, weights["norm"], cfg.rms_norm_eps)
         logits = _mm(h, weights["head"]).to(torch.float32)
         return logits, k_pool, v_pool
+
+    # -- dense per-phase programs ----------------------------------------------
+    def _final_logits(self, weights, h, last_idx):
+        """Float32 logits of h [b, s, hidden] at each row's last_idx
+        (None: the last position)."""
+        b = h.shape[0]
+        if last_idx is None:
+            hl = h[:, -1]
+        else:
+            hl = h[torch.arange(b, device=h.device), last_idx.long()]
+        hl = rms_norm(hl, weights["norm"], self.cfg.rms_norm_eps)
+        return _mm(hl, weights["head"]).to(torch.float32)
+
+    def _prefill_impl(self, weights, k_pool, v_pool, ids, slots,
+                      last_idx=None, *, logits: bool = True):
+        """A bucketed prefill from position 0. ids [b, s]; slots [b, s]
+        flat pool slots (right-padding rows aim at the scratch page);
+        last_idx [b] each row's final REAL token (None: s - 1). Causal
+        attention over the chunk itself through ``flash_attention`` (the
+        flash forward kernel on the card). The pools are written in
+        place. Returns (logits [b, vocab] float32, or None when
+        ``logits`` is False, k_pool, v_pool)."""
+        cfg = self.cfg
+        b, s = ids.shape
+        kvh, hd = cfg.num_key_value_heads, self.head_dim
+        h = weights["embed"][ids.long()]                    # [b, s, d]
+        # clamped like the offset programs: a bucket's padding rows may
+        # sit past max_position_embeddings (JAX's gather clamps them)
+        pos = torch.arange(s, device=ids.device).clamp(
+            max=cfg.max_position_embeddings - 1)
+        rope = self._rope_tables(pos, h.dtype)
+        index = pool_index(slots.reshape(-1), self.block_size, kvh)
+        for li, w in enumerate(weights["layers"]):
+            hn = rms_norm(h, w["ln1"], cfg.rms_norm_eps)
+            q, k, v = self._proj_qkv(w, hn)
+            q = self._rope(q, pos, rope)
+            k = self._rope(k, pos, rope)
+            v = v.contiguous()
+            attn = flash_attention(q, k, v, causal=True)
+            h = h + _mm(attn.reshape(b, s, -1), w["wo"])
+            hn = rms_norm(h, w["ln2"], cfg.rms_norm_eps)
+            h = h + self._mlp(w, hn)
+            reshape_and_cache(k.reshape(b * s, kvh, hd),
+                              v.reshape(b * s, kvh, hd), k_pool[li],
+                              v_pool[li], None, index=index)
+        out = self._final_logits(weights, h, last_idx) if logits else None
+        return out, k_pool, v_pool
+
+    def _prefill_prefix_impl(self, weights, k_pool, v_pool, ids, slots,
+                             last_idx, n_cached, prefix_tables, *,
+                             logits: bool = True):
+        """A prefill at an offset: row i's ids [s] sit at positions
+        ``n_cached[i] + j`` and attend the prefix already in the pool
+        (``prefix_tables`` [b, P], scratch-padded past the prefix) plus
+        themselves, causally. Rows with n_cached 0 are an ordinary
+        bucketed prefill. Returns (logits at last_idx [b, vocab] float32,
+        or None, k_pool, v_pool)."""
+        cfg = self.cfg
+        b, s = ids.shape
+        kvh, hd = cfg.num_key_value_heads, self.head_dim
+        h = weights["embed"][ids.long()]
+        pos = (torch.arange(s, device=ids.device)[None]
+               + n_cached.long()[:, None]).clamp(
+                   max=cfg.max_position_embeddings - 1)     # [b, s]
+        rope = self._rope_tables(pos, h.dtype)
+        index = pool_index(slots.reshape(-1), self.block_size, kvh)
+        for li, w in enumerate(weights["layers"]):
+            hn = rms_norm(h, w["ln1"], cfg.rms_norm_eps)
+            q, k, v = self._proj_qkv(w, hn)
+            q = self._rope(q, pos, rope)
+            k = self._rope(k, pos, rope)
+            k_pre = _gather_prefix_pages(k_pool[li], prefix_tables)
+            v_pre = _gather_prefix_pages(v_pool[li], prefix_tables)
+            attn = _prefix_suffix_attention(q, k, v, k_pre, v_pre, n_cached)
+            h = h + _mm(attn.reshape(b, s, -1), w["wo"])
+            hn = rms_norm(h, w["ln2"], cfg.rms_norm_eps)
+            h = h + self._mlp(w, hn)
+            reshape_and_cache(k.reshape(b * s, kvh, hd),
+                              v.reshape(b * s, kvh, hd), k_pool[li],
+                              v_pool[li], None, index=index)
+        out = self._final_logits(weights, h, last_idx) if logits else None
+        return out, k_pool, v_pool
+
+    def _decode_logits(self, weights, k_pool, v_pool, last_ids, tables,
+                       ctx_lens, slots):
+        """One decode token per sequence, up to the logits. last_ids /
+        ctx_lens / slots [b] int32 (ctx_lens counts the tokens already
+        cached, EXCLUDING this one, so RoPE runs at position ctx and
+        attention sees ctx + 1 positions); tables [b, max_pages] int32.
+        This token's K/V is written to the pool before attention.
+        Returns (logits [b, vocab] float32, k_pool, v_pool)."""
+        cfg = self.cfg
+        b = last_ids.shape[0]
+        nh = cfg.num_attention_heads
+        h = weights["embed"][last_ids.long()]               # [b, d]
+        pos = ctx_lens.long().clamp(max=cfg.max_position_embeddings - 1)
+        rope = self._rope_tables(pos, h.dtype)
+        index = pool_index(slots, self.block_size, cfg.num_key_value_heads)
+        visible = ctx_lens + 1
+        for li, w in enumerate(weights["layers"]):
+            hn = rms_norm(h, w["ln1"], cfg.rms_norm_eps)
+            q, k, v = self._proj_qkv(w, hn)
+            qk = self._rope(torch.cat([q, k], dim=1), pos, rope)
+            q, k = qk[:, :nh].contiguous(), qk[:, nh:]
+            reshape_and_cache(k, v, k_pool[li], v_pool[li], slots,
+                              index=index)
+            attn = paged_attention_decode(q, k_pool[li], v_pool[li], tables,
+                                          visible)
+            h = h + _mm(attn.reshape(b, -1), w["wo"])
+            hn = rms_norm(h, w["ln2"], cfg.rms_norm_eps)
+            h = h + self._mlp(w, hn)
+        h = rms_norm(h, weights["norm"], cfg.rms_norm_eps)
+        logits = _mm(h, weights["head"]).to(torch.float32)
+        return logits, k_pool, v_pool
+
+    def _decode_scan_impl(self, weights, k_pool, v_pool, first_ids,
+                          tables_all, ctx_all, slots_all, sample=None):
+        """T decode steps from a host-precomputed schedule (tables_all
+        [T, b, max_pages], ctx_all / slots_all [T, b]); each step's token
+        feeds the next on the device, with no host sync. ``sample`` maps
+        a step's float32 logits [b, vocab] to its int32 tokens (None:
+        greedy argmax). Returns (tokens [b, T] int32, k_pool, v_pool)."""
+        cur = first_ids
+        out = []
+        for t in range(tables_all.shape[0]):
+            logits, k_pool, v_pool = self._decode_logits(
+                weights, k_pool, v_pool, cur, tables_all[t], ctx_all[t],
+                slots_all[t])
+            cur = (logits.argmax(dim=-1).to(torch.int32) if sample is None
+                   else sample(logits))
+            out.append(cur)
+        if not out:
+            return (torch.zeros((first_ids.shape[0], 0), dtype=torch.int32,
+                                device=first_ids.device), k_pool, v_pool)
+        return torch.stack(out, dim=1), k_pool, v_pool
+
+    # -- public API ------------------------------------------------------------
+    def generate(self, input_ids, max_new_tokens: int = 32,
+                 timings: Optional[dict] = None) -> np.ndarray:
+        """Greedy batched generation. input_ids [b, prompt_len]
+        (numpy, list or tensor) of EQUAL-length prompts (mixed lengths
+        are the ServingEngine's job); returns numpy int32 [b, prompt_len
+        + max_new_tokens]. A ``timings`` dict receives prefill_s and
+        decode_s wall times (taken after a device synchronize)."""
+        with torch.inference_mode():
+            return _paged_generate(self, input_ids, max_new_tokens, timings)
+
+
+def _paged_generate(dec, input_ids, max_new_tokens, timings=None):
+    """Page allocation (sequence ids 0..b-1), one prefill, a host-
+    precomputed decode schedule, one decode loop, page free."""
+    if isinstance(input_ids, torch.Tensor):
+        input_ids = input_ids.detach().cpu().numpy()
+    ids = np.asarray(input_ids).astype(np.int32)
+    if ids.ndim != 2 or ids.shape[1] == 0:
+        raise ValueError(f"generate needs input_ids [batch, prompt_len], "
+                         f"got shape {ids.shape}")
+    b, s = ids.shape
+    dev = dec.device
+    cache = dec.cache
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    seqs = list(range(b))
+    slot_rows = []
+    for i in seqs:
+        cache.allocate(i, s + max(0, max_new_tokens))
+        slot_rows.append([cache.extend(i) for _ in range(s)])
+    try:
+        t0 = time.perf_counter()
+        logits, _, _ = dec._prefill_impl(
+            dec.weights, cache.k, cache.v,
+            torch.from_numpy(ids).to(dev),
+            torch.as_tensor(slot_rows, dtype=torch.int32, device=dev))
+        next_ids = logits.argmax(dim=-1).to(torch.int32)
+        if timings is not None:
+            sync()
+            timings["prefill_s"] = time.perf_counter() - t0
+        if max_new_tokens <= 0:
+            return ids
+        T = max_new_tokens - 1
+        ctx_all = np.zeros((T, b), np.int32)
+        slots_all = np.zeros((T, b), np.int32)
+        tables_all = np.zeros((T, b, dec.max_pages), np.int32)
+        for t in range(T):
+            ctx_all[t] = [cache.context_len(i) for i in seqs]
+            slots_all[t] = [cache.extend(i) for i in seqs]
+            tables_all[t] = np.stack(
+                [cache.block_table(i, dec.max_pages) for i in seqs])
+        t1 = time.perf_counter()
+        toks, _, _ = dec._decode_scan_impl(
+            dec.weights, cache.k, cache.v, next_ids,
+            torch.from_numpy(tables_all).to(dev),
+            torch.from_numpy(ctx_all).to(dev),
+            torch.from_numpy(slots_all).to(dev))
+        toks = toks.cpu().numpy()
+        if timings is not None:
+            timings["decode_s"] = time.perf_counter() - t1
+        return np.concatenate(
+            [ids, next_ids.cpu().numpy()[:, None], toks], axis=1)
+    finally:
+        for i in seqs:
+            cache.free(i)

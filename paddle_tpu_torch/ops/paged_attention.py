@@ -11,6 +11,12 @@ an ``index_put_``), so a serving step never copies a pool.
 ``ragged_paged_attention`` sends CUDA tensors to the hand-written kernel
 (``ops/cuda/ragged_paged_attention.py``) and CPU tensors to its plain
 version ``ragged_paged_attention_reference``; there is no other switch.
+``paged_attention_decode`` (one token per sequence, the dense engine's
+decode) sends a CUDA tensor with an fp pool to its own kernel
+(``ops/cuda/paged_attention_decode.py``), a CUDA tensor with an int8
+pool to the ragged kernel with one row per sequence (the JAX package
+computes quantized dense decode as that ragged call too), and CPU
+tensors to ``paged_attention_decode_reference``.
 """
 from __future__ import annotations
 
@@ -24,8 +30,12 @@ import torch
 from ..device import resolve_device
 
 __all__ = ["KVCacheExhausted", "PagedKVCache", "pool_index",
-           "quantize_kv_rows", "ragged_paged_attention",
+           "quantize_kv_rows", "paged_attention_decode",
+           "paged_attention_decode_reference", "ragged_paged_attention",
            "ragged_paged_attention_reference", "reshape_and_cache"]
+
+# head dims the dense decode route takes on the card (the JAX gate's)
+DECODE_HEAD_DIMS = (64, 128, 256)
 
 
 def _plane_values(plane):
@@ -157,6 +167,55 @@ def ragged_paged_attention(q, k_cache, v_cache, block_tables, row_seq,
                                             scale)
 
 
+def paged_attention_decode_reference(q, k_cache, v_cache, block_tables,
+                                     context_lens,
+                                     scale: Optional[float] = None):
+    """One-token decode attention over the paged pool — the plain version
+    of the CUDA decode kernel.
+
+    q [batch, num_heads, head_dim]; pools as for the ragged call;
+    block_tables [batch, max_blocks] int32; context_lens [batch] int32:
+    visible tokens per sequence, this one included. As in the JAX
+    package, this is the ragged oracle with one row per sequence
+    (``row_seq = arange(batch)``, ``row_ctx = context_lens``).
+    Returns [batch, num_heads, head_dim]."""
+    b = q.shape[0]
+    return ragged_paged_attention_reference(
+        q, k_cache, v_cache, block_tables,
+        torch.arange(b, dtype=torch.int32, device=q.device), context_lens,
+        scale)
+
+
+def paged_attention_decode(q, k_cache, v_cache, block_tables, context_lens,
+                           scale: Optional[float] = None):
+    """One-token decode attention (see the reference for the signature).
+    A CUDA q with an fp pool: the decode kernel; with an (int8, scales)
+    pool: the ragged kernel with rows ``arange(batch)``; head dims 64,
+    128 and 256 only. A CPU q: the plain version. Anything else
+    raises."""
+    if q.is_cuda:
+        if q.shape[-1] not in DECODE_HEAD_DIMS:
+            raise ValueError(f"paged_attention_decode: head_dim "
+                             f"{q.shape[-1]} not in {DECODE_HEAD_DIMS}")
+        if isinstance(k_cache, tuple):
+            from .cuda.ragged_paged_attention import \
+                ragged_paged_attention_cuda
+            rows = torch.arange(q.shape[0], dtype=torch.int32,
+                                device=q.device)
+            return ragged_paged_attention_cuda(q, k_cache, v_cache,
+                                               block_tables, rows,
+                                               context_lens, scale)
+        from .cuda.paged_attention_decode import paged_attention_decode_cuda
+        return paged_attention_decode_cuda(q, k_cache, v_cache,
+                                           block_tables, context_lens, scale)
+    if q.device.type == "cpu":
+        return paged_attention_decode_reference(q, k_cache, v_cache,
+                                                block_tables, context_lens,
+                                                scale)
+    raise ValueError(f"paged_attention_decode: unsupported device "
+                     f"{q.device}")
+
+
 class PagedKVCache:
     """Host-side block allocator plus the device block pool.
 
@@ -246,6 +305,10 @@ class PagedKVCache:
 
     def context_len(self, seq_id: int) -> int:
         return self._lens.get(seq_id, 0)
+
+    def seq_blocks(self, seq_id: int):
+        """The sequence's physical block list (a copy)."""
+        return list(self._tables[seq_id])
 
     def block_table(self, seq_id: int, max_blocks: int) -> np.ndarray:
         t = self._tables[seq_id]

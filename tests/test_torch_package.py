@@ -56,6 +56,7 @@ def test_imports_load_no_jax_and_build_nothing():
     assert "paddle_tpu_torch.ops.cuda.decode_matmul" in out["modules"]
     assert "paddle_tpu_torch.inference.serving" in out["modules"]
     for name in ("ops.cuda.flash_attention", "ops.flash_attention",
+                 "ops.cuda.paged_attention_decode",
                  "nn.functional.attention", "optimizer.optimizer", "jit",
                  "models.llama"):
         assert f"paddle_tpu_torch.{name}" in out["modules"]

@@ -27,6 +27,7 @@ from paddle_tpu.models import llama_tiny as jax_tiny  # noqa: E402
 from paddle_tpu_torch.inference import (PagedLlamaDecoder, SamplingParams,
                                         ServingEngine)  # noqa: E402
 from paddle_tpu_torch.models import llama_tiny  # noqa: E402
+from _torch_serving_cases import assert_identical, prompts  # noqa: E402
 
 ENGINE = dict(max_batch_size=3, chunk_size=4, prefill_chunk=8)
 POOL = dict(num_blocks=96, block_size=8)
@@ -55,7 +56,7 @@ def _run_jax(jdec, reqs, **kw):
 
 
 def _run_port(tdec, reqs, **kw):
-    eng = ServingEngine(tdec, **{**ENGINE, **kw})
+    eng = ServingEngine(tdec, ragged=True, **{**ENGINE, **kw})
     rids = [eng.add_request(p, SamplingParams(**sp)) for p, sp in reqs]
     while eng.step():
         tdec.cache.debug_check()
@@ -67,56 +68,17 @@ def _run_port(tdec, reqs, **kw):
     return [eng.result(r).tolist() for r in rids], st
 
 
-def _logits_after(tdec, tokens):
-    """The port's logits for the next token after `tokens` (one prefill
-    ministep over a fresh allocation)."""
-    cache = tdec.cache
-    n = len(tokens)
-    cache.allocate(10_000, n)
-    slots = [cache.extend(10_000) for _ in range(n)]
-    table = torch.from_numpy(cache.block_table(10_000, tdec.max_pages)[None])
-    pos = torch.arange(n, dtype=torch.int32)
-    with torch.inference_mode():
-        lg, _, _ = tdec._ragged_logits(
-            tdec.weights, cache.k, cache.v,
-            torch.as_tensor(tokens, dtype=torch.int32), pos,
-            torch.as_tensor(slots, dtype=torch.int32),
-            torch.zeros(n, dtype=torch.int32), pos + 1, table)
-    cache.free(10_000)
-    return lg[-1]
-
-
-def _assert_identical(tdec, reqs, port, ref):
-    for (prompt, _), a, b in zip(reqs, port, ref):
-        if a == b:
-            continue
-        i = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y),
-                 min(len(a), len(b)))
-        if i < min(len(a), len(b)):
-            lg = _logits_after(tdec, list(prompt) + a[:i])
-            gap = float(lg[a[i]] - lg[b[i]])
-            why = (f"first divergence at token {i}: port {a[i]} vs jax "
-                   f"{b[i]}, port logit gap {gap:.3e}")
-        else:
-            why = f"lengths differ: port {len(a)} vs jax {len(b)}"
-        pytest.fail(f"greedy streams differ ({why})\nport {a}\njax  {b}")
-
-
-def _prompts(rng, lengths, vocab=512):
-    return [rng.randint(0, vocab, n).astype(np.int32) for n in lengths]
-
-
 def _mixed(rng):
     lens = ((5, 10), (12, 8), (30, 12), (9, 6), (17, 10))
     return [(p, dict(max_new_tokens=m))
-            for p, (_, m) in zip(_prompts(rng, [n for n, _ in lens]), lens)]
+            for p, (_, m) in zip(prompts(rng, [n for n, _ in lens]), lens)]
 
 
 def test_greedy_identity_mixed_lengths(fp32_pair):
     jdec, tdec = fp32_pair
     reqs = _mixed(np.random.RandomState(17))
     port, st = _run_port(tdec, reqs)
-    _assert_identical(tdec, reqs, port, _run_jax(jdec, reqs))
+    assert_identical(tdec, reqs, port, _run_jax(jdec, reqs))
     assert st["generated_tokens"] == sum(len(o) for o in port)
     assert st["tokens_per_dispatch"] > 1.0
 
@@ -124,22 +86,22 @@ def test_greedy_identity_mixed_lengths(fp32_pair):
 def test_greedy_identity_chunked_long_prompt(fp32_pair):
     jdec, tdec = fp32_pair
     rng = np.random.RandomState(17)
-    p1, p2 = _prompts(rng, (60, 6))
+    p1, p2 = prompts(rng, (60, 6))
     reqs = [(p1, dict(max_new_tokens=8)), (p2, dict(max_new_tokens=16))]
     port, _ = _run_port(tdec, reqs)
-    _assert_identical(tdec, reqs, port, _run_jax(jdec, reqs))
+    assert_identical(tdec, reqs, port, _run_jax(jdec, reqs))
 
 
 def test_greedy_identity_eos_mid_chunk(fp32_pair):
     jdec, tdec = fp32_pair
     rng = np.random.RandomState(17)
-    p, p2 = _prompts(rng, (10, 7))
+    p, p2 = prompts(rng, (10, 7))
     stream = _run_jax(jdec, [(p, dict(max_new_tokens=12))])[0]
     eos = stream[len(stream) // 2]
     reqs = [(p, dict(max_new_tokens=12, eos_token_id=eos)),
             (p2, dict(max_new_tokens=12))]
     port, _ = _run_port(tdec, reqs)
-    _assert_identical(tdec, reqs, port, _run_jax(jdec, reqs))
+    assert_identical(tdec, reqs, port, _run_jax(jdec, reqs))
     assert port[0][-1] == eos and len(port[0]) < 12
 
 
@@ -150,14 +112,14 @@ def test_greedy_identity_chunk_schedule(fp32_pair):
     reqs = _mixed(np.random.RandomState(19))
     kw = dict(chunk_schedule=(1, 2, 4))
     port, _ = _run_port(tdec, reqs, **kw)
-    _assert_identical(tdec, reqs, port, _run_jax(jdec, reqs, **kw))
+    assert_identical(tdec, reqs, port, _run_jax(jdec, reqs, **kw))
 
 
 def test_greedy_identity_int4_weights():
     jdec, tdec = _decoders("int4")
     reqs = _mixed(np.random.RandomState(23))
     port, _ = _run_port(tdec, reqs)
-    _assert_identical(tdec, reqs, port, _run_jax(jdec, reqs))
+    assert_identical(tdec, reqs, port, _run_jax(jdec, reqs))
 
 
 def test_temperature_zero_is_greedy_beside_sampled_rows(fp32_pair):
@@ -193,7 +155,7 @@ def test_seeded_stochastic_stream(fp32_pair):
 
 def test_engine_contract(fp32_pair):
     _, tdec = fp32_pair
-    eng = ServingEngine(tdec, **ENGINE)
+    eng = ServingEngine(tdec, ragged=True, **ENGINE)
     with pytest.raises(ValueError):
         eng.add_request([])
     with pytest.raises(ValueError):
