@@ -16,7 +16,9 @@ failure ends the run with a non-zero exit code and no result:
                  at the dense prefill's b x s of 1 x 256, 4 x 128, 4 x 256
                  and 1 x 512; llama_mid training attention, plus a 4096
                  sequence, packed documents and a causal sq < sk case with
-                 ragged edges),
+                 ragged edges; the ring blocks flash_attention_with_lse and
+                 flash_attention_bwd_block at train-mid8k's shard shapes,
+                 the backward against a lse merged from two blocks),
                  with its time, the plain version's time, the time of one
                  PyTorch library call that computes the same function where
                  there is one, and the least time the card could take
@@ -60,7 +62,15 @@ failure ends the run with a non-zero exit code and no result:
                  with the same weights on the card and the CPU: 3 TrainSteps
                  of AdamW(1e-3) give losses within 1e-4 relative, and the
                  card ran all three flash kernels.
-10. train-mid    THE TRAINING PATH: llama_mid (0.65B) at full width and all
+10. tiny-ring-parity  llama_tiny(hidden_size=256, sep_degree=4) in
+                 float32 (head_dim 64) at b 2 x s 256 under a sep-4 fleet
+                 mesh, the same weights on the card (["cuda:0"] * 4) and on
+                 the CPU (["cpu"] * 4): 3 TrainSteps of AdamW(1e-3) give
+                 losses within 1e-4 relative, the card's equal the same
+                 model's at sep_degree=1 within 1e-4, and the flash counters
+                 read exactly what the ring calls for (2 layers x 4 ranks
+                 x 6 blocks per step of each kernel).
+11. train-mid    THE TRAINING PATH: llama_mid (0.65B) at full width and all
                  11 layers, bf16 compute, seed 0, batch 4 x seq 2048 (ids as
                  bench.py makes them), AdamW(1e-4, weight_decay=0.01): 2 warm
                  and 10 timed TrainSteps. The flash counters are set to 0
@@ -69,6 +79,22 @@ failure ends the run with a non-zero exit code and no result:
                  last below the first. Step ms, tokens/s, MFU by bench.py's
                  formula against 989 TFLOP/s, peak memory, device time by
                  kernel family and the idle share.
+12. train-mid8k  THE LONG-CONTEXT PATH: llama_mid(dtype="bfloat16",
+                 chunked_ce_tokens=1024, max_position_embeddings=8192,
+                 sep_degree=4), all 11 layers, b 1 x s 8192 (ids as bench.py
+                 makes them), AdamW(1e-4, weight_decay=0.01), under a sep-4
+                 fleet mesh on ["cuda:0"] * 4: every attention is zigzag ring
+                 attention whose blocks run the flash kernels. 2 warm and 5
+                 timed steps; the flash counters, set to 0 just before and
+                 read just after, must read exactly 264 forward, 264 dq and
+                 264 dk/dv launches per step (11 layers x 4 ranks x 6
+                 blocks); every loss finite, the last below the first. Then
+                 the same config at sep_degree=1 (11 of each per step) and
+                 sep 4 alternated on the same ids, 3 runs of 2 steps each
+                 (median, min, max step ms); the first-step losses of sep 1
+                 and sep 4 within 1e-2 relative. Step ms, tokens/s, MFU at
+                 seq 8192, peak memory, device time by kernel family and the
+                 idle share of both.
 
 Then a {"kernels": [...]} line, the card's name and power limit as
 nvidia-smi reports them, and last
@@ -79,6 +105,7 @@ Serving and training leave each other's counters alone: each path resets
 and reads only its own kernels' counters.
 """
 import gc
+import importlib
 import json
 import re
 import subprocess
@@ -111,6 +138,21 @@ FLASH_CASES = [
     dict(name="f32_d128", b=1, sq=512, sk=512, h=4, hk=2, d=128, docs=2,
          dtype="float32"),
     dict(name="d256", b=1, sq=300, sk=300, h=4, hk=1, d=256),
+]
+
+
+# ring attention blocks at train-mid8k's shard shapes (llama_mid, sep 4,
+# s 8192: local s 2048, zigzag halves of 1024; h 16, kv 8, d 128, bf16):
+# the diagonal step's causal block, an "earlier" block (the full local q
+# against a visiting early kv half) and a "later" block (the late q half
+# against a whole visiting chunk); and tiny-ring-parity's earlier block in
+# float32 at d 64
+RING_CASES = [
+    dict(name="diagonal", sq=1024, sk=1024, causal=True),
+    dict(name="earlier", sq=2048, sk=1024, causal=False),
+    dict(name="later", sq=1024, sk=2048, causal=False),
+    dict(name="f32_d64_earlier", b=2, sq=64, sk=32, h=4, hk=2, d=64,
+         causal=False, dtype="float32"),
 ]
 
 
@@ -448,6 +490,9 @@ def main():
     from paddle_tpu_torch.ops.cuda import ragged_paged_attention as rpa
     from paddle_tpu_torch.ops.qweight import QWeight
     from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.distributed import fleet
+    ring_mod = importlib.import_module(
+        "paddle_tpu_torch.distributed.ring_attention")
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -481,6 +526,22 @@ def main():
     timer = _Timer(torch)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
+
+    def counts():
+        return {"ragged_paged_attention": rpa.launches,
+                "decode_matmul": dmm.launches}
+
+    def reset_counts():
+        rpa.launches = 0
+        dmm.launches = 0
+
+    def flash_counts():
+        return {"flash_fwd": cfa.launches_fwd,
+                "flash_bwd_dq": cfa.launches_dq,
+                "flash_bwd_dkv": cfa.launches_dkv}
+
+    def reset_flash():
+        cfa.launches_fwd = cfa.launches_dq = cfa.launches_dkv = 0
 
     # -- kernels against their plain versions --------------------------------
     def kernels():
@@ -573,6 +634,12 @@ def main():
             cases.append(c)
             if spec["name"] == "llama_mid":
                 heads["flash"] = c
+            torch.cuda.empty_cache()
+        for spec in RING_CASES:
+            c = ring_case(**spec)
+            cases.append(c)
+            if spec["name"] == "earlier":
+                heads["ring"] = c
             torch.cuda.empty_cache()
         return {"cases": cases}
 
@@ -678,25 +745,117 @@ def main():
                 "bound_ms": {k_: b_[0] for k_, b_ in bound.items()},
                 "bound_by": {k_: b_[1] for k_, b_ in bound.items()}}
 
+    def ring_case(name, sq, sk, causal, b=1, h=16, hk=8, d=128,
+                  dtype="bfloat16"):
+        """The ring blocks against their plain versions on one block: the
+        forward (out, lse) of flash_attention_with_lse, then
+        flash_attention_bwd_block against the out and lse merged by
+        _merge_pair from this block and a second, non-causal one (as a
+        ring step's backward runs). Tolerance 2e-2 bf16, 1e-4 float32
+        (absolute and relative for out and lse, relative max error for
+        the grads); backward reruns bit-identical."""
+        dt = getattr(torch, dtype)
+
+        def rnd(*shape):
+            return torch.randn(shape, generator=gen, device="cuda").to(dt)
+
+        q, dout = rnd(b, sq, h, d), rnd(b, sq, h, d)
+        k, v, k2, v2 = (rnd(b, sk, hk, d) for _ in range(4))
+        sc = d ** -0.5
+        tol = 1e-4 if dtype == "float32" else 2e-2
+        fwd = lambda: pfa.flash_attention_with_lse(  # noqa: E731
+            q, k, v, causal, sc)
+        reset_flash()
+        out, lse = fwd()
+        _require(flash_counts()["flash_fwd"] == 1,
+                 f"ring block {name}: the forward launched {flash_counts()}")
+        r_out, r_lse = pfa.flash_attention_plain(q.float(), k.float(),
+                                                 v.float(), causal, sc)
+        err = {"out": float((out.float() - r_out).abs().max()),
+               "lse": float((lse - r_lse).abs().max())}
+        for got, ref, what in ((out.float(), r_out, "out"),
+                               (lse, r_lse, "lse")):
+            _require(torch.allclose(got, ref, atol=tol, rtol=tol),
+                     f"ring block {name}: {what} differs from the plain "
+                     f"version by {err[what]}")
+        o2, l2 = pfa.flash_attention_with_lse(q, k2, v2, False, sc)
+        m_out, m_lse = ring_mod._merge_pair(out, lse, o2, l2)
+        m_out = m_out.to(dt)
+        bwd_args = (q, k, v, m_out, m_lse, dout, causal, sc)
+        reset_flash()
+        runs = [pfa.flash_attention_bwd_block(*bwd_args) for _ in range(2)]
+        torch.cuda.synchronize()
+        _require(flash_counts() == {"flash_fwd": 0, "flash_bwd_dq": 2,
+                                    "flash_bwd_dkv": 2},
+                 f"ring block {name}: two backwards launched "
+                 f"{flash_counts()}")
+        _require(all(torch.equal(a, b_) for a, b_ in zip(*runs)),
+                 f"ring block {name}: two backward runs differ")
+        refs = pfa.flash_attention_bwd_plain(
+            q.float(), k.float(), v.float(), m_out.float(), m_lse,
+            dout.float(), causal, sc)
+        rel = {}
+        for got, ref, what in zip(runs[0], refs, ("dq", "dk", "dv")):
+            rel[what] = float((got.float() - ref).abs().max()
+                              / ref.abs().max().clamp(min=1e-9))
+            err[what] = float((got.float() - ref).abs().max())
+            _require(rel[what] < tol, f"ring block {name}: {what} "
+                                      f"relative max error {rel[what]}")
+        _require(not any(bool(torch.isnan(t).any())
+                         for t in (out, lse, *runs[0])),
+                 f"ring block {name}: NaN in an output")
+        del r_out, r_lse, refs
+        ms = {"fwd": timer(fwd),
+              "bwd": timer(lambda: pfa.flash_attention_bwd_block(*bwd_args))}
+        with torch.no_grad():
+            plain = {
+                "fwd": timer(lambda: pfa.flash_attention_plain(
+                    q, k, v, causal, sc), iters=3),
+                "bwd": timer(lambda: pfa.flash_attention_bwd_plain(
+                    *bwd_args), iters=3)}
+        lib = {"fwd": None, "bwd": None}
+        if dtype == "bfloat16" and (sq == sk or not causal):
+            # the yardstick only, never on the path: PyTorch's flash
+            # attention with k/v repeated to h heads, its backward given
+            # this block's merged out and lse
+            aten = torch.ops.aten
+            qt, dot_ = q.transpose(1, 2), dout.transpose(1, 2)
+            kt, vt = (t.repeat_interleave(h // hk, dim=2).transpose(1, 2)
+                      for t in (k, v))
+            lib["fwd"] = timer(lambda: aten._scaled_dot_product_flash_attention(
+                qt, kt, vt, 0.0, causal, False, scale=sc))
+            res = aten._scaled_dot_product_flash_attention(
+                qt, kt, vt, 0.0, causal, False, scale=sc)
+            mo = m_out.transpose(1, 2)
+            lib["bwd"] = timer(
+                lambda: aten._scaled_dot_product_flash_attention_backward(
+                    dot_, qt, kt, vt, mo, m_lse, res[2], res[3], sq, sk,
+                    0.0, causal, res[6], res[7], scale=sc))
+            del res, kt, vt
+        # least time: each input read once, each output written once;
+        # products on the visible pairs (s, p.v forward; s, dp, dv, dq,
+        # dk backward)
+        pairs = b * (sq * (sq + 1) // 2 if causal else sq * sk)
+        hp = pairs * h
+        e_q = q.numel() * q.element_size()
+        e_kv = k.numel() * k.element_size()
+        rows = b * h * sq * 4
+        rate = BF16_FLOPS_PER_S if dtype == "bfloat16" else F32_FLOPS_PER_S
+        bound = {"fwd": _bound(2 * e_q + 2 * e_kv + rows, 4 * d * hp, rate),
+                 "bwd": _bound(4 * e_q + 2 * e_kv + rows + 8 * k.numel(),
+                               10 * d * hp, rate)}
+        return {"kernel": "ring_block", "case": name,
+                "shape": dict(b=b, sq=sq, sk=sk, h=h, hk=hk, d=d,
+                              causal=causal, dtype=dtype),
+                "tolerance": tol, "max_abs_err": err, "grad_rel_err": rel,
+                "bwd_bit_identical": True, "ms": ms, "plain_ms": plain,
+                "library_ms": lib,
+                "bound_ms": {k_: b_[0] for k_, b_ in bound.items()},
+                "bound_by": {k_: b_[1] for k_, b_ in bound.items()}}
+
     heads = {}
     _phase("kernels", kernels)
     torch.cuda.empty_cache()
-
-    def counts():
-        return {"ragged_paged_attention": rpa.launches,
-                "decode_matmul": dmm.launches}
-
-    def reset_counts():
-        rpa.launches = 0
-        dmm.launches = 0
-
-    def flash_counts():
-        return {"flash_fwd": cfa.launches_fwd,
-                "flash_bwd_dq": cfa.launches_dq,
-                "flash_bwd_dkv": cfa.launches_dkv}
-
-    def reset_flash():
-        cfa.launches_fwd = cfa.launches_dq = cfa.launches_dkv = 0
 
     def cpu_and_card(cfg):
         """A seeded int4 decoder on the CPU and the same weights on the
@@ -1219,6 +1378,61 @@ def main():
 
     _phase("tiny-train-parity", tiny_train_parity)
 
+    def sep_fleet(sep, device):
+        """A sep-`sep` fleet mesh with every rank on `device`."""
+        strategy = fleet.DistributedStrategy()
+        strategy.hybrid_configs = {"sep_degree": sep}
+        return fleet.init(is_collective=True, strategy=strategy,
+                          devices=[device] * sep)
+
+    # -- tiny context-parallel training: card against the CPU ---------------
+    def tiny_ring_parity():
+        b, s, steps, sep = 2, 256, 3, 4
+        cfg = llama_tiny(hidden_size=256, sep_degree=sep)   # head_dim 64
+        ids = np.random.RandomState(9).randint(0, cfg.vocab_size, (b, s))
+        cpu = LlamaForCausalLM(cfg, seed=3, device="cpu")
+        state = {n: p.detach().numpy().copy()
+                 for n, p in cpu.named_parameters()}
+        runs, launched = {}, {}
+        for name, c, device in (("cpu", cfg, "cpu"),
+                                ("cuda", cfg, "cuda:0"),
+                                ("cuda_sep1", llama_tiny(hidden_size=256),
+                                 "cuda:0")):
+            fleet._hcg = None
+            if c.sep_degree > 1:
+                sep_fleet(sep, device)
+            m = cpu if device == "cpu" else \
+                LlamaForCausalLM(c, seed=0, device="cuda")
+            m.load_numpy_state(state)
+            step = TrainStep(m, m.loss, AdamW(learning_rate=1e-3,
+                                              parameters=m.parameters()))
+            x = torch.as_tensor(ids, dtype=torch.int32, device=device)
+            reset_flash()
+            runs[name] = [float(step(x, x)) for _ in range(steps)]
+            launched[name] = flash_counts()
+        fleet._hcg = None
+        per_step = cfg.num_hidden_layers * sep * (sep + 2)
+        _require(launched["cpu"] == {k_: 0 for k_ in launched["cpu"]},
+                 f"the CPU run launched kernels: {launched['cpu']}")
+        _require(launched["cuda"] == {k_: per_step * steps
+                                      for k_ in launched["cuda"]},
+                 f"tiny-ring-parity launched {launched['cuda']}, expected "
+                 f"{per_step} of each flash kernel per step")
+        _require(launched["cuda_sep1"] == {
+            k_: cfg.num_hidden_layers * steps for k_ in launched["cuda"]},
+            f"the sep-1 run launched {launched['cuda_sep1']}")
+
+        def rel(a, b_):
+            return max(abs(x - y) / abs(x) for x, y in zip(a, b_))
+
+        diff = {"cuda_vs_cpu": rel(runs["cpu"], runs["cuda"]),
+                "sep4_vs_sep1": rel(runs["cuda_sep1"], runs["cuda"])}
+        _require(max(diff.values()) < 1e-4,
+                 f"tiny-ring-parity losses differ: {runs}")
+        return {"losses": runs, "max_rel_diff": diff, "launches": launched}
+
+    _phase("tiny-ring-parity", tiny_ring_parity)
+
     # -- the training path: llama_mid at full width ---------------------------
     train_launches = {}
 
@@ -1284,6 +1498,127 @@ def main():
                 "nvidia_smi": smi, "step_profile": prof}
 
     _phase("train-mid", train_mid)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- the long-context path: llama_mid at s 8192, zigzag ring over sep 4 --
+    long_launches = {}
+
+    def train_mid8k():
+        b, s, sep, warm, iters = 1, 8192, 4, 2, 5
+        cfgs = {n: llama_mid(dtype="bfloat16", chunked_ce_tokens=1024,
+                             max_position_embeddings=8192, sep_degree=n)
+                for n in (sep, 1)}
+        L, H = cfgs[1].num_hidden_layers, cfgs[1].num_attention_heads
+        ids = torch.as_tensor(np.random.RandomState(0).randint(
+            0, cfgs[1].vocab_size, size=(b, s)).astype(np.int32),
+            device="cuda")
+        sep_fleet(sep, "cuda:0")
+        steps = {}
+
+        def build(n):
+            model = LlamaForCausalLM(cfgs[n], seed=0, device="cuda")
+            opt = AdamW(learning_rate=1e-4, parameters=model.parameters(),
+                        weight_decay=0.01)
+            steps[n] = (model, TrainStep(model, model.loss, opt))
+
+        t0 = time.perf_counter()
+        build(sep)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        step4 = steps[sep][1]
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        reset_flash()
+        losses = [step4(ids, ids) for _ in range(warm)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses += [step4(ids, ids) for _ in range(iters)]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        long_launches.update(flash_counts())
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        n_steps = warm + iters
+        per_step = L * sep * (sep + 2)
+        _require(long_launches == {k_: per_step * n_steps
+                                   for k_ in long_launches},
+                 f"{n_steps} steps launched {long_launches}, expected "
+                 f"{per_step} of each flash kernel per step")
+        _require(all(v == 0 for v in counts().values()),
+                 f"training launched serving kernels: {counts()}")
+        losses = [float(x) for x in losses]
+        _require(all(np.isfinite(losses)), f"non-finite loss: {losses}")
+        _require(losses[-1] < losses[0],
+                 f"the loss did not fall: {losses[0]} -> {losses[-1]}")
+        # sep 1 on the same ids (the same weights from the same seed): its
+        # first step against sep 4's, then the two alternated (each run 2
+        # steps, launches checked per run)
+        build(1)
+        reset_flash()
+        first1 = float(steps[1][1](ids, ids))
+        _require(flash_counts() == {k_: L for k_ in long_launches},
+                 f"a sep-1 step launched {flash_counts()}")
+        first_rel = abs(first1 - losses[0]) / abs(losses[0])
+        _require(first_rel < 1e-2, f"first-step losses differ: sep 1 "
+                                   f"{first1}, sep 4 {losses[0]}")
+        alt = {1: [], sep: []}
+        for _ in range(3):
+            for n in (1, sep):
+                reset_flash()
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                for _ in range(2):
+                    steps[n][1](ids, ids)
+                torch.cuda.synchronize()
+                alt[n].append((time.perf_counter() - t1) * 1e3 / 2)
+                per = L if n == 1 else per_step
+                _require(flash_counts() == {k_: 2 * per
+                                            for k_ in long_launches},
+                         f"an alternated sep-{n} run launched "
+                         f"{flash_counts()}")
+        n_params = steps[1][0].num_params()
+        fpt = 6 * n_params + 12 * L * H * (
+            cfgs[1].hidden_size // H) * s
+        step_ms = wall * 1e3 / iters
+
+        def spread(xs):
+            xs = sorted(xs)
+            return {"median": xs[len(xs) // 2], "min": xs[0], "max": xs[-1]}
+
+        def profile(n):
+            wall_ms = spread(alt[n])["median"]
+            prof = _device_breakdown(
+                torch, lambda: [steps[n][1](ids, ids) for _ in range(2)],
+                wall_ms * 2)
+            for k_ in ("device_ms", "device_kernels", "wall_ms"):
+                prof[k_] /= 2
+            for k_ in ("device_ms_by_family", "top_other"):
+                prof[k_] = {a: v / 2 for a, v in prof[k_].items()}
+            return prof
+
+        profs = {f"sep{n}": profile(n) for n in (sep, 1)}
+        del steps
+        fleet._hcg = None
+        return {"model": "llama_mid bf16 compute, 11 layers, chunked CE "
+                         "1024, b1 x s8192, AdamW(1e-4, wd 0.01), sep 4 "
+                         "zigzag ring on cuda:0 x 4",
+                "num_params": n_params, "init_s": init_s,
+                "launches": dict(long_launches), "steps": n_steps,
+                "losses": losses, "step_ms": step_ms,
+                "tokens_per_s": b * s / (step_ms / 1e3),
+                "mfu": b * s / (step_ms / 1e3) * fpt / BF16_FLOPS_PER_S,
+                "flops_per_token": fpt, "peak_mem_gb": peak_gb,
+                "first_step_loss": {"sep1": first1, "sep4": losses[0],
+                                    "rel_diff": first_rel},
+                "alternated_step_ms": {f"sep{n}": spread(v)
+                                       for n, v in alt.items()},
+                "alternated_mfu": {
+                    f"sep{n}": b * s / (spread(v)["median"] / 1e3) * fpt
+                    / BF16_FLOPS_PER_S for n, v in alt.items()},
+                "alternated_runs_ms": {f"sep{n}": v for n, v in alt.items()},
+                "nvidia_smi": smi, "step_profile": profs}
+
+    _phase("train-mid8k", train_mid8k)
 
     tpu = "paddle_tpu/ops/pallas/"
     for key, name, launches, src, rep in (
@@ -1322,6 +1657,21 @@ def main():
             "plain_ms": f["plain_ms"][key], "bound_ms": f["bound_ms"][key],
             "bound_by": f["bound_by"][key],
             "library_ms": f["library_ms"][key]})
+    r = heads["ring"]
+    for key, name, rep, launches in (
+            ("fwd", "flash_attention_with_lse", tpu + "flash_attention.py:526",
+             long_launches["flash_fwd"]),
+            ("bwd", "flash_attention_bwd_block",
+             tpu + "flash_attention.py:543", long_launches["flash_bwd_dq"])):
+        kernel_rows.append({
+            "name": name, "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/flash_attention_tc.cu",
+            "replaces": rep, "launches": launches,
+            "max_abs_err": max(v for k_, v in r["max_abs_err"].items()
+                               if (k_ in ("out", "lse")) == (key == "fwd")),
+            "ms": r["ms"][key], "plain_ms": r["plain_ms"][key],
+            "bound_ms": r["bound_ms"][key], "bound_by": r["bound_by"][key],
+            "library_ms": r["library_ms"][key]})
     _emit({"kernels": kernel_rows})
     print(smi, flush=True)
     _emit({"ok": True, "device": device})

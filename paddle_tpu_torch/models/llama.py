@@ -2,22 +2,28 @@
 model.
 
 Counterpart: ``paddle_tpu/models/llama.py`` (``LlamaConfig`` :34-72,
-``LlamaMLP``, ``LlamaAttention`` without a cache :194-222,
-``LlamaDecoderLayer``, ``LlamaModel``, ``LlamaForCausalLM`` with
-``forward``/``loss``/``num_params``, and the ``llama_*`` configs
-:465-500). The port keeps its own copy so that it never imports the JAX
-package; fields, defaults and parameter names are the same, so JAX
-weights carry over one to one (``load_numpy_state``).
+``_sep_mesh`` :80-97, ``LlamaMLP``, ``LlamaAttention`` without a cache
+:194-222, ``LlamaDecoderLayer``, ``LlamaModel``, ``LlamaForCausalLM``
+with ``forward``/``loss``/``_chunked_loss``/``num_params``, and the
+``llama_*`` configs :465-500). The port keeps its own copy so that it
+never imports the JAX package; fields, defaults and parameter names are
+the same, so JAX weights carry over one to one (``load_numpy_state``).
 
 Dtypes follow the JAX code, not its docs: every ``Linear`` and
 ``Embedding`` weight is float32; only the RMSNorm gains take
 ``cfg.dtype``; activations turn ``cfg.dtype`` after the embedding and
 ``F.linear`` casts each weight to the activation's dtype in the product.
 
-This slice ports single-device training without recompute: a config
-that asks for recompute, tensor or sequence parallelism, ring attention
-(``sep_degree``), chunked cross entropy or tied embeddings raises
-``NotImplementedError``.
+Training without recompute is ported, with two options of JAX's:
+- ``sep_degree > 1`` (context parallelism): with a fleet mesh whose sep
+  axis has that size (``distributed.fleet.init``), attention runs zigzag
+  ring attention over it, RoPE applied on global positions first;
+  without a fleet mesh, plain attention, as in JAX.
+- ``chunked_ce_tokens > 0``: ``forward`` returns the hidden states and
+  ``loss`` runs the head product and cross entropy in chunks of that
+  many tokens.
+A config that asks for recompute, tensor or sequence parallelism or
+tied embeddings raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -28,6 +34,8 @@ from torch import nn
 
 from .. import nn as pnn
 from ..device import resolve_device
+from ..distributed.fleet import get_hybrid_communicate_group
+from ..distributed.ring_attention import ring_attention
 from ..nn import functional as F
 from ..numpy_bridge import tensor_from_numpy
 from ..ops.rope import build_rope_cache, rope_reference
@@ -62,15 +70,32 @@ def _check_ported(cfg: LlamaConfig):
         ("tie_word_embeddings", cfg.tie_word_embeddings),
         ("use_recompute", cfg.use_recompute),
         ("tensor_parallel", cfg.tensor_parallel),
-        ("sequence_parallel", cfg.sequence_parallel),
-        ("sep_degree > 1", cfg.sep_degree > 1),
-        ("chunked_ce_tokens", cfg.chunked_ce_tokens)) if on]
+        ("sequence_parallel", cfg.sequence_parallel)) if on]
     if asked:
         raise NotImplementedError(
             f"LlamaConfig asks for {', '.join(asked)}: not ported yet "
-            f"(ROADMAP queue 1, item 9: recompute, chunked cross entropy, "
-            f"ring attention, tied embeddings; tensor parallelism is "
-            f"item 5)")
+            f"(ROADMAP queue 1, item 9: recompute, tied embeddings; "
+            f"tensor parallelism is item 5)")
+
+
+def _sep_mesh(sep_degree: int):
+    """The fleet mesh when context parallelism is asked for and a fleet
+    mesh exists (None without one: single-device runs keep plain
+    attention); raises when its sep axis is not of that size."""
+    if sep_degree <= 1:
+        return None
+    hcg = get_hybrid_communicate_group()
+    if hcg is None:
+        return None
+    mesh = hcg.mesh
+    if "sep" not in mesh.dim_names or \
+            mesh.get_dim_size("sep") != sep_degree:
+        raise ValueError(
+            f"sep_degree={sep_degree} needs a fleet mesh with a 'sep' "
+            f"axis of that size; got {mesh.dim_names} "
+            f"{[mesh.get_dim_size(a) for a in mesh.dim_names]}: set "
+            "hybrid_configs sep_degree")
+    return mesh
 
 
 class LlamaMLP(nn.Module):
@@ -93,6 +118,7 @@ class LlamaAttention(nn.Module):
         self.num_kv_heads = cfg.num_key_value_heads
         self.head_dim = cfg.hidden_size // cfg.num_attention_heads
         self.rope_theta = cfg.rope_theta
+        self.sep_degree = cfg.sep_degree
         h, kv_out = cfg.hidden_size, self.num_kv_heads * self.head_dim
         lin = dict(bias_attr=False, generator=gen, device=dev)
         self.q_proj = pnn.Linear(h, h, **lin)
@@ -109,7 +135,11 @@ class LlamaAttention(nn.Module):
                                     torch.float32, device=x.device)
         q = rope_reference(q, cos.to(q.dtype), sin.to(q.dtype))
         k = rope_reference(k, cos.to(k.dtype), sin.to(k.dtype))
-        out = F.scaled_dot_product_attention(q, k, v, is_causal=True)
+        sep_mesh = _sep_mesh(self.sep_degree)
+        if sep_mesh is not None:
+            out = ring_attention(q, k, v, sep_mesh, axis="sep", causal=True)
+        else:
+            out = F.scaled_dot_product_attention(q, k, v, is_causal=True)
         return self.o_proj(out.reshape(b, s, self.num_heads * self.head_dim))
 
 
@@ -166,13 +196,25 @@ class LlamaForCausalLM(nn.Module):
                                   bias_attr=False, generator=gen, device=dev)
 
     def forward(self, input_ids):
-        return self.lm_head(self.model(input_ids))
+        h = self.model(input_ids)
+        if self.cfg.chunked_ce_tokens:
+            return h                    # loss() owns the head product
+        return self.lm_head(h)
 
     def loss(self, logits, labels):
-        """Shifted causal-LM cross entropy (float32)."""
+        """Shifted causal-LM cross entropy (float32). With
+        ``chunked_ce_tokens`` > 0, ``logits`` are the hidden states that
+        ``forward`` returned and the head product runs chunk by chunk."""
+        if self.cfg.chunked_ce_tokens:
+            return self._chunked_loss(logits, labels)
         v = logits.shape[-1]
         return F.cross_entropy(logits[:, :-1, :].reshape(-1, v),
                                labels[:, 1:].reshape(-1))
+
+    def _chunked_loss(self, hidden, labels):
+        return F.chunked_causal_lm_loss(
+            hidden, labels, self.lm_head.weight,
+            self.model.embed_tokens.weight, int(self.cfg.chunked_ce_tokens))
 
     def num_params(self) -> int:
         return sum(p.numel() for p in self.parameters())

@@ -18,6 +18,11 @@ the keys (row r sees column c iff r + sk - sq >= c).
   mask or dropout goes to ``_sdpa_core`` on either device, as in JAX.
   JAX's ``min_seq`` and block-divisibility tests are TPU tiling limits:
   the CUDA kernels mask ragged edges, so there are none here.
+- ``flash_attention_with_lse`` / ``flash_attention_bwd_block``: the ring
+  attention blocks (``paddle_tpu/ops/pallas/flash_attention.py:526-560``),
+  the same three kernels with the lse exposed and the backward run
+  against a given (merged) lse. A CUDA tensor goes to the kernels, a CPU
+  tensor to ``flash_attention_plain`` / ``flash_attention_bwd_plain``.
 """
 from __future__ import annotations
 
@@ -29,7 +34,9 @@ from .cuda import flash_attention as _cuda
 
 __all__ = ["flash_attention", "flash_attention_reference",
            "flash_attention_plain", "flash_attention_segmented",
-           "segments_from_cu_seqlens", "flash_attn_varlen"]
+           "segments_from_cu_seqlens", "flash_attn_varlen",
+           "flash_attention_with_lse", "flash_attention_bwd_block",
+           "flash_attention_bwd_plain"]
 
 _NEG_INF = -1e30
 
@@ -107,6 +114,36 @@ def flash_attention_plain(q, k, v, causal, scale, q_seg=None, kv_seg=None):
     return o.reshape(b, sq, h, d).to(q.dtype), lse
 
 
+def flash_attention_bwd_plain(q, k, v, out, lse, dout, causal, scale):
+    """The backward kernels' plain version given the forward's out and a
+    lse that may come from elsewhere (the ring's merged one), by the
+    explicit formula of JAX's ``_jnp_blk_bwd`` (ring_attention.py:107):
+    p = exp(s - lse), delta = sum(out * dout), ds = p (dp - delta) scale.
+    Causal is end-aligned, as in the kernels. Returns (dq like q, dk and
+    dv float32 [b, sk, hk, d], summed over each kv-head's group)."""
+    b, sq, h, d = q.shape
+    sk, hk = k.shape[1], k.shape[2]
+    g = h // hk
+    qf = q.float().reshape(b, sq, hk, g, d)
+    kf, vf = k.float(), v.float()
+    s = torch.einsum("bqkgd,bskd->bkgqs", qf, kf) * scale
+    if causal:
+        s = torch.where(_causal_mask(sq, sk, q.device)[None, None, None], s,
+                        torch.full((), _NEG_INF, device=q.device))
+    lse5 = lse.float().reshape(b, hk, g, sq, 1)
+    p = torch.where(s > _NEG_INF * 0.5, torch.exp(s - lse5),
+                    torch.zeros((), device=q.device))
+    do = dout.float().reshape(b, sq, hk, g, d)
+    delta = (out.float() * dout.float()).sum(-1).reshape(b, sq, hk, g) \
+        .permute(0, 2, 3, 1)                               # [b,hk,g,sq]
+    dv = torch.einsum("bkgqs,bqkgd->bskd", p, do)
+    dp = torch.einsum("bqkgd,bskd->bkgqs", do, vf)
+    ds = p * (dp - delta[..., None]) * scale
+    dq = torch.einsum("bkgqs,bskd->bqkgd", ds, kf).reshape(b, sq, h, d)
+    dk = torch.einsum("bkgqs,bqkgd->bskd", ds, qf)
+    return dq.to(q.dtype), dk, dv
+
+
 def _kernel_route(q, what):
     """True when q goes to the CUDA kernels, False for the plain version
     (a CPU tensor); raises for a CUDA tensor the kernels do not take."""
@@ -139,6 +176,36 @@ def flash_attention(q, k, v, attn_mask=None, causal=False, dropout=0.0,
         return _cuda.FlashAttention.apply(q, k, v, None, None, causal,
                                           scale)
     return flash_attention_plain(q, k, v, causal, scale)[0]
+
+
+def flash_attention_with_lse(q, k, v, causal=False, scale=None):
+    """The ring's forward block: (out like q, lse float32 [b, h, sq]) on
+    [b, s, h, d] tensors. Not differentiable; ring attention runs its
+    own backward over the ring with ``flash_attention_bwd_block``. A
+    CUDA tensor goes to the forward kernel (views are copied to the
+    contiguous operands it takes), a CPU tensor to
+    ``flash_attention_plain``."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    if _kernel_route(q, "flash_attention_with_lse"):
+        return _cuda.flash_fwd_cuda(q.contiguous(), k.contiguous(),
+                                    v.contiguous(), causal, scale)
+    return flash_attention_plain(q, k, v, causal, scale)
+
+
+def flash_attention_bwd_block(q, k, v, out, lse, dout, causal=False,
+                              scale=None):
+    """The ring's backward block for one (q-shard, kv-shard) pair given
+    the MERGED out and lse: (dq like q, dk and dv float32
+    [b, sk, hk, d]). A CUDA tensor goes to the dq and dk/dv kernels, a
+    CPU tensor to ``flash_attention_bwd_plain``."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    if _kernel_route(q, "flash_attention_bwd_block"):
+        return _cuda.flash_bwd_cuda(
+            q.contiguous(), k.contiguous(), v.contiguous(), out,
+            lse.contiguous(), dout.contiguous(), causal, scale)
+    return flash_attention_bwd_plain(q, k, v, out, lse, dout, causal, scale)
 
 
 def _sdpa_segmented_core(q, k, v, q_seg, kv_seg, causal, scale):

@@ -117,7 +117,6 @@ def test_weights_carry_is_checked():
 
 @pytest.mark.parametrize("field", [
     dict(use_recompute=True), dict(tensor_parallel=True),
-    dict(sep_degree=2), dict(chunked_ce_tokens=1024),
     dict(tie_word_embeddings=True)])
 def test_unported_training_configs_raise(field):
     with pytest.raises(NotImplementedError, match="ROADMAP"):

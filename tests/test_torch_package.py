@@ -58,7 +58,8 @@ def test_imports_load_no_jax_and_build_nothing():
     for name in ("ops.cuda.flash_attention", "ops.flash_attention",
                  "ops.cuda.paged_attention_decode",
                  "nn.functional.attention", "optimizer.optimizer", "jit",
-                 "models.llama"):
+                 "models.llama", "distributed.ring_attention",
+                 "distributed.fleet.topology", "distributed.mesh"):
         assert f"paddle_tpu_torch.{name}" in out["modules"]
     after = sorted(build.iterdir()) if build.exists() else []
     assert after == before
