@@ -7,7 +7,10 @@ Phases, in order; each prints one JSON line with its seconds, and any
 failure ends the run with a non-zero exit code and no result:
 
 1. env           torch / CUDA versions and the card's name and power limit.
-2. build         compiles ``paddle_tpu_torch/csrc/*.cu`` for sm_90a.
+2. build         compiles ``paddle_tpu_torch/csrc/*.cu`` for sm_90a; the
+                 SASS of the six Hopper flash kernels (forward, dq,
+                 dk/dv at head_dim 64 and 128) must hold HGMMA (wgmma)
+                 and UTMALDG (TMA load) instructions.
 3. kernels       each kernel against its plain PyTorch version on the card
                  at the shapes its main path gives it (Llama-3-8B serving:
                  ragged and dense decode, the latter at b 8 and b 4 and at
@@ -22,7 +25,9 @@ failure ends the run with a non-zero exit code and no result:
                  with its time, the plain version's time, the time of one
                  PyTorch library call that computes the same function where
                  there is one, and the least time the card could take
-                 (bound_ms). Flash backward runs must be bit-identical.
+                 (bound_ms); for the flash cases also the achieved TFLOP/s,
+                 the share of the bound and the ratio to SDPA's time in the
+                 same run. Flash backward runs must be bit-identical.
 4. tiny-parity   llama_tiny (float32, int4 weights) served on the card and,
                  with the same weights, on the CPU through the plain
                  versions: the greedy tokens must be equal, and one
@@ -108,6 +113,7 @@ import gc
 import importlib
 import json
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -120,7 +126,7 @@ SHAPES_8B = {"wqkv": (4096, 6144), "wo": (4096, 4096),
              "head": (4096, 128256)}
 # flash attention cases (all causal, bf16 unless named): the llama_mid
 # training shape first; `docs` packed documents plus a padded tail. bf16
-# at d 64/128 runs the tensor-core kernels, float32 and d 256 the
+# at d 64/128 runs the Hopper (wgmma, TMA) kernels, float32 and d 256 the
 # CUDA-core ones. The dense_* cases are the 8B dense prefill's own
 # calls: a mid chunk (b 1 x 256), grouped finals (4 rows of a 128 or 256
 # bucket; generate()'s b 4 x 256) and a lone final of the 512 bucket. Its
@@ -245,9 +251,9 @@ def _device_breakdown(torch, fn, wall_ms):
             fam = "ragged_paged_attention"
         elif "paged_decode_kernel" in name:
             fam = "paged_attention_decode"
-        elif re.search(r"flash_fwd_kernel|flash_tc::.*fwd_kernel", name):
+        elif re.search(r"flash_fwd_kernel|flash_wg::.*fwd_kernel", name):
             fam = "flash_fwd"
-        elif re.search(r"flash_bwd_|flash_tc::.*d(q|kv)_kernel", name):
+        elif re.search(r"flash_bwd_|flash_wg::.*d(q|kv)_kernel", name):
             fam = "flash_bwd"
         elif any(s in name.lower()
                  for s in ("gemm", "gemv", "nvjet", "cutlass")):
@@ -270,15 +276,44 @@ def _flash_ptxas(report):
     for ln in report.splitlines():
         m = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv)_kernel)"
                       r"I(13__nv_bfloat16|f)Li(\d+)E", ln)
-        tc = re.search(r"flash_tc.*?(fwd|dq|dkv)_kernelILi(\d+)E", ln)
+        wg = re.search(r"flash_wg.*?(fwd|dq|dkv)_kernelILi(\d+)E", ln)
         if m:
             dt = "f32" if m.group(2) == "f" else "bf16"
             name = f"{m.group(1)}<{dt},{m.group(3)}>"
-        elif tc:
-            name = f"flash_tc::{tc.group(1)}_kernel<bf16,{tc.group(2)}>"
+        elif wg:
+            name = f"flash_wg::{wg.group(1)}_kernel<bf16,{wg.group(2)}>"
         elif name and ("registers" in ln or "spill" in ln):
             out.setdefault(name, []).append(ln.strip())
     return out
+
+
+def _flash_sass(lib_path):
+    """Count HGMMA (wgmma) and UTMALDG (TMA load) instructions in each
+    Hopper flash kernel of the built library (cuobjdump --dump-sass);
+    fails unless all six (fwd, dq, dk/dv at head_dim 64 and 128) have
+    both."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    res = subprocess.run([tool, "--dump-sass", str(lib_path)],
+                         capture_output=True, text=True, timeout=300)
+    _require(res.returncode == 0, f"cuobjdump failed: {res.stderr[-2000:]}")
+    found, name = {}, None
+    for ln in res.stdout.splitlines():
+        fn = re.search(r"Function : (\S+)", ln)
+        if fn:
+            wg = re.search(r"flash_wg.*?(fwd|dq|dkv)_kernelILi(\d+)E",
+                           fn.group(1))
+            name = (f"flash_wg::{wg.group(1)}_kernel<bf16,{wg.group(2)}>"
+                    if wg else None)
+            if name:
+                found[name] = {"HGMMA": 0, "UTMALDG": 0}
+        elif name:
+            for op in ("HGMMA", "UTMALDG"):
+                if re.search(rf"\b{op}\b", ln):
+                    found[name][op] += 1
+    _require(len(found) == 6 and all(min(c.values()) > 0
+                                     for c in found.values()),
+             f"flash_wg kernels without HGMMA or UTMALDG in SASS: {found}")
+    return found
 
 
 def _flash_inputs(torch, gen, b, sq, sk, h, hk, d, docs=0,
@@ -511,16 +546,17 @@ def main():
         ptxas = {src: [ln.strip() for ln in out.splitlines()
                        if "registers" in ln or "spill" in ln][:8]
                  for src, out in _build.build_info.get("ptxas", {}).items()}
-        for src in ("flash_attention.cu", "flash_attention_tc.cu"):
+        for src in ("flash_attention.cu", "flash_attention_wg.cu"):
             ptxas[src] = _flash_ptxas(
                 _build.build_info.get("ptxas", {}).get(src, ""))
         smem = {f"{kern}<{dn},{d}>": cfa.smem_bytes(kern, d, dt)
                 for kern in ("fwd", "dq", "dkv") for d in cfa.HEAD_DIMS
                 for dn, dt in (("f32", torch.float32),
                                ("bf16", torch.bfloat16))}
+        sass = _flash_sass(_build.BUILD_DIR / _build.build_info["library"])
         return {"build_s": round(_build.build_info["seconds"], 3),
                 "library": _build.build_info["library"], "ptxas": ptxas,
-                "flash_dynamic_smem_bytes": smem}
+                "flash_dynamic_smem_bytes": smem, "flash_wg_sass": sass}
 
     _phase("build", build)
     timer = _Timer(torch)
@@ -733,9 +769,20 @@ def main():
                          rate),
             "dkv": _bound(2 * e_q + 2 * e_kv + 2 * rows + 8 * k.numel()
                           + segb, 8 * d * hp, rate)}
+        # achieved rate, share of the bound, and the time against the
+        # same run's SDPA (forward; dq + dk/dv against its backward)
+        flops = {"fwd": 4 * d * hp, "dq": 6 * d * hp, "dkv": 8 * d * hp}
+        tflops = {k_: flops[k_] / (ms[k_] * 1e-3) / 1e12 for k_ in ms}
+        share = {k_: bound[k_][0] / ms[k_] for k_ in ms}
+        sdpa_ratio = None
+        if lib["fwd"] is not None:
+            sdpa_ratio = {"fwd": ms["fwd"] / lib["fwd"],
+                          "bwd": (ms["dq"] + ms["dkv"]) / lib["dq"]}
         return {"kernel": "flash_attention", "case": name,
                 "shape": dict(b=b, sq=sq, sk=sk, h=h, hk=hk, d=d,
                               docs=docs, causal=True, dtype=dtype),
+                "tflops": tflops, "bound_share": share,
+                "sdpa_ratio": sdpa_ratio,
                 "visible_pairs_per_head": pairs, "masked_rows": masked,
                 "max_abs_err": err, "grad_rel_err": rel,
                 "bwd_bit_identical": True, "ms": ms,
@@ -844,9 +891,15 @@ def main():
         bound = {"fwd": _bound(2 * e_q + 2 * e_kv + rows, 4 * d * hp, rate),
                  "bwd": _bound(4 * e_q + 2 * e_kv + rows + 8 * k.numel(),
                                10 * d * hp, rate)}
+        flops = {"fwd": 4 * d * hp, "bwd": 14 * d * hp}  # dq + dk/dv
         return {"kernel": "ring_block", "case": name,
                 "shape": dict(b=b, sq=sq, sk=sk, h=h, hk=hk, d=d,
                               causal=causal, dtype=dtype),
+                "tflops": {k_: flops[k_] / (ms[k_] * 1e-3) / 1e12
+                           for k_ in ms},
+                "bound_share": {k_: bound[k_][0] / ms[k_] for k_ in ms},
+                "sdpa_ratio": {k_: ms[k_] / lib[k_] for k_ in ms
+                               if lib[k_] is not None},
                 "tolerance": tol, "max_abs_err": err, "grad_rel_err": rel,
                 "bwd_bit_identical": True, "ms": ms, "plain_ms": plain,
                 "library_ms": lib,
@@ -1651,7 +1704,7 @@ def main():
             ("dkv", "flash_bwd_dkv", tpu + "flash_attention.py:229")):
         kernel_rows.append({
             "name": name, "route": "cuda",
-            "source": "paddle_tpu_torch/csrc/flash_attention_tc.cu",
+            "source": "paddle_tpu_torch/csrc/flash_attention_wg.cu",
             "replaces": rep, "launches": train_launches[name],
             "max_abs_err": f["max_abs_err"][key], "ms": f["ms"][key],
             "plain_ms": f["plain_ms"][key], "bound_ms": f["bound_ms"][key],
@@ -1665,7 +1718,7 @@ def main():
              tpu + "flash_attention.py:543", long_launches["flash_bwd_dq"])):
         kernel_rows.append({
             "name": name, "route": "cuda",
-            "source": "paddle_tpu_torch/csrc/flash_attention_tc.cu",
+            "source": "paddle_tpu_torch/csrc/flash_attention_wg.cu",
             "replaces": rep, "launches": launches,
             "max_abs_err": max(v for k_, v in r["max_abs_err"].items()
                                if (k_ in ("out", "lse")) == (key == "fwd")),

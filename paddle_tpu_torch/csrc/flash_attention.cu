@@ -33,7 +33,7 @@
 // Design (the simple, right form; the fast form is later work). These
 // kernels take float32 inputs, and bfloat16 at head_dim 256; bfloat16 at
 // head_dim 64 and 128 (the training path) runs on the tensor cores in
-// flash_attention_tc.cu with the same semantics.
+// flash_attention_wg.cu (wgmma, TMA) with the same semantics.
 // - CUDA-core float32 FMAs (67 TFLOP/s peak, not the 989 of the tensor
 //   cores): the float32 path must agree with the CPU to 1e-4, which
 //   bfloat16 or TF32 products would not.
@@ -541,33 +541,46 @@ bool shape_ok(int b, int sq, int sk, int h, int hk) {
 }  // namespace
 }  // namespace ptt
 
-// Dispatch on dtype (0 float32, 1 bfloat16) and head_dim (64, 128, 256):
-// bfloat16 at 64 and 128 runs on the tensor cores (flash_attention_tc.cu),
-// the rest on the CUDA-core kernels above.
+// Dispatch on dtype (0 float32, 1 bfloat16) and head_dim (64, 128, 256)
+// for the CUDA-core kernels above; bfloat16 at 64 and 128 never comes
+// here: the entry points send it to the Hopper kernels
+// (flash_attention_wg.cu), which walk the work list `sched`.
 #define PTT_FLASH_DISPATCH(FN, ...)                                       \
   switch (dtype * 1000 + d) {                                             \
     case 64: return FN<float, 64>(__VA_ARGS__);                           \
     case 128: return FN<float, 128>(__VA_ARGS__);                         \
     case 256: return FN<float, 256>(__VA_ARGS__);                         \
-    case 1064:                                                            \
-    case 1128: return flash_tc::FN(d, __VA_ARGS__);                       \
     case 1256: return FN<__nv_bfloat16, 256>(__VA_ARGS__);                \
     default: return kUnsupported;                                         \
   }
 
+namespace ptt {
+namespace {
+bool hopper_route(int dtype, int d) {
+  return dtype == kBF16 && (d == 64 || d == 128);
+}
+}  // namespace
+}  // namespace ptt
+
 // q [b, sq, h, d], k/v [b, sk, hk, d] of dtype, contiguous; segment ids
 // [b, sq] / [b, sk] int32 or both null. Writes out [b, sq, h, d] (dtype)
-// and lse [b, h, sq] float32. Returns 0, a cudaError_t, or -1 for an
-// unsupported shape or type.
+// and lse [b, h, sq] float32. bfloat16 at head_dim 64 / 128 also takes
+// the work list sched (n_rows rows of 8 int32, built for tiles of bm own
+// and bn streamed rows); the other routes ignore it. Returns 0, a
+// cudaError_t, or -1 for an unsupported shape, type or work list.
 extern "C" int ptt_flash_fwd(const void* q, const void* k, const void* v,
                              const int* q_seg, const int* kv_seg, void* out,
-                             float* lse, int b, int sq, int sk, int h,
-                             int hk, int d, int dtype, int causal,
+                             float* lse, const int* sched, int b, int sq,
+                             int sk, int h, int hk, int d, int dtype,
+                             int causal, int n_rows, int bm, int bn,
                              float scale, void* stream) {
   using namespace ptt;
   if (!shape_ok(b, sq, sk, h, hk) || (q_seg == nullptr) != (kv_seg == nullptr))
     return kUnsupported;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (hopper_route(dtype, d))
+    return flash_wg::fwd(d, q, k, v, q_seg, kv_seg, out, lse, sched, n_rows,
+                         bm, bn, b, sq, sk, h, hk, scale, causal, st);
   PTT_FLASH_DISPATCH(fwd, q, k, v, q_seg, kv_seg, out, lse, b, sq, sk, h,
                      hk, scale, causal, st)
 }
@@ -577,13 +590,19 @@ extern "C" int ptt_flash_fwd(const void* q, const void* k, const void* v,
 extern "C" int ptt_flash_bwd_dq(const void* q, const void* k, const void* v,
                                 const void* dout, const float* lse,
                                 const float* delta, const int* q_seg,
-                                const int* kv_seg, void* dq, int b, int sq,
-                                int sk, int h, int hk, int d, int dtype,
-                                int causal, float scale, void* stream) {
+                                const int* kv_seg, void* dq,
+                                const int* sched, int b, int sq, int sk,
+                                int h, int hk, int d, int dtype, int causal,
+                                int n_rows, int bm, int bn, float scale,
+                                void* stream) {
   using namespace ptt;
   if (!shape_ok(b, sq, sk, h, hk) || (q_seg == nullptr) != (kv_seg == nullptr))
     return kUnsupported;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (hopper_route(dtype, d))
+    return flash_wg::bwd_dq(d, q, k, v, dout, lse, delta, q_seg, kv_seg, dq,
+                            sched, n_rows, bm, bn, b, sq, sk, h, hk, scale,
+                            causal, st);
   PTT_FLASH_DISPATCH(bwd_dq, q, k, v, dout, lse, delta, q_seg, kv_seg, dq, b,
                      sq, sk, h, hk, scale, causal, st)
 }
@@ -594,13 +613,18 @@ extern "C" int ptt_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                  const void* dout, const float* lse,
                                  const float* delta, const int* q_seg,
                                  const int* kv_seg, float* dk, float* dv,
-                                 int b, int sq, int sk, int h, int hk, int d,
-                                 int dtype, int causal, float scale,
+                                 const int* sched, int b, int sq, int sk,
+                                 int h, int hk, int d, int dtype, int causal,
+                                 int n_rows, int bm, int bn, float scale,
                                  void* stream) {
   using namespace ptt;
   if (!shape_ok(b, sq, sk, h, hk) || (q_seg == nullptr) != (kv_seg == nullptr))
     return kUnsupported;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (hopper_route(dtype, d))
+    return flash_wg::bwd_dkv(d, q, k, v, dout, lse, delta, q_seg, kv_seg, dk,
+                             dv, sched, n_rows, bm, bn, b, sq, sk, h, hk,
+                             scale, causal, st);
   PTT_FLASH_DISPATCH(bwd_dkv, q, k, v, dout, lse, delta, q_seg, kv_seg, dk,
                      dv, b, sq, sk, h, hk, scale, causal, st)
 }
@@ -611,8 +635,7 @@ extern "C" int ptt_flash_bwd_dkv(const void* q, const void* k, const void* v,
 // 1 (dq) or 2 (dk/dv) for dtype at head_dim d; -1 for a pair not taken.
 extern "C" int ptt_flash_smem_bytes(int kernel, int d, int dtype) {
   using namespace ptt;
-  if (dtype == kBF16 && (d == 64 || d == 128))
-    return flash_tc::smem_bytes(kernel, d);
+  if (hopper_route(dtype, d)) return flash_wg::smem_bytes(kernel, d);
   if (dtype != kF32 && !(dtype == kBF16 && d == 256)) return kUnsupported;
   const int f = static_cast<int>(sizeof(float));
 #define PTT_FLASH_SMEM(D)                                      \

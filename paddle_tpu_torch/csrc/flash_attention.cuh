@@ -1,6 +1,7 @@
 // Shared by the two flash-attention sources: the masking rules, and the
-// tensor-core kernels' launchers (flash_attention_tc.cu) that the C entry
-// points (flash_attention.cu) call for bfloat16 at head_dim 64 and 128.
+// launchers of the Hopper kernels (flash_attention_wg.cu: wgmma, TMA) that
+// the C entry points (flash_attention.cu) call for bfloat16 at head_dim 64
+// and 128.
 #pragma once
 
 #include "common.cuh"
@@ -27,24 +28,29 @@ __device__ __forceinline__ bool visible(int r, int c, int sq, int sk,
          (!seg || qs == ks);
 }
 
-namespace flash_tc {
+namespace flash_wg {
 
 // Each returns 0, a cudaError_t, or kUnsupported for a head_dim other
-// than 64 or 128. Layouts as the C entry points of flash_attention.cu.
+// than 64 or 128 or a work list built for other tiles (bm own rows, bn
+// streamed rows). Layouts as the C entry points of flash_attention.cu;
+// sched is the work list of n_rows rows of 8 int32 that flash_schedule
+// (ops/cuda/flash_attention.py) builds.
 int fwd(int d, const void* q, const void* k, const void* v, const int* qseg,
-        const int* kseg, void* out, float* lse, int b, int sq, int sk, int h,
-        int hk, float scale, int causal, cudaStream_t st);
+        const int* kseg, void* out, float* lse, const int* sched, int n_rows,
+        int bm, int bn, int b, int sq, int sk, int h, int hk, float scale,
+        int causal, cudaStream_t st);
 int bwd_dq(int d, const void* q, const void* k, const void* v,
            const void* dout, const float* lse, const float* delta,
-           const int* qseg, const int* kseg, void* dq, int b, int sq, int sk,
-           int h, int hk, float scale, int causal, cudaStream_t st);
+           const int* qseg, const int* kseg, void* dq, const int* sched,
+           int n_rows, int bm, int bn, int b, int sq, int sk, int h, int hk,
+           float scale, int causal, cudaStream_t st);
 int bwd_dkv(int d, const void* q, const void* k, const void* v,
             const void* dout, const float* lse, const float* delta,
-            const int* qseg, const int* kseg, float* dk, float* dv, int b,
-            int sq, int sk, int h, int hk, float scale, int causal,
-            cudaStream_t st);
+            const int* qseg, const int* kseg, float* dk, float* dv,
+            const int* sched, int n_rows, int bm, int bn, int b, int sq,
+            int sk, int h, int hk, float scale, int causal, cudaStream_t st);
 // dynamic shared memory in bytes of kernel 0 (fwd), 1 (dq), 2 (dk/dv)
 int smem_bytes(int kernel, int d);
 
-}  // namespace flash_tc
+}  // namespace flash_wg
 }  // namespace ptt

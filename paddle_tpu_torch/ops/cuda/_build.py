@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import json
 import os
 import shutil
 import subprocess
@@ -34,7 +35,8 @@ CFLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 _lock = threading.Lock()
 _lib = None
 # filled by load_library: seconds spent compiling (0.0 when the library
-# was already built) and the ptxas resource report per source
+# was already built) and the ptxas resource report per source (kept
+# beside the library, so a process that only loads it has it too)
 build_info: dict = {}
 
 
@@ -99,11 +101,11 @@ def _declare(lib):
     lib.ptt_paged_attention_decode.restype = i
     lib.ptt_decode_matmul.argtypes = [p] * 5 + [i] * 6 + [p]
     lib.ptt_decode_matmul.restype = i
-    lib.ptt_flash_fwd.argtypes = [p] * 7 + [i] * 8 + [f, p]
+    lib.ptt_flash_fwd.argtypes = [p] * 8 + [i] * 11 + [f, p]
     lib.ptt_flash_fwd.restype = i
-    lib.ptt_flash_bwd_dq.argtypes = [p] * 9 + [i] * 8 + [f, p]
+    lib.ptt_flash_bwd_dq.argtypes = [p] * 10 + [i] * 11 + [f, p]
     lib.ptt_flash_bwd_dq.restype = i
-    lib.ptt_flash_bwd_dkv.argtypes = [p] * 10 + [i] * 8 + [f, p]
+    lib.ptt_flash_bwd_dkv.argtypes = [p] * 11 + [i] * 11 + [f, p]
     lib.ptt_flash_bwd_dkv.restype = i
     lib.ptt_flash_smem_bytes.argtypes = [i, i, i]
     lib.ptt_flash_smem_bytes.restype = i
@@ -122,9 +124,10 @@ def load_library():
             "libpaddle_tpu_torch_"
             + _digest(sorted(SRC_DIR.glob("*.cuh")) + sources) + ".so")
         t0 = time.perf_counter()
-        report = {}
+        notes = target.with_suffix(".ptxas.json")
         if not target.exists():
-            report = _compile(sources, target)
+            notes.write_text(json.dumps(_compile(sources, target)))
+        report = json.loads(notes.read_text()) if notes.exists() else {}
         build_info["seconds"] = time.perf_counter() - t0
         build_info["ptxas"] = report
         build_info["library"] = target.name

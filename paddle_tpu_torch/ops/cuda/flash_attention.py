@@ -9,9 +9,17 @@ and ``_fas_fwd``/``_fas_bwd`` do.
 The plain PyTorch version is
 ``paddle_tpu_torch.ops.flash_attention.flash_attention_plain``; the
 dispatchers there send CUDA tensors here.
+
+bfloat16 at head_dim 64 and 128 runs the Hopper kernels of
+``csrc/flash_attention_wg.cu``, which walk a work list built here by
+``flash_schedule``: the tile arithmetic lives in this one place, where
+the CPU tests check it exhaustively.
 """
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
 from ._build import check, load_library
@@ -19,7 +27,7 @@ from ._build import check, load_library
 __all__ = ["flash_fwd_cuda", "flash_bwd_cuda", "flash_bwd_delta",
            "flash_bwd_dq_cuda", "flash_bwd_dkv_cuda", "FlashAttention",
            "smem_bytes", "HEAD_DIMS", "launches_fwd", "launches_dq",
-           "launches_dkv"]
+           "launches_dkv", "TILES", "flash_schedule"]
 
 # kernel launches since import; callers reset them to 0 to count a run
 launches_fwd = 0
@@ -28,6 +36,83 @@ launches_dkv = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64, 128, 256)
+
+# (own rows, streamed rows) of a CTA's tile in each Hopper kernel: the
+# forward and dq own query rows and stream key tiles, dk/dv owns key rows
+# and streams query tiles. flash_attention_wg.cu refuses a list built for
+# other tiles.
+TILES = {"fwd": (128, 128), "dq": (128, 64), "dkv": (128, 64)}
+
+
+@functools.lru_cache(maxsize=256)
+def flash_schedule(kind: str, b: int, sq: int, sk: int, h: int, hk: int,
+                   causal: bool, segmented: bool) -> np.ndarray:
+    """The work list of a Hopper flash kernel: int32 [n, 8], one row
+    (batch, head, tile, lo, hi, free_lo, free_hi, 0) per own tile of
+    TILES[kind][0] rows of one head (query heads for "fwd" and "dq",
+    kv-heads for "dkv", which visits the head's query group itself).
+    The row visits the streamed tiles [lo, hi), the only ones holding a
+    pair its rows can see (row r sees column c iff r + (sk - sq) >= c
+    under causal); of those, [free_lo, free_hi) hold only visible pairs
+    and skip the per-element mask (none when segmented: segment ids are
+    data). Rows are ordered longest first (a stable sort, so the order
+    is fixed); the kernel's CTA c takes rows c, c + grid, ..., every
+    other round walked backwards, so the long rows spread evenly. The tile
+    ranges follow JAX's skipping in _fwd_kernel (:86-87),
+    _bwd_dq_kernel (:196-197) and _bwd_dkv_kernel (:252-253). Cached:
+    the same arguments give the same array, which must not be
+    written."""
+    bm, bn = TILES[kind]
+    off = sk - sq
+    if kind == "dkv":
+        own, stream, heads = sk, sq, hk
+    else:
+        own, stream, heads = sq, sk, h
+    n_stream = -(-stream // bn)
+    full = stream // bn  # streamed tiles without a ragged edge
+    tiles = []
+    for t in range(-(-own // bm)):
+        first, last = t * bm, min(t * bm + bm, own) - 1  # its real rows
+        lo, hi, flo, fhi = 0, n_stream, 0, full
+        if causal and kind != "dkv":
+            # query rows [first, last] see keys up to last + off; key tile
+            # kt holds only visible pairs if kt * bn + bn - 1 <= first + off
+            hi = (0 if last + off < 0
+                  else min(n_stream, (last + off) // bn + 1))
+            fhi = min(full, max(0, (first + off + 1) // bn))
+        elif causal:
+            # key rows [first, last] are seen by queries from first - off;
+            # query tile qt sees all of them if qt * bn >= last - off
+            seen = max(first - off, 0)
+            lo = seen // bn if seen < sq else n_stream
+            flo = max(0, -(-(last - off) // bn))
+        flo, fhi = max(flo, lo), min(fhi, hi)
+        if segmented or fhi <= flo:
+            flo = fhi = lo
+        tiles.append((t, lo, hi, flo, fhi))
+    rows = [(bi, hd, t, lo, hi, flo, fhi, 0) for bi in range(b)
+            for hd in range(heads) for t, lo, hi, flo, fhi in tiles]
+    rows.sort(key=lambda r: r[3] - r[4])
+    out = np.asarray(rows, dtype=np.int32).reshape(-1, 8)
+    out.flags.writeable = False
+    return out
+
+
+@functools.lru_cache(maxsize=256)
+def _schedule_on(device, kind, b, sq, sk, h, hk, causal, segmented):
+    """flash_schedule's work list as a tensor on device (cached)."""
+    host = flash_schedule(kind, b, sq, sk, h, hk, causal, segmented)
+    return torch.from_numpy(host.copy()).to(device)
+
+
+def _schedule(kind, q, b, sq, sk, h, hk, causal, segmented):
+    """(work list on q's device, its rows) for the Hopper kernels, or
+    (None, 0) for the CUDA-core route (float32, head_dim 256)."""
+    if q.dtype != torch.bfloat16 or q.shape[-1] not in (64, 128):
+        return None, 0
+    t = _schedule_on(q.device, kind, b, sq, sk, h, hk, bool(causal),
+                     bool(segmented))
+    return t, t.shape[0]
 
 
 def _require(cond: bool, msg: str):
@@ -81,13 +166,16 @@ def flash_fwd_cuda(q, k, v, causal: bool, scale: float, q_seg=None,
     b, sq, sk, h, hk, d = _check(q, k, v, q_seg, kv_seg)
     out = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    sched, n = _schedule("fwd", q, b, sq, sk, h, hk, causal,
+                         q_seg is not None)
     lib = load_library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         code = lib.ptt_flash_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(q_seg),
-            _ptr(kv_seg), out.data_ptr(), lse.data_ptr(), b, sq, sk, h, hk,
-            d, _DTYPES[q.dtype], int(causal), float(scale), stream)
+            _ptr(kv_seg), out.data_ptr(), lse.data_ptr(), _ptr(sched), b,
+            sq, sk, h, hk, d, _DTYPES[q.dtype], int(causal), n,
+            *TILES["fwd"], float(scale), stream)
     check(lib, code, "flash_fwd")
     launches_fwd += 1
     return out, lse
@@ -117,13 +205,15 @@ def flash_bwd_dq_cuda(q, k, v, dout, lse, delta, causal: bool,
     b, sq, sk, h, hk, d = _check_bwd(q, k, v, dout, lse, delta, q_seg,
                                      kv_seg)
     dq = torch.empty_like(q)
+    sched, n = _schedule("dq", q, b, sq, sk, h, hk, causal,
+                         q_seg is not None)
     lib = load_library()
     with torch.cuda.device(q.device):
         code = lib.ptt_flash_bwd_dq(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), _ptr(q_seg), _ptr(kv_seg),
-            dq.data_ptr(), b, sq, sk, h, hk, d, _DTYPES[q.dtype],
-            int(causal), float(scale),
+            dq.data_ptr(), _ptr(sched), b, sq, sk, h, hk, d,
+            _DTYPES[q.dtype], int(causal), n, *TILES["dq"], float(scale),
             torch.cuda.current_stream(q.device).cuda_stream)
     check(lib, code, "flash_bwd_dq")
     launches_dq += 1
@@ -139,13 +229,15 @@ def flash_bwd_dkv_cuda(q, k, v, dout, lse, delta, causal: bool,
                                      kv_seg)
     dk = torch.empty((b, sk, hk, d), dtype=torch.float32, device=q.device)
     dv = torch.empty_like(dk)
+    sched, n = _schedule("dkv", q, b, sq, sk, h, hk, causal,
+                         q_seg is not None)
     lib = load_library()
     with torch.cuda.device(q.device):
         code = lib.ptt_flash_bwd_dkv(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), _ptr(q_seg), _ptr(kv_seg),
-            dk.data_ptr(), dv.data_ptr(), b, sq, sk, h, hk, d,
-            _DTYPES[q.dtype], int(causal), float(scale),
+            dk.data_ptr(), dv.data_ptr(), _ptr(sched), b, sq, sk, h, hk, d,
+            _DTYPES[q.dtype], int(causal), n, *TILES["dkv"], float(scale),
             torch.cuda.current_stream(q.device).cuda_stream)
     check(lib, code, "flash_bwd_dkv")
     launches_dkv += 1

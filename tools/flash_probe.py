@@ -1,12 +1,15 @@
 #!/usr/bin/env python3
 """Quick check of the port's flash-attention kernels on one CUDA card.
 
-Run from the root of the repository:  python3 tools/flash_probe.py
+Run from the root of the repository:  python3 tools/flash_probe.py [DIR]
 
 Builds the kernels (printing ptxas's registers and spills of each flash
-kernel), runs the forward, dq and dk/dv kernels on a few small cases
-(bf16 and float32, GQA, causal with sq != sk, packed segments, head_dim
-64/128/256) against ``flash_attention_plain`` in float32 with autograd,
+kernel, and writing the whole ptxas report of flash_attention_wg.cu and
+the library's SASS into DIR when one is given), refuses to go on unless
+each Hopper kernel has 168 registers a thread (its setmaxnreg split
+would wait forever), runs the forward, dq and dk/dv kernels on a few
+small cases (bf16 and float32, GQA, causal with sq != sk, packed
+segments, head_dim 64/128/256) against ``flash_attention_plain`` in float32 with autograd,
 printing one JSON line per case (max abs error of out and lse, relative
 max error of dq/dk/dv, whether two backward runs are bit-identical), then
 times each kernel and the library's scaled_dot_product_attention forward
@@ -15,6 +18,9 @@ It is the short first call after a kernel change; chip_smoke.py holds
 the full checks.
 """
 import json
+import re
+import shutil
+import subprocess
 import sys
 from pathlib import Path
 
@@ -33,10 +39,39 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     _build.load_library()
     print("build_s", _build.build_info["seconds"])
-    for src in ("flash_attention.cu", "flash_attention_tc.cu"):
+    regs = {}
+    for src in ("flash_attention.cu", "flash_attention_wg.cu"):
         report = _build.build_info["ptxas"].get(src, "")
         for name, lines in chip_smoke._flash_ptxas(report).items():
-            print(name, lines)
+            print(name, lines, flush=True)
+            used = [int(m.group(1)) for ln in lines
+                    for m in [re.search(r"Used (\d+) registers", ln)] if m]
+            if name.startswith("flash_wg") and used:
+                regs[name] = used[0]
+                if any(int(m.group(1)) for ln in lines
+                       for m in [re.search(r"(\d+) bytes spill stores", ln)]
+                       if m):
+                    print("flash_probe: spills in", name, flush=True)
+    if len(sys.argv) > 1:
+        # the whole ptxas report and the library's SASS, for reading off
+        # the card
+        out_dir = Path(sys.argv[1])
+        out_dir.mkdir(parents=True, exist_ok=True)
+        (out_dir / "ptxas_wg.txt").write_text(
+            _build.build_info["ptxas"].get("flash_attention_wg.cu", ""))
+        tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+        sass = subprocess.run(
+            [tool, "--dump-sass",
+             str(_build.BUILD_DIR / _build.build_info["library"])],
+            capture_output=True, text=True)
+        (out_dir / "sass.txt").write_text(sass.stdout)
+    # the Hopper kernels move registers between warpgroups with
+    # setmaxnreg, which waits forever unless the launch holds 168 a thread
+    bad = {k: r for k, r in regs.items() if r != 168}
+    if bad or len(regs) != 6:
+        print("flash_probe: unexpected register counts", regs,
+              file=sys.stderr)
+        return 1
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
 
@@ -91,7 +126,7 @@ def main():
     v = torch.randn(b, s, hk, d, device="cuda", dtype=bf16)
     sc = d ** -0.5
 
-    def timed(fn, n=5):
+    def timed(fn, n=20):
         fn()
         torch.cuda.synchronize()
         e0 = torch.cuda.Event(enable_timing=True)
