@@ -14,6 +14,9 @@ enum DType { kF32 = 0, kBF16 = 1 };
 // error code for a shape or type the kernel does not take; the Python
 // wrappers check first, so this only guards the C interface itself
 constexpr int kUnsupported = -1;
+// error code for a kernel whose build holds fewer registers a thread than
+// its setmaxnreg split hands out: launched, it would wait forever
+constexpr int kShortRegisters = -2;
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) {

@@ -538,6 +538,53 @@ bool shape_ok(int b, int sq, int sk, int h, int hk) {
   return b > 0 && sq > 0 && sk > 0 && hk > 0 && h % hk == 0 && h <= 65535;
 }
 
+// The backward's first pass: delta[b, h, s] = sum_d out * dout over the
+// row (b, s, h) of [b, s, h, d] tensors, float32, one warp a row, as
+// JAX computes it outside Pallas (flash_attention.py:398). One pass over
+// out and dout in place of the plain version's casts, product, sum and
+// transpose.
+template <typename T>
+__global__ void __launch_bounds__(256)
+bwd_delta_kernel(const T* __restrict__ out, const T* __restrict__ dout,
+                 float* __restrict__ delta, int rows, int sq, int h, int d) {
+  const int row = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (row >= rows) return;
+  const T* o = out + (long long)row * d;
+  const T* g = dout + (long long)row * d;
+  float acc = 0.f;
+  for (int i = 8 * lane; i < d; i += 256) {
+    float a[8], c[8];
+    load8(o + i, a);
+    load8(g + i, c);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc = fmaf(a[j], c[j], acc);
+  }
+  acc = warp_sum(acc);
+  if (lane == 0) {
+    const int hh = row % h, s = (row / h) % sq, bb = row / (h * sq);
+    delta[((long long)bb * h + hh) * sq + s] = acc;
+  }
+}
+
+int bwd_delta(int dtype, const void* out, const void* dout, float* delta,
+              int b, int sq, int h, int d, cudaStream_t st) {
+  if (d % 8 != 0) return kUnsupported;
+  const int rows = b * sq * h;
+  const unsigned grid = (unsigned)(((long long)rows * 32 + 255) / 256);
+  if (dtype == kF32)
+    bwd_delta_kernel<float><<<grid, 256, 0, st>>>(
+        static_cast<const float*>(out), static_cast<const float*>(dout), delta,
+        rows, sq, h, d);
+  else if (dtype == kBF16)
+    bwd_delta_kernel<__nv_bfloat16><<<grid, 256, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(out),
+        static_cast<const __nv_bfloat16*>(dout), delta, rows, sq, h, d);
+  else
+    return kUnsupported;
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 }  // namespace ptt
 
@@ -586,11 +633,12 @@ extern "C" int ptt_flash_fwd(const void* q, const void* k, const void* v,
 }
 
 // The dq backward: dout like q, lse and delta [b, h, sq] float32; writes
-// dq [b, sq, h, d] of dtype.
+// dq [b, sq, h, d] of dtype. With out (the forward's output, like q) the
+// launch first writes delta = sum(out * dout, -1) itself.
 extern "C" int ptt_flash_bwd_dq(const void* q, const void* k, const void* v,
                                 const void* dout, const float* lse,
-                                const float* delta, const int* q_seg,
-                                const int* kv_seg, void* dq,
+                                float* delta, const void* out,
+                                const int* q_seg, const int* kv_seg, void* dq,
                                 const int* sched, int b, int sq, int sk,
                                 int h, int hk, int d, int dtype, int causal,
                                 int n_rows, int bm, int bn, float scale,
@@ -599,6 +647,8 @@ extern "C" int ptt_flash_bwd_dq(const void* q, const void* k, const void* v,
   if (!shape_ok(b, sq, sk, h, hk) || (q_seg == nullptr) != (kv_seg == nullptr))
     return kUnsupported;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (out != nullptr)
+    if (int e = bwd_delta(dtype, out, dout, delta, b, sq, h, d, st)) return e;
   if (hopper_route(dtype, d))
     return flash_wg::bwd_dq(d, q, k, v, dout, lse, delta, q_seg, kv_seg, dq,
                             sched, n_rows, bm, bn, b, sq, sk, h, hk, scale,
@@ -608,28 +658,40 @@ extern "C" int ptt_flash_bwd_dq(const void* q, const void* k, const void* v,
 }
 
 // The dk/dv backward: writes dk, dv [b, sk, hk, d] float32, each summed
-// over the kv-head's group of query heads.
+// over the kv-head's group of query heads. On the Hopper route a work
+// list whose rows are pieces of key tiles also takes the workspace ws
+// [2, n_slots, b, sk, hk, d] float32 and pieces [key tiles] int32 (see
+// flash_wg::bwd_dkv); ws is null otherwise.
 extern "C" int ptt_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                  const void* dout, const float* lse,
                                  const float* delta, const int* q_seg,
                                  const int* kv_seg, float* dk, float* dv,
+                                 float* ws, const int* pieces,
                                  const int* sched, int b, int sq, int sk,
                                  int h, int hk, int d, int dtype, int causal,
-                                 int n_rows, int bm, int bn, float scale,
-                                 void* stream) {
+                                 int n_rows, int bm, int bn, int n_slots,
+                                 float scale, void* stream) {
   using namespace ptt;
   if (!shape_ok(b, sq, sk, h, hk) || (q_seg == nullptr) != (kv_seg == nullptr))
     return kUnsupported;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (hopper_route(dtype, d))
     return flash_wg::bwd_dkv(d, q, k, v, dout, lse, delta, q_seg, kv_seg, dk,
-                             dv, sched, n_rows, bm, bn, b, sq, sk, h, hk,
-                             scale, causal, st);
+                             dv, ws, pieces, n_slots, sched, n_rows, bm, bn,
+                             b, sq, sk, h, hk, scale, causal, st);
+  if (ws != nullptr) return kUnsupported;
   PTT_FLASH_DISPATCH(bwd_dkv, q, k, v, dout, lse, delta, q_seg, kv_seg, dk,
                      dv, b, sq, sk, h, hk, scale, causal, st)
 }
 
 #undef PTT_FLASH_DISPATCH
+
+// Registers a thread of the Hopper kernel 0 (forward), 1 (dq) or 2
+// (dk/dv) at head_dim 64 or 128, as built; -1 for another pair or a
+// failed query. Their setmaxnreg split needs 168.
+extern "C" int ptt_flash_regs(int kernel, int d) {
+  return ptt::flash_wg::regs(kernel, d);
+}
 
 // Dynamic shared memory in bytes of one block of kernel 0 (forward),
 // 1 (dq) or 2 (dk/dv) for dtype at head_dim d; -1 for a pair not taken.

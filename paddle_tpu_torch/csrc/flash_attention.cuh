@@ -44,13 +44,21 @@ int bwd_dq(int d, const void* q, const void* k, const void* v,
            const int* qseg, const int* kseg, void* dq, const int* sched,
            int n_rows, int bm, int bn, int b, int sq, int sk, int h, int hk,
            float scale, int causal, cudaStream_t st);
+// dk/dv: ws null for a list without pieces; otherwise float32
+// [2, n_slots, b, sk, hk, d] (dk's slots, then dv's) that the pieces write
+// and a second pass sums into dk, dv in slot order, key tile t taking
+// pieces[t] slots (int32 on the device, one per tile of bm key rows).
 int bwd_dkv(int d, const void* q, const void* k, const void* v,
             const void* dout, const float* lse, const float* delta,
             const int* qseg, const int* kseg, float* dk, float* dv,
-            const int* sched, int n_rows, int bm, int bn, int b, int sq,
-            int sk, int h, int hk, float scale, int causal, cudaStream_t st);
+            float* ws, const int* pieces, int n_slots, const int* sched,
+            int n_rows, int bm, int bn, int b, int sq, int sk, int h, int hk,
+            float scale, int causal, cudaStream_t st);
 // dynamic shared memory in bytes of kernel 0 (fwd), 1 (dq), 2 (dk/dv)
 int smem_bytes(int kernel, int d);
+// registers a thread of kernel 0 (fwd), 1 (dq), 2 (dk/dv) at head_dim d
+// as built (cudaFuncGetAttributes), or kUnsupported
+int regs(int kernel, int d);
 
 }  // namespace flash_wg
 }  // namespace ptt

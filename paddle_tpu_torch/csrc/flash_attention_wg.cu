@@ -53,8 +53,17 @@
 //   ex2.approx.ftz: the library exp2f's denormal handling cost a third
 //   of the forward.
 // - dk/dv sum the GQA group inside the CTA in a fixed order and there
-//   are no atomics: two runs are bit-identical.
+//   are no atomics: two runs are bit-identical. A dk/dv list with fewer
+//   rows than SMs (the ring's 1024-row blocks) comes cut into pieces of
+//   each row's query tiles; a piece writes its float32 partial dK/dV to
+//   its own workspace slot and dkv_piece_sum adds the slots in piece
+//   order.
+// - setmaxnreg 24/240 over 384 threads waits forever unless the launch
+//   holds 168 registers a thread: launch() reads each kernel's numRegs
+//   once and refuses (kShortRegisters) a build with fewer, so the call
+//   raises instead of hanging.
 
+#include <atomic>
 #include <type_traits>
 
 #include "flash_attention.cuh"
@@ -117,15 +126,24 @@ constexpr int kConsumerRegs = 240;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
-// one row of the work list: 8 int32 (see flash_schedule)
+// registers a thread the setmaxnreg split hands out: 24 to the producer
+// warpgroup and 240 to each consumer must fit what the launch holds
+constexpr int kLaunchRegs =
+    (kProducerRegs * kWG + kConsumerRegs * 2 * kWG) / kThreads;
+static_assert(kLaunchRegs * kThreads ==
+                  kProducerRegs * kWG + kConsumerRegs * 2 * kWG,
+              "setmaxnreg split does not divide evenly");
+
+// one row of the work list: 8 int32 (see flash_schedule); piece is the
+// row's slot in the dk/dv workspace of a split list (0 otherwise)
 struct Work {
-  int b, head, tile, lo, hi, free_lo, free_hi;
+  int b, head, tile, lo, hi, free_lo, free_hi, piece;
 };
 
 __device__ __forceinline__ Work load_work(const int* sched, int i) {
   const int4 a = __ldg(reinterpret_cast<const int4*>(sched) + 2 * i);
   const int4 c = __ldg(reinterpret_cast<const int4*>(sched) + 2 * i + 1);
-  return {a.x, a.y, a.z, a.w, c.x, c.y, c.z};
+  return {a.x, a.y, a.z, a.w, c.x, c.y, c.z, c.w};
 }
 
 // the k-th row of the work list this CTA takes: rows c, c + grid, ... in
@@ -733,8 +751,8 @@ dkv_kernel(const __grid_constant__ CUtensorMap tq,
            const int* __restrict__ sched, int n_rows,
            const float* __restrict__ lse, const float* __restrict__ delta,
            const int* __restrict__ qseg, const int* __restrict__ kseg,
-           float* __restrict__ dk, float* __restrict__ dv, int sq, int sk,
-           int h, int hk, float scale, int causal) {
+           float* __restrict__ dk, float* __restrict__ dv, long long slot,
+           int sq, int sk, int h, int hk, float scale, int causal) {
   using C = Dkv<D>;
   using L = typename C::L;
   constexpr int BM = C::BM, BN = C::BN, S = C::S;
@@ -910,6 +928,10 @@ dkv_kernel(const __grid_constant__ CUtensorMap tq,
       ++no;
     }
 
+    // a piece of a split list writes its partial sums to its own slot
+    // (slot floats apart); dkv_piece_sum adds the slots afterwards
+    float* const dk_out = dk + w.piece * slot;
+    float* const dv_out = dv + w.piece * slot;
 #pragma unroll
     for (int rr = 0; rr < 2; ++rr) {
       const int c = k0 + ln.rw + 8 * rr;
@@ -918,20 +940,66 @@ dkv_kernel(const __grid_constant__ CUtensorMap tq,
           (((long long)w.b * sk + c) * hk + w.head) * D + 2 * ln.t;
 #pragma unroll
       for (int j = 0; j < D / 8; ++j) {
-        *reinterpret_cast<float2*>(dk + o + 8 * j) =
+        *reinterpret_cast<float2*>(dk_out + o + 8 * j) =
             make_float2(dka[4 * j + 2 * rr], dka[4 * j + 2 * rr + 1]);
-        *reinterpret_cast<float2*>(dv + o + 8 * j) =
+        *reinterpret_cast<float2*>(dv_out + o + 8 * j) =
             make_float2(dva[4 * j + 2 * rr], dva[4 * j + 2 * rr + 1]);
       }
     }
   }
 }
 
-// launch kernel on a persistent grid of min(n_rows, SMs) CTAs
+// second pass of a split dk/dv list: dk[i] (and dv[i]) is the sum, in
+// slot order, of the pieces[tile of i's key row] slots of the workspace
+// ws_k (ws_v), each slot floats long; float4 at a time
+__global__ void __launch_bounds__(256)
+dkv_piece_sum(const float* __restrict__ ws_k, const float* __restrict__ ws_v,
+              const int* __restrict__ pieces, float* __restrict__ dk,
+              float* __restrict__ dv, long long slot, int row_floats,
+              int sk, int bm) {
+  const long long i = 4 * ((long long)blockIdx.x * blockDim.x + threadIdx.x);
+  if (i >= slot) return;
+  const int n = pieces[(int)((i / row_floats) % sk) / bm];
+  float4 a = make_float4(0.f, 0.f, 0.f, 0.f), c = a;
+  for (int p = 0; p < n; ++p) {
+    const float4 x = *reinterpret_cast<const float4*>(ws_k + p * slot + i);
+    const float4 y = *reinterpret_cast<const float4*>(ws_v + p * slot + i);
+    a.x += x.x; a.y += x.y; a.z += x.z; a.w += x.w;
+    c.x += y.x; c.y += y.y; c.z += y.z; c.w += y.w;
+  }
+  *reinterpret_cast<float4*>(dk + i) = a;
+  *reinterpret_cast<float4*>(dv + i) = c;
+}
+
+// numRegs of each instantiation, [fwd, dq, dk/dv][d 64, 128], read with
+// cudaFuncGetAttributes at its first launch (0 until then)
+std::atomic<int> g_regs[3][2];
+
+template <typename Kernel>
+cudaError_t kernel_regs(Kernel kernel, std::atomic<int>& cache, int* regs) {
+  int r = cache.load(std::memory_order_relaxed);
+  if (r == 0) {
+    cudaFuncAttributes attr;
+    const cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+    if (err != cudaSuccess) return err;
+    r = attr.numRegs;
+    cache.store(r, std::memory_order_relaxed);
+  }
+  *regs = r;
+  return cudaSuccess;
+}
+
+// launch kernel on a persistent grid of min(n_rows, SMs) CTAs, or refuse
+// (kShortRegisters) when its build holds fewer than kLaunchRegs registers
+// a thread: its setmaxnreg would then wait forever
 template <typename Kernel, typename... Args>
-int launch(Kernel kernel, int bytes, int n_rows, cudaStream_t stream,
-           Args... args) {
+int launch(Kernel kernel, std::atomic<int>& regs_cache, int bytes,
+           int n_rows, cudaStream_t stream, Args... args) {
   if (n_rows <= 0) return 0;
+  int regs = 0;
+  if (cudaError_t e = kernel_regs(kernel, regs_cache, &regs))
+    return static_cast<int>(e);
+  if (regs < kLaunchRegs) return kShortRegisters;
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
@@ -958,7 +1026,8 @@ int fwd_d(const void* q, const void* k, const void* v, const int* qseg,
   PTT_WG_MAP(tq, q, sq, h, C::BM)
   PTT_WG_MAP(tk, k, sk, hk, C::BN)
   PTT_WG_MAP(tv, v, sk, hk, C::BN)
-  return launch(fwd_kernel<D>, C::L::kBytes, n_rows, st, tq, tk, tv, sched,
+  return launch(fwd_kernel<D>, g_regs[0][D / 128], C::L::kBytes, n_rows, st,
+                tq, tk, tv, sched,
                 n_rows, qseg, kseg, static_cast<bf16*>(out), lse, sq, sk, h,
                 hk, scale, causal);
 }
@@ -974,25 +1043,40 @@ int dq_d(const void* q, const void* k, const void* v, const void* dout,
   PTT_WG_MAP(tdo, dout, sq, h, C::BM)
   PTT_WG_MAP(tk, k, sk, hk, C::BN)
   PTT_WG_MAP(tv, v, sk, hk, C::BN)
-  return launch(dq_kernel<D>, C::L::kBytes, n_rows, st, tq, tdo, tk, tv,
-                sched, n_rows, lse, delta, qseg, kseg,
+  return launch(dq_kernel<D>, g_regs[1][D / 128], C::L::kBytes, n_rows, st,
+                tq, tdo, tk, tv, sched, n_rows, lse, delta, qseg, kseg,
                 static_cast<bf16*>(dq), sq, sk, h, hk, scale, causal);
 }
 
 template <int D>
 int dkv_d(const void* q, const void* k, const void* v, const void* dout,
           const float* lse, const float* delta, const int* qseg,
-          const int* kseg, float* dk, float* dv, const int* sched,
-          int n_rows, int b, int sq, int sk, int h, int hk, float scale,
-          int causal, cudaStream_t st) {
+          const int* kseg, float* dk, float* dv, float* ws, const int* pieces,
+          int n_slots, const int* sched, int n_rows, int b, int sq, int sk,
+          int h, int hk, float scale, int causal, cudaStream_t st) {
   using C = Dkv<D>;
   PTT_WG_MAP(tq, q, sq, h, C::BN)
   PTT_WG_MAP(tdo, dout, sq, h, C::BN)
   PTT_WG_MAP(tk, k, sk, hk, C::BM)
   PTT_WG_MAP(tv, v, sk, hk, C::BM)
-  return launch(dkv_kernel<D>, C::L::kBytes, n_rows, st, tq, tdo, tk, tv,
-                sched, n_rows, lse, delta, qseg, kseg, dk, dv, sq, sk, h, hk,
-                scale, causal);
+  const long long slot = (long long)b * sk * hk * D;
+  if (ws == nullptr)
+    return launch(dkv_kernel<D>, g_regs[2][D / 128], C::L::kBytes, n_rows,
+                  st, tq, tdo, tk, tv, sched, n_rows, lse, delta, qseg, kseg,
+                  dk, dv, slot, sq, sk, h, hk, scale, causal);
+  // a split list: the pieces write slots of ws (dk's n_slots slots, then
+  // dv's), which dkv_piece_sum adds in slot order into dk and dv
+  if (pieces == nullptr || n_slots < 1) return kUnsupported;
+  float* ws_v = ws + n_slots * slot;
+  const int e = launch(dkv_kernel<D>, g_regs[2][D / 128], C::L::kBytes,
+                       n_rows, st, tq, tdo, tk, tv, sched, n_rows, lse, delta,
+                       qseg, kseg, ws, ws_v, slot, sq, sk, h, hk, scale,
+                       causal);
+  if (e != 0) return e;
+  const long long quads = slot / 4;  // D is a multiple of 4
+  dkv_piece_sum<<<(unsigned)((quads + 255) / 256), 256, 0, st>>>(
+      ws, ws_v, pieces, dk, dv, slot, hk * D, sk, C::BM);
+  return static_cast<int>(cudaGetLastError());
 }
 
 #undef PTT_WG_MAP
@@ -1036,16 +1120,34 @@ int bwd_dq(int d, const void* q, const void* k, const void* v,
 int bwd_dkv(int d, const void* q, const void* k, const void* v,
             const void* dout, const float* lse, const float* delta,
             const int* qseg, const int* kseg, float* dk, float* dv,
-            const int* sched, int n_rows, int bm, int bn, int b, int sq,
-            int sk, int h, int hk, float scale, int causal,
-            cudaStream_t st) {
+            float* ws, const int* pieces, int n_slots, const int* sched,
+            int n_rows, int bm, int bn, int b, int sq, int sk, int h, int hk,
+            float scale, int causal, cudaStream_t st) {
   if (d == 64 && tiles_ok<Dkv<64>>(bm, bn))
-    return dkv_d<64>(q, k, v, dout, lse, delta, qseg, kseg, dk, dv, sched,
-                     n_rows, b, sq, sk, h, hk, scale, causal, st);
+    return dkv_d<64>(q, k, v, dout, lse, delta, qseg, kseg, dk, dv, ws,
+                     pieces, n_slots, sched, n_rows, b, sq, sk, h, hk, scale,
+                     causal, st);
   if (d == 128 && tiles_ok<Dkv<128>>(bm, bn))
-    return dkv_d<128>(q, k, v, dout, lse, delta, qseg, kseg, dk, dv, sched,
-                      n_rows, b, sq, sk, h, hk, scale, causal, st);
+    return dkv_d<128>(q, k, v, dout, lse, delta, qseg, kseg, dk, dv, ws,
+                      pieces, n_slots, sched, n_rows, b, sq, sk, h, hk,
+                      scale, causal, st);
   return kUnsupported;
+}
+
+int regs(int kernel, int d) {
+  if ((d != 64 && d != 128) || kernel < 0 || kernel > 2) return kUnsupported;
+  int r = 0;
+  cudaError_t e = cudaSuccess;
+  std::atomic<int>& cache = g_regs[kernel][d / 128];
+  if (d == 64)
+    e = kernel == 0 ? kernel_regs(fwd_kernel<64>, cache, &r)
+        : kernel == 1 ? kernel_regs(dq_kernel<64>, cache, &r)
+                      : kernel_regs(dkv_kernel<64>, cache, &r);
+  else
+    e = kernel == 0 ? kernel_regs(fwd_kernel<128>, cache, &r)
+        : kernel == 1 ? kernel_regs(dq_kernel<128>, cache, &r)
+                      : kernel_regs(dkv_kernel<128>, cache, &r);
+  return e == cudaSuccess ? r : kUnsupported;
 }
 
 int smem_bytes(int kernel, int d) {

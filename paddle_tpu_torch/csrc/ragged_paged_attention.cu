@@ -256,5 +256,8 @@ extern "C" int ptt_ragged_paged_attention(
 
 extern "C" const char* ptt_error_string(int code) {
   if (code == ptt::kUnsupported) return "unsupported shape or dtype";
+  if (code == ptt::kShortRegisters)
+    return "the kernel holds fewer registers a thread than its setmaxnreg "
+           "split needs; launched, it would never finish";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

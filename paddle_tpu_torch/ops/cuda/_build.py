@@ -23,7 +23,8 @@ import threading
 import time
 from pathlib import Path
 
-__all__ = ["load_library", "build_info", "SRC_DIR", "BUILD_DIR"]
+__all__ = ["load_library", "build_info", "check", "sm_count",
+           "SHORT_REGISTERS", "SRC_DIR", "BUILD_DIR"]
 
 _PKG = Path(__file__).resolve().parents[2]
 SRC_DIR = _PKG / "csrc"
@@ -99,14 +100,16 @@ def _declare(lib):
     lib.ptt_ragged_paged_attention.restype = i
     lib.ptt_paged_attention_decode.argtypes = [p] * 6 + [i] * 8 + [f, p]
     lib.ptt_paged_attention_decode.restype = i
-    lib.ptt_decode_matmul.argtypes = [p] * 5 + [i] * 6 + [p]
+    lib.ptt_decode_matmul.argtypes = [p] * 5 + [i] * 7 + [p]
     lib.ptt_decode_matmul.restype = i
     lib.ptt_flash_fwd.argtypes = [p] * 8 + [i] * 11 + [f, p]
     lib.ptt_flash_fwd.restype = i
-    lib.ptt_flash_bwd_dq.argtypes = [p] * 10 + [i] * 11 + [f, p]
+    lib.ptt_flash_bwd_dq.argtypes = [p] * 11 + [i] * 11 + [f, p]
     lib.ptt_flash_bwd_dq.restype = i
-    lib.ptt_flash_bwd_dkv.argtypes = [p] * 11 + [i] * 11 + [f, p]
+    lib.ptt_flash_bwd_dkv.argtypes = [p] * 13 + [i] * 12 + [f, p]
     lib.ptt_flash_bwd_dkv.restype = i
+    lib.ptt_flash_regs.argtypes = [i, i]
+    lib.ptt_flash_regs.restype = i
     lib.ptt_flash_smem_bytes.argtypes = [i, i, i]
     lib.ptt_flash_smem_bytes.restype = i
     lib.ptt_error_string.argtypes = [i]
@@ -137,8 +140,32 @@ def load_library():
         return lib
 
 
-def check(lib, code: int, what: str):
-    """Raise on a non-zero status from a launch."""
+_sm_count = {}
+
+
+def sm_count(device) -> int:
+    """SMs of a CUDA device (cached): the kernels' host-side plans size
+    their grids by it."""
+    import torch
+    idx = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if idx not in _sm_count:
+        _sm_count[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    return _sm_count[idx]
+
+
+# status of a launch refused because the kernel's build holds fewer
+# registers a thread than its setmaxnreg split needs (csrc/common.cuh)
+SHORT_REGISTERS = -2
+
+
+def check(lib, code: int, what: str, regs=None):
+    """Raise on a non-zero status from a launch. ``regs``, a callable
+    giving the kernel's registers a thread, names them when the launch
+    was refused for too few."""
     if code != 0:
         msg = lib.ptt_error_string(code).decode()
+        if code == SHORT_REGISTERS and regs is not None:
+            msg += f" ({what} was built with {regs()} registers a thread)"
         raise RuntimeError(f"{what} kernel launch failed ({code}): {msg}")

@@ -1,21 +1,22 @@
 """Weight-streaming matmul for decode-shaped activations: the wrapper of
 ``csrc/decode_matmul.cu``, which replaces the TPU kernel
 ``paddle_tpu/ops/pallas/decode_matmul.py:decode_matmul``, plus its gate
-``decode_matmul_supported`` and its plain PyTorch version
-``decode_matmul_reference``.
+``decode_matmul_supported``, its split plan ``split_plan`` and its plain
+PyTorch version ``decode_matmul_reference``.
 
 ``decode_matmul`` runs the plain version for a tensor on the CPU and
-launches the kernel for a CUDA tensor, or raises."""
+launches the kernel for a CUDA tensor, or raises. bfloat16 x runs the
+tensor-core kernel, float32 x the CUDA-core one."""
 from __future__ import annotations
 
 import torch
 
 from ..qweight import QWeight
-from ._build import check, load_library
+from ._build import check, load_library, sm_count
 
 __all__ = ["decode_matmul", "decode_matmul_supported",
            "decode_matmul_reference", "dequantize", "unpack_int4_halves",
-           "launches"]
+           "split_plan", "launches"]
 
 _MAX_ROWS = 32
 # kernel launches since import; callers reset it to 0 to count a run
@@ -23,32 +24,49 @@ launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _KINDS = {None: 0, "int8": 1, "int4_halves": 2}
-_TILE_N = 128          # output columns per block
-_BLOCKS_PER_SM = 4     # K-split target
 _MAX_SPLITS = 16
-_sm_count = {}
 
 
-def _splits(rows_w: int, b: int, N: int, device) -> int:
-    """K-splits for about _BLOCKS_PER_SM blocks per SM, each split at
-    least one x stage (256 weight rows at b <= 8, 64 above): the fixed
-    point of the rule the C launcher re-derives."""
-    idx = device.index if device.index is not None \
-        else torch.cuda.current_device()
-    if idx not in _sm_count:
-        _sm_count[idx] = torch.cuda.get_device_properties(
-            idx).multi_processor_count
-    tile_k = 256 if b <= 8 else 64
-    blocks_n = -(-N // _TILE_N)
-    s = max(1, min(_MAX_SPLITS,
-                   -(-_BLOCKS_PER_SM * _sm_count[idx] // blocks_n),
-                   rows_w // tile_k))
-    while True:
-        per_split = -(-(-(-rows_w // s)) // tile_k) * tile_k
-        s2 = -(-rows_w // per_split)
-        if s2 == s:
-            return s
-        s = s2
+def split_plan(kind, dtype, b: int, K: int, N: int, sms: int):
+    """(splits, weight rows per split) of the kernel's grid along K, for
+    ``sms`` SMs: as many splits as keep the grid within one wave of
+    resident blocks, at most _MAX_SPLITS, each split a whole number of
+    granules and none empty. bfloat16 (csrc/decode_matmul.cu,
+    tc::Shape): blocks of 4 warps at b <= 8 (4 resident an SM) and 8
+    above (2 resident), each on 256 columns; a granule is one k-step (8
+    packed int4 rows or 16 int8/dense rows) and a split holds at least
+    one for each of the 2 warps that interleave k-steps over the same
+    columns, and at most 256 / NT k-steps (NT = 1, 2, 4 n-tiles of 8
+    rows at b <= 8, 16, 32), whose activations a block stages in 64 KB
+    of shared memory. The splits' partial sums stay under the weight's
+    bytes where the grid still has a block for every SM. float32:
+    blocks of 8 warps on 128 columns, a granule one x stage (256 weight
+    rows at b <= 8, 64 above). Weight rows are packed rows for int4
+    ("int4_halves"). The C launcher takes the plan as given or refuses
+    it."""
+    rows_w = K // 2 if kind == "int4_halves" else K
+    if dtype == torch.bfloat16:
+        # blocks an SM holds at once (registers), and the most k-steps
+        # whose activations a block stages (64 KB of shared memory)
+        tile_n, resident = 256, 4 if b <= 8 else 2
+        granule = 8 if kind == "int4_halves" else 16
+        least = 2 * granule
+        most = 256 // (1 if b <= 8 else 2 if b <= 16 else 4) * granule
+    else:
+        tile_n, resident = 128, 4
+        granule = least = 256 if b <= 8 else 64
+        most = rows_w
+    blocks_n = -(-N // tile_n)
+    # one wave: as many splits as the card holds blocks at once
+    want = resident * sms // blocks_n
+    # the splits' float32 partial sums stay under the weight's bytes,
+    # unless that leaves an SM without a block
+    wbytes = rows_w * N * (1 if kind else dtype.itemsize)
+    s = max(1, min(_MAX_SPLITS, want, rows_w // least,
+                   max(wbytes // (4 * b * N), -(-sms // blocks_n))),
+            -(-rows_w // most))
+    per = -(-(-(-rows_w // s)) // granule) * granule
+    return -(-rows_w // per), per
 
 
 def unpack_int4_halves(q, dtype=torch.int8):
@@ -79,7 +97,9 @@ def _n_out(w) -> int:
 def decode_matmul_supported(x, w) -> bool:
     """True when (x, w) fits the kernel: 2-d x of float32 or bfloat16
     with 1..32 rows; w a dense [K, N] weight of x's dtype or a QWeight
-    of a kind the kernel takes with K in-features; N a multiple of 4."""
+    of a kind the kernel takes with K in-features; N a multiple of 4
+    (float32) or of 16 with K a multiple of 16 (bfloat16: whole
+    tensor-core k-steps and 16-column lane groups)."""
     if x.dim() != 2 or not 1 <= x.shape[0] <= _MAX_ROWS \
             or x.dtype not in _DTYPES:
         return False
@@ -89,6 +109,8 @@ def decode_matmul_supported(x, w) -> bool:
             return False
     elif w.dim() != 2 or w.shape[0] != K or w.dtype != x.dtype:
         return False
+    if x.dtype == torch.bfloat16:
+        return _n_out(w) % 16 == 0 and K % 16 == 0
     return _n_out(w) % 4 == 0
 
 
@@ -124,8 +146,7 @@ def decode_matmul(x, w):
     b, K = x.shape
     N = _n_out(w)
     kind = getattr(w, "kind", None)
-    splits = _splits(K // 2 if kind == "int4_halves" else K, b, N,
-                     x.device)
+    splits, per = split_plan(kind, x.dtype, b, K, N, sm_count(x.device))
     out = torch.empty((b, N), dtype=x.dtype, device=x.device)
     work = torch.empty((splits, b, N), dtype=torch.float32,
                        device=x.device) if splits > 1 else None
@@ -136,7 +157,7 @@ def decode_matmul(x, w):
             x.data_ptr(), wq.data_ptr(),
             scale.data_ptr() if scale is not None else None,
             out.data_ptr(), work.data_ptr() if work is not None else None,
-            b, K, N, splits, _KINDS[kind], _DTYPES[x.dtype], stream)
+            b, K, N, splits, per, _KINDS[kind], _DTYPES[x.dtype], stream)
     check(lib, code, "decode_matmul")
     launches += 1
     return out

@@ -22,12 +22,13 @@ import functools
 import numpy as np
 import torch
 
-from ._build import check, load_library
+from ._build import check, load_library, sm_count
 
 __all__ = ["flash_fwd_cuda", "flash_bwd_cuda", "flash_bwd_delta",
            "flash_bwd_dq_cuda", "flash_bwd_dkv_cuda", "FlashAttention",
            "smem_bytes", "HEAD_DIMS", "launches_fwd", "launches_dq",
-           "launches_dkv", "TILES", "flash_schedule"]
+           "launches_dkv", "TILES", "flash_schedule", "dkv_pieces",
+           "kernel_regs"]
 
 # kernel launches since import; callers reset them to 0 to count a run
 launches_fwd = 0
@@ -46,9 +47,10 @@ TILES = {"fwd": (128, 128), "dq": (128, 64), "dkv": (128, 64)}
 
 @functools.lru_cache(maxsize=256)
 def flash_schedule(kind: str, b: int, sq: int, sk: int, h: int, hk: int,
-                   causal: bool, segmented: bool) -> np.ndarray:
+                   causal: bool, segmented: bool,
+                   sms: int | None = None) -> np.ndarray:
     """The work list of a Hopper flash kernel: int32 [n, 8], one row
-    (batch, head, tile, lo, hi, free_lo, free_hi, 0) per own tile of
+    (batch, head, tile, lo, hi, free_lo, free_hi, piece) per own tile of
     TILES[kind][0] rows of one head (query heads for "fwd" and "dq",
     kv-heads for "dkv", which visits the head's query group itself).
     The row visits the streamed tiles [lo, hi), the only ones holding a
@@ -61,7 +63,18 @@ def flash_schedule(kind: str, b: int, sq: int, sk: int, h: int, hk: int,
     ranges follow JAX's skipping in _fwd_kernel (:86-87),
     _bwd_dq_kernel (:196-197) and _bwd_dkv_kernel (:252-253). Cached:
     the same arguments give the same array, which must not be
-    written."""
+    written.
+
+    A "dkv" list of fewer rows than ``sms`` (the card's SM count; None
+    never splits) would leave SMs idle for the whole backward, so each
+    row's range [lo, hi) is cut into contiguous pieces of at least 2
+    streamed tiles, numbered 0, 1, ... in the row's last column: the
+    smallest count s per row (fewer where the row is short) that gives
+    at least ``sms`` rows, or as many as the rows allow. Each piece
+    writes partial dK/dV sums to its own workspace slot, which the
+    kernel's second pass adds in piece order (``dkv_pieces``). Every
+    other list has piece 0 throughout and is the same with or without
+    ``sms``."""
     bm, bn = TILES[kind]
     off = sk - sq
     if kind == "dkv":
@@ -90,29 +103,86 @@ def flash_schedule(kind: str, b: int, sq: int, sk: int, h: int, hk: int,
         if segmented or fhi <= flo:
             flo = fhi = lo
         tiles.append((t, lo, hi, flo, fhi))
-    rows = [(bi, hd, t, lo, hi, flo, fhi, 0) for bi in range(b)
-            for hd in range(heads) for t, lo, hi, flo, fhi in tiles]
+    if kind == "dkv" and sms is not None:
+        tiles = _split_tiles(tiles, b * heads, sms)
+    else:
+        tiles = [tile + (0,) for tile in tiles]
+    rows = [(bi, hd, t, lo, hi, flo, fhi, piece) for bi in range(b)
+            for hd in range(heads) for t, lo, hi, flo, fhi, piece in tiles]
     rows.sort(key=lambda r: r[3] - r[4])
     out = np.asarray(rows, dtype=np.int32).reshape(-1, 8)
     out.flags.writeable = False
     return out
 
 
+def _split_tiles(tiles, copies: int, sms: int):
+    """Cut each tile (t, lo, hi, free_lo, free_hi) of a list that holds
+    ``copies`` rows per tile into pieces (t, lo', hi', free_lo',
+    free_hi', piece) when copies * len(tiles) < sms: per tile
+    min(s, max(1, (hi - lo) // 2)) pieces of near-equal length, s the
+    smallest count that reaches sms rows (or the most the tiles take).
+    The free range is clipped to each piece (empty: at the piece's lo)."""
+    cap = [max(1, (hi - lo) // 2) for _t, lo, hi, _f, _g in tiles]
+    s = 1
+    while copies * sum(min(s, c) for c in cap) < sms and s < max(cap):
+        s += 1
+    out = []
+    for (t, lo, hi, flo, fhi), c in zip(tiles, cap):
+        n = min(s, c)
+        for p in range(n):
+            plo = lo + (hi - lo) * p // n
+            phi = lo + (hi - lo) * (p + 1) // n
+            pflo, pfhi = max(flo, plo), min(fhi, phi)
+            if pfhi <= pflo:
+                pflo = pfhi = plo
+            out.append((t, plo, phi, pflo, pfhi, p))
+    return out
+
+
+def dkv_pieces(rows: np.ndarray, sk: int) -> np.ndarray:
+    """Pieces per key tile of a "dkv" work list: int32 [tiles of
+    TILES["dkv"][0] key rows], each tile's highest piece + 1."""
+    n = np.zeros(-(-sk // TILES["dkv"][0]), dtype=np.int32)
+    np.maximum.at(n, rows[:, 2], rows[:, 7] + 1)
+    return n
+
+
 @functools.lru_cache(maxsize=256)
-def _schedule_on(device, kind, b, sq, sk, h, hk, causal, segmented):
-    """flash_schedule's work list as a tensor on device (cached)."""
-    host = flash_schedule(kind, b, sq, sk, h, hk, causal, segmented)
-    return torch.from_numpy(host.copy()).to(device)
+def _schedule_on(device, kind, b, sq, sk, h, hk, causal, segmented, sms):
+    """flash_schedule's work list as a tensor on device and, for a dk/dv
+    list cut into pieces, its pieces per key tile on device and their
+    most (None and 1 otherwise). Cached."""
+    host = flash_schedule(kind, b, sq, sk, h, hk, causal, segmented, sms)
+    sched = torch.from_numpy(host.copy()).to(device)
+    if kind != "dkv" or not host[:, 7].any():
+        return sched, None, 1
+    pieces = dkv_pieces(host, sk)
+    return sched, torch.from_numpy(pieces).to(device), int(pieces.max())
 
 
 def _schedule(kind, q, b, sq, sk, h, hk, causal, segmented):
-    """(work list on q's device, its rows) for the Hopper kernels, or
-    (None, 0) for the CUDA-core route (float32, head_dim 256)."""
+    """(work list on q's device, its rows, pieces per key tile or None,
+    workspace slots) for the Hopper kernels, or (None, 0, None, 1) for
+    the CUDA-core route (float32, head_dim 256)."""
     if q.dtype != torch.bfloat16 or q.shape[-1] not in (64, 128):
-        return None, 0
-    t = _schedule_on(q.device, kind, b, sq, sk, h, hk, bool(causal),
-                     bool(segmented))
-    return t, t.shape[0]
+        return None, 0, None, 1
+    t, pieces, slots = _schedule_on(
+        q.device, kind, b, sq, sk, h, hk, bool(causal), bool(segmented),
+        sm_count(q.device) if kind == "dkv" else None)
+    return t, t.shape[0], pieces, slots
+
+
+def _regs(lib, kernel: str, d: int):
+    """A callable giving the registers a thread of the Hopper kernel
+    (for check's message)."""
+    return lambda: lib.ptt_flash_regs(("fwd", "dq", "dkv").index(kernel), d)
+
+
+def kernel_regs(kernel: str, head_dim: int) -> int:
+    """Registers a thread of the Hopper kernel ("fwd", "dq" or "dkv") at
+    head_dim 64 or 128 as built: their setmaxnreg split needs 168, and
+    a launch with fewer raises."""
+    return _regs(load_library(), kernel, head_dim)()
 
 
 def _require(cond: bool, msg: str):
@@ -166,8 +236,8 @@ def flash_fwd_cuda(q, k, v, causal: bool, scale: float, q_seg=None,
     b, sq, sk, h, hk, d = _check(q, k, v, q_seg, kv_seg)
     out = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    sched, n = _schedule("fwd", q, b, sq, sk, h, hk, causal,
-                         q_seg is not None)
+    sched, n, _, _ = _schedule("fwd", q, b, sq, sk, h, hk, causal,
+                               q_seg is not None)
     lib = load_library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -176,14 +246,16 @@ def flash_fwd_cuda(q, k, v, causal: bool, scale: float, q_seg=None,
             _ptr(kv_seg), out.data_ptr(), lse.data_ptr(), _ptr(sched), b,
             sq, sk, h, hk, d, _DTYPES[q.dtype], int(causal), n,
             *TILES["fwd"], float(scale), stream)
-    check(lib, code, "flash_fwd")
+    check(lib, code, "flash_fwd", _regs(lib, "fwd", d))
     launches_fwd += 1
     return out, lse
 
 
 def flash_bwd_delta(out, dout):
     """delta = sum(out * dout, -1) as float32 [b, h, sq]: plain torch, as
-    JAX computes it outside Pallas (flash_attention.py:398)."""
+    JAX computes it outside Pallas (flash_attention.py:398). The plain
+    version of the first pass that ``flash_bwd_dq_cuda(..., out=out)``
+    runs in its launch."""
     return (out.float() * dout.float()).sum(-1).transpose(1, 2).contiguous()
 
 
@@ -199,23 +271,31 @@ def _check_bwd(q, k, v, dout, lse, delta, q_seg, kv_seg):
 
 
 def flash_bwd_dq_cuda(q, k, v, dout, lse, delta, causal: bool,
-                      scale: float, q_seg=None, kv_seg=None):
-    """dq like q, given the forward's lse and delta."""
+                      scale: float, q_seg=None, kv_seg=None, out=None):
+    """dq like q, given the forward's lse and delta. Given ``out`` (the
+    forward's output, like q), the launch first writes delta = sum(out *
+    dout, -1) into ``delta`` itself (float32 [b, h, sq], allocated by the
+    caller), the first pass of the backward."""
     global launches_dq
     b, sq, sk, h, hk, d = _check_bwd(q, k, v, dout, lse, delta, q_seg,
                                      kv_seg)
+    _require(out is None or (out.shape == q.shape and out.dtype == q.dtype
+                             and out.device == q.device
+                             and out.is_contiguous()
+                             and out.data_ptr() % 16 == 0),
+             "out must be like q, contiguous and 16-byte aligned")
     dq = torch.empty_like(q)
-    sched, n = _schedule("dq", q, b, sq, sk, h, hk, causal,
-                         q_seg is not None)
+    sched, n, _, _ = _schedule("dq", q, b, sq, sk, h, hk, causal,
+                               q_seg is not None)
     lib = load_library()
     with torch.cuda.device(q.device):
         code = lib.ptt_flash_bwd_dq(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), _ptr(q_seg), _ptr(kv_seg),
-            dq.data_ptr(), _ptr(sched), b, sq, sk, h, hk, d,
+            lse.data_ptr(), delta.data_ptr(), _ptr(out), _ptr(q_seg),
+            _ptr(kv_seg), dq.data_ptr(), _ptr(sched), b, sq, sk, h, hk, d,
             _DTYPES[q.dtype], int(causal), n, *TILES["dq"], float(scale),
             torch.cuda.current_stream(q.device).cuda_stream)
-    check(lib, code, "flash_bwd_dq")
+    check(lib, code, "flash_bwd_dq", _regs(lib, "dq", d))
     launches_dq += 1
     return dq
 
@@ -223,23 +303,28 @@ def flash_bwd_dq_cuda(q, k, v, dout, lse, delta, causal: bool,
 def flash_bwd_dkv_cuda(q, k, v, dout, lse, delta, causal: bool,
                        scale: float, q_seg=None, kv_seg=None):
     """(dk, dv) float32 [b, sk, hk, d], each summed over the kv-head's
-    group of query heads, given the forward's lse and delta."""
+    group of query heads, given the forward's lse and delta. A work list
+    cut into pieces (fewer key tiles than SMs) writes partial sums to a
+    workspace that the same launch adds up in piece order."""
     global launches_dkv
     b, sq, sk, h, hk, d = _check_bwd(q, k, v, dout, lse, delta, q_seg,
                                      kv_seg)
     dk = torch.empty((b, sk, hk, d), dtype=torch.float32, device=q.device)
     dv = torch.empty_like(dk)
-    sched, n = _schedule("dkv", q, b, sq, sk, h, hk, causal,
-                         q_seg is not None)
+    sched, n, pieces, slots = _schedule("dkv", q, b, sq, sk, h, hk, causal,
+                                        q_seg is not None)
+    ws = None if pieces is None else torch.empty(
+        (2, slots, b, sk, hk, d), dtype=torch.float32, device=q.device)
     lib = load_library()
     with torch.cuda.device(q.device):
         code = lib.ptt_flash_bwd_dkv(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), _ptr(q_seg), _ptr(kv_seg),
-            dk.data_ptr(), dv.data_ptr(), _ptr(sched), b, sq, sk, h, hk, d,
-            _DTYPES[q.dtype], int(causal), n, *TILES["dkv"], float(scale),
+            dk.data_ptr(), dv.data_ptr(), _ptr(ws), _ptr(pieces),
+            _ptr(sched), b, sq, sk, h, hk, d, _DTYPES[q.dtype], int(causal),
+            n, *TILES["dkv"], slots, float(scale),
             torch.cuda.current_stream(q.device).cuda_stream)
-    check(lib, code, "flash_bwd_dkv")
+    check(lib, code, "flash_bwd_dkv", _regs(lib, "dkv", d))
     launches_dkv += 1
     return dk, dv
 
@@ -247,10 +332,11 @@ def flash_bwd_dkv_cuda(q, k, v, dout, lse, delta, causal: bool,
 def flash_bwd_cuda(q, k, v, out, lse, dout, causal: bool, scale: float,
                    q_seg=None, kv_seg=None):
     """The backward given the forward's out and lse: (dq like q, dk and
-    dv float32 [b, sk, hk, d])."""
-    delta = flash_bwd_delta(out, dout)
+    dv float32 [b, sk, hk, d]). The dq launch computes delta first."""
+    b, sq, h = q.shape[0], q.shape[1], q.shape[2]
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     dq = flash_bwd_dq_cuda(q, k, v, dout, lse, delta, causal, scale, q_seg,
-                           kv_seg)
+                           kv_seg, out=out.contiguous())
     dk, dv = flash_bwd_dkv_cuda(q, k, v, dout, lse, delta, causal, scale,
                                 q_seg, kv_seg)
     return dq, dk, dv

@@ -125,3 +125,125 @@ def test_layout_tag_is_checked():
     # a JAX-style bare tuple is not a weight the port accepts
     with pytest.raises((TypeError, AttributeError)):
         tpd._mm(x, (w4.q, w4.scale))
+
+
+# -- the tensor-core kernel's host plan and bit tricks (no card needed) ----
+
+SHAPES_8B = {"wqkv": (4096, 6144), "wo": (4096, 4096),
+             "wgu": (4096, 28672), "wd": (14336, 4096),
+             "head": (4096, 128256)}
+
+
+@pytest.mark.parametrize("sms", [132, 8])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("kind", ["int4_halves", "int8", None])
+@pytest.mark.parametrize("name", sorted(SHAPES_8B))
+def test_split_plan_covers_rows_and_fills_the_card(name, kind, dtype, sms):
+    """split_plan at the 8B shapes, b 1/4/8/32: every weight row (packed
+    row for int4) lies in exactly one split, no split is empty, each
+    split is whole k-steps (bf16) or x stages (float32), and the grid
+    has at least one block per SM."""
+    K, N = SHAPES_8B[name]
+    dt = getattr(torch, dtype)
+    rows_w = K // 2 if kind == "int4_halves" else K
+    for b in (1, 4, 8, 32):
+        splits, per = dmm.split_plan(kind, dt, b, K, N, sms)
+        owner = np.full(rows_w, -1)
+        for s in range(splits):
+            lo, hi = s * per, min(rows_w, s * per + per)
+            assert lo < hi, "an empty split"
+            assert (owner[lo:hi] == -1).all()
+            owner[lo:hi] = s
+        assert (owner >= 0).all(), "a weight row in no split"
+        if dtype == "bfloat16":
+            granule = 8 if kind == "int4_halves" else 16
+            assert per % granule == 0
+            # a block stages the activations of at most 256 / NT k-steps
+            assert per // granule <= 256 // (1 if b <= 8 else 4)
+            tile_n = 256
+        else:
+            assert per % (256 if b <= 8 else 64) == 0
+            tile_n = 128
+        assert splits <= 16
+        assert -(-N // tile_n) * splits >= sms
+
+
+def _bf16_bits_to_f32(bits):
+    return (np.asarray(bits, np.uint32) << 16).view(np.float32)
+
+
+def test_int4_bit_trick_matches_unpack_for_every_byte():
+    """The kernel's int4 -> bf16x2 (csrc/decode_matmul.cu:deq4): the
+    words of two packed rows p, q xor 0x88888888 (and, for the high
+    nibbles, shifted right by 4); prmt takes byte j of p into byte 0 and
+    byte j of q into byte 2; masked by 0x000F000F over 0x43004300 (bf16
+    128.0), then one bf16x2 fma with (1, 1) and (-136, -136). Emulated in
+    numpy at byte j = 2 of words whose other bytes are random, for all
+    256 values of p's byte (q's a permutation of them): the low-nibble
+    register holds unpack_int4_halves' lo of p and q, the high-nibble
+    register their hi."""
+    rng = np.random.RandomState(3)
+    j = 2
+
+    def words(byte):
+        rest = rng.randint(0, 1 << 32, 256, dtype=np.uint64) \
+            .astype(np.uint32) & ~np.uint32(0xFF << (8 * j))
+        return rest | (byte.astype(np.uint32) << (8 * j))
+
+    bp = np.arange(256, dtype=np.uint32)
+    bq = rng.permutation(256).astype(np.uint32)
+    p, q = words(bp) ^ 0x88888888, words(bq) ^ 0x88888888
+    one = _bf16_bits_to_f32([0x3F80])[0]
+    bias = _bf16_bits_to_f32([0xC308])[0]
+    assert one == 1.0 and bias == -136.0
+
+    def deq4(pw, qw):
+        t = ((pw >> (8 * j)) & 0xFF) | (((qw >> (8 * j)) & 0xFF) << 16)
+        v = (t & 0x000F000F) | 0x43004300
+        lo = _bf16_bits_to_f32(v & 0xFFFF).astype(np.float64) * one + bias
+        hi = _bf16_bits_to_f32(v >> 16).astype(np.float64) * one + bias
+        for vals in (lo, hi):  # exact in bfloat16: the fma rounds nothing
+            assert ((vals.astype(np.float32).view(np.uint32) & 0xFFFF)
+                    == 0).all()
+        return lo, hi
+
+    def unpack(byte):
+        q8 = torch.from_numpy(byte.astype(np.uint8).view(np.int8)[None]
+                              .copy())
+        lo, hi = dmm.unpack_int4_halves(q8, torch.float32)
+        return lo[0].numpy(), hi[0].numpy()
+
+    (p_lo, p_hi), (q_lo, q_hi) = unpack(bp), unpack(bq)
+    low_p, low_q = deq4(p, q)
+    np.testing.assert_array_equal(low_p, p_lo)
+    np.testing.assert_array_equal(low_q, q_lo)
+    high_p, high_q = deq4(p >> 4, q >> 4)
+    np.testing.assert_array_equal(high_p, p_hi)
+    np.testing.assert_array_equal(high_q, q_hi)
+
+
+def test_int8_bit_trick_matches_every_byte():
+    """The kernel's int8 -> float32 (csrc/decode_matmul.cu:deq8): the
+    byte xor 0x80 under 2^23 (prmt with 0x4B000000), minus 2^23 + 128,
+    gives the signed value exactly, and bf16 holds it exactly."""
+    byte = np.arange(256, dtype=np.uint32)
+    f = ((byte ^ 0x80) | 0x4B000000).view(np.float32) - np.float32(8388736.0)
+    ref = byte.astype(np.uint8).view(np.int8).astype(np.float32)
+    np.testing.assert_array_equal(f, ref)
+    bf = torch.from_numpy(f).to(torch.bfloat16).float().numpy()
+    np.testing.assert_array_equal(bf, ref)
+
+
+def test_bf16_gate_takes_whole_k_steps():
+    """bfloat16 x needs K % 16 == 0 and N % 16 == 0 (the tensor-core
+    kernel's k-steps and lane column groups); float32 keeps N % 4."""
+    w4 = tpd._quantize_w4_halves(torch.randn(K, N))
+    xb = torch.zeros(8, K, dtype=torch.bfloat16)
+    assert dmm.decode_matmul_supported(xb, w4)
+    assert not dmm.decode_matmul_supported(
+        xb, tpd._quantize_w(torch.randn(K, N - 8)))
+    assert dmm.decode_matmul_supported(
+        torch.zeros(8, K), tpd._quantize_w(torch.randn(K, N - 4)))
+    assert not dmm.decode_matmul_supported(
+        torch.zeros(8, K - 8, dtype=torch.bfloat16),
+        tpd._quantize_w(torch.randn(K - 8, N)))

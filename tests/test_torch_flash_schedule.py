@@ -142,3 +142,100 @@ def test_cuda_wrappers_raise_on_cpu_tensors(call):
     }
     with pytest.raises(ValueError, match="CUDA device"):
         fns[call]()
+
+
+# -- dk/dv lists cut into pieces (fewer key tiles than SMs) -----------------
+
+SMS = 132
+
+
+def _check_split(sq, sk, causal, segmented, b=2, h=4, hk=2):
+    """A "dkv" list built for SMS SMs against the unsplit list: the
+    pieces of each row are contiguous, numbered 0, 1, ... in order, and
+    together cover the unsplit row's range exactly once (so every
+    visible pair of the tile is visited once); every piece but a row's
+    only one holds at least 2 streamed tiles; the free range of each
+    piece is the unsplit free range clipped to it; a list of at least
+    SMS rows is the unsplit one, byte for byte."""
+    whole = cfa.flash_schedule("dkv", b, sq, sk, h, hk, causal, segmented)
+    split = cfa.flash_schedule("dkv", b, sq, sk, h, hk, causal, segmented,
+                               SMS)
+    assert split.dtype == np.int32 and split.shape[1] == 8
+    if whole.shape[0] >= SMS:
+        np.testing.assert_array_equal(split, whole)
+        return split
+    lengths = split[:, 4] - split[:, 3]
+    assert (np.diff(lengths) <= 0).all(), "rows not longest first"
+    pieces = {}
+    for row in split.tolist():
+        pieces.setdefault(tuple(row[:3]), []).append(row)
+    assert len(pieces) == whole.shape[0]
+    for bi, hd, t, lo, hi, flo, fhi, pad in whole.tolist():
+        got = sorted(pieces[(bi, hd, t)], key=lambda r: r[7])
+        assert [r[7] for r in got] == list(range(len(got)))
+        assert got[0][3] == lo and got[-1][4] == hi
+        for a, c in zip(got, got[1:]):
+            assert a[4] == c[3], "pieces not contiguous"
+        for r in got:
+            assert r[3] <= r[4]
+            if len(got) > 1:
+                assert r[4] - r[3] >= 2, "a piece under 2 streamed tiles"
+            pflo, pfhi = max(flo, r[3]), min(fhi, r[4])
+            if pfhi <= pflo:
+                pflo = pfhi = r[3]
+            assert (r[5], r[6]) == (pflo, pfhi)
+    # the pieces of a tile are the same for every batch and head
+    per_tile = {}
+    for (bi, hd, t), rows in pieces.items():
+        shape = sorted((r[3], r[4], r[7]) for r in rows)
+        assert per_tile.setdefault(t, shape) == shape
+    n = cfa.dkv_pieces(split, sk)
+    assert n.tolist() == [len(per_tile[t]) for t in sorted(per_tile)]
+    # as many rows as SMs, unless the tiles are too short to give them
+    caps = [max(1, (hi - lo) // 2) for hi, lo in
+            zip(whole[:, 4].tolist(), whole[:, 3].tolist())]
+    assert split.shape[0] >= min(SMS, sum(caps))
+    return split
+
+
+@pytest.mark.parametrize("segmented", [False, True],
+                         ids=["plain", "segmented"])
+@pytest.mark.parametrize("causal", [False, True],
+                         ids=["full", "causal"])
+@pytest.mark.parametrize("sk", SIZES)
+@pytest.mark.parametrize("sq", SIZES)
+def test_split_dkv_lists_cover_each_pair_once(sq, sk, causal, segmented):
+    """Every split list at sq, sk in SIZES still passes _check's cover
+    of the visible mask once its pieces are merged back per tile."""
+    split = _check_split(sq, sk, causal, segmented)
+    assert (split[:, 7] >= 0).all()
+
+
+# the sep-4 ring's three shard shapes at train-mid8k (llama_mid, b 1,
+# h 16, kv 8): the pieces each key tile of 128 rows is cut into, and the
+# rows of the list
+@pytest.mark.parametrize("name,sq,sk,causal,pieces,rows", [
+    ("diagonal", 1024, 1024, True, [3, 3, 3, 3, 3, 3, 2, 1], 168),
+    ("earlier", 2048, 1024, False, [3] * 8, 192),
+    ("later", 1024, 2048, False, [2] * 16, 256),
+])
+def test_ring_shard_dkv_pieces(name, sq, sk, causal, pieces, rows):
+    split = _check_split(sq, sk, causal, False, b=1, h=16, hk=8)
+    assert cfa.dkv_pieces(split, sk).tolist() == pieces
+    assert split.shape[0] == rows
+
+
+def test_long_lists_are_never_split():
+    """llama_mid's dk/dv list (512 rows) and every forward and dq list
+    are the same with the SM count as without it."""
+    for kind in ("fwd", "dq", "dkv"):
+        whole = cfa.flash_schedule(kind, 4, 2048, 2048, 16, 8, True, False)
+        split = cfa.flash_schedule(kind, 4, 2048, 2048, 16, 8, True, False,
+                                   SMS)
+        np.testing.assert_array_equal(split, whole)
+        assert (split[:, 7] == 0).all()
+    for kind in ("fwd", "dq"):
+        small = cfa.flash_schedule(kind, 1, 1024, 1024, 16, 8, True, False)
+        np.testing.assert_array_equal(
+            cfa.flash_schedule(kind, 1, 1024, 1024, 16, 8, True, False, SMS),
+            small)
