@@ -14,13 +14,25 @@ failure ends the run with a non-zero exit code and no result:
                  been built with 168 registers a thread (its setmaxnreg
                  split needs them; a launch with fewer raises); the nine
                  bfloat16 decode_matmul instantiations must hold HMMA
-                 (mma.sync). Prints ptxas's registers and spills of
-                 every flash and GEMV instantiation.
+                 (mma.sync); the six tensor-core paged-attention kernels
+                 (ragged at head_dim 64 / 128 with bf16 and int8 pools,
+                 decode at 64 / 128) must hold HMMA and UTMALDG, the two
+                 int8 ones UBLKCP (their scale rows). Prints ptxas's
+                 registers and spills of every flash, GEMV and
+                 paged-attention instantiation and the paged kernels'
+                 dynamic shared memory.
 3. kernels       each kernel against its plain PyTorch version on the card
                  at the shapes its main path gives it (Llama-3-8B serving:
-                 ragged and dense decode, the latter at b 8 and b 4 and at
-                 ctx 1..2100 with a ctx-0 row, float32 at d 64, d 256 and
-                 the int8-pool route; the GEMV at b 1/4/8/32 (int4 on the
+                 ragged attention on the smoke batch with a bf16 and an
+                 int8 pool, a W 8 decode ministep at ctx 512, a 128-row
+                 prefill rung, and d 64 with pages smaller than a stage;
+                 dense decode at b 8 and b 4 and at ctx 1..2100 with a
+                 ctx-0 row, float32 at d 64, d 256, the int8-pool route
+                 and bf16 at d 64 / bs 16; every attention case within 1e-2
+                 (1e-4 float32), no NaN, ctx-0 rows exact zeros, two runs
+                 bit-identical, with its share of the bound, its plan and,
+                 where its rows see one ctx, SDPA's time over the same
+                 K/V rows gathered beforehand (not paged); the GEMV at b 1/4/8/32 (int4 on the
                  five projections, int8 and dense on wgu at b 1/8/32,
                  one float32 int4 case on the CUDA-core kernel), each
                  with its share of the bound and its split plan, and
@@ -56,8 +68,9 @@ failure ends the run with a non-zero exit code and no result:
                  0.8). The launch counters are set to 0 just before and
                  read just after; a repeat run must give the same tokens;
                  one pure-decode ministep at W=8 must launch exactly 32
-                 attention and 129 GEMV kernels; the decode_matmul
-                 family's device ms per serving run and per ministep.
+                 attention and 129 GEMV kernels; the decode_matmul and
+                 attention families' device ms per serving run and per
+                 ministep.
 7. serve-dense-int4  THE DENSE PATH on the same decoder:
                  ServingEngine(ragged=False, max_batch_size=8, chunk_size=8,
                  prefill_chunk=256), 8 requests of 100..512 prompt tokens,
@@ -73,10 +86,13 @@ failure ends the run with a non-zero exit code and no result:
                  b 4, prompt 256, 32 new tokens; then both engines on the
                  same 8 requests, alternately, 4 runs each, and their
                  decode steps alternately, 3 each (median, min, max);
-                 the decode_matmul family's device ms per run and step.
+                 the decode_matmul and attention families' device ms per
+                 run and step.
 8. serve-bf16-kv8  the same model with bf16 weights and an int8 KV pool
                  (4 requests): the int8 branch of the attention kernel on
-                 the serving path.
+                 the serving path; one W 8 ministep launches exactly 32
+                 attention kernels; the attention family's device ms per
+                 run and per ministep.
 9. tiny-train-parity  llama_tiny(hidden_size=256) in float32 (head_dim 64)
                  with the same weights on the card and the CPU: 3 TrainSteps
                  of AdamW(1e-3) give losses within 1e-4 relative, and the
@@ -267,9 +283,9 @@ def _device_breakdown(torch, fn, wall_ms):
         if re.search(r"tc::tc_kernel|cc::cc_kernel|splitk_reduce_kernel",
                      name):
             fam = "decode_matmul"
-        elif "ragged_attention_kernel" in name:
+        elif re.search(r"ragged_attention_(cc_)?kernel", name):
             fam = "ragged_paged_attention"
-        elif "paged_decode_kernel" in name:
+        elif re.search(r"paged_decode_(cc_)?kernel", name):
             fam = "paged_attention_decode"
         elif re.search(r"flash_fwd_kernel|flash_wg::.*fwd_kernel", name):
             fam = "flash_fwd"
@@ -385,6 +401,52 @@ def _gemv_sass(sass):
         ("HMMA",))
     _require(len(found) == 9 and all(c["HMMA"] > 0 for c in found.values()),
              f"bf16 decode_matmul kernels without HMMA in SASS: {found}")
+    return found
+
+
+def _paged_name(mangled):
+    """The paged-attention kernel behind a mangled name, or None: the
+    tensor-core kernels ragged_attention_kernel<d, pool> and
+    paged_decode_kernel<d, bf16>, and the CUDA-core *_cc_kernel forms."""
+    m = re.search(r"(ragged_attention|paged_decode)_kernelILi(\d+)E"
+                  r"(?:Lb([01])E)?E", mangled)
+    if m:
+        return (f"{m.group(1)}_kernel<{m.group(2)},"
+                f"{'int8' if m.group(3) == '1' else 'bf16'}>")
+    m = re.search(r"(ragged_attention|paged_decode)_cc_kernelI(\w+?)EEv",
+                  mangled)
+    return f"{m.group(1)}_cc_kernel<{m.group(2)}>" if m else None
+
+
+def _paged_ptxas(report):
+    """ptxas's registers, spills and static shared memory for each
+    paged-attention kernel (the reports of ragged_paged_attention.cu and
+    paged_attention_decode.cu)."""
+    out, name = {}, None
+    for ln in report.splitlines():
+        if "entry function" in ln or "Function properties" in ln:
+            name = _paged_name(ln)
+        elif name and ("registers" in ln or "spill" in ln):
+            out.setdefault(name, []).append(ln.strip())
+    return out
+
+
+def _paged_sass(sass):
+    """HMMA (mma.sync), UTMALDG (TMA tensor load) and UBLKCP (1-D bulk
+    copy) instructions in each tensor-core paged-attention kernel; fails
+    unless all six (ragged at head_dim 64 / 128 with bf16 and int8 pools,
+    decode at 64 / 128) have HMMA and UTMALDG and the two int8 ones
+    UBLKCP (their scale rows)."""
+    found = _count_sass(
+        sass, lambda m: (_paged_name(m) if re.search(
+            r"(ragged_attention|paged_decode)_kernelI", m) else None),
+        ("HMMA", "UTMALDG", "UBLKCP"))
+    _require(len(found) == 6
+             and all(c["HMMA"] > 0 and c["UTMALDG"] > 0
+                     and (c["UBLKCP"] > 0 or not k.endswith("int8>"))
+                     for k, c in found.items()),
+             f"paged-attention kernels without HMMA, UTMALDG or (int8) "
+             f"UBLKCP in SASS: {found}")
     return found
 
 
@@ -682,11 +744,168 @@ def _attention_case(torch, gen, quantized, n_decode=24, chunk=64,
     return (q, k, v, tables, row_seq, row_ctx), nbytes, flops
 
 
+def _ragged_rows_case(torch, gen, decode_ctx, prefill=None, nh=32, kvh=8,
+                      d=128, bs=64, max_pages=128):
+    """A ragged batch in the engine's layout at the 8B attention shapes:
+    one decode row per sequence at decode_ctx, then, with prefill =
+    (rows, offset), that many prefill rows of one more sequence at
+    offsets offset .. offset + rows - 1 (row_ctx offset + 1 ..). Every
+    sequence's visible pages distinct, the rest of its table pointing
+    anywhere. Also the bytes the function must move (q and out once,
+    each sequence's visible K/V rows of each kv-head once, the table
+    entries they take, row_seq / row_ctx) and its flops."""
+    dev = "cuda"
+    n_dec = len(decode_ctx)
+    seq_ctx = list(decode_ctx) + ([prefill[0] + prefill[1]] if prefill
+                                  else [])
+    need = [-(-c // bs) for c in seq_ctx]
+    nb = sum(need) + 1
+    perm = torch.randperm(nb, generator=gen, device=dev).tolist()
+    tables = torch.randint(0, nb, (len(seq_ctx), max_pages), generator=gen,
+                           device=dev, dtype=torch.int32)
+    at = 0
+    for i, n in enumerate(need):
+        tables[i, :n] = torch.tensor(perm[at:at + n], device=dev,
+                                     dtype=torch.int32)
+        at += n
+    row_seq = list(range(n_dec))
+    row_ctx = list(decode_ctx)
+    if prefill:
+        row_seq += [n_dec] * prefill[0]
+        row_ctx += [prefill[1] + 1 + j for j in range(prefill[0])]
+    rows = len(row_seq)
+    q = torch.randn((rows, nh, d), generator=gen, device=dev) \
+        .to(torch.bfloat16)
+    k, v = (torch.randn((nb, kvh, bs, d), generator=gen, device=dev)
+            .to(torch.bfloat16) for _ in range(2))
+    nbytes = 2 * q.numel() * 2 + 2 * sum(seq_ctx) * kvh * d * 2 \
+        + 4 * sum(need) + 8 * rows
+    flops = 4 * nh * d * sum(row_ctx)
+    args = (q, k, v, tables,
+            torch.tensor(row_seq, dtype=torch.int32, device=dev),
+            torch.tensor(row_ctx, dtype=torch.int32, device=dev))
+    return args, nbytes, flops
+
+
+def _sdpa_ms(torch, timer, q, k, v, tables, ctx):
+    """The yardstick of a case whose rows are one sequence each and all
+    see ctx positions: torch's scaled_dot_product_attention over the same
+    K/V rows gathered beforehand into contiguous [b, kv_heads, ctx, d]
+    (enable_gqa). Not paged, so not the same function: the port never
+    calls it."""
+    import torch.nn.functional as F
+    b, nh, d = q.shape
+    _, kvh, bs, _ = k.shape
+    idx = tables[:b, :-(-ctx // bs)].long()
+
+    def gather(pool):
+        x = pool[idx]                      # [b, pages, kvh, bs, d]
+        return x.permute(0, 2, 1, 3, 4).reshape(b, kvh, -1, d)[:, :, :ctx] \
+            .contiguous()
+
+    kc, vc, qq = gather(k), gather(v), q[:, :, None, :].contiguous()
+    return timer(lambda: F.scaled_dot_product_attention(
+        qq, kc, vc, enable_gqa=True), iters=20)
+
+
+# ragged attention cases: the 8B smoke batch (24 decode rows at ctx up to
+# 2048, a 64-row prefill chunk, 8 padding rows) with a bf16 and an int8
+# pool; the pure-decode ministep of decode_ministep (W 8, ctx 512); an
+# idle-engine prefill rung (8 decode rows at ctx 512, then 128 rows of one
+# sequence at offset 384); and the smoke batch's layout at head_dim 64
+# with pages smaller than a stage: int8 at group 2, bf16 at group 8
+RAGGED_CASES = [
+    dict(name="smoke_bf16"),
+    dict(name="smoke_int8", quantized=True),
+    dict(name="ragged_decode_w8_ctx512", decode=[512] * 8),
+    dict(name="ragged_prefill_128", decode=[512] * 8, prefill=(128, 384)),
+    dict(name="int8_d64_bs32_g2", quantized=True,
+         geom=dict(nh=8, kvh=4, d=64, bs=32, max_ctx=1024)),
+    dict(name="bf16_d64_bs16_g8",
+         geom=dict(nh=16, kvh=2, d=64, bs=16, max_ctx=512)),
+]
+
+
+def _attention_plan(torch, q, pool, tables):
+    """(KV splits a unit may take, deep ring, grid blocks a kv-head) the
+    wrappers hand this call's kernel ((1, False, rows) on the CUDA-core
+    route)."""
+    from paddle_tpu_torch.ops.cuda.paged_attention_plan import (
+        grid_plan, tensor_core_route)
+    nb, kvh, bs, d = pool.shape
+    if not tensor_core_route(q.dtype, d, bs):
+        return 1, False, q.shape[0]
+    return grid_plan(q.shape[0], kvh, tables.shape[1], bs,
+                     torch.cuda.get_device_properties(0).multi_processor_count)
+
+
+def _ragged_check(torch, gen, timer, spec):
+    """The ragged kernel against ragged_paged_attention_reference on one
+    case of RAGGED_CASES: raises unless the outputs agree within 1e-2
+    absolute and relative (bf16 outputs; an int8 pool's p * v_scale is
+    rounded to bf16 like p itself), hold no NaN, are exact zeros on rows
+    with ctx <= 0, and two runs are bit-identical; returns the case's
+    error, split count, times (L2 flushed before each launch) beside its
+    bound and, for rows that all see one ctx, SDPA's time over the same
+    rows gathered beforehand (not paged)."""
+    from paddle_tpu_torch.ops import paged_attention as pa
+    from paddle_tpu_torch.ops.cuda import ragged_paged_attention as rpa
+    quantized = spec.get("quantized", False)
+    if "decode" in spec:
+        args, nbytes, flops = _ragged_rows_case(torch, gen, spec["decode"],
+                                                spec.get("prefill"))
+    else:
+        args, nbytes, flops = _attention_case(torch, gen, quantized,
+                                              **spec.get("geom", {}))
+
+    def kern():
+        return rpa.ragged_paged_attention_cuda(*args)
+
+    out, again = kern(), kern()
+    ref = pa.ragged_paged_attention_reference(*args)
+    torch.cuda.synchronize()
+    name = spec["name"]
+    err = float((out.float() - ref.float()).abs().max())
+    tol = 1e-2
+    _require(torch.allclose(out.float(), ref.float(), atol=tol, rtol=tol),
+             f"ragged_paged_attention {name} differs from its plain "
+             f"version: max abs err {err}")
+    _require(not bool(torch.isnan(out).any()),
+             f"ragged_paged_attention {name}: NaN")
+    _require(torch.equal(out, again),
+             f"ragged_paged_attention {name}: two runs differ")
+    pad = args[5] <= 0
+    _require(bool((out[pad] == 0).all()),
+             f"ragged_paged_attention {name}: rows with ctx <= 0 are not "
+             f"exact zeros")
+    q, k = args[0], args[1]
+    pool = k[0] if quantized else k
+    case = {"kernel": "ragged_paged_attention", "case": name,
+            "pool": "int8" if quantized else "bf16",
+            "rows": int(q.shape[0]), "tolerance": tol, "max_abs_err": err,
+            "zero_rows": int(pad.sum()),
+            "plan": _attention_plan(torch, q, pool, args[3]),
+            "ms": timer(kern, iters=20),
+            "plain_ms": timer(
+                lambda: pa.ragged_paged_attention_reference(*args),
+                iters=3),
+            "library_ms": None}
+    case["bound_ms"], case["bound_by"] = _bound(nbytes, flops)
+    case["share_of_bound"] = case["bound_ms"] / case["ms"]
+    ctx = spec.get("decode", [])
+    if ctx and "prefill" not in spec and len(set(ctx)) == 1:
+        case["library_ms"] = _sdpa_ms(torch, timer, q, k, args[2], args[3],
+                                      ctx[0])
+        case["library_note"] = ("not paged: SDPA over the same K/V rows "
+                                "gathered beforehand")
+    return case
+
+
 # paged decode attention cases: the 8B decode step (b 8 at ctx 512, the
 # kernels line's row), generate()'s last step (b 4 at ctx 287), the ctx
 # values of a serving run with a ctx-0 row, a float32 pool at d 64 /
-# bs 16, head_dim 256, and the int8-pool route (the ragged kernel with
-# one row per sequence)
+# bs 16, head_dim 256, the int8-pool route (the ragged kernel with one
+# row per sequence), and bf16 at d 64 / bs 16 (four pages a stage)
 DECODE_CASES = [
     dict(name="8b_b8_ctx512", ctx=[512] * 8),
     dict(name="8b_b4_ctx287", ctx=[287] * 4),
@@ -696,6 +915,8 @@ DECODE_CASES = [
     dict(name="d256", ctx=[5, 300, 1000, 2048], nh=16, kvh=2, d=256,
          max_pages=32),
     dict(name="int8_route", ctx=[512] * 8, quantized=True),
+    dict(name="bf16_d64_bs16", ctx=[1, 17, 200, 1000], nh=8, kvh=2, d=64,
+         bs=16, max_pages=64),
 ]
 
 
@@ -760,7 +981,7 @@ def _decode_check(torch, gen, timer, spec):
     else:
         def kern():
             return pdc.paged_attention_decode_cuda(*args)
-    out = kern()
+    out, again = kern(), kern()
     ref = pa.paged_attention_decode_reference(*args)
     torch.cuda.synchronize()
     err = float((out.float() - ref.float()).abs().max())
@@ -770,6 +991,8 @@ def _decode_check(torch, gen, timer, spec):
              f"plain version: max abs err {err}")
     _require(not bool(torch.isnan(out).any()),
              f"paged_attention_decode {spec['name']}: NaN")
+    _require(torch.equal(out, again),
+             f"paged_attention_decode {spec['name']}: two runs differ")
     empty = args[4] <= 0
     _require(bool((out[empty] == 0).all()),
              f"paged_attention_decode {spec['name']}: ctx-0 rows are not "
@@ -780,12 +1003,22 @@ def _decode_check(torch, gen, timer, spec):
             "shape": {k: v for k, v in spec.items() if k != "name"},
             "tolerance": tol, "max_abs_err": err,
             "ctx0_rows_zero": int(empty.sum()),
+            "plan": _attention_plan(
+                torch, args[0], args[1][0] if quantized else args[1],
+                args[3]),
             "ms": timer(kern, iters=20),
             "plain_ms": timer(
                 lambda: pa.paged_attention_decode_reference(*args), iters=3),
             "library_ms": None}
     case["bound_ms"], case["bound_by"] = _bound(
         nbytes, flops, F32_FLOPS_PER_S if f32 else BF16_FLOPS_PER_S)
+    case["share_of_bound"] = case["bound_ms"] / case["ms"]
+    ctx = spec["ctx"]
+    if not quantized and len(set(ctx)) == 1:
+        case["library_ms"] = _sdpa_ms(torch, timer, args[0], args[1],
+                                      args[2], args[3], ctx[0])
+        case["library_note"] = ("not paged: SDPA over the same K/V rows "
+                                "gathered beforehand")
     return case
 
 
@@ -846,12 +1079,21 @@ def main():
         _require(all(r >= 168 for r in regs.values()),
                  f"flash kernels built with fewer than 168 registers a "
                  f"thread: {regs}")
+        for src in ("ragged_paged_attention.cu",
+                    "paged_attention_decode.cu"):
+            ptxas[src] = _paged_ptxas(
+                _build.build_info.get("ptxas", {}).get(src, ""))
+        paged_smem = {f"<{d},{'int8' if qz else 'bf16'}{',deep' if dp else ''}>":
+                      rpa.smem_bytes(d, qz, dp) for d in (64, 128)
+                      for qz in (False, True) for dp in (False, True)}
         sass = _sass(_build.BUILD_DIR / _build.build_info["library"])
         return {"build_s": round(_build.build_info["seconds"], 3),
                 "library": _build.build_info["library"], "ptxas": ptxas,
                 "flash_dynamic_smem_bytes": smem, "flash_wg_regs": regs,
+                "paged_attention_dynamic_smem_bytes": paged_smem,
                 "flash_wg_sass": _flash_sass(sass),
-                "decode_matmul_sass": _gemv_sass(sass)}
+                "decode_matmul_sass": _gemv_sass(sass),
+                "paged_attention_sass": _paged_sass(sass)}
 
     _phase("build", build)
     timer = _Timer(torch)
@@ -875,32 +1117,12 @@ def main():
     # -- kernels against their plain versions --------------------------------
     def kernels():
         cases = []
-        for quantized in (False, True):
-            args, nbytes, flops = _attention_case(torch, gen, quantized)
-            out = rpa.ragged_paged_attention_cuda(*args)
-            ref = pa.ragged_paged_attention_reference(*args)
-            torch.cuda.synchronize()
-            err = float((out.float() - ref.float()).abs().max())
-            ok = torch.allclose(out.float(), ref.float(), atol=1e-2,
-                                rtol=1e-2)
-            _require(ok, f"ragged_paged_attention (int8 pool="
-                         f"{quantized}) differs from its plain version: "
-                         f"max abs err {err}")
-            pad = args[5] <= 0
-            _require(bool((out[pad] == 0).all()),
-                     "padding rows of ragged_paged_attention are not 0")
-            case = {"kernel": "ragged_paged_attention",
-                    "pool": "int8" if quantized else "bf16",
-                    "rows": int(args[0].shape[0]), "max_abs_err": err,
-                    "ms": timer(lambda: rpa.ragged_paged_attention_cuda(
-                        *args)),
-                    "plain_ms": timer(
-                        lambda: pa.ragged_paged_attention_reference(*args),
-                        iters=3),
-                    "library_ms": None}
-            case["bound_ms"], case["bound_by"] = _bound(nbytes, flops)
-            cases.append(case)
-            heads["int8" if quantized else "bf16"] = case
+        for spec in RAGGED_CASES:
+            c = _ragged_check(torch, gen, timer, spec)
+            cases.append(c)
+            if spec["name"] in ("smoke_bf16", "smoke_int8"):
+                heads[c["pool"]] = c
+            torch.cuda.empty_cache()
 
         def gemv_case(kind, name, b):
             case = _gemv_case(torch, gen, timer, dmm, kind, name, b)
@@ -1346,6 +1568,11 @@ def main():
                         "decode_matmul"),
                     "decode_step": step_profile["device_ms_by_family"].get(
                         "decode_matmul")},
+                "attention_device_ms": {
+                    "serving_run": serve_profile["device_ms_by_family"].get(
+                        "ragged_paged_attention"),
+                    "decode_step": step_profile["device_ms_by_family"].get(
+                        "ragged_paged_attention")},
                 "decode_weight_floor_ms":
                     1e3 * weight_bytes / HBM_BYTES_PER_S,
                 "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
@@ -1534,6 +1761,13 @@ def main():
                         "decode_matmul"),
                     "decode_step": step_profile["device_ms_by_family"].get(
                         "decode_matmul")},
+                "attention_device_ms": {
+                    "serving_run": serve_profile["device_ms_by_family"].get(
+                        "paged_attention_decode"),
+                    "serving_run_flash_fwd": serve_profile[
+                        "device_ms_by_family"].get("flash_fwd"),
+                    "decode_step": step_profile["device_ms_by_family"].get(
+                        "paged_attention_decode")},
                 "generate_b4_p256_n32": {
                     "timings": timings, "wall_s": gen_wall,
                     "tok_per_s": 4 * 32 / gen_wall},
@@ -1558,10 +1792,23 @@ def main():
                  "the int8-pool attention kernel never launched")
         _require(kv8_launches["decode_matmul"] == 0,
                  "bf16 weights must not reach the int4 GEMV")
+        serve_profile = _device_breakdown(torch, lambda: serve(dec, 4),
+                                          wall * 1e3)
+        one, step_wall_ms, step_profile = decode_ministep(dec)
+        _require(one == {"ragged_paged_attention": 32, "decode_matmul": 0},
+                 f"one pure-decode ministep at W=8 with an int8 pool "
+                 f"launched {one}, expected 32 attention kernels")
         del dec
         return {"model": "llama_3_8b bf16 weights, int8 KV pool, 32 layers",
                 "launches": dict(kv8_launches),
                 "tok_per_s": st["generated_tokens"] / wall, "wall_s": wall,
+                "attention_device_ms": {
+                    "serving_run": serve_profile["device_ms_by_family"].get(
+                        "ragged_paged_attention"),
+                    "decode_step": step_profile["device_ms_by_family"].get(
+                        "ragged_paged_attention")},
+                "serve_profile": serve_profile,
+                "decode_ministep_W8_ctx512_wall_ms": step_wall_ms,
                 "sample_tokens": outs[0][:8].tolist()}
 
     _phase("serve-bf16-kv8", serve_bf16_kv8)

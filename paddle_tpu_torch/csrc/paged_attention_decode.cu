@@ -2,48 +2,67 @@
 //
 // Replaces the TPU kernel
 //   paddle_tpu/ops/pallas/paged_attention.py:paged_attention_decode_pallas
-//   (kernel body _decode_kernel).
+//   (call :164, kernel body _decode_kernel :46).
 // What it computes: for every sequence b and query head, attention of
 // this step's query q[b] over the pool positions p < context_lens[b] of
-// the sequence's own pages (block_tables[b]). GQA: the `group` query
-// heads of kv-head h share its K/V. q is scaled by 1/sqrt(d) in float32,
-// the softmax is online in float32 with the finite -1e30 of the JAX
-// kernel, and the output is acc / max(l, 1e-30), so a sequence with
-// ctx <= 0 comes out as exact zeros. Pools are float32 or bfloat16 of
-// q's dtype (an int8 pool goes to the ragged kernel).
+// the sequence's own pages (block_tables[b]), bounded by max_pages *
+// block_size; page ids are clamped into the pool. GQA: the `group` query
+// heads of kv-head h share its K/V. The softmax is online in float32 with
+// the finite -1e30 of the JAX kernel, and the output is acc / max(l,
+// 1e-30), so a sequence with ctx <= 0 comes out as exact zeros. This is
+// the ragged kernel's function with one row per sequence (the JAX
+// package's decode oracle is that ragged call); pools are float32 or
+// bfloat16 of q's dtype (an int8 pool goes to the ragged kernel).
 //
-// What bounds it on an H100: bytes. A block reads ctx * d K and V values
-// of its kv-head once and does 4 * group flops per value read, far below
-// the ~295 flop/byte where the tensor cores would bind; so the products
-// run on CUDA cores in float32.
+// What bounds it on an H100: bytes. A sequence's kv-head reads ctx * d K
+// and V values once and does 4 * group flops per value, far below the
+// ~295 flop/byte where the tensor cores bind. At b 8 a grid of one block
+// per (sequence, kv-head) fills 64 of 132 SMs, and one long sequence of a
+// mixed batch sets the time of the whole launch.
 //
-// Design (the simple, right form; the fast form is later work):
-// - one 128-thread block per (sequence, kv-head); the block reads its own
-//   table row (CUDA has no scalar prefetch);
-// - it walks the visible positions in tiles of up to 128 (the TPU
-//   kernel's tokens-per-iteration default), fewer where two stages of K
-//   and V would pass ~140 KB of shared memory (64 positions for float32
-//   at d 128 or bf16 at d 256, 32 for float32 at d 256);
-// - each tile is staged page by page with 16-byte cp.async copies into
-//   one of two buffers, so the copy of tile i+1 overlaps the math of tile
-//   i (the TPU kernel's DMA of page group g+1 during the math of g);
-// - all `group` query heads of the kv-head are served from each staged
-//   tile, so K and V are read from device memory once per (sequence,
-//   kv-head): scores with one position per thread (or per 2-4 threads
-//   that split d), the softmax statistics per warp, then p.V with each
-//   thread owning a column of d for its heads;
-// - shared rows are padded by 16 bytes, so the 16-byte row reads of the
-//   score phase are free of bank conflicts;
-// - positions are bounded by min(ctx, max_pages * block_size), the plain
-//   version's bound, and page ids are clamped into the pool like its
-//   clip-mode gather.
-// Not done here: split-KV (64 blocks at b = 8 leave half of the 132 SMs
-// idle), TMA, and a block serving several sequences at low ctx.
+// Design, bfloat16 at head_dim 64 / 128 (paged_decode_kernel over
+// paged_attention.cuh, whose header has the details): the ragged
+// design's one-row tiles. A unit is (sequence, kv-head, KV split); the
+// host sizes the grid from b, kv_heads, max_pages and the SM count: a
+// batch of at most one unit an SM gets a deep ring (~192 KB of stages in
+// flight a block) and may cut a long sequence's positions into shares,
+// whose float32 partials the last share to finish adds in share order.
+// Pages come in by TMA; the group's query vectors are the columns of
+// mma.sync m16n8k16 products whose rows are positions (S^T = K Q^T, O^T
+// += V^T P^T).
+//
+// float32 pools, head_dim 256, and pages that are not whole 16-position
+// chunks run the first, CUDA-core form (paged_decode_cc_kernel): one
+// 128-thread block per (sequence, kv-head), tiles of up to 128 positions
+// staged by cp.async into two buffers, every query head of the group
+// served from each staged tile, float32 FMAs.
 
-#include "common.cuh"
+#include "paged_attention.cuh"
 
 namespace ptt {
 namespace {
+
+// ---- bfloat16: tensor cores (paged_attention.cuh) -------------------------
+
+template <int D>
+__global__ void __launch_bounds__(paged::kThreads, 2)
+paged_decode_kernel(const paged::Params p,
+                    const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  paged::attention_unit<D, false>(p, &tk, &tv, smem);
+}
+
+template <int D>
+int launch_tc(const paged::Params& p, int blocks, const void* k,
+              const void* v, cudaStream_t stream) {
+  return paged::launch<D, false>(paged_decode_kernel<D>, p, blocks, k, v,
+                                 stream);
+}
+
+// ---- float32, head_dim 256 and the rest: CUDA cores -------------------------
+
+namespace cc {
 
 constexpr int kThreads = 128;  // 4 warps
 constexpr int kWarps = kThreads / 32;
@@ -87,12 +106,12 @@ __device__ __forceinline__ void cp_async_wait_one() {
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
-paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
-                    const T* __restrict__ vp, const int* __restrict__ tables,
-                    const int* __restrict__ context_lens,
-                    T* __restrict__ out, int num_heads, int kv_heads,
-                    int num_blocks, int block_size, int max_pages, int group,
-                    float scale) {
+paged_decode_cc_kernel(const T* __restrict__ q, const T* __restrict__ kp,
+                       const T* __restrict__ vp, const int* __restrict__ tables,
+                       const int* __restrict__ context_lens,
+                       T* __restrict__ out, int num_heads, int kv_heads,
+                       int num_blocks, int block_size, int max_pages, int group,
+                       float scale) {
   using S = DecodeShape<T, D>;
   constexpr int TP = S::kTile;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -290,7 +309,7 @@ int launch(const void* q, const void* k, const void* v, const int* tables,
   using S = DecodeShape<T, D>;
   static_assert(S::kSmemBytes + (kMaxGroup * D + kMaxGroup * S::kTile) * 4 <=
                     227 * 1024, "decode tile too large");
-  auto kernel = paged_decode_kernel<T, D>;
+  auto kernel = paged_decode_cc_kernel<T, D>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::kSmemBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -325,32 +344,76 @@ int launch_d(int head_dim, const void* q, const void* k, const void* v,
   }
 }
 
+}  // namespace cc
+
 }  // namespace
 }  // namespace ptt
 
 // q [b, num_heads, head_dim] (dtype), pools [num_blocks, kv_heads,
 // block_size, head_dim] of the same dtype, tables [b, max_pages] int32,
-// context_lens [b] int32; out like q. Returns 0, a cudaError_t from the
-// launch, or -1 for an unsupported shape or type.
+// context_lens [b] int32; out like q. The plan is the caller's
+// (ops/cuda/paged_attention_plan.py:grid_plan): on the tensor-core route
+// (bfloat16, head_dim 64 or 128, block_size a multiple of 16 that
+// divides 64 or is a multiple of it) `splits` (1..16) KV splits a
+// sequence may take, `deep` (0 / 1: the grid holds at most one block an
+// SM, so the ring takes about 192 KB) and `blocks` (1..b) grid blocks a
+// kv-head and split, each working sequences blocks apart; with splits > 1
+// a float32
+// workspace of splits * b * num_heads * (head_dim + 2) values and int32
+// counters [b * kv_heads] that are zero (the kernel leaves them zero).
+// splits = 1, deep = 0 and blocks = b elsewhere. Returns 0, a
+// cudaError_t from the launch, or -1 for an unsupported shape, type or
+// plan.
 extern "C" int ptt_paged_attention_decode(
     const void* q, const void* k, const void* v, const int* tables,
-    const int* context_lens, void* out, int b, int num_heads, int kv_heads,
-    int head_dim, int num_blocks, int block_size, int max_pages, int dtype,
-    float scale, void* stream) {
+    const int* context_lens, void* out, float* workspace, int* counters,
+    int b, int num_heads, int kv_heads, int head_dim, int num_blocks,
+    int block_size, int max_pages, int dtype, int splits, int deep,
+    int blocks, float scale, void* stream) {
   using namespace ptt;
   if (b == 0) return 0;
   if (b < 0 || kv_heads <= 0 || num_heads % kv_heads != 0 ||
-      num_heads / kv_heads > kMaxGroup || max_pages <= 0 || block_size <= 0 ||
-      num_blocks <= 0)
+      num_heads / kv_heads > cc::kMaxGroup || max_pages <= 0 ||
+      block_size <= 0 || num_blocks <= 0)
+    return kUnsupported;
+  if (splits < 1 || splits > paged::kMaxSplits || (deep != 0 && deep != 1) ||
+      blocks < 1 || blocks > b ||
+      (splits > 1 && (workspace == nullptr || counters == nullptr)))
     return kUnsupported;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (paged::tensor_core_route(dtype, head_dim, block_size)) {
+    paged::Params p = {};
+    p.q = static_cast<const __nv_bfloat16*>(q);
+    p.tables = tables;
+    p.row_seq = nullptr;  // row r reads table row r
+    p.row_ctx = context_lens;
+    p.out = static_cast<__nv_bfloat16*>(out);
+    p.ws = workspace;
+    p.counters = counters;
+    p.rows = b;
+    p.num_heads = num_heads;
+    p.kv_heads = kv_heads;
+    p.num_blocks = num_blocks;
+    p.block_size = block_size;
+    p.num_seqs = b;
+    p.max_pages = max_pages;
+    p.group = num_heads / kv_heads;
+    p.tile_rows = 1;
+    p.splits = splits;
+    p.deep = deep;
+    p.scale_log2 = scale * paged::kLog2e;
+    return head_dim == 64 ? launch_tc<64>(p, blocks, k, v, st)
+                          : launch_tc<128>(p, blocks, k, v, st);
+  }
+  if (splits != 1 || deep != 0 || blocks != b) return kUnsupported;
   if (dtype == kF32)
-    return launch_d<float>(head_dim, q, k, v, tables, context_lens, out, b,
-                           num_heads, kv_heads, num_blocks, block_size,
-                           max_pages, scale, st);
+    return cc::launch_d<float>(head_dim, q, k, v, tables, context_lens, out,
+                               b, num_heads, kv_heads, num_blocks,
+                               block_size, max_pages, scale, st);
   if (dtype == kBF16)
-    return launch_d<__nv_bfloat16>(head_dim, q, k, v, tables, context_lens,
-                                   out, b, num_heads, kv_heads, num_blocks,
-                                   block_size, max_pages, scale, st);
+    return cc::launch_d<__nv_bfloat16>(head_dim, q, k, v, tables,
+                                       context_lens, out, b, num_heads,
+                                       kv_heads, num_blocks, block_size,
+                                       max_pages, scale, st);
   return kUnsupported;
 }

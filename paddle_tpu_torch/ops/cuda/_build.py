@@ -96,10 +96,12 @@ def _compile(sources, target: Path) -> dict:
 
 def _declare(lib):
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.ptt_ragged_paged_attention.argtypes = [p] * 9 + [i] * 10 + [f, p]
+    lib.ptt_ragged_paged_attention.argtypes = [p] * 11 + [i] * 13 + [f, p]
     lib.ptt_ragged_paged_attention.restype = i
-    lib.ptt_paged_attention_decode.argtypes = [p] * 6 + [i] * 8 + [f, p]
+    lib.ptt_paged_attention_decode.argtypes = [p] * 8 + [i] * 11 + [f, p]
     lib.ptt_paged_attention_decode.restype = i
+    lib.ptt_paged_attention_smem.argtypes = [i, i, i]
+    lib.ptt_paged_attention_smem.restype = i
     lib.ptt_decode_matmul.argtypes = [p] * 5 + [i] * 7 + [p]
     lib.ptt_decode_matmul.restype = i
     lib.ptt_flash_fwd.argtypes = [p] * 8 + [i] * 11 + [f, p]

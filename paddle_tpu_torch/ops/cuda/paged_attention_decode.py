@@ -5,7 +5,11 @@
 The plain PyTorch version is
 ``paddle_tpu_torch.ops.paged_attention.paged_attention_decode_reference``;
 the dispatcher ``paged_attention_decode`` there sends CUDA tensors with
-an fp pool here.
+an fp pool here. bfloat16 at head_dim 64 / 128 with pages of a multiple
+of 16 positions that tile 64 runs the tensor-core kernel on the grid of
+``paged_attention_plan.grid_plan``, with a float32 workspace and the
+device's counters when it splits; float32, head_dim 256 and other pages
+run its CUDA-core form.
 """
 from __future__ import annotations
 
@@ -14,7 +18,8 @@ from typing import Optional
 
 import torch
 
-from ._build import check, load_library
+from ._build import check, load_library, sm_count
+from .paged_attention_plan import counters, grid_plan, tensor_core_route
 
 __all__ = ["paged_attention_decode_cuda", "launches", "HEAD_DIMS"]
 
@@ -77,14 +82,24 @@ def paged_attention_decode_cuda(q, k_cache, v_cache, block_tables,
     out = torch.empty_like(q)
     if b == 0:
         return out
+    splits, deep, blocks = grid_plan(b, kvh, block_tables.shape[1],
+                                     bs, sm_count(q.device)) \
+        if tensor_core_route(q.dtype, d, bs) else (1, False, b)
+    ws = cnt = None
+    if splits > 1:
+        ws = torch.empty(splits * b * nh * (d + 2), dtype=torch.float32,
+                         device=q.device)
+        cnt = counters(q.device, b * kvh)
     lib = load_library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         code = lib.ptt_paged_attention_decode(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
             block_tables.data_ptr(), context_lens.data_ptr(),
-            out.data_ptr(), b, nh, kvh, d, nb, bs, block_tables.shape[1],
-            _DTYPES[q.dtype], float(scale), stream)
+            out.data_ptr(), ws.data_ptr() if ws is not None else None,
+            cnt.data_ptr() if cnt is not None else None, b, nh, kvh, d, nb,
+            bs, block_tables.shape[1], _DTYPES[q.dtype], splits, int(deep),
+            blocks, float(scale), stream)
     check(lib, code, "paged_attention_decode")
     launches += 1
     return out

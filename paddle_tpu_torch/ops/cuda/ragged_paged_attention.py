@@ -5,6 +5,11 @@
 The plain PyTorch version is
 ``paddle_tpu_torch.ops.paged_attention.ragged_paged_attention_reference``;
 the dispatcher ``ragged_paged_attention`` there sends CUDA tensors here.
+bfloat16 q at head_dim 64 / 128 with pages of a multiple of 16 positions
+that tile 64 runs the tensor-core kernel on the grid of
+``paged_attention_plan.grid_plan``, with a float32 workspace and the
+device's counters when it splits; everything else the kernel takes runs
+its CUDA-core form.
 """
 from __future__ import annotations
 
@@ -13,9 +18,10 @@ from typing import Optional
 
 import torch
 
-from ._build import check, load_library
+from ._build import check, load_library, sm_count
+from .paged_attention_plan import counters, grid_plan, tensor_core_route
 
-__all__ = ["ragged_paged_attention_cuda", "launches"]
+__all__ = ["ragged_paged_attention_cuda", "launches", "smem_bytes"]
 
 # kernel launches since import; callers reset it to 0 to count a run
 launches = 0
@@ -76,13 +82,24 @@ def ragged_paged_attention_cuda(q, k_cache, v_cache, block_tables, row_seq,
         + ([ks, vs] if quantized else [])
     _require(all(t.is_cuda and t.device == q.device for t in tensors),
              "every operand must lie on q's CUDA device")
-    _require(all(t.is_contiguous() for t in tensors),
-             "every operand must be contiguous")
+    _require(all(t.is_contiguous() for t in tensors)
+             and all(t.data_ptr() % 16 == 0 for t in tensors[:3]
+                     + ([ks, vs] if quantized else [])),
+             "every operand must be contiguous, q, the pools and their "
+             "scales 16-byte aligned")
     if scale is None:
         scale = 1.0 / math.sqrt(d)
     out = torch.empty_like(q)
     if r == 0:
         return out
+    splits, deep, blocks = grid_plan(r, kvh, block_tables.shape[1],
+                                     bs, sm_count(q.device)) \
+        if tensor_core_route(q.dtype, d, bs) else (1, False, r)
+    ws = cnt = None
+    if splits > 1:
+        ws = torch.empty(splits * r * nh * (d + 2), dtype=torch.float32,
+                         device=q.device)
+        cnt = counters(q.device, r * kvh)
     lib = load_library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -91,9 +108,19 @@ def ragged_paged_attention_cuda(q, k_cache, v_cache, block_tables, row_seq,
             ks.data_ptr() if quantized else None,
             vs.data_ptr() if quantized else None,
             block_tables.data_ptr(), row_seq.data_ptr(), row_ctx.data_ptr(),
-            out.data_ptr(), r, nh, kvh, d, nb, bs, block_tables.shape[0],
-            block_tables.shape[1], _DTYPES[q.dtype], int(quantized),
+            out.data_ptr(), ws.data_ptr() if ws is not None else None,
+            cnt.data_ptr() if cnt is not None else None, r, nh, kvh, d, nb,
+            bs, block_tables.shape[0], block_tables.shape[1],
+            _DTYPES[q.dtype], int(quantized), splits, int(deep), blocks,
             float(scale), stream)
     check(lib, code, "ragged_paged_attention")
     launches += 1
     return out
+
+
+def smem_bytes(head_dim: int, quantized: bool, deep: bool) -> int:
+    """Dynamic shared memory a block of the tensor-core kernels takes
+    (both entries share it) at head_dim 64 or 128, bf16 or int8 pool,
+    with the regular or the deep ring."""
+    return load_library().ptt_paged_attention_smem(head_dim, int(quantized),
+                                                   int(deep))
