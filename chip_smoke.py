@@ -60,18 +60,28 @@ failure ends the run with a non-zero exit code and no result:
                  through the dense engine (mid chunks, offset finals) and
                  generate() on the card and the CPU: equal greedy tokens,
                  one prefill's logits within 1e-3, and the card ran the
-                 paged-decode, flash forward and GEMV kernels.
-6. serve-int4    THE MAIN PATH: Llama-3-8B at full width and all 32 layers,
+                 paged-decode, flash forward and GEMV kernels. These three
+                 tiny phases run the engines' programs as CUDA graphs,
+                 captured at first use.
+6. tiny-prefix-parity  llama_tiny(hidden_size=256) float32 (int4) with
+                 prefix caching, both schedulers: 5 requests, 4 sharing
+                 24 tokens; the card with caching on and off and the CPU
+                 with it on give equal greedy tokens, the card and the
+                 CPU equal hit tokens.
+7. serve-int4    THE MAIN PATH: Llama-3-8B at full width and all 32 layers,
                  int4 weights from a seed, bf16 KV pool, block size 64,
                  served by the ragged engine (8 requests of 100..600 prompt
                  tokens, 32 new tokens each, 6 greedy and 2 at temperature
-                 0.8). The launch counters are set to 0 just before and
+                 0.8), its programs run eagerly (``cuda_graphs=False``;
+                 serve-graphs holds the graphs against these runs), prefix
+                 caching on (the engine's default; these prompts share no
+                 prefix). The launch counters are set to 0 just before and
                  read just after; a repeat run must give the same tokens;
                  one pure-decode ministep at W=8 must launch exactly 32
                  attention and 129 GEMV kernels; the decode_matmul and
                  attention families' device ms per serving run and per
                  ministep.
-7. serve-dense-int4  THE DENSE PATH on the same decoder:
+8. serve-dense-int4  THE DENSE PATH on the same decoder, eager:
                  ServingEngine(ragged=False, max_batch_size=8, chunk_size=8,
                  prefill_chunk=256), 8 requests of 100..512 prompt tokens,
                  32 new each (6 greedy, 2 at 0.8). Counters set to 0 just
@@ -88,16 +98,40 @@ failure ends the run with a non-zero exit code and no result:
                  decode steps alternately, 3 each (median, min, max);
                  the decode_matmul and attention families' device ms per
                  run and step.
-8. serve-bf16-kv8  the same model with bf16 weights and an int8 KV pool
+9. serve-prefix-int4  both engines on 8 requests that share a
+                 384-token prefix (6 blocks of 64), each with 64..128
+                 tokens of its own, 32 new tokens, greedy, caching on
+                 against off: 2,688 hit tokens (7 readers x 6 blocks),
+                 streams equal or, at the first divergence, a near-tie:
+                 the card's logit gap there (one prefill over the
+                 context) at most twice the largest difference of those
+                 logits from the same ones computed 32 rows at a time;
+                 tok/s, TTFT and the prefill's
+                 device ms (the same requests with one new token) on and
+                 off.
+10. serve-graphs  both engines with ``warmup_programs`` +
+                 ``seal_programs`` (graphs captured, seconds, pool
+                 memory), then serve-dense-int4's requests: tokens equal a
+                 fresh eager engine's, stochastic rows included; no
+                 unexpected recompile; the launch counters equal what the
+                 run's program dispatches call for under the eager gates;
+                 the shared-prefix requests equal serve-prefix-int4's with
+                 2,688 hit tokens; eager and graph runs alternated, 4 each
+                 (median, min, max of tok/s, TTFT, ITL p50 / p99); the
+                 idle share of one graph run; a decode chunk (T 8) of 8
+                 sequences at ctx 512, eager against graph, alternated 3
+                 times (wall ms a step, the graph's device ms and idle
+                 share, launches of a chunk).
+11. serve-bf16-kv8  the same model with bf16 weights and an int8 KV pool
                  (4 requests): the int8 branch of the attention kernel on
                  the serving path; one W 8 ministep launches exactly 32
                  attention kernels; the attention family's device ms per
                  run and per ministep.
-9. tiny-train-parity  llama_tiny(hidden_size=256) in float32 (head_dim 64)
+12. tiny-train-parity  llama_tiny(hidden_size=256) in float32 (head_dim 64)
                  with the same weights on the card and the CPU: 3 TrainSteps
                  of AdamW(1e-3) give losses within 1e-4 relative, and the
                  card ran all three flash kernels.
-10. tiny-ring-parity  llama_tiny(hidden_size=256, sep_degree=4) in
+13. tiny-ring-parity  llama_tiny(hidden_size=256, sep_degree=4) in
                  float32 (head_dim 64) at b 2 x s 256 under a sep-4 fleet
                  mesh, the same weights on the card (["cuda:0"] * 4) and on
                  the CPU (["cpu"] * 4): 3 TrainSteps of AdamW(1e-3) give
@@ -105,7 +139,7 @@ failure ends the run with a non-zero exit code and no result:
                  model's at sep_degree=1 within 1e-4, and the flash counters
                  read exactly what the ring calls for (2 layers x 4 ranks
                  x 6 blocks per step of each kernel).
-11. train-mid    THE TRAINING PATH: llama_mid (0.65B) at full width and all
+14. train-mid    THE TRAINING PATH: llama_mid (0.65B) at full width and all
                  11 layers, bf16 compute, seed 0, batch 4 x seq 2048 (ids as
                  bench.py makes them), AdamW(1e-4, weight_decay=0.01): 2 warm
                  and 10 timed TrainSteps. The flash counters are set to 0
@@ -114,7 +148,7 @@ failure ends the run with a non-zero exit code and no result:
                  last below the first. Step ms, tokens/s, MFU by bench.py's
                  formula against 989 TFLOP/s, peak memory, device time by
                  kernel family and the idle share.
-12. train-mid8k  THE LONG-CONTEXT PATH: llama_mid(dtype="bfloat16",
+15. train-mid8k  THE LONG-CONTEXT PATH: llama_mid(dtype="bfloat16",
                  chunked_ce_tokens=1024, max_position_embeddings=8192,
                  sep_degree=4), all 11 layers, b 1 x s 8192 (ids as bench.py
                  makes them), AdamW(1e-4, weight_decay=0.01), under a sep-4
@@ -130,6 +164,10 @@ failure ends the run with a non-zero exit code and no result:
                  and sep 4 within 1e-2 relative. Step ms, tokens/s, MFU at
                  seq 8192, peak memory, device time by kernel family (the
                  flash family's ms apart) and the idle share of both.
+16. capture-failure  a program with a host sync inside: its first
+                 dispatch raises, no graph is kept and it is not run
+                 eagerly in its place (last, as a failed capture may
+                 leave the allocator's pool unusable).
 
 Then a {"kernels": [...]} line, the card's name and power limit as
 nvidia-smi reports them, and last
@@ -1031,6 +1069,7 @@ def main():
     import numpy as np
     from paddle_tpu_torch.inference import (PagedLlamaDecoder,
                                             SamplingParams, ServingEngine)
+    from paddle_tpu_torch.inference.programs import ProgramSet
     from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.models import (LlamaForCausalLM, llama_3_8b,
                                          llama_mid, llama_tiny)
@@ -1044,6 +1083,7 @@ def main():
     from paddle_tpu_torch.ops.qweight import QWeight
     from paddle_tpu_torch.optimizer import AdamW
     from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.utils.telemetry import CompileWatch
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1423,6 +1463,46 @@ def main():
 
     _phase("tiny-dense-parity", tiny_dense_parity)
 
+    def tiny_prefix_parity():
+        """Prefix caching on both schedulers, llama_tiny float32 with int4
+        weights: the card (its programs CUDA graphs) with caching on,
+        the card with it off and the CPU with it on give the same
+        greedy tokens, and the card and the CPU the same hit tokens. At
+        head_dim 64, which the dense prefill's flash kernel takes."""
+        cfg_t = llama_tiny(hidden_size=256)
+        cpu, gpu = cpu_and_card(cfg_t)
+        prng = np.random.RandomState(7)
+        head = prng.randint(0, cfg_t.vocab_size, 24)       # 3 blocks of 8
+        ps = [np.concatenate([head, prng.randint(0, cfg_t.vocab_size, n)])
+              for n in (3, 9, 5, 7)]
+        ps.append(prng.randint(0, cfg_t.vocab_size, 21))
+        info = {}
+        for ragged in (True, False):
+            res = {}
+            for name, dec, pc in (("cpu", cpu, True), ("card", gpu, True),
+                                  ("card_off", gpu, False)):
+                eng = ServingEngine(dec, ragged=ragged, max_batch_size=3,
+                                    chunk_size=4, prefill_chunk=8,
+                                    prompt_buckets=(8, 16, 32, 64),
+                                    prefix_caching=pc)
+                rids = [eng.add_request(p, SamplingParams(max_new_tokens=6))
+                        for p in ps]
+                eng.run_to_completion()
+                res[name] = ([eng.result(r).tolist() for r in rids],
+                             eng.stats()["prefix_cache_hit_tokens"])
+                eng.close()
+                dec.cache.debug_check()
+            kind = "ragged" if ragged else "dense"
+            _require(res["card"][0] == res["card_off"][0] == res["cpu"][0],
+                     f"tiny-prefix-parity {kind}: tokens differ: {res}")
+            _require(res["card"][1] == res["cpu"][1] > 0
+                     and res["card_off"][1] == 0,
+                     f"tiny-prefix-parity {kind}: hit tokens {res}")
+            info[kind] = {"hit_tokens": res["card"][1], "tokens_equal": True}
+        return info
+
+    _phase("tiny-prefix-parity", tiny_prefix_parity)
+
     # -- the main path: 8B int4 serving --------------------------------------
     cfg = llama_3_8b(dtype="bfloat16")
     rng = np.random.RandomState(0)
@@ -1430,19 +1510,30 @@ def main():
                for n in rng.randint(100, 601, 8)]
     temps = [0.0] * 6 + [0.8] * 2
 
-    def serve(dec, n_req, seed=0, ragged=True, reqs=None):
-        """Serve n_req requests (serve-int4's prompts unless given) with
-        32 new tokens each through a fresh engine on dec: (tokens, wall
-        seconds, stats). The ragged engine takes prompts up to 1024."""
+    def engine(dec, ragged, seed=0, graphs=False, prefix_caching=True):
+        """The smoke's engine on dec: max batch 8, chunks of 8, prefill
+        chunk 256; the ragged engine takes prompts up to 1024 and pure
+        prefill chunks of 256 rows; eager unless ``graphs``."""
         if ragged:
-            eng = ServingEngine(dec, ragged=True, max_batch_size=8,
-                                prefill_chunk=256, chunk_size=8, seed=seed,
-                                prompt_buckets=(32, 64, 128, 256, 512, 1024))
-        else:
-            eng = ServingEngine(dec, ragged=False, max_batch_size=8,
-                                prefill_chunk=256, chunk_size=8, seed=seed)
+            return ServingEngine(dec, ragged=True, max_batch_size=8,
+                                 prefill_chunk=256, chunk_size=8, seed=seed,
+                                 prompt_buckets=(32, 64, 128, 256, 512,
+                                                 1024),
+                                 prefix_caching=prefix_caching,
+                                 cuda_graphs=graphs)
+        return ServingEngine(dec, ragged=False, max_batch_size=8,
+                             prefill_chunk=256, chunk_size=8, seed=seed,
+                             prefix_caching=prefix_caching,
+                             cuda_graphs=graphs)
+
+    def serve(dec, n_req, seed=0, ragged=True, reqs=None,
+              prefix_caching=True, new=32):
+        """Serve n_req requests (serve-int4's prompts unless given) with
+        ``new`` new tokens each through a fresh eager engine on dec:
+        (tokens, wall seconds, stats)."""
+        eng = engine(dec, ragged, seed=seed, prefix_caching=prefix_caching)
         reqs = reqs or list(zip(prompts[:n_req], temps[-n_req:]))
-        rids = [eng.add_request(p, SamplingParams(max_new_tokens=32,
+        rids = [eng.add_request(p, SamplingParams(max_new_tokens=new,
                                                   temperature=t))
                 for p, t in reqs]
         torch.cuda.synchronize()
@@ -1456,7 +1547,7 @@ def main():
         _require(st["finished"] == n_req, f"only {st['finished']} of "
                                           f"{n_req} requests finished")
         for o in outs:
-            _require(len(o) == 32 and o.min() >= 0
+            _require(len(o) == new and o.min() >= 0
                      and o.max() < cfg.vocab_size,
                      f"bad output tokens {o}")
         dec.cache.debug_check()
@@ -1772,11 +1863,339 @@ def main():
                     "timings": timings, "wall_s": gen_wall,
                     "tok_per_s": 4 * 32 / gen_wall},
                 "sample_tokens": outs1[0][:8].tolist()}
-        del dec
-        shared.clear()
+        shared["dense_reqs"] = reqs
         return info
 
     _phase("serve-dense-int4", serve_dense_int4)
+
+    # -- prefix caching and CUDA graphs on the 8B decoder --------------------
+    # 8 requests sharing a 384-token prefix (6 blocks of 64), each with
+    # 64..128 tokens of its own, so every prompt fits the dense engine's
+    # 512 bucket: a system prompt or few-shot template. In one admission
+    # wave the first writes the prefix and the other seven splice it.
+    prng = np.random.RandomState(8)
+    head = prng.randint(0, cfg.vocab_size, 384)
+    prefix_reqs = [(np.concatenate([head, prng.randint(0, cfg.vocab_size,
+                                                       int(n))]), 0.0)
+                   for n in prng.randint(64, 129, 8)]
+    prefix_hits = 7 * 6 * 64
+
+    def last_logits(dec, toks, rows):
+        """The card's float32 logits after ``toks``: ragged prefill
+        ministeps of ``rows`` rows each over a fresh allocation."""
+        cache, n, dev = dec.cache, len(toks), dec.device
+        cache.allocate(10_000, n)
+        slots = torch.as_tensor([cache.extend(10_000) for _ in range(n)],
+                                dtype=torch.int32, device=dev)
+        table = torch.as_tensor(cache.block_table(10_000, dec.max_pages)[None],
+                                device=dev)
+        ids = torch.as_tensor(toks, dtype=torch.int32, device=dev)
+        pos = torch.arange(n, dtype=torch.int32, device=dev)
+        with torch.inference_mode():
+            for s0 in range(0, n, rows):
+                sl = slice(s0, min(n, s0 + rows))
+                lg, _, _ = dec._ragged_logits(
+                    dec.weights, cache.k, cache.v, ids[sl], pos[sl],
+                    slots[sl], torch.zeros_like(pos[sl]), pos[sl] + 1, table)
+        cache.free(10_000)
+        return lg[-1].float()
+
+    def first_gap(dec, prompt, a, b):
+        """At the first divergence of two greedy streams: (index, the
+        card's logit gap between a's and b's token there, the logit noise
+        there). The logits come from one prefill ministep over the prompt
+        and a's tokens before the divergence (layer products of more
+        than 32 rows on cuBLAS); the noise is their largest difference
+        from the same logits computed in ministeps of 32 rows (products
+        on the GEMV kernel), two computations of one function. None when
+        the streams agree. Caching on and off differ in the same way
+        (where a prompt's rows run), so a divergence must be a near-tie:
+        a gap of at most twice the noise."""
+        i = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if i is None:
+            return None
+        toks = np.concatenate([prompt, a[:i]]).astype(np.int32)
+        one = last_logits(dec, toks, len(toks))
+        rows32 = last_logits(dec, toks, 32)
+        return (i, float(one[int(a[i])] - one[int(b[i])]),
+                float((one - rows32).abs().max()))
+
+    def serve_prefix_int4():
+        """Both engines on the shared-prefix requests (greedy, 32 new
+        tokens), caching on against off: hit tokens, streams (equal, or
+        a near-tie at the first divergence), TTFT, and the prefill's
+        device ms (the same requests with one new token, profiled)."""
+        dec = shared["dec"]
+        info, outs_on = {}, {}
+        for name, ragged in (("ragged", True), ("dense", False)):
+            runs = {}
+            for pc in (True, False):
+                outs, wall, st = serve(dec, 8, ragged=ragged,
+                                       reqs=prefix_reqs, prefix_caching=pc)
+                _, pwall, _ = serve(dec, 8, ragged=ragged, reqs=prefix_reqs,
+                                    prefix_caching=pc, new=1)
+                prof = _device_breakdown(
+                    torch, lambda: serve(dec, 8, ragged=ragged,
+                                         reqs=prefix_reqs,
+                                         prefix_caching=pc, new=1),
+                    pwall * 1e3)
+                runs[pc] = {"outs": outs,
+                            "hit_tokens": st["prefix_cache_hit_tokens"],
+                            "hit_rate": st["prefix_cache_hit_rate"],
+                            "tok_per_s": st["generated_tokens"] / wall,
+                            "ttft_p50_s": st["ttft_p50_s"],
+                            "itl_p50_s": st["itl_p50_s"],
+                            "prefill_wall_ms": pwall * 1e3,
+                            "prefill_device_ms": prof["device_ms"],
+                            "prefill_device_ms_by_family":
+                                prof["device_ms_by_family"]}
+            _require(runs[True]["hit_tokens"] == prefix_hits
+                     and runs[False]["hit_tokens"] == 0,
+                     f"{name}: hit tokens {runs[True]['hit_tokens']} "
+                     f"(caching off {runs[False]['hit_tokens']}), expected "
+                     f"{prefix_hits}")
+            gaps = []
+            for (p, _), a, b in zip(prefix_reqs, runs[True]["outs"],
+                                    runs[False]["outs"]):
+                g = first_gap(dec, p, a, b)
+                _require(g is None or abs(g[1]) <= 2 * g[2],
+                         f"{name}: caching on and off diverge at (token, "
+                         f"logit gap, noise) {g}, beyond a near-tie")
+                gaps.append(g)
+            outs_on[name] = [o.tolist() for o in runs[True]["outs"]]
+            info[name] = {
+                "first_divergences": gaps,
+                **{f"{k}_{'on' if pc else 'off'}": v
+                   for pc, r in runs.items() for k, v in r.items()
+                   if k != "outs"}}
+        shared["prefix_outs"] = outs_on
+        return info
+
+    _phase("serve-prefix-int4", serve_prefix_int4)
+
+    def graph_launches(dispatches, L):
+        """The launches a run's program dispatches call for, under the
+        eager gates: a ragged ministep 32 attention and, at W <= 32, 129
+        GEMV; a dense decode step 32 paged-decode and 129 GEMV; a
+        _prefill_impl dispatch (plain final, mid at offset 0) 32 flash
+        forward; a prefill of <= 32 token rows its 128 layer products on
+        the GEMV, a final its head product too."""
+        exp = {"paged_attention_decode": 0, "ragged_paged_attention": 0,
+               "decode_matmul": 0, "flash_fwd": 0}
+        for (fam, key), n in dispatches.items():
+            if fam == "ragged":
+                T, W, _ = key
+                exp["ragged_paged_attention"] += n * L * T
+                exp["decode_matmul"] += n * T * (4 * L + 1) * (W <= 32)
+            elif fam == "decode":
+                exp["paged_attention_decode"] += n * L * key[0]
+                exp["decode_matmul"] += n * (4 * L + 1) * key[0]
+            elif fam in ("prefill", "prefill_prefix"):
+                b, w, _ = key
+                exp["flash_fwd"] += n * L * (fam == "prefill")
+                exp["decode_matmul"] += n * (4 * L * (w * b <= 32) + 1)
+            else:                          # prefill_mid0, prefill_mid
+                exp["flash_fwd"] += n * L * (fam == "prefill_mid0")
+                exp["decode_matmul"] += n * 4 * L * (key[0] <= 32)
+        return exp
+
+    def drive(eng, reqs):
+        """Serve reqs (32 new tokens each) through a live engine: (tokens,
+        wall seconds, stats); then its finished requests and prefix
+        cache are cleared for the next run."""
+        rids = [eng.add_request(p, SamplingParams(max_new_tokens=32,
+                                                  temperature=t))
+                for p, t in reqs]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.run_to_completion()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        st = eng.stats()
+        outs = [eng.result(r) for r in rids]
+        eng.clear_finished()
+        eng.dec.cache.clear_prefix_cache()
+        eng.dec.cache.debug_check()
+        return outs, wall, st
+
+    def chunk_programs(dec, ragged, ctx=512):
+        """One decode chunk (T 8) of 8 sequences at ctx 512 on real pages
+        through an eager engine's program and a CUDA graph of it,
+        alternated 3 times each: wall ms a step (chunk wall / 8), the
+        launches of one chunk; the graph's device ms and idle share a
+        step (the eager step's: serve-int4 / serve-dense-int4)."""
+        T, mb = 8, 8
+        engs = {g: engine(dec, ragged, graphs=g) for g in (False, True)}
+        cache, mp = dec.cache, dec.max_pages
+        sb = engs[True]._scratch_block
+        sids = list(range(3000, 3000 + mb))
+        for sid in sids:
+            cache.allocate(sid, ctx + T)
+            for _ in range(ctx):
+                cache.extend(sid)
+        toks = np.random.RandomState(4).randint(0, cfg.vocab_size, mb) \
+            .astype(np.int32)
+        if ragged:
+            sched = np.zeros((6, T, mb), np.int32)
+            tables = np.full((mb + 1, mp), sb, np.int32)
+            for c, sid in enumerate(sids):
+                for t in range(T):
+                    pos = cache.context_len(sid)
+                    sched[1:, t, c] = (pos, cache.extend(sid), c, pos + 1, 1)
+                tables[c] = cache.block_table(sid, mp)
+            fam, key = "ragged", (T, mb, False)
+            arrays = [toks, sched, tables, np.zeros((T, mb), np.float32)]
+        else:
+            tables = np.full((T, mb, mp), sb, np.int32)
+            ctx_a = np.zeros((T, mb), np.int32)
+            slots = np.zeros((T, mb), np.int32)
+            for c, sid in enumerate(sids):
+                for t in range(T):
+                    ctx_a[t, c] = cache.context_len(sid)
+                    slots[t, c] = cache.extend(sid)
+                tables[:, c] = cache.block_table(sid, mp)[None]
+            fam, key = "decode", (T, False)
+            zeros = np.zeros(mb, np.int32)
+            arrays = [tables, ctx_a, slots, zeros, toks,
+                      np.ones(mb, np.int32), np.zeros(mb, np.float32)]
+        out = {}
+        with torch.inference_mode():
+            for g, eng in engs.items():
+                eng.programs.run(fam, key, arrays)       # compile / capture
+                torch.cuda.synchronize()
+                reset_dense()
+                eng.programs.run(fam, key, arrays)
+                torch.cuda.synchronize()
+                out[g] = {"launches": dense_counts(), "wall_ms": []}
+            n = 5
+            for _ in range(3):
+                for g, eng in engs.items():
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    for _ in range(n):
+                        eng.programs.run(fam, key, arrays)
+                    torch.cuda.synchronize()
+                    out[g]["wall_ms"].append(
+                        (time.perf_counter() - t0) * 1e3 / (n * T))
+            for g in engs:
+                out[g].update(step_wall_ms_median=float(np.median(
+                                  out[g]["wall_ms"])),
+                              step_wall_ms_min=min(out[g]["wall_ms"]),
+                              step_wall_ms_max=max(out[g]["wall_ms"]))
+            med = out[True]["step_wall_ms_median"]
+            prof = _device_breakdown(
+                torch, lambda: [engs[True].programs.run(fam, key, arrays)
+                                for _ in range(n)], med * n * T)
+            out[True].update(step_device_ms=prof["device_ms"] / (n * T),
+                             idle_share=prof["idle_share"])
+        for eng in engs.values():
+            eng.close()
+        for sid in sids:
+            cache.free(sid)
+        want = {"paged_attention_decode": 0 if ragged else 32 * T,
+                "ragged_paged_attention": 32 * T if ragged else 0,
+                "decode_matmul": 129 * T, "flash_fwd": 0}
+        for g in (False, True):
+            _require(out[g]["launches"] == want,
+                     f"a {'graph' if g else 'eager'} {fam} chunk launched "
+                     f"{out[g]['launches']}, expected {want}")
+        return {"eager": out[False], "graph": out[True]}
+
+    def serve_graphs():
+        """Both 8B engines with warmup_programs + seal_programs, then
+        serve-dense-int4's requests: tokens equal a fresh eager engine's
+        (stochastic rows included), no unexpected recompile, launches
+        equal to what the dispatches call for; the shared-prefix
+        requests equal serve-prefix-int4's with 2688 hit tokens; then
+        eager and graph runs alternated, 4 each; one graph run's idle
+        share; and the decode chunk at ctx 512 eager against graph."""
+        dec = shared["dec"]
+        reqs = shared["dense_reqs"]
+        L = cfg.num_hidden_layers
+        info = {}
+        for name, ragged in (("ragged", True), ("dense", False)):
+            eng = engine(dec, ragged, graphs=True)
+            free0 = dec.cache.free_blocks
+            # memory the graphs keep: reserved after emptying the cache,
+            # before and after (each capture empties it too)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            mem0 = torch.cuda.memory_reserved()
+            t0 = time.perf_counter()
+            eng.warmup_programs()
+            eng.seal_programs()
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            torch.cuda.empty_cache()
+            capture = {"graphs": eng.programs.captured, "seconds": secs,
+                       "pool_gb": (torch.cuda.memory_reserved() - mem0)
+                       / 1e9}
+            _require(dec.cache.free_blocks == free0,
+                     f"{name}: warmup_programs claimed pool blocks")
+            reset_dense()
+            eng.programs.dispatches.clear()
+            g_outs, g_wall, g_st = drive(eng, reqs)
+            launched = dense_counts()
+            n_disp = sum(eng.programs.dispatches.values())
+            expect = graph_launches(eng.programs.dispatches, L)
+            _require(launched == expect,
+                     f"{name} graphs launched {launched}, the dispatches "
+                     f"{dict(eng.programs.dispatches)} call for {expect}")
+            _require(g_st["unexpected_recompiles"] == 0,
+                     f"{name}: {g_st['unexpected_recompiles']} unexpected "
+                     f"recompiles after seal_programs")
+            e_outs, e_wall, e_st = serve(dec, 8, ragged=ragged, reqs=reqs)
+            for i, (a, b) in enumerate(zip(g_outs, e_outs)):
+                _require(np.array_equal(a, b),
+                         f"{name} request {i} (temperature {reqs[i][1]}) "
+                         f"differs between graphs and eager")
+            p_outs, _, p_st = drive(eng, prefix_reqs)
+            _require([o.tolist() for o in p_outs]
+                     == shared["prefix_outs"][name]
+                     and p_st["prefix_cache_hit_tokens"] == prefix_hits
+                     and p_st["unexpected_recompiles"] == 0,
+                     f"{name}: the shared-prefix requests under graphs "
+                     f"differ from eager, or hit "
+                     f"{p_st['prefix_cache_hit_tokens']} tokens, or "
+                     f"recompiled {p_st['unexpected_recompiles']}")
+            runs = {"eager": [], "graph": []}
+            for _ in range(4):
+                for mode in runs:
+                    if mode == "eager":
+                        _, wall, st = serve(dec, 8, ragged=ragged, reqs=reqs)
+                    else:
+                        _, wall, st = drive(eng, reqs)
+                    runs[mode].append({
+                        "tok_per_s": st["generated_tokens"] / wall,
+                        "ttft_p50_s": st["ttft_p50_s"],
+                        "itl_p50_s": st["itl_p50_s"],
+                        "itl_p99_s": st["itl_p99_s"]})
+            med_wall = float(np.median([256 / r["tok_per_s"]
+                                        for r in runs["graph"]]))
+            prof = _device_breakdown(torch, lambda: drive(eng, reqs),
+                                     med_wall * 1e3)
+            eng.close()
+
+            def spread(xs):
+                return {"runs": xs, "median": float(np.median(xs)),
+                        "min": min(xs), "max": max(xs)}
+
+            info[name] = {
+                "capture": capture, "launches_per_run": launched,
+                "program_dispatches_per_run": n_disp,
+                "unexpected_recompiles": g_st["unexpected_recompiles"],
+                "alternated": {mode: {k: spread([r[k] for r in rs])
+                                      for k in rs[0]}
+                               for mode, rs in runs.items()},
+                "graph_run_idle_share": prof["idle_share"],
+                "graph_run_device_ms": prof["device_ms"],
+                "graph_run_wall_ms": med_wall * 1e3,
+                "chunk_ctx512": chunk_programs(dec, ragged)}
+        return info
+
+    _phase("serve-graphs", serve_graphs)
+    del shared["dec"]
+    shared.clear()
     gc.collect()
     torch.cuda.empty_cache()
     kv8_launches = {}
@@ -2088,6 +2507,34 @@ def main():
                     for k_, p_ in profs.items()}}
 
     _phase("train-mid8k", train_mid8k)
+
+    # -- last, as a capture that fails may leave the allocator unusable --
+    def capture_failure():
+        """A program that cannot be captured (a host sync inside it):
+        its first dispatch raises, no graph is kept, and nothing runs it
+        eagerly instead."""
+        ps = ProgramSet("cuda", torch.Generator(device="cuda"),
+                        CompileWatch())
+        ran = []
+
+        def host_sync(key, x):
+            ran.append(int(x.sum()))
+            return (x * ran[-1],)
+
+        ps.register("host_sync", host_sync)
+        try:
+            ps.run("host_sync", (4,), [np.ones(4, np.int32)])
+            err = None
+        except RuntimeError as e:
+            err = str(e).splitlines()[0][:200]
+        _require(err is not None and ps.captured == 0 and ran == [4],
+                 f"a capture with a host sync inside did not raise "
+                 f"(error {err!r}, {ps.captured} graphs, eager runs {ran})")
+        _require(float(torch.ones(4, device="cuda").sum()) == 4.0,
+                 "the card does not work after a failed capture")
+        return {"raised": err}
+
+    _phase("capture-failure", capture_failure)
 
     tpu = "paddle_tpu/ops/pallas/"
     for key, name, launches, src, rep in (

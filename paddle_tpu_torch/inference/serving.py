@@ -20,7 +20,8 @@ prefill work, then one decode chunk:
   or drained slots aim at the scratch page with ctx 0. Each step's
   sampled token feeds the next on the device, and a chunk's first
   tokens come from the previous decode chunk's device output (a
-  ``torch.where`` against host values for fresh slots).
+  ``torch.where`` against host values for fresh slots, inside the
+  chunk's program, over an engine-owned copy of that output).
 With ``overlap=True`` one decode chunk stays in flight while the host
 schedules the next. Every chunk's tokens are copied to pinned host
 memory behind an event right after its dispatch; waiting on that event
@@ -35,29 +36,54 @@ tokens per step, spread ministep-major over the columns past the decode
 columns) write K/V only, except a prompt's final row, which samples the
 request's first token. W is the real row count padded up a rung of
 ``RAGGED_WIDTHS``; a shrinking W keeps the previous chunk's width while
-T is unchanged (the sticky width). Each chunk is collected with one host
-copy of its [T, W] tokens before the step returns: ``overlap`` applies
-to the dense path only here.
+T is unchanged (the sticky width). Each chunk's [T, W] tokens are copied to pinned host
+memory behind an event right after its dispatch, and collected before
+the step returns: ``overlap`` applies to the dense path only here.
 
 Admission is worst-case: a request is admitted only when its prompt plus
-``max_new_tokens`` fits the free blocks, so a running request never
-exhausts the pool. A prompt longer than the largest prompt bucket is
-refused at ``add_request`` on both paths, as in JAX. One scratch page
+``max_new_tokens`` fits the blocks it can claim, so a running request
+never exhausts the pool. A prompt longer than the largest prompt bucket
+is refused at ``add_request`` on both paths, as in JAX. One scratch page
 takes the writes of padding rows; table row ``max_batch_size`` is the
 scratch row the ragged path's padding rows read.
 
+Prefix caching (``prefix_caching=True``, the default, as in JAX): at
+admission ``PagedKVCache.allocate_with_prefix`` splices the cached full
+blocks of the longest matching prompt prefix into the request's table,
+and only the suffix past ``n_cached`` is prefilled (the dense path's
+finals and mid chunks at that offset, the ragged path's rows from
+``n_cached``). The request's own full prompt blocks enter the hash
+index at once; a later request that splices one of them before its
+writer has dispatched the rows covering it waits (``_deps_ready``), so
+on the device a reader always follows its writer. A decoder outlives
+its engines, so an engine starts from a clean index and clears it again
+at ``close()``.
+
+Every device dispatch goes through ``self.programs``
+(``inference/programs.py``), one program per static key: the ragged
+chunk per (T, W, sampled), the dense decode chunk per (T, sampled), the
+final prefill per (bucket, rows, sampled), plain and prefix, and the
+no-sample mid chunk at offset 0 and per prefix-page width. On the card
+each program is a CUDA graph (``cuda_graphs=True``, the default);
+``warmup_programs`` captures the whole reachable grid without touching
+the pool or the random stream, and ``seal_programs`` closes the set: a
+key first seen after it runs eagerly and counts in
+``unexpected_recompiles``.
+
 Sampling is greedy (temperature <= 0) or temperature sampling with an
 engine-wide top_k, drawn by Gumbel-max from a ``torch.Generator`` seeded
-by ``seed``: the same seed gives the same stream, which is not the JAX
-package's threefry stream. Serving runs under ``torch.inference_mode()``.
+by ``seed``. Whether a program draws is decided per dispatch (every
+ministep of a ragged chunk draws when any row of the chunk samples), so
+the eager run and the graph give one stream for one seed; that stream is
+not the JAX package's threefry stream. Serving runs under
+``torch.inference_mode()``.
 
-Not ported yet, each with its ROADMAP queue 1 item: prefix caching
-(item 1), deadlines, priorities, cancel and preemption (item 2),
-per-request top_k, top_p, repetition penalty and allowed-token masks
-(item 3), warmup and sealing (item 4), LoRA adapters (item 5) and the
-tracer (item 8). A request whose ``SamplingParams`` asks for one of
-them is refused, naming the item; the engine has no parameter for the
-others yet.
+Not ported yet, each with its ROADMAP queue 1 item: deadlines,
+priorities, cancel and preemption (item 2), per-request top_k, top_p,
+repetition penalty and allowed-token masks (item 3), LoRA adapters
+(item 5) and the tracer (item 8). A request whose ``SamplingParams``
+asks for one of them is refused, naming the item; the engine has no
+parameter for the others yet.
 """
 from __future__ import annotations
 
@@ -70,7 +96,9 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from ..utils.telemetry import CompileWatch
 from .paged_decode import PagedLlamaDecoder
+from .programs import ProgramSet
 
 __all__ = ["SamplingParams", "Request", "ServingEngine"]
 
@@ -125,6 +153,11 @@ class Request:
     slot: Optional[int] = None
     itls: List[float] = field(default_factory=list)
     t_last_emit: Optional[float] = None
+    # prefix splices: (writer, writer's prefill_sent that covers the
+    # spliced blocks) pairs, and this request's own full prompt blocks
+    # that readers may splice before this request's rows are dispatched
+    deps: List[tuple] = field(default_factory=list)
+    pending_blocks: List[int] = field(default_factory=list)
 
     @property
     def suffix_len(self) -> int:
@@ -173,11 +206,14 @@ class ServingEngine:
     ``ragged=False`` (the default, as in JAX) runs the dense per-phase
     scheduler, ``ragged=True`` the unified ragged one. The engine runs on
     the decoder's device (chosen when the decoder was built,
-    ``device=None`` meaning cuda)."""
+    ``device=None`` meaning cuda). ``cuda_graphs=False`` runs every
+    program eagerly on the card too (for comparison with the graphs);
+    on the CPU programs always run eagerly."""
 
     # row-count rungs of the [T, W] schedule; W pads up to the next rung
     RAGGED_WIDTHS = (1, 2, 4, 8, 12, 16, 24, 32, 48, 64, 96, 128)
-    # prefill rows per pure-prefill chunk on an idle engine
+    # prefill rows per pure-prefill chunk on an idle engine (the default
+    # of ``ragged_idle_cap``)
     _RAGGED_IDLE_CAP = 256
     # rows of a grouped dense prefill final (a lone final runs 1 row)
     PREFILL_GROUP = 4
@@ -189,7 +225,9 @@ class ServingEngine:
                  prompt_buckets: Sequence[int] = (32, 64, 128, 256, 512),
                  overlap: bool = True,
                  prefill_budget: Optional[int] = None,
-                 ragged: bool = False):
+                 ragged: bool = False, prefix_caching: bool = True,
+                 ragged_idle_cap: Optional[int] = None,
+                 cuda_graphs: bool = True):
         if not isinstance(dec, PagedLlamaDecoder):
             raise TypeError(f"ServingEngine needs a PagedLlamaDecoder, got "
                             f"{type(dec).__name__}")
@@ -217,9 +255,23 @@ class ServingEngine:
         # ragged path: prefill tokens folded into one chunk while
         # decodes run
         self._ragged_cap = self.prefill_budget or self.prefill_chunk or 64
-        self._gen = torch.Generator(device=self.device)
-        self._gen.manual_seed(int(seed))
+        if ragged_idle_cap is not None and int(ragged_idle_cap) < 1:
+            raise ValueError(f"ragged_idle_cap must be >= 1, got "
+                             f"{ragged_idle_cap}")
+        self._ragged_idle_cap = (int(ragged_idle_cap)
+                                 if ragged_idle_cap is not None
+                                 else self._RAGGED_IDLE_CAP)
+        self._force_chunk: Optional[int] = None
+        self.prefix_caching = bool(prefix_caching)
+        # writers' splice-pending blocks: block -> (writer, its
+        # prefill_sent that covers the block)
+        self._pending_writes: Dict[int, tuple] = {}
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(int(seed))
         cache = dec.cache
+        # the decoder (and its index) outlives engines: start clean
+        cache.clear_prefix_cache()
+        cache.reset_prefix_stats()
         # one scratch page: padding rows write here and read nothing (a
         # decoder reused across engines keeps its scratch page)
         if -1 not in cache._tables:
@@ -252,6 +304,27 @@ class ServingEngine:
         # steps: the sticky width keeps W while T is unchanged
         self._prev_shape = None
         self._closed = False
+        # dense decode: the newest decode chunk's tokens [mb, T], written
+        # inside its program, which the next chunk's merge reads
+        self._carry = torch.zeros((self.max_b, max(self.chunks)),
+                                  dtype=torch.int32, device=self.device)
+        self.compile_watch = CompileWatch()
+        self.programs = ProgramSet(self.device, gen, self.compile_watch,
+                                   graphs=cuda_graphs)
+        info = {"decoder": type(dec).__name__, "tp": 1,
+                "kv_quant": dec.kv_quant or "none",
+                "weight_dtype": dec.weight_dtype or "none"}
+        fams = [("prefill", self._final_program),
+                ("prefill_prefix", self._final_program),
+                ("decode", self._decode_program),
+                ("prefill_mid0", self._mid_program),
+                ("prefill_mid", self._mid_program)]
+        if self.ragged:
+            fams.append(("ragged", self._ragged_program))
+        for fam, fn in fams:
+            self.programs.register(
+                fam, fn, preserve=(self._carry,) if fam == "decode" else (),
+                **info)
         self.decode_steps = 0
         self.generated_tokens = 0
         self.device_dispatches = 0
@@ -321,7 +394,13 @@ class ServingEngine:
     # -- scheduler -----------------------------------------------------------
     def _admit(self):
         """Claim free slots for queued requests, FIFO, reserving the whole
-        worst case (prompt + max_new_tokens) up front."""
+        worst case (prompt + max_new_tokens) up front, net of the blocks
+        a prefix splice reuses. With prefix caching the capacity check
+        happens inside ``allocate_with_prefix`` before any mutation, so a
+        refusal leaves the pool untouched; a spliced block that a writer
+        has not dispatched yet becomes a dependency (``_deps_ready``),
+        and the request's own full prompt blocks become splice-pending
+        until its dispatches cover them."""
         cache = self.dec.cache
         for si in range(self.max_b):
             if self._slots[si] is not None:
@@ -330,15 +409,46 @@ class ServingEngine:
                 break
             req = self._queue[0]
             total = int(req.prompt.size) + req.sampling.max_new_tokens
-            if cache.free_blocks < -(-total // cache.block_size):
-                break
-            cache.allocate(req.req_id, total)
+            if self.prefix_caching:
+                try:
+                    reused, n_cached = cache.allocate_with_prefix(
+                        req.req_id, req.prompt, total)
+                except RuntimeError:
+                    break
+                req.deps = [self._pending_writes[b] for b in reused
+                            if b in self._pending_writes]
+                table = cache.seq_blocks(req.req_id)
+                bs = cache.block_size
+                for j in range(len(reused), int(req.prompt.size) // bs):
+                    self._pending_writes[table[j]] = \
+                        (req, (j + 1) * bs - n_cached)
+                    req.pending_blocks.append(table[j])
+            else:
+                if cache.free_blocks < -(-total // cache.block_size):
+                    break
+                cache.allocate(req.req_id, total)
+                n_cached = 0
             self._queue.popleft()
-            req.n_cached = 0
+            req.n_cached = n_cached
             req.state = "prefilling"
             req.slot = si
             req.t_admit = time.perf_counter()
             self._slots[si] = req
+
+    def _deps_ready(self, req: Request) -> bool:
+        """True when every writer whose blocks ``req`` spliced has
+        dispatched the rows covering them; met dependencies are
+        dropped."""
+        if req.deps:
+            req.deps = [(w, need) for w, need in req.deps
+                        if w.prefill_sent < need]
+        return not req.deps
+
+    def _clear_pending_writes(self, req: Request):
+        for b in req.pending_blocks:
+            if self._pending_writes.get(b, (None, 0))[0] is req:
+                del self._pending_writes[b]
+        req.pending_blocks = []
 
     def _is_finished(self, req: Request) -> bool:
         sp = req.sampling
@@ -368,6 +478,8 @@ class ServingEngine:
         (such a slot may free any step); else the largest rung every
         running budget covers when nothing is queued, or the largest the
         soonest-draining slot covers when requests wait."""
+        if self._force_chunk:
+            return self._force_chunk
         if len(self.chunks) == 1:
             return self.chunks[0]
         if self._queue and any(
@@ -396,7 +508,8 @@ class ServingEngine:
         running = [si for si in range(self.max_b)
                    if self._slots[si] is not None
                    and self._slots[si].state == "running"]
-        T = self._pick_chunk(running) if running else 1
+        T = self._force_chunk or (self._pick_chunk(running) if running
+                                  else 1)
         dcols = []
         for si in running:
             req = self._slots[si]
@@ -408,16 +521,20 @@ class ServingEngine:
         # between consecutive ministep groups (the running streams'
         # added inter-token latency); an idle engine drains wider
         budget = self._ragged_cap if dcols \
-            else max(self._ragged_cap, self._RAGGED_IDLE_CAP)
+            else max(self._ragged_cap, self._ragged_idle_cap)
         takes = []
         pending = sorted((r for r in self._slots
                           if r is not None and r.state == "prefilling"
-                          and r.prefill_sent < r.prompt.size),
+                          and r.prefill_sent < r.suffix_len),
                          key=lambda r: r.req_id)
         for r in pending:
             if budget <= 0:
                 break
-            take = min(budget, r.prompt.size - r.prefill_sent)
+            if not self._deps_ready(r):
+                # a splice reader never rides the same or an earlier
+                # chunk than its writer's covering rows
+                continue
+            take = min(budget, r.suffix_len - r.prefill_sent)
             takes.append((r, take))
             budget -= take
         return T, dcols, takes
@@ -494,7 +611,7 @@ class ServingEngine:
             for j in range(take):
                 if pi >= len(pcells):
                     break
-                off = req.prefill_sent + j
+                off = req.n_cached + req.prefill_sent + j
                 t, c = pcells[pi]
                 is_final = off + 1 == req.prompt.size
                 if is_final:
@@ -526,29 +643,34 @@ class ServingEngine:
         for req in list(reqs_of.values()) + [r for r, _ in take_of.values()]:
             tables[req.slot] = cache.block_table(req.req_id, mp)
 
-        dev = self.device
-        sched = torch.from_numpy(
-            np.stack([ids, pos, slots, rseq, rctx, ucar])).to(dev)
-        toks = self._ragged_chunk(torch.from_numpy(override).to(dev), sched,
-                                  torch.from_numpy(tables).to(dev),
-                                  torch.from_numpy(temps).to(dev),
-                                  temps > 0.0)
+        sampled = bool((temps > 0.0).any())
+        toks, = self.programs.run(
+            "ragged", (T, W, sampled),
+            [override, np.stack([ids, pos, slots, rseq, rctx, ucar]),
+             tables, temps])
+        host, ev = self._to_host(toks)
         self.device_dispatches += 1
         for req, n in take_of.values():
             req.prefill_sent += n
+            if req.prefill_sent >= req.suffix_len:
+                self._clear_pending_writes(req)
         self._inflight.append({
-            "kind": "ragged", "free_after": [],
-            "toks": toks, "T": T, "W": W, "cols": col_of,
+            "kind": "ragged", "free_after": [], "host": host, "event": ev,
+            "T": T, "W": W, "cols": col_of,
             "steps": steps_of, "reqs": reqs_of, "finals": finals,
             "real_rows": sum(n for _, n in take_of.values())})
         self._prev_shape = (T, W)
         return True
 
-    def _ragged_chunk(self, override, sched, tables, temps, sampled_host):
-        """T ragged ministeps. sched [6, T, W] int32 holds ids, positions,
-        slots, row_seq, row_ctx and the carry flag; a carry column takes
-        the token sampled in the previous ministep (its first from
-        ``override``). Returns the sampled tokens [T, W] on the device."""
+    # -- the program families (inference/programs.py) ------------------------
+    def _ragged_program(self, key, override, sched, tables, temps):
+        """The ragged chunk, key (T, W, sampled): T ministeps. sched [6,
+        T, W] int32 holds ids, positions, slots, row_seq, row_ctx and the
+        carry flag; a carry column takes the token sampled in the
+        previous ministep (its first from ``override`` [W]); tables
+        [max_b + 1, max_pages]; temps [T, W]. Every ministep draws when
+        ``sampled``. Returns (tokens [T, W],)."""
+        _, _, sampled = key
         dec = self.dec
         cache = dec.cache
         cur = override
@@ -558,15 +680,69 @@ class ServingEngine:
             logits, _, _ = dec._ragged_logits(
                 dec.weights, cache.k, cache.v, ids, sched[1, t],
                 sched[2, t], sched[3, t], sched[4, t], tables)
-            cur = self._sample(logits, temps[t], bool(sampled_host[t].any()))
+            cur = self._sample(logits, temps[t], sampled)
             out.append(cur)
-        return torch.stack(out)
+        return (torch.stack(out),)
+
+    def _decode_program(self, key, tables, ctx, slots, last_idx, over,
+                        use_host, temps):
+        """The dense decode chunk, key (T, sampled): first tokens merged
+        from the previous chunk's tokens in ``_carry`` (at each slot's
+        ``last_idx``) or the host's ``over`` where ``use_host``, then T
+        steps over tables [T, mb, max_pages], ctx / slots [T, mb], temps
+        [mb]. The tokens [mb, T] are also written to ``_carry``. Returns
+        (tokens,)."""
+        T, sampled = key
+        rows = torch.arange(self.max_b, device=over.device)
+        first = torch.where(use_host != 0, over,
+                            self._carry[rows, last_idx.long()])
+        dec = self.dec
+        toks, _, _ = dec._decode_scan_impl(
+            dec.weights, dec.cache.k, dec.cache.v, first, tables, ctx, slots,
+            sample=lambda lg: self._sample(lg, temps, sampled))
+        self._carry[:, :T].copy_(toks)
+        return (toks,)
+
+    def _final_program(self, key, ids, slots, last_idx, *rest):
+        """A dense final prefill, key (bucket, rows, sampled): ids / slots
+        [rows, bucket], last_idx and temps [rows]; the prefix family
+        takes n_cached [rows] and prefix tables [rows, prefix_pages]
+        before temps. Returns (first tokens [rows],)."""
+        sampled = key[2]
+        dec = self.dec
+        cache = dec.cache
+        if len(rest) == 3:
+            ncv, ptab, temps = rest
+            logits, _, _ = dec._prefill_prefix_impl(
+                dec.weights, cache.k, cache.v, ids, slots, last_idx, ncv,
+                ptab)
+        else:
+            temps, = rest
+            logits, _, _ = dec._prefill_impl(dec.weights, cache.k, cache.v,
+                                             ids, slots, last_idx)
+        return (self._sample(logits, temps, sampled),)
+
+    def _mid_program(self, key, ids, slots, *prefix):
+        """A no-sample mid chunk, ids / slots [1, prefill_chunk]: at
+        offset 0 (key (chunk,)) through ``_prefill_impl``, or with the
+        offset [1] and the prefix table [1, width] (key (chunk, width))
+        through ``_prefill_prefix_impl``. Writes K/V only."""
+        dec = self.dec
+        cache = dec.cache
+        if prefix:
+            off, ptab = prefix
+            dec._prefill_prefix_impl(dec.weights, cache.k, cache.v, ids,
+                                     slots, None, off, ptab, logits=False)
+        else:
+            dec._prefill_impl(dec.weights, cache.k, cache.v, ids, slots,
+                              logits=False)
+        return ()
 
     def _sample(self, logits, temp, any_sampled: bool):
         """Per-row temperature (<= 0: greedy argmax), engine-static top_k,
-        Gumbel-max draws from the engine's generator. ``any_sampled`` is
-        the host's knowledge that some row has temperature > 0; without
-        one no random number is drawn."""
+        Gumbel-max draws from the engine's generator. ``any_sampled``,
+        static for a program, says some row of the dispatch has
+        temperature > 0; without one no random number is drawn."""
         greedy = logits.argmax(dim=-1).to(torch.int32)
         if not any_sampled:
             return greedy
@@ -575,7 +751,7 @@ class ServingEngine:
             logits = torch.where(logits < kth,
                                  torch.full_like(logits, -1e30), logits)
         t = temp.clamp(min=1e-6)[:, None]
-        u = torch.rand(logits.shape, generator=self._gen,
+        u = torch.rand(logits.shape, generator=self.programs.generator,
                        device=logits.device)
         gumbel = -torch.log(-torch.log(
             u.clamp(min=torch.finfo(torch.float32).tiny)))
@@ -583,15 +759,6 @@ class ServingEngine:
         return torch.where(temp > 0.0, sampled, greedy)
 
     # -- the dense per-phase path ------------------------------------------
-    def _to_device(self, arr: np.ndarray):
-        """A host schedule array on the engine's device. On the card the
-        copy goes through pinned memory without blocking the host, so
-        dispatch never waits on the device."""
-        t = torch.from_numpy(np.ascontiguousarray(arr))
-        if self.device.type == "cuda":
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t
-
     def _to_host(self, toks):
         """Start the copy of a chunk's device tokens to the host: (host
         tensor, event to wait on, or None on the CPU)."""
@@ -635,7 +802,8 @@ class ServingEngine:
 
         spent = 0
         while True:
-            ready = [r for r in pending if r.prefill_sent < r.suffix_len]
+            ready = [r for r in pending if r.prefill_sent < r.suffix_len
+                     and self._deps_ready(r)]
             if not ready:
                 return
             # strict FIFO: the oldest request's next dispatch goes first
@@ -686,22 +854,17 @@ class ServingEngine:
         slots = np.full((1, c), self._scratch_slot, np.int32)
         for j in range(take):
             slots[0, j] = cache.extend(req.req_id)
-        dec = self.dec
         if off:
             need = -(-off // cache.block_size)
             width = next(b for b in self._prefix_page_buckets if b >= need)
             ptab = np.full((1, width), self._scratch_block, np.int32)
             pb = cache.seq_blocks(req.req_id)[:need]
             ptab[0, :len(pb)] = pb
-            dec._prefill_prefix_impl(
-                dec.weights, cache.k, cache.v, self._to_device(ids),
-                self._to_device(slots), None,
-                self._to_device(np.asarray([off], np.int32)),
-                self._to_device(ptab), logits=False)
+            self.programs.run("prefill_mid", (c, width),
+                              [ids, slots, np.asarray([off], np.int32),
+                               ptab])
         else:
-            dec._prefill_impl(dec.weights, cache.k, cache.v,
-                              self._to_device(ids), self._to_device(slots),
-                              logits=False)
+            self.programs.run("prefill_mid0", (c,), [ids, slots])
         self.device_dispatches += 1
         req.prefill_sent += take
         self._inflight.append({"kind": "prefill", "toks": None,
@@ -736,22 +899,19 @@ class ServingEngine:
                     : -(-off // cache.block_size)]
                 ptab[row, :len(pb)] = pb
             temps[row] = req.sampling.temperature
-        dec = self.dec
+        key = (bucket, gp, bool((temps > 0.0).any()))
         if any(off for _, _, off in group):
-            logits, _, _ = dec._prefill_prefix_impl(
-                dec.weights, cache.k, cache.v, self._to_device(ids),
-                self._to_device(slots), self._to_device(last_idx),
-                self._to_device(ncv), self._to_device(ptab))
+            toks, = self.programs.run("prefill_prefix", key,
+                                      [ids, slots, last_idx, ncv, ptab,
+                                       temps])
         else:
-            logits, _, _ = dec._prefill_impl(
-                dec.weights, cache.k, cache.v, self._to_device(ids),
-                self._to_device(slots), self._to_device(last_idx))
-        toks = self._sample(logits, self._to_device(temps),
-                            bool((temps > 0.0).any()))
+            toks, = self.programs.run("prefill", key,
+                                      [ids, slots, last_idx, temps])
+        host, ev = self._to_host(toks)
         self.device_dispatches += 1
         for _si, req, _off in group:
             req.prefill_sent = req.suffix_len
-        host, ev = self._to_host(toks)
+            self._clear_pending_writes(req)
         self._inflight.append({"kind": "prefill", "toks": toks,
                                "host": host, "event": ev,
                                "group": [(si, req) for si, req, _ in group],
@@ -835,43 +995,20 @@ class ServingEngine:
                     use_host[si] = 0
                     last_idx[si] = psteps - 1
         self._fresh_slots.clear()
-        # one host-to-device copy for every integer of the schedule
-        sched = self._to_device(np.concatenate([
-            tables.reshape(-1), ctx.reshape(-1), slots.reshape(-1),
-            last_idx, self._last_tok.astype(np.int32), use_host]))
-        n_tab, n_ctx = T * mb * mp, T * mb
-        tables_d = sched[:n_tab].view(T, mb, mp)
-        ctx_d = sched[n_tab:n_tab + n_ctx].view(T, mb)
-        slots_d = sched[n_tab + n_ctx:n_tab + 2 * n_ctx].view(T, mb)
-        last_d, over_d, host_d = sched[n_tab + 2 * n_ctx:].view(3, mb)
         if prev is not None:
-            first = self._merge_first(prev["toks"], last_d, over_d, host_d)
-            self.device_dispatches += 1
-        else:
-            first = over_d
-        temps_d = self._to_device(temps)
-        any_sampled = bool((temps > 0.0).any())
-        dec = self.dec
-        toks, _, _ = dec._decode_scan_impl(
-            dec.weights, cache.k, cache.v, first, tables_d, ctx_d, slots_d,
-            sample=lambda lg: self._sample(lg, temps_d, any_sampled))
-        self.device_dispatches += 1
+            self.device_dispatches += 1      # the merge (JAX's own program)
+        toks, = self.programs.run(
+            "decode", (T, bool((temps > 0.0).any())),
+            [tables, ctx, slots, last_idx, self._last_tok.astype(np.int32),
+             use_host, temps])
         host, ev = self._to_host(toks)
-        self._inflight.append({"kind": "decode", "toks": toks,
+        self.device_dispatches += 1
+        self._inflight.append({"kind": "decode",
                                "host": host, "event": ev,
                                "steps": steps_of, "reqs": reqs_of,
                                "T": T, "free_after": []})
         self.time_host_s += time.perf_counter() - t0
         return True
-
-    @staticmethod
-    def _merge_first(toks_dev, last_idx, overrides, use_host):
-        """First tokens of the next decode chunk: the previous chunk's
-        device tokens [mb, T] at each slot's last step, or the host
-        value where ``use_host`` is set."""
-        rows = torch.arange(toks_dev.shape[0], device=toks_dev.device)
-        gathered = toks_dev[rows, last_idx.long()]
-        return torch.where(use_host != 0, overrides, gathered)
 
     def _free_after(self, ch):
         for rid in ch["free_after"]:
@@ -923,7 +1060,7 @@ class ServingEngine:
         """Deliver one chunk's tokens (one host copy of [T, W]): decode
         columns up to their scheduled ministeps with the mid-chunk EOS
         cut, sampling finals the first token of their request."""
-        toks = ch["toks"].cpu().numpy()
+        toks = self._host_tokens(ch)
         now = time.perf_counter()
         self.decode_steps += ch["T"]
         self.decode_slot_steps += ch["T"] * ch["W"]
@@ -1029,20 +1166,227 @@ class ServingEngine:
             "time_decode_stall_s": self.time_stall_s,
             "time_host_s": self.time_host_s,
             "free_blocks": cache.free_blocks,
+            "cached_blocks": cache.cached_blocks,
+            # prompt tokens spliced from cached blocks instead of
+            # prefilled, over the prompt tokens admitted
+            "prefix_cache_hit_tokens": cache.prefix_hit_tokens,
+            "prefix_cache_hit_rate": (
+                cache.prefix_hit_tokens / cache.prefix_query_tokens
+                if cache.prefix_query_tokens else 0.0),
+            "prefix_cache_evictions": cache.prefix_evictions,
+            # first captures (first eager runs on the CPU) of a program
+            # key, and those after seal_programs
+            "program_compiles": self.programs.compiles,
+            "unexpected_recompiles": self.programs.unexpected,
+            "programs_sealed": self.compile_watch.sealed,
             "queued": len(self._queue),
             "ttft_p50_s": pct(ttfts, 0.50),
             "itl_p50_s": pct(itls, 0.50),
             "itl_p99_s": pct(itls, 0.99),
         }
 
+    # -- warmup and the sealed program set ----------------------------------
+    def _warmup_prompt(self, n: int) -> np.ndarray:
+        """A throwaway prompt with a fill of its own: two warmup prompts
+        never share a block-aligned prefix, so the prefix cache cannot
+        splice them together."""
+        self._warmup_fill = getattr(self, "_warmup_fill", 0) + 1
+        v = 1 + self._warmup_fill % max(1, self.dec.cfg.vocab_size - 1)
+        return np.full(n, v, np.int32)
+
+    def warmup(self, prompt_len: Optional[int] = None,
+               seal_programs: bool = False):
+        """Compile the serving programs with throwaway traffic (JAX's
+        ``warmup``): one request and a burst of ``PREFILL_GROUP`` for
+        every bucket (or ``prompt_len``'s), prefix-cache hits at every
+        suffix bucket a hit can reach, and each decode rung greedy and
+        sampled. A pool too small for a round skips it. The prefix cache
+        and the finished requests' stats are cleared afterwards.
+        ``seal_programs=True`` then captures the whole reachable grid
+        (``warmup_programs``) and seals it. The traffic draws from the
+        engine's generator; ``warmup_programs`` alone does not."""
+        plens = [prompt_len] if prompt_len is not None \
+            else list(self.buckets)
+        cache = self.dec.cache
+        width = min(self.PREFILL_GROUP, self.max_b)
+
+        def serve(prompts, **sp):
+            for p in prompts:
+                self.add_request(p, SamplingParams(**sp))
+            self.run_to_completion()
+
+        for plen in plens:
+            serve([self._warmup_prompt(plen)], max_new_tokens=2)
+            if self.max_b >= 2 and cache.available_blocks >= \
+                    2 * -(-(plen + 2) // cache.block_size):
+                serve([self._warmup_prompt(plen) for _ in range(width)],
+                      max_new_tokens=2)
+        if self.prefix_caching:
+            bs = cache.block_size
+            prefix = self._warmup_prompt(bs)
+            seeded = burst_done = False
+            for b in self.buckets:
+                s_suf = min(b, self.buckets[-1] - bs)
+                if s_suf <= 0 or _bucket_for(s_suf, self.buckets) != b:
+                    continue          # no hit's suffix lands in bucket b
+                per_hit = -(-(bs + s_suf + 2) // bs)
+                if cache.available_blocks < per_hit + 1:
+                    continue
+                if not seeded:        # park the shared prefix block
+                    serve([np.concatenate([prefix,
+                                           self._warmup_prompt(1)])],
+                          max_new_tokens=1)
+                    seeded = True
+
+                def hits(n):
+                    return [np.concatenate([prefix,
+                                            self._warmup_prompt(s_suf)])
+                            for _ in range(n)]
+
+                serve(hits(1), max_new_tokens=2)
+                if not burst_done and self.max_b >= 2 \
+                        and cache.available_blocks >= width * per_hit:
+                    serve(hits(width), max_new_tokens=2)
+                    burst_done = True
+        for c in self.chunks:
+            if -(-(plens[0] + c + 2) // cache.block_size) \
+                    > cache.available_blocks:
+                continue
+            self._force_chunk = c
+            try:
+                serve([self._warmup_prompt(plens[0])],
+                      max_new_tokens=c + 2, temperature=1.0)
+                serve([self._warmup_prompt(plens[0])], max_new_tokens=c + 2)
+            finally:
+                self._force_chunk = None
+        cache.clear_prefix_cache()
+        if seal_programs:
+            self.warmup_programs()
+            self.seal_programs()
+        self.clear_finished()
+
+    def reachable_ragged_widths(self, T: int,
+                                max_width: Optional[int] = None
+                                ) -> List[int]:
+        """The W rungs a T-ministep ragged chunk can be dispatched at:
+        mixed chunks carry at most max_b decode columns plus
+        ceil(prefill budget / T) prefill columns, pure-prefill chunks
+        widen to the idle cap, and the sticky width only pads to a width
+        already reached at the same T, so the set is closed."""
+        cap = self._ragged_cap
+        idle = max(cap, self._ragged_idle_cap)
+        rows = max(self.max_b + -(-cap // T), -(-idle // T))
+        return self._widths_up_to(rows, max_width)
+
+    def _widths_up_to(self, rows: int,
+                      max_width: Optional[int] = None) -> List[int]:
+        """W rungs (the ladder, then multiples of 64) up to the padded
+        width of ``rows`` (at most ``max_width``)."""
+        if max_width is not None:
+            rows = min(rows, int(max_width))
+        bound = self._ragged_width(rows)
+        widths = [w for w in self.RAGGED_WIDTHS if w <= bound]
+        w = (widths[-1] if widths else 0) + 64
+        w -= w % 64
+        while w <= bound:
+            widths.append(w)
+            w += 64
+        return widths
+
+    def warmup_programs(self, max_width: Optional[int] = None):
+        """Compile the reachable program grid by direct invocation (JAX's
+        ``warmup_programs``): every operand aims at the scratch page and
+        row, so no block is claimed and no scheduler state changes, and
+        the compiles draw from a scratch generator, so a warmed engine
+        serves token-identical to a cold one, stochastic rows included.
+        Dense: the final prefill per (bucket, rows 1 and PREFILL_GROUP,
+        sampled), plain and prefix, the mid chunk at offset 0 and per
+        prefix-page width, the decode chunk per (rung, sampled). Ragged:
+        the chunk per (T in the rungs and 1, W in
+        ``reachable_ragged_widths``, sampled); ``max_width`` clamps W
+        (to leave a rung cold on purpose)."""
+        mb, mp = self.max_b, self.dec.max_pages
+        sb, ss = self._scratch_block, self._scratch_slot
+        prepare = self.programs.prepare
+        f32 = np.float32
+        with torch.inference_mode():
+            if not self.ragged:
+                for b in self.buckets:
+                    for w in sorted({1, min(self.PREFILL_GROUP, mb)}):
+                        ids = np.zeros((w, b), np.int32)
+                        slots = np.full((w, b), ss, np.int32)
+                        zeros = np.zeros(w, np.int32)
+                        temps = np.zeros(w, f32)
+                        ptab = np.full((w, self._prefix_pages), sb,
+                                       np.int32)
+                        for sampled in (False, True):
+                            prepare("prefill", (b, w, sampled),
+                                    [ids, slots, zeros, temps])
+                            prepare("prefill_prefix", (b, w, sampled),
+                                    [ids, slots, zeros, zeros, ptab, temps])
+                if self.prefill_chunk:
+                    c = self.prefill_chunk
+                    ids = np.zeros((1, c), np.int32)
+                    slots = np.full((1, c), ss, np.int32)
+                    prepare("prefill_mid0", (c,), [ids, slots])
+                    for pb in self._prefix_page_buckets:
+                        prepare("prefill_mid", (c, pb),
+                                [ids, slots, np.ones(1, np.int32),
+                                 np.full((1, pb), sb, np.int32)])
+                for T in self.chunks:
+                    zeros = np.zeros(mb, np.int32)
+                    sched = [np.full((T, mb, mp), sb, np.int32),
+                             np.zeros((T, mb), np.int32),
+                             np.full((T, mb), ss, np.int32), zeros, zeros,
+                             np.ones(mb, np.int32), np.zeros(mb, f32)]
+                    for sampled in (False, True):
+                        prepare("decode", (T, sampled), sched)
+                return
+            tables = np.full((mb + 1, mp), sb, np.int32)
+            for T in sorted(set(self.chunks) | {1}):
+                for W in self.reachable_ragged_widths(T, max_width):
+                    z = np.zeros((T, W), np.int32)
+                    sched = np.stack([z, z, np.full((T, W), ss, np.int32),
+                                      np.full((T, W), mb, np.int32), z, z])
+                    for sampled in (False, True):
+                        prepare("ragged", (T, W, sampled),
+                                [np.zeros(W, np.int32), sched, tables,
+                                 np.zeros((T, W), f32)])
+
+    def seal_programs(self):
+        """Declare the program set complete: from here a program key seen
+        for the first time runs eagerly and counts in
+        ``stats()["unexpected_recompiles"]``."""
+        self.compile_watch.seal()
+
+    def clear_finished(self):
+        """Drop finished requests and reset the counters (after warmup),
+        the prefix cache's hit and eviction counters included, so stats()
+        reflect only the traffic that follows. The program set and its
+        sealed flag stay."""
+        self._done.clear()
+        self.decode_steps = 0
+        self.generated_tokens = 0
+        self.device_dispatches = 0
+        self.decode_slot_steps = 0
+        self.decode_useful_tokens = 0
+        self.time_prefill_s = 0.0
+        self.time_stall_s = 0.0
+        self.time_host_s = 0.0
+        self.programs.reset_stats()
+        self.dec.cache.reset_prefix_stats()
+
     def close(self):
-        """Collect anything dispatched and refuse further work.
-        Idempotent."""
+        """Collect anything dispatched, drop the programs, clear the
+        prefix index (the decoder outlives the engine) and refuse
+        further work. Idempotent."""
         if self._closed:
             return
         with torch.inference_mode():
             while self._inflight:
                 self._collect_oldest()
+        self.programs.close()
+        self.dec.cache.clear_prefix_cache()
         self._closed = True
 
     def __enter__(self):

@@ -147,11 +147,12 @@ def dkv_pieces(rows: np.ndarray, sk: int) -> np.ndarray:
     return n
 
 
-@functools.lru_cache(maxsize=256)
+@functools.lru_cache(maxsize=None)
 def _schedule_on(device, kind, b, sq, sk, h, hk, causal, segmented, sms):
     """flash_schedule's work list as a tensor on device and, for a dk/dv
     list cut into pieces, its pieces per key tile on device and their
-    most (None and 1 otherwise). Cached."""
+    most (None and 1 otherwise). Cached without bound: a captured CUDA
+    graph holds the address of every list it launched with."""
     host = flash_schedule(kind, b, sq, sk, h, hk, causal, segmented, sms)
     sched = torch.from_numpy(host.copy()).to(device)
     if kind != "dkv" or not host[:, 7].any():

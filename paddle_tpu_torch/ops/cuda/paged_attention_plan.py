@@ -117,6 +117,9 @@ def split_tiles(n_pos: int, m: int, head_dim: int, quantized: bool,
 
 
 _counters: dict = {}
+# buffers outgrown by a larger launch: a captured CUDA graph may still
+# point at one, so none is ever freed
+_retired: list = []
 
 
 def counters(device, n: int):
@@ -128,6 +131,8 @@ def counters(device, n: int):
         else torch.cuda.current_device()
     buf = _counters.get(key)
     if buf is None or buf.numel() < n:
+        if buf is not None:
+            _retired.append(buf)
         buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
         _counters[key] = buf
     return buf

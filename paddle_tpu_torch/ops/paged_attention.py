@@ -21,8 +21,8 @@ tensors to ``paged_attention_decode_reference``.
 from __future__ import annotations
 
 import math
-from collections import Counter
-from typing import Optional
+from collections import Counter, OrderedDict
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -222,9 +222,18 @@ class PagedKVCache:
     Each sequence owns a list of physical blocks (its table) and a
     context length; ``extend`` hands out one flat slot per new token.
     Pools are per-layer lists of planes on ``device`` (``None`` means
-    cuda), updated in place by ``reshape_and_cache``. Prefix caching,
-    the cached-block LRU, ``rollback`` and the LoRA plane of the JAX
-    allocator come with later slices of the port."""
+    cuda), updated in place by ``reshape_and_cache``.
+
+    Automatic prefix caching, as in the JAX allocator: every block
+    carries a ref count, and a FULL block whose tokens are known gets a
+    chain hash ``hash((parent_hash, block_tokens))`` in a hash-to-block
+    index. Full blocks are immutable once written, so a prompt that
+    shares a block-aligned prefix with earlier content splices those
+    blocks into its table (``allocate_with_prefix``: a ref-count bump,
+    no copy). A freed block that still carries a hash is PARKED in an
+    LRU of cached, unreferenced blocks; it is evicted (its hash dropped)
+    only when the free list runs dry. The LoRA plane of the JAX
+    allocator comes with ROADMAP queue 1 item 5."""
 
     def __init__(self, num_layers: int, num_blocks: int, block_size: int,
                  kv_heads: int, head_dim: int, dtype=torch.float32,
@@ -253,11 +262,40 @@ class PagedKVCache:
         self._tables: dict = {}   # seq_id -> [block ids]
         self._lens: dict = {}     # seq_id -> context length
         self._ref: dict = {}      # block -> ref count (present iff > 0)
+        # prefix index: chain hash <-> block, and the LRU of cached,
+        # unreferenced blocks (insertion order is park order)
+        self._hash_of: dict = {}  # block -> chain hash
+        self._block_of: dict = {}  # chain hash -> block
+        self._lru: OrderedDict = OrderedDict()   # block -> None
+        self.prefix_hit_tokens = 0
+        self.prefix_query_tokens = 0
+        self.prefix_evictions = 0
 
+    # -- allocation ----------------------------------------------------------
     def _take_block(self) -> int:
+        """Pop a writable block: the free list first, then (free list
+        dry) the least recently parked cached block, whose hash is
+        dropped so it can never be spliced again."""
         if self._free:
             return self._free.pop()
+        if self._lru:
+            blk, _ = self._lru.popitem(last=False)
+            self._block_of.pop(self._hash_of.pop(blk), None)
+            self.prefix_evictions += 1
+            return blk
         raise KVCacheExhausted("KV cache exhausted")
+
+    def _take_blocks(self, n: int) -> List[int]:
+        """Pop n blocks, all or none: a failure part-way returns the
+        blocks already taken to the free list before it raises."""
+        taken: List[int] = []
+        try:
+            for _ in range(n):
+                taken.append(self._take_block())
+        except RuntimeError:
+            self._free.extend(taken)
+            raise
+        return taken
 
     def allocate(self, seq_id: int, num_tokens: int):
         """Reserve blocks for a sequence of num_tokens."""
@@ -268,12 +306,129 @@ class PagedKVCache:
             raise KVCacheExhausted(
                 f"KV cache exhausted: need {needed} blocks, "
                 f"{self.available_blocks} free")
-        blocks = [self._take_block() for _ in range(needed)]
+        blocks = self._take_blocks(needed)
         for b in blocks:
             self._ref[b] = 1
         self._tables[seq_id] = blocks
         self._lens[seq_id] = 0
         return self._tables[seq_id]
+
+    # -- prefix caching --------------------------------------------------------
+    def _chain_hashes(self, tokens) -> List[int]:
+        """The chain hash of each FULL block of ``tokens``:
+        h_i = hash((h_{i-1}, tokens of block i)), h_-1 = None. Python's
+        hash of int tuples is not salted per process, so these equal the
+        JAX allocator's for the same tokens."""
+        bs = self.block_size
+        toks = [int(t) for t in tokens]
+        out: List[int] = []
+        h = None
+        for i in range(len(toks) // bs):
+            h = hash((h, tuple(toks[i * bs:(i + 1) * bs])))
+            out.append(h)
+        return out
+
+    def _match(self, hashes: List[int],
+               n_tokens: int) -> List[Tuple[int, int]]:
+        matched: List[Tuple[int, int]] = []
+        for h in hashes:
+            blk = self._block_of.get(h)
+            if blk is None:
+                break
+            matched.append((h, blk))
+        if matched and len(matched) * self.block_size >= n_tokens:
+            matched.pop()
+        return matched
+
+    def match_prefix(self, tokens) -> List[Tuple[int, int]]:
+        """The longest chain of cached full blocks covering a prefix of
+        ``tokens``, as [(hash, block)], without mutation. At least one
+        token is left uncovered: the last position's logits must be
+        computed."""
+        return self._match(self._chain_hashes(tokens), len(tokens))
+
+    def _prefix_capacity(self, matched, num_tokens: int):
+        """(fresh blocks needed, blocks claimable) for an allocation that
+        splices ``matched``: matched blocks cost nothing, and cached
+        blocks outside the match can be evicted on demand."""
+        needed = -(-num_tokens // self.block_size) - len(matched)
+        evictable = len(self._lru) - sum(1 for _, b in matched
+                                         if b in self._lru)
+        return needed, len(self._free) + evictable
+
+    def can_allocate_with_prefix(self, tokens, num_tokens: int) -> bool:
+        """The worst-case admission check, crediting reusable blocks."""
+        needed, avail = self._prefix_capacity(self.match_prefix(tokens),
+                                              num_tokens)
+        return avail >= needed
+
+    def allocate_with_prefix(self, seq_id: int, tokens,
+                             num_tokens: Optional[int] = None):
+        """Reserve blocks for a prompt of ``tokens`` (worst-case capacity
+        ``num_tokens`` >= len(tokens)), splicing in every cached block of
+        the longest matching block-aligned prefix. Returns
+        (reused_blocks, n_cached_tokens); the context length starts at
+        n_cached_tokens. The suffix's own full prompt blocks enter the
+        hash index at once (their content is fixed by the prompt); the
+        caller orders a reader's dispatches after the writer's. A
+        refusal raises before any mutation."""
+        if seq_id in self._tables:
+            raise ValueError(f"seq {seq_id} already allocated")
+        n_tok = len(tokens) if num_tokens is None else int(num_tokens)
+        hashes = self._chain_hashes(tokens)
+        matched = self._match(hashes, len(tokens))
+        needed_new, avail = self._prefix_capacity(matched, n_tok)
+        if avail < needed_new:
+            raise KVCacheExhausted(
+                f"KV cache exhausted: need {needed_new} blocks, "
+                f"{avail} free")
+        reused = []
+        for _, blk in matched:          # revive before taking fresh ones,
+            self._lru.pop(blk, None)    # so eviction cannot steal a
+            self._ref[blk] = self._ref.get(blk, 0) + 1   # matched block
+            reused.append(blk)
+        fresh = self._take_blocks(needed_new)
+        for b in fresh:
+            self._ref[b] = 1
+        table = reused + fresh
+        self._tables[seq_id] = table
+        n_cached = len(reused) * self.block_size
+        self._lens[seq_id] = n_cached
+        self.prefix_query_tokens += len(tokens)
+        self.prefix_hit_tokens += n_cached
+        for i in range(len(reused), len(hashes)):
+            h, b = hashes[i], table[i]
+            if h not in self._block_of and b not in self._hash_of:
+                self._block_of[h] = b
+                self._hash_of[b] = h
+        return reused, n_cached
+
+    def clear_prefix_cache(self):
+        """Return every cached (unreferenced) block to the free list and
+        forget every hash."""
+        self._free.extend(self._lru)
+        self._lru.clear()
+        self._hash_of.clear()
+        self._block_of.clear()
+
+    def reset_prefix_stats(self):
+        self.prefix_hit_tokens = 0
+        self.prefix_query_tokens = 0
+        self.prefix_evictions = 0
+
+    def unregister_block_hashes(self, blocks):
+        """Drop the hash registrations of ``blocks`` (a prefill unwound
+        before the dispatch covering them: their content will never be
+        written). Only a registration that points at the block goes; a
+        parked block that loses its hash returns to the free list."""
+        for b in blocks:
+            h = self._hash_of.get(b)
+            if h is not None and self._block_of.get(h) == b:
+                del self._hash_of[b]
+                del self._block_of[h]
+                if b in self._lru:
+                    del self._lru[b]
+                    self._free.append(b)
 
     def extend(self, seq_id: int) -> int:
         """Room for one more token; returns its flat slot id."""
@@ -289,8 +444,41 @@ class PagedKVCache:
         block = blocks[pos // self.block_size]
         return block * self.block_size + pos % self.block_size
 
+    def rollback(self, seq_id: int, new_len: int, min_blocks: int = 0):
+        """Roll a live sequence's context length back to ``new_len`` (the
+        speculative-decoding unwind): the next extend re-issues the
+        rescinded slots. Blocks wholly past the new length leave the
+        table (at ref 0 straight to the free list, never the LRU, with
+        any hash dropped), but never below ``min_blocks`` blocks, so an
+        admission's up-front reservation survives."""
+        blocks = self._tables[seq_id]
+        cur = self._lens[seq_id]
+        new_len = int(new_len)
+        if not 0 <= new_len <= cur:
+            raise ValueError(
+                f"rollback(seq {seq_id}) to {new_len} outside "
+                f"[0, {cur}]")
+        keep = max(1, -(-new_len // self.block_size), int(min_blocks))
+        dropped = blocks[keep:]
+        del blocks[keep:]
+        self._lens[seq_id] = new_len
+        returned = []
+        for b in reversed(dropped):
+            self._ref[b] -= 1
+            if self._ref[b] == 0:
+                del self._ref[b]
+                h = self._hash_of.pop(b, None)
+                if h is not None:
+                    self._block_of.pop(h, None)
+                returned.append(b)
+        self._free.extend(returned)
+
     def free(self, seq_id: int):
-        """Release a sequence's blocks; a no-op for an unknown seq_id."""
+        """Release a sequence: ref-- on each block; a block reaching ref 0
+        is parked in the LRU when it carries a hash, else returned to
+        the free list. Blocks park leaf-first, so eviction eats a chain
+        from its tail and the shared head stays matchable longest. A
+        no-op for an unknown seq_id."""
         blocks = self._tables.pop(seq_id, None)
         self._lens.pop(seq_id, None)
         if blocks is None:
@@ -300,7 +488,10 @@ class PagedKVCache:
             self._ref[b] -= 1
             if self._ref[b] == 0:
                 del self._ref[b]
-                returned.append(b)
+                if b in self._hash_of:
+                    self._lru[b] = None
+                else:
+                    returned.append(b)
         self._free.extend(returned)
 
     def context_len(self, seq_id: int) -> int:
@@ -321,25 +512,40 @@ class PagedKVCache:
         return len(self._free)
 
     @property
+    def cached_blocks(self) -> int:
+        """Blocks parked in the prefix-cache LRU (reusable, evictable)."""
+        return len(self._lru)
+
+    @property
     def available_blocks(self) -> int:
-        """Blocks a fresh allocation can claim (no cached blocks yet)."""
-        return len(self._free)
+        """Blocks a fresh allocation can claim: free and evictable."""
+        return len(self._free) + len(self._lru)
 
     def debug_check(self):
-        """Pool invariant: free + referenced == num_blocks, disjoint,
-        table contents matching the ref counts, every length inside its
-        table. Raises AssertionError on a violation."""
+        """Pool invariant: free + cached + referenced == num_blocks, the
+        three disjoint, table contents matching the ref counts, the hash
+        index a bijection with every cached block hashed, every length
+        inside its table. Raises AssertionError on a violation."""
         free = set(self._free)
+        cached = set(self._lru)
         referenced = set(self._ref)
         assert len(free) == len(self._free), "duplicate free blocks"
-        assert not free & referenced, "block both free and referenced"
-        assert len(free) + len(referenced) == self.num_blocks, (
-            f"pool leak: free={len(free)} referenced={len(referenced)} "
-            f"!= {self.num_blocks}")
+        assert not free & cached and not free & referenced \
+            and not cached & referenced, "block in two pools at once"
+        assert len(free) + len(cached) + len(referenced) \
+            == self.num_blocks, (
+                f"pool leak: free={len(free)} cached={len(cached)} "
+                f"referenced={len(referenced)} != {self.num_blocks}")
         counts = Counter()
         for t in self._tables.values():
             counts.update(t)
         assert dict(counts) == self._ref, "ref counts out of sync"
+        assert all(self._block_of.get(h) == b
+                   for b, h in self._hash_of.items()) \
+            and len(self._block_of) == len(self._hash_of), \
+            "hash index not a bijection"
+        assert all(b in self._hash_of for b in cached), \
+            "cached block without a hash"
         assert set(self._lens) == set(self._tables), \
             "length/table bookkeeping out of sync"
         for s, t in self._tables.items():

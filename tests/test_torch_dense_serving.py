@@ -74,7 +74,7 @@ def _run_jax(jdec, reqs, late=(), **kw):
 
 
 def _run_port(tdec, reqs, late=(), **kw):
-    eng = ServingEngine(tdec, **kw)
+    eng = ServingEngine(tdec, prefix_caching=False, **kw)
     assert eng.ragged is False
     out = _drive(eng, reqs, SamplingParams, late, tdec.cache.debug_check)
     st = eng.stats()

@@ -10,7 +10,8 @@ workload with int4 weights. Should a near-tie ever flip a token, the
 failure message carries the port's logit gap between the two tokens at
 the first divergence. Also: temperature <= 0 is greedy beside sampled
 rows, one seed gives one stochastic stream, and the pool invariant holds
-after every step.
+after every step. Both engines run with their default prefix caching
+on.
 """
 import numpy as np
 import pytest
@@ -63,8 +64,10 @@ def _run_port(tdec, reqs, **kw):
     tdec.cache.debug_check()
     st = eng.stats()
     assert st["finished"] == len(reqs)
-    # everything but the scratch page is back in the pool
-    assert st["free_blocks"] == tdec.cache.num_blocks - 1
+    # everything but the scratch page is back in the pool: free, or
+    # parked in the prefix cache (caching is on, as in the JAX engine)
+    assert st["free_blocks"] + st["cached_blocks"] \
+        == tdec.cache.num_blocks - 1
     return [eng.result(r).tolist() for r in rids], st
 
 
