@@ -2,6 +2,8 @@
 """Drive the PyTorch/CUDA port (``paddle_tpu_torch``) on one CUDA card.
 
 Run from the root of the repository:  python3 chip_smoke.py
+(``--only PHASE[,PHASE...]`` runs env, build and the named phases, which
+build what they need, and prints no result.)
 
 Phases, in order; each prints one JSON line with its seconds, and any
 failure ends the run with a non-zero exit code and no result:
@@ -68,7 +70,20 @@ failure ends the run with a non-zero exit code and no result:
                  24 tokens; the card with caching on and off and the CPU
                  with it on give equal greedy tokens, the card and the
                  CPU equal hit tokens.
-7. serve-int4    THE MAIN PATH: Llama-3-8B at full width and all 32 layers,
+7. tiny-rich-faults-parity  JAX's threefry key stream and fault
+                 tolerance, card against CPU: the threefry2x32 known
+                 answer on the card and the host; the bits and uniforms
+                 of an [8, 128256] draw equal on card and CPU, the Gumbel
+                 noise within 2e-6; llama_tiny(hidden_size=256) float32
+                 (int4) through both engines on the rich mix (greedy;
+                 T 0.8 with top_k 40 and top_p 0.9; repetition penalty
+                 1.3; a 25% allowed mask; top_k 1 at T 5 and top_p 1e-9
+                 at T 3, each beside a greedy twin): the CPU's streams,
+                 twins equal, the masked stream inside its mask, every
+                 serving kernel launched; and optimistic admission on a
+                 14-block pool (preemption with recompute) gives the
+                 roomy run's greedy streams on card and CPU.
+8. serve-int4    THE MAIN PATH: Llama-3-8B at full width and all 32 layers,
                  int4 weights from a seed, bf16 KV pool, block size 64,
                  served by the ragged engine (8 requests of 100..600 prompt
                  tokens, 32 new tokens each, 6 greedy and 2 at temperature
@@ -81,7 +96,7 @@ failure ends the run with a non-zero exit code and no result:
                  attention and 129 GEMV kernels; the decode_matmul and
                  attention families' device ms per serving run and per
                  ministep.
-8. serve-dense-int4  THE DENSE PATH on the same decoder, eager:
+9. serve-dense-int4  THE DENSE PATH on the same decoder, eager:
                  ServingEngine(ragged=False, max_batch_size=8, chunk_size=8,
                  prefill_chunk=256), 8 requests of 100..512 prompt tokens,
                  32 new each (6 greedy, 2 at 0.8). Counters set to 0 just
@@ -92,13 +107,13 @@ failure ends the run with a non-zero exit code and no result:
                  dispatch, no ragged launch. A repeat run gives the same
                  tokens; one decode step at mb 8 launches exactly 32
                  paged-decode and 129 GEMV kernels; its wall and device
-                 time beside the ragged ministep of phase 6; generate() at
+                 time beside the ragged ministep of phase 8; generate() at
                  b 4, prompt 256, 32 new tokens; then both engines on the
-                 same 8 requests, alternately, 4 runs each, and their
+                 same 8 requests, alternately, 3 runs each, and their
                  decode steps alternately, 3 each (median, min, max);
                  the decode_matmul and attention families' device ms per
                  run and step.
-9. serve-prefix-int4  both engines on 8 requests that share a
+10. serve-prefix-int4  both engines on 8 requests that share a
                  384-token prefix (6 blocks of 64), each with 64..128
                  tokens of its own, 32 new tokens, greedy, caching on
                  against off: 2,688 hit tokens (7 readers x 6 blocks),
@@ -109,29 +124,57 @@ failure ends the run with a non-zero exit code and no result:
                  tok/s, TTFT and the prefill's
                  device ms (the same requests with one new token) on and
                  off.
-10. serve-graphs  both engines with ``warmup_programs`` +
+11. serve-graphs  both engines with ``warmup_programs`` +
                  ``seal_programs`` (graphs captured, seconds, pool
                  memory), then serve-dense-int4's requests: tokens equal a
                  fresh eager engine's, stochastic rows included; no
                  unexpected recompile; the launch counters equal what the
                  run's program dispatches call for under the eager gates;
                  the shared-prefix requests equal serve-prefix-int4's with
-                 2,688 hit tokens; eager and graph runs alternated, 4 each
+                 2,688 hit tokens; eager and graph runs alternated, 3 each
                  (median, min, max of tok/s, TTFT, ITL p50 / p99); the
                  idle share of one graph run; a decode chunk (T 8) of 8
                  sequences at ctx 512, eager against graph, alternated 3
                  times (wall ms a step, the graph's device ms and idle
-                 share, launches of a chunk).
-11. serve-bf16-kv8  the same model with bf16 weights and an int8 KV pool
+                 share, launches of a chunk). The grid each engine
+                 captures holds every key plain and rich, greedy and
+                 sampled; the sealed engines serve the next two phases.
+12. serve-rich-int4  the rich mix (phase 7's, 32 new tokens, on
+                 serve-dense-int4's prompts) through both sealed 8B
+                 engines: no unexpected recompile, launches equal what
+                 the dispatches call for, streams equal a fresh eager
+                 engine's, twins equal, the masked stream inside its
+                 mask; tok/s of the rich mix against the plain mix
+                 alternated, 3 runs each; a decode chunk (T 8, W / mb 8,
+                 ctx 512) greedy, sampled and rich: device ms a step and
+                 the sort kernels' share; the widest program the run
+                 dispatched plain against rich; the sampler's parts
+                 (threefry + Gumbel, sort, plain and rich samplers)
+                 timed alone at 8 rows and at that width.
+13. serve-faults-int4  both 8B engines with admission="optimistic" on 21
+                 free blocks of 64 (the rest held by a placeholder
+                 sequence), as sealed graphs: 8 requests of 300..512
+                 prompt tokens and 64 new, one of priority 1; clean runs
+                 preempt at least 4 times and never the priority-1
+                 request, and give the worst-case engine's streams or
+                 leave them at a near-tie; then a run with a cancel
+                 mid-decode, a 0.02 s deadline and a seeded ChaosMonkey
+                 (dispatch and collection faults 0.05, allocator OOMs
+                 0.01, no backoff), debug_check after every step: every
+                 retry and exhaustion answers an injected fault, every
+                 failed request names one, no unexpected recompile, each
+                 finished stream the clean one or a near-tie; tok/s
+                 optimistic against worst-case, alternated, 2 runs each.
+14. serve-bf16-kv8  the same model with bf16 weights and an int8 KV pool
                  (4 requests): the int8 branch of the attention kernel on
                  the serving path; one W 8 ministep launches exactly 32
                  attention kernels; the attention family's device ms per
                  run and per ministep.
-12. tiny-train-parity  llama_tiny(hidden_size=256) in float32 (head_dim 64)
+15. tiny-train-parity  llama_tiny(hidden_size=256) in float32 (head_dim 64)
                  with the same weights on the card and the CPU: 3 TrainSteps
                  of AdamW(1e-3) give losses within 1e-4 relative, and the
                  card ran all three flash kernels.
-13. tiny-ring-parity  llama_tiny(hidden_size=256, sep_degree=4) in
+16. tiny-ring-parity  llama_tiny(hidden_size=256, sep_degree=4) in
                  float32 (head_dim 64) at b 2 x s 256 under a sep-4 fleet
                  mesh, the same weights on the card (["cuda:0"] * 4) and on
                  the CPU (["cpu"] * 4): 3 TrainSteps of AdamW(1e-3) give
@@ -139,7 +182,7 @@ failure ends the run with a non-zero exit code and no result:
                  model's at sep_degree=1 within 1e-4, and the flash counters
                  read exactly what the ring calls for (2 layers x 4 ranks
                  x 6 blocks per step of each kernel).
-14. train-mid    THE TRAINING PATH: llama_mid (0.65B) at full width and all
+17. train-mid    THE TRAINING PATH: llama_mid (0.65B) at full width and all
                  11 layers, bf16 compute, seed 0, batch 4 x seq 2048 (ids as
                  bench.py makes them), AdamW(1e-4, weight_decay=0.01): 2 warm
                  and 10 timed TrainSteps. The flash counters are set to 0
@@ -148,7 +191,7 @@ failure ends the run with a non-zero exit code and no result:
                  last below the first. Step ms, tokens/s, MFU by bench.py's
                  formula against 989 TFLOP/s, peak memory, device time by
                  kernel family and the idle share.
-15. train-mid8k  THE LONG-CONTEXT PATH: llama_mid(dtype="bfloat16",
+18. train-mid8k  THE LONG-CONTEXT PATH: llama_mid(dtype="bfloat16",
                  chunked_ce_tokens=1024, max_position_embeddings=8192,
                  sep_degree=4), all 11 layers, b 1 x s 8192 (ids as bench.py
                  makes them), AdamW(1e-4, weight_decay=0.01), under a sep-4
@@ -164,7 +207,7 @@ failure ends the run with a non-zero exit code and no result:
                  and sep 4 within 1e-2 relative. Step ms, tokens/s, MFU at
                  seq 8192, peak memory, device time by kernel family (the
                  flash family's ms apart) and the idle share of both.
-16. capture-failure  a program with a host sync inside: its first
+19. capture-failure  a program with a host sync inside: its first
                  dispatch raises, no graph is kept and it is not run
                  eagerly in its place (last, as a failed capture may
                  leave the allocator's pool unusable).
@@ -235,11 +278,28 @@ def _require(cond, msg):
         raise RuntimeError(f"chip_smoke check failed: {msg}")
 
 
+def _clean_run(st, where):
+    """A run without injected faults: no retry and no failed request.
+    The engine absorbs an exception of a dispatch into failed requests,
+    so a CUDA error would otherwise pass as a short stream."""
+    _require(st["retries"] == 0 and st["failed"] == 0
+             and st["dispatch_exhaustions"] == 0,
+             f"{where}: {st['retries']} retries, {st['failed']} failed "
+             f"requests, {st['dispatch_exhaustions']} exhausted dispatches "
+             f"without fault injection")
+
+
 def _emit(obj):
     print(json.dumps(obj), flush=True)
 
 
+# phases named by --only (None: every phase)
+_ONLY = None
+
+
 def _phase(name, fn):
+    if _ONLY is not None and name not in _ONLY | {"env", "build"}:
+        return None
     t0 = time.perf_counter()
     info = fn()
     _emit(dict(phase=name, seconds=round(time.perf_counter() - t0, 3),
@@ -333,6 +393,8 @@ def _device_breakdown(torch, fn, wall_ms):
         elif any(s in name.lower()
                  for s in ("gemm", "gemv", "nvjet", "cutlass")):
             fam = "library_gemm"
+        elif "sort" in name.lower():
+            fam = "sort"
         else:
             fam = "other"
             other[name[:60]] = other.get(name[:60], 0.0) + us / 1e3
@@ -1061,6 +1123,13 @@ def _decode_check(torch, gen, timer, spec):
 
 
 def main():
+    global _ONLY
+    if sys.argv[1:2] == ["--only"] and len(sys.argv) == 3:
+        _ONLY = set(sys.argv[2].split(","))
+    elif sys.argv[1:]:
+        print("usage: python3 chip_smoke.py [--only PHASE[,PHASE...]]",
+              file=sys.stderr)
+        return 2
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on "
@@ -1083,6 +1152,8 @@ def main():
     from paddle_tpu_torch.ops.qweight import QWeight
     from paddle_tpu_torch.optimizer import AdamW
     from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.utils import prng
+    from paddle_tpu_torch.utils.chaos import ChaosMonkey
     from paddle_tpu_torch.utils.telemetry import CompileWatch
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1327,12 +1398,12 @@ def main():
     _phase("kernels", kernels)
     torch.cuda.empty_cache()
 
-    def cpu_and_card(cfg):
+    def cpu_and_card(cfg, num_blocks=64):
         """A seeded int4 decoder on the CPU and the same weights on the
-        card (64 blocks of 8)."""
+        card (``num_blocks`` blocks of 8)."""
         cpu = PagedLlamaDecoder.from_config(cfg, seed=3, weight_dtype="int4",
-                                            num_blocks=64, block_size=8,
-                                            device="cpu")
+                                            num_blocks=num_blocks,
+                                            block_size=8, device="cpu")
 
         def to_cuda(w):
             if isinstance(w, QWeight):
@@ -1345,7 +1416,8 @@ def main():
                    "layers": [{k: to_cuda(v) for k, v in lw.items()}
                               for lw in cpu.weights["layers"]]}
         gpu = PagedLlamaDecoder(cfg, weights, weight_dtype="int4",
-                                num_blocks=64, block_size=8, device="cuda")
+                                num_blocks=num_blocks, block_size=8,
+                                device="cuda")
         return cpu, gpu
 
     # -- tiny model: card against the CPU's plain path -----------------------
@@ -1471,11 +1543,11 @@ def main():
         head_dim 64, which the dense prefill's flash kernel takes."""
         cfg_t = llama_tiny(hidden_size=256)
         cpu, gpu = cpu_and_card(cfg_t)
-        prng = np.random.RandomState(7)
-        head = prng.randint(0, cfg_t.vocab_size, 24)       # 3 blocks of 8
-        ps = [np.concatenate([head, prng.randint(0, cfg_t.vocab_size, n)])
+        trng = np.random.RandomState(7)
+        head = trng.randint(0, cfg_t.vocab_size, 24)       # 3 blocks of 8
+        ps = [np.concatenate([head, trng.randint(0, cfg_t.vocab_size, n)])
               for n in (3, 9, 5, 7)]
-        ps.append(prng.randint(0, cfg_t.vocab_size, 21))
+        ps.append(trng.randint(0, cfg_t.vocab_size, 21))
         info = {}
         for ragged in (True, False):
             res = {}
@@ -1503,6 +1575,151 @@ def main():
 
     _phase("tiny-prefix-parity", tiny_prefix_parity)
 
+    def rich_specs(ps, vocab, new):
+        """The rich mix on prompts ps[0..5]: greedy; temperature 0.8
+        with top_k 40 and top_p 0.9; repetition penalty 1.3 (greedy); a
+        25% allowed mask (greedy); top_k 1 at temperature 5 and top_p
+        1e-9 at temperature 3, each beside a greedy twin on its prompt.
+        Returns (specs [(prompt, SamplingParams kwargs)], the mask)."""
+        mask = np.random.RandomState(12).rand(vocab) < 0.25
+        kws = [dict(), dict(temperature=0.8, top_k=40, top_p=0.9),
+               dict(repetition_penalty=1.3), dict(allowed_tokens=mask),
+               dict(temperature=5.0, top_k=1), dict(),
+               dict(temperature=3.0, top_p=1e-9), dict()]
+        order = [0, 1, 2, 3, 4, 4, 5, 5]
+        return ([(ps[i], dict(kw, max_new_tokens=new))
+                 for i, kw in zip(order, kws)], mask)
+
+    def check_rich(outs, mask, where, gap=None):
+        """The rich mix's own gates: the masked stream inside its mask,
+        and each twin equal to its greedy twin; with ``gap`` (8B, whose
+        bf16 logits tie exactly at times: top_k 1 and top_p 1e-9 keep
+        every token tied at the maximum, and the draw picks among them,
+        where the argmax takes the first) a twin may also leave its
+        greedy twin where ``gap(i, a, b)`` finds a near-tie. Returns the
+        first divergences."""
+        _require(bool(mask[np.asarray(outs[3])].all()),
+                 f"{where}: the masked stream left its mask: {outs[3]}")
+        found = []
+        for i in (4, 6):
+            if np.array_equal(outs[i], outs[i + 1]):
+                continue
+            g = gap(i, outs[i], outs[i + 1]) if gap else None
+            _require(g is not None and abs(g[1]) <= 2 * g[2],
+                     f"{where}: twin {i} leaves its greedy twin at (token, "
+                     f"gap, noise) {g}: {list(outs[i])} vs "
+                     f"{list(outs[i + 1])}")
+            found.append((i, g))
+        return found
+
+    def tiny_rich_faults_parity():
+        """JAX's key stream and fault tolerance on the card against the
+        CPU: the threefry known answer; the bits and uniforms of an
+        [8, 128256] draw equal on card and CPU, the Gumbel noise within
+        2e-6; both engines on the rich mix give the CPU's streams; and a
+        preemption-and-recompute run (optimistic admission on 14 blocks
+        of 8) gives the roomy run's greedy streams, on the card and the
+        CPU. llama_tiny(hidden_size=256) float32 with int4 weights."""
+        z = torch.zeros((), dtype=torch.int64, device="cuda")
+        zc = torch.zeros(1, dtype=torch.int64, device="cuda")
+        a, b = prng._threefry_torch(z, z, zc, zc)
+        kat = [int(a[0]), int(b[0])]
+        host = [int(x) for x in prng.threefry_2x32(np.zeros(2, np.uint32),
+                                                   np.zeros(2, np.uint32))]
+        _require(kat == host == [0x6B200159, 0x99BA4EFE],
+                 f"threefry known answer: card {kat}, host {host}")
+        key = prng.PRNGKey(1234)
+        shape = (8, 128256)
+        tiny_f = float(np.finfo(np.float32).tiny)
+        bits = [prng.random_bits(key, shape, device=d).cpu()
+                for d in ("cuda", "cpu")]
+        _require(torch.equal(bits[0], bits[1]),
+                 "the card's threefry bits differ from the CPU's")
+        unif = [prng.uniform(key, shape, tiny_f, 1.0, device=d).cpu()
+                for d in ("cuda", "cpu")]
+        _require(torch.equal(unif[0], unif[1]),
+                 "the card's uniforms differ from the CPU's")
+        gum = [prng.gumbel(key, shape, device=d).cpu()
+               for d in ("cuda", "cpu")]
+        gerr = float((gum[0] - gum[1]).abs().max())
+        _require(gerr <= 2e-6, f"Gumbel noise card vs CPU {gerr}")
+        cfg_t = llama_tiny(hidden_size=256)
+        cpu, gpu = cpu_and_card(cfg_t)
+        rng = np.random.RandomState(9)
+        ps = [rng.randint(0, cfg_t.vocab_size, int(n))
+              for n in rng.randint(5, 30, 6)]
+        specs, mask = rich_specs(ps, cfg_t.vocab_size, 10)
+        info = {"threefry_known_answer": [hex(x) for x in kat],
+                "bits_8x128256_equal": True, "uniform_equal": True,
+                "gumbel_max_abs_err": gerr}
+        reset_dense()
+        for ragged in (True, False):
+            res = {}
+            for name, dec in (("cpu", cpu), ("card", gpu)):
+                eng = ServingEngine(dec, ragged=ragged, max_batch_size=4,
+                                    chunk_size=4, prefill_chunk=8, seed=3,
+                                    prompt_buckets=(8, 16, 32))
+                rids = [eng.add_request(p, SamplingParams(**kw))
+                        for p, kw in specs]
+                eng.run_to_completion()
+                st = eng.stats()
+                _clean_run(st, f"tiny rich mix {name}: "
+                               f"{[eng.request(r).error for r in rids]}")
+                _require(st["finished"] == len(specs),
+                         f"tiny rich mix {name}: {st['finished']} finished")
+                res[name] = [eng.result(r) for r in rids]
+                eng.close()
+                dec.cache.debug_check()
+            kind = "ragged" if ragged else "dense"
+            _require(all(np.array_equal(x, y)
+                         for x, y in zip(res["card"], res["cpu"])),
+                     f"tiny rich mix ({kind}): card and CPU streams differ: "
+                     f"{res}")
+            check_rich(res["card"], mask, f"tiny rich mix ({kind})")
+            info[f"rich_{kind}_tokens_equal"] = True
+        launched = dense_counts()
+        _require(all(launched[k] > 0 for k in launched),
+                 f"tiny-rich-faults-parity launched {launched}")
+        info["launches"] = launched
+        # preemption with recompute: a tight pool against a roomy one
+        prng_ = np.random.RandomState(3)
+        pre_ps = [prng_.randint(0, cfg_t.vocab_size, n) for n in (9, 14, 7)]
+        tight = cpu_and_card(cfg_t, num_blocks=14)
+        for ragged in (True, False):
+            res = {}
+            for name, dec, adm in (("card", gpu, "worst_case"),
+                                   ("card_tight", tight[1], "optimistic"),
+                                   ("cpu_tight", tight[0], "optimistic")):
+                eng = ServingEngine(dec, ragged=ragged, max_batch_size=3,
+                                    chunk_size=4, prefill_chunk=8,
+                                    prompt_buckets=(16, 32), admission=adm)
+                rids = [eng.add_request(p, SamplingParams(max_new_tokens=40))
+                        for p in pre_ps]
+                while eng.step():
+                    dec.cache.debug_check()
+                st = eng.stats()
+                _clean_run(st, f"tiny preemption {name}")
+                _require(st["finished"] == 3,
+                         f"tiny preemption {name}: {st['finished']} finished")
+                res[name] = ([eng.result(r).tolist() for r in rids],
+                             st["preemptions"])
+                eng.close()
+            kind = "ragged" if ragged else "dense"
+            _require(res["card_tight"][1] >= 1
+                     and res["card_tight"][1] == res["cpu_tight"][1],
+                     f"tiny preemption ({kind}): preemptions "
+                     f"{res['card_tight'][1]} card, {res['cpu_tight'][1]} "
+                     f"CPU")
+            _require(res["card_tight"][0] == res["card"][0]
+                     == res["cpu_tight"][0],
+                     f"tiny preemption ({kind}): the recomputed streams "
+                     f"differ from the clean run: {res}")
+            info[f"preemption_{kind}"] = {
+                "preemptions": res["card_tight"][1], "tokens_equal": True}
+        return info
+
+    _phase("tiny-rich-faults-parity", tiny_rich_faults_parity)
+
     # -- the main path: 8B int4 serving --------------------------------------
     cfg = llama_3_8b(dtype="bfloat16")
     rng = np.random.RandomState(0)
@@ -1510,21 +1727,18 @@ def main():
                for n in rng.randint(100, 601, 8)]
     temps = [0.0] * 6 + [0.8] * 2
 
-    def engine(dec, ragged, seed=0, graphs=False, prefix_caching=True):
+    def engine(dec, ragged, seed=0, graphs=False, prefix_caching=True,
+               **kw):
         """The smoke's engine on dec: max batch 8, chunks of 8, prefill
         chunk 256; the ragged engine takes prompts up to 1024 and pure
-        prefill chunks of 256 rows; eager unless ``graphs``."""
+        prefill chunks of 256 rows; eager unless ``graphs``; ``kw`` go
+        to the engine (admission, retries)."""
         if ragged:
-            return ServingEngine(dec, ragged=True, max_batch_size=8,
-                                 prefill_chunk=256, chunk_size=8, seed=seed,
-                                 prompt_buckets=(32, 64, 128, 256, 512,
-                                                 1024),
-                                 prefix_caching=prefix_caching,
-                                 cuda_graphs=graphs)
-        return ServingEngine(dec, ragged=False, max_batch_size=8,
+            kw["prompt_buckets"] = (32, 64, 128, 256, 512, 1024)
+        return ServingEngine(dec, ragged=ragged, max_batch_size=8,
                              prefill_chunk=256, chunk_size=8, seed=seed,
                              prefix_caching=prefix_caching,
-                             cuda_graphs=graphs)
+                             cuda_graphs=graphs, **kw)
 
     def serve(dec, n_req, seed=0, ragged=True, reqs=None,
               prefix_caching=True, new=32):
@@ -1533,8 +1747,9 @@ def main():
         (tokens, wall seconds, stats)."""
         eng = engine(dec, ragged, seed=seed, prefix_caching=prefix_caching)
         reqs = reqs or list(zip(prompts[:n_req], temps[-n_req:]))
-        rids = [eng.add_request(p, SamplingParams(max_new_tokens=new,
-                                                  temperature=t))
+        rids = [eng.add_request(p, SamplingParams(**t) if isinstance(t, dict)
+                                else SamplingParams(max_new_tokens=new,
+                                                    temperature=t))
                 for p, t in reqs]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1543,7 +1758,10 @@ def main():
         wall = time.perf_counter() - t0
         st = eng.stats()
         outs = [eng.result(r) for r in rids]
+        errors = [eng.request(r).error for r in rids]
         eng.close()
+        _clean_run(st, f"serve ({'ragged' if ragged else 'dense'}): "
+                       f"{errors}")
         _require(st["finished"] == n_req, f"only {st['finished']} of "
                                           f"{n_req} requests finished")
         for o in outs:
@@ -1728,7 +1946,7 @@ def main():
         prof["top_other"] = {k: v / n for k, v in prof["top_other"].items()}
         return one, wall_ms, prof
 
-    def engines_alternated(dec, reqs, reps=4):
+    def engines_alternated(dec, reqs, reps=3):
         """Both engines on the same requests, run alternately (ragged,
         dense, ragged, ...) reps times each, then their decode steps at
         8 rows and ctx 512 alternately 3 times each: per engine, each
@@ -1759,14 +1977,19 @@ def main():
 
     dense_launches = {}
 
+    def dense_requests():
+        """serve-dense-int4's 8 requests: (prompt of 100..512 tokens,
+        temperature), 6 greedy and 2 at 0.8."""
+        drng = np.random.RandomState(1)
+        return list(zip([drng.randint(0, cfg.vocab_size, int(n))
+                         for n in drng.randint(100, 513, 8)], temps))
+
     def serve_dense_int4():
         """THE DENSE PATH: serve-int4's decoder (a decoder reused across
         engines keeps its scratch page) behind ServingEngine(ragged=
         False), then generate()."""
         dec = shared["dec"]
-        drng = np.random.RandomState(1)
-        reqs = list(zip([drng.randint(0, cfg.vocab_size, int(n))
-                         for n in drng.randint(100, 513, 8)], temps))
+        reqs = dense_requests()
         L = cfg.num_hidden_layers
         # every prefill dispatch of the run: (program, rows, logits)
         calls = []
@@ -1873,11 +2096,11 @@ def main():
     # 64..128 tokens of its own, so every prompt fits the dense engine's
     # 512 bucket: a system prompt or few-shot template. In one admission
     # wave the first writes the prefix and the other seven splice it.
-    prng = np.random.RandomState(8)
-    head = prng.randint(0, cfg.vocab_size, 384)
-    prefix_reqs = [(np.concatenate([head, prng.randint(0, cfg.vocab_size,
+    pfx_rng = np.random.RandomState(8)
+    head = pfx_rng.randint(0, cfg.vocab_size, 384)
+    prefix_reqs = [(np.concatenate([head, pfx_rng.randint(0, cfg.vocab_size,
                                                        int(n))]), 0.0)
-                   for n in prng.randint(64, 129, 8)]
+                   for n in pfx_rng.randint(64, 129, 8)]
     prefix_hits = 7 * 6 * 64
 
     def last_logits(dec, toks, rows):
@@ -1984,14 +2207,14 @@ def main():
                "decode_matmul": 0, "flash_fwd": 0}
         for (fam, key), n in dispatches.items():
             if fam == "ragged":
-                T, W, _ = key
+                T, W = key[:2]
                 exp["ragged_paged_attention"] += n * L * T
                 exp["decode_matmul"] += n * T * (4 * L + 1) * (W <= 32)
             elif fam == "decode":
                 exp["paged_attention_decode"] += n * L * key[0]
                 exp["decode_matmul"] += n * (4 * L + 1) * key[0]
             elif fam in ("prefill", "prefill_prefix"):
-                b, w, _ = key
+                b, w = key[:2]
                 exp["flash_fwd"] += n * L * (fam == "prefill")
                 exp["decode_matmul"] += n * (4 * L * (w * b <= 32) + 1)
             else:                          # prefill_mid0, prefill_mid
@@ -2000,11 +2223,13 @@ def main():
         return exp
 
     def drive(eng, reqs):
-        """Serve reqs (32 new tokens each) through a live engine: (tokens,
+        """Serve reqs (32 new tokens each; (prompt, temperature) or
+        (prompt, SamplingParams kwargs)) through a live engine: (tokens,
         wall seconds, stats); then its finished requests and prefix
         cache are cleared for the next run."""
-        rids = [eng.add_request(p, SamplingParams(max_new_tokens=32,
-                                                  temperature=t))
+        rids = [eng.add_request(p, SamplingParams(**t) if isinstance(t, dict)
+                                else SamplingParams(max_new_tokens=32,
+                                                    temperature=t))
                 for p, t in reqs]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2013,10 +2238,69 @@ def main():
         wall = time.perf_counter() - t0
         st = eng.stats()
         outs = [eng.result(r) for r in rids]
+        _clean_run(st, f"drive: {[eng.request(r).error for r in rids]}")
+        _require(st["finished"] == len(reqs),
+                 f"drive: {st['finished']} of {len(reqs)} finished")
         eng.clear_finished()
         eng.dec.cache.clear_prefix_cache()
         eng.dec.cache.debug_check()
         return outs, wall, st
+
+    def chunk_case(dec, ragged, sb, ctx=512, T=8, mb=8):
+        """The operands of one decode chunk (T 8) of 8 sequences at ctx
+        512 on real pages (allocated here): (family, the operands of a
+        greedy plain chunk, the sequence ids to free). ``flavour``
+        turns them into a sampled or rich chunk's (key, operands)."""
+        cache, mp = dec.cache, dec.max_pages
+        sids = list(range(3000, 3000 + mb))
+        for sid in sids:
+            cache.allocate(sid, ctx + T)
+            for _ in range(ctx):
+                cache.extend(sid)
+        toks = np.random.RandomState(4).randint(0, cfg.vocab_size, mb) \
+            .astype(np.int32)
+        keys = prng.split(prng.PRNGKey(4), T).view(np.int32)
+        if ragged:
+            sched = np.zeros((6, T, mb), np.int32)
+            tables = np.full((mb + 1, mp), sb, np.int32)
+            for c, sid in enumerate(sids):
+                for t in range(T):
+                    pos = cache.context_len(sid)
+                    sched[1:, t, c] = (pos, cache.extend(sid), c, pos + 1, 1)
+                tables[c] = cache.block_table(sid, mp)
+            return "ragged", [toks, sched, tables,
+                              np.zeros((T, mb), np.float32), keys], sids
+        tables = np.full((T, mb, mp), sb, np.int32)
+        ctx_a = np.zeros((T, mb), np.int32)
+        slots = np.zeros((T, mb), np.int32)
+        for c, sid in enumerate(sids):
+            for t in range(T):
+                ctx_a[t, c] = cache.context_len(sid)
+                slots[t, c] = cache.extend(sid)
+            tables[:, c] = cache.block_table(sid, mp)[None]
+        zeros = np.zeros(mb, np.int32)
+        return "decode", [tables, ctx_a, slots, zeros, toks,
+                          np.ones(mb, np.int32), np.zeros(mb, np.float32),
+                          keys], sids
+
+    def flavour(fam, arrays, sampled, rich, T=8, mb=8):
+        """(key, operands) of chunk_case's chunk, greedy or sampled at
+        temperature 0.8, plain or rich (top_k 40, top_p 0.9, repetition
+        penalty 1.3 in every column)."""
+        arrays = list(arrays)
+        shape = (T, mb) if fam == "ragged" else (mb,)
+        if sampled:
+            i = 3 if fam == "ragged" else 6
+            arrays[i] = np.full(shape, 0.8, np.float32)
+        if rich:
+            arrays += [np.full(shape, 40, np.int32),
+                       np.full(shape, 0.9, np.float32),
+                       np.full(shape, 1.3, np.float32)]
+            if fam == "ragged":
+                arrays.append(np.ones(mb, np.int32))
+        key = (T, mb, sampled, rich) if fam == "ragged" \
+            else (T, sampled, rich)
+        return key, arrays
 
     def chunk_programs(dec, ragged, ctx=512):
         """One decode chunk (T 8) of 8 sequences at ctx 512 on real pages
@@ -2026,38 +2310,10 @@ def main():
         step (the eager step's: serve-int4 / serve-dense-int4)."""
         T, mb = 8, 8
         engs = {g: engine(dec, ragged, graphs=g) for g in (False, True)}
-        cache, mp = dec.cache, dec.max_pages
-        sb = engs[True]._scratch_block
-        sids = list(range(3000, 3000 + mb))
-        for sid in sids:
-            cache.allocate(sid, ctx + T)
-            for _ in range(ctx):
-                cache.extend(sid)
-        toks = np.random.RandomState(4).randint(0, cfg.vocab_size, mb) \
-            .astype(np.int32)
-        if ragged:
-            sched = np.zeros((6, T, mb), np.int32)
-            tables = np.full((mb + 1, mp), sb, np.int32)
-            for c, sid in enumerate(sids):
-                for t in range(T):
-                    pos = cache.context_len(sid)
-                    sched[1:, t, c] = (pos, cache.extend(sid), c, pos + 1, 1)
-                tables[c] = cache.block_table(sid, mp)
-            fam, key = "ragged", (T, mb, False)
-            arrays = [toks, sched, tables, np.zeros((T, mb), np.float32)]
-        else:
-            tables = np.full((T, mb, mp), sb, np.int32)
-            ctx_a = np.zeros((T, mb), np.int32)
-            slots = np.zeros((T, mb), np.int32)
-            for c, sid in enumerate(sids):
-                for t in range(T):
-                    ctx_a[t, c] = cache.context_len(sid)
-                    slots[t, c] = cache.extend(sid)
-                tables[:, c] = cache.block_table(sid, mp)[None]
-            fam, key = "decode", (T, False)
-            zeros = np.zeros(mb, np.int32)
-            arrays = [tables, ctx_a, slots, zeros, toks,
-                      np.ones(mb, np.int32), np.zeros(mb, np.float32)]
+        cache = dec.cache
+        fam, base, sids = chunk_case(dec, ragged, engs[True]._scratch_block,
+                                     ctx)
+        key, arrays = flavour(fam, base, False, False)
         out = {}
         with torch.inference_mode():
             for g, eng in engs.items():
@@ -2107,12 +2363,13 @@ def main():
         (stochastic rows included), no unexpected recompile, launches
         equal to what the dispatches call for; the shared-prefix
         requests equal serve-prefix-int4's with 2688 hit tokens; then
-        eager and graph runs alternated, 4 each; one graph run's idle
+        eager and graph runs alternated, 3 each; one graph run's idle
         share; and the decode chunk at ctx 512 eager against graph."""
         dec = shared["dec"]
         reqs = shared["dense_reqs"]
         L = cfg.num_hidden_layers
         info = {}
+        shared["graph_engines"], shared["capture"] = {}, {}
         for name, ragged in (("ragged", True), ("dense", False)):
             eng = engine(dec, ragged, graphs=True)
             free0 = dec.cache.free_blocks
@@ -2159,7 +2416,7 @@ def main():
                      f"{p_st['prefix_cache_hit_tokens']} tokens, or "
                      f"recompiled {p_st['unexpected_recompiles']}")
             runs = {"eager": [], "graph": []}
-            for _ in range(4):
+            for _ in range(3):
                 for mode in runs:
                     if mode == "eager":
                         _, wall, st = serve(dec, 8, ragged=ragged, reqs=reqs)
@@ -2174,7 +2431,9 @@ def main():
                                         for r in runs["graph"]]))
             prof = _device_breakdown(torch, lambda: drive(eng, reqs),
                                      med_wall * 1e3)
-            eng.close()
+            # the sealed engine serves the rich and fault phases next
+            shared["graph_engines"][name] = eng
+            shared["capture"][name] = capture
 
             def spread(xs):
                 return {"runs": xs, "median": float(np.median(xs)),
@@ -2194,7 +2453,386 @@ def main():
         return info
 
     _phase("serve-graphs", serve_graphs)
-    del shared["dec"]
+
+    def the_dec():
+        """serve-int4's 8B decoder (built here when that phase did not
+        run)."""
+        if "dec" not in shared:
+            shared["dec"] = PagedLlamaDecoder.from_config(
+                cfg, seed=0, weight_dtype="int4", block_size=64,
+                num_blocks=160, device="cuda")
+        return shared["dec"]
+
+    def sealed_engine(name):
+        """serve-graphs' engine (worst-case admission, every program a
+        graph, the set sealed), captured here when that phase did not
+        run."""
+        engs = shared.setdefault("graph_engines", {})
+        if name not in engs:
+            eng = engine(the_dec(), name == "ragged", graphs=True)
+            t0 = time.perf_counter()
+            eng.warmup_programs()
+            eng.seal_programs()
+            torch.cuda.synchronize()
+            shared.setdefault("capture", {})[name] = {
+                "graphs": eng.programs.captured,
+                "seconds": time.perf_counter() - t0}
+            engs[name] = eng
+        return engs[name]
+
+    def path_kernels(ragged):
+        return (("ragged_paged_attention", "decode_matmul") if ragged else
+                ("paged_attention_decode", "flash_fwd", "decode_matmul"))
+
+    def sampler_costs(rows):
+        """Device ms (the timer's mean) of the sampler's parts over
+        float32 logits [rows, 128256]: the threefry bits with the
+        Gumbel transform, the descending sort, the whole plain and rich
+        samplers (temperature 0.8; top_k 40, top_p 0.9, repetition
+        penalty 1.3), and the greedy argmax."""
+        V = cfg.vocab_size
+        lg = torch.randn(rows, V, device="cuda", generator=gen) * 3
+        temp = torch.full((rows,), 0.8, device="cuda")
+        tk = torch.full((rows,), 40, dtype=torch.int32, device="cuda")
+        tp = torch.full((rows,), 0.9, device="cuda")
+        rp = torch.full((rows,), 1.3, device="cuda")
+        seen = torch.rand(rows, V, device="cuda", generator=gen) < 0.01
+        allowed = torch.ones(rows, V, dtype=torch.bool, device="cuda")
+        key = torch.as_tensor(prng.PRNGKey(5).view(np.int32), device="cuda")
+
+        class Plain:
+            top_k = 0
+
+        with torch.inference_mode():
+            return {
+                "threefry_gumbel": timer(lambda: prng.gumbel(
+                    key, (rows, V), device="cuda"), iters=5),
+                "sort": timer(lambda: torch.sort(lg, dim=-1,
+                                                 descending=True), iters=5),
+                "sample_plain": timer(lambda: ServingEngine._sample(
+                    Plain, lg, temp, key, True), iters=5),
+                "sample_rich": timer(lambda: ServingEngine._sample_rich(
+                    None, lg, temp, key, tk, tp, rp, seen, allowed, True),
+                    iters=5),
+                "greedy_argmax": timer(lambda: lg.argmax(dim=-1), iters=5)}
+
+    def scratch_program(eng, fam, key):
+        """Operands of ``key`` with every row on the scratch page (as
+        warmup_programs gives them), temperature 0.8 and, for a rich
+        key, the rich mix's filters."""
+        mb, mp = eng.max_b, eng.dec.max_pages
+        sb, ss = eng._scratch_block, eng._scratch_slot
+        if fam == "ragged":
+            T, W, _, rich = key
+            z = np.zeros((T, W), np.int32)
+            sched = np.stack([z, z, np.full((T, W), ss, np.int32),
+                              np.full((T, W), mb, np.int32), z, z])
+            arrays = [np.zeros(W, np.int32), sched,
+                      np.full((mb + 1, mp), sb, np.int32),
+                      np.full((T, W), 0.8, np.float32),
+                      prng.split(prng.PRNGKey(6), T).view(np.int32)]
+            shape = (T, W)
+        else:
+            b, w, _, rich = key
+            z = np.zeros(w, np.int32)
+            arrays = [np.zeros((w, b), np.int32),
+                      np.full((w, b), ss, np.int32), z,
+                      np.full(w, 0.8, np.float32),
+                      prng.PRNGKey(6).view(np.int32)]
+            shape = (w,)
+        if rich:
+            arrays += [np.full(shape, 40, np.int32),
+                       np.full(shape, 0.9, np.float32),
+                       np.full(shape, 1.3, np.float32)]
+            if fam == "ragged":
+                arrays.append(np.ones(shape[1], np.int32))
+        return arrays
+
+    def serve_rich_int4():
+        """The rich mix on both 8B engines after warmup_programs +
+        seal_programs (serve-graphs' engines): no unexpected recompile,
+        the launches equal what the dispatches call for, the streams
+        equal a fresh eager engine's, the twins equal, the masked
+        stream inside its mask; tok/s of the rich mix against the plain
+        mix (serve-dense-int4's requests) alternated, 3 runs each; a
+        decode chunk (T 8, 8 sequences, ctx 512) greedy, sampled and
+        rich, device ms a step with the sort kernels' share, and the
+        widest chunk the run dispatched, plain against rich; the
+        sampler's parts timed alone at 8 rows and that width."""
+        dec = the_dec()
+        plain = dense_requests()
+        specs, mask = rich_specs([p for p, _ in plain], cfg.vocab_size, 32)
+        L = cfg.num_hidden_layers
+        info = {}
+        for name, ragged in (("ragged", True), ("dense", False)):
+            eng = sealed_engine(name)
+            reset_dense()
+            eng.programs.dispatches.clear()
+            g_outs, _, g_st = drive(eng, specs)
+            launched = dense_counts()
+            disp = dict(eng.programs.dispatches)
+            expect = graph_launches(disp, L)
+            _require(launched == expect,
+                     f"{name} rich mix launched {launched}, the dispatches "
+                     f"{disp} call for {expect}")
+            _require(all(launched[k] > 0 for k in path_kernels(ragged)),
+                     f"{name} rich mix: a kernel of the path never "
+                     f"launched: {launched}")
+            _require(g_st["unexpected_recompiles"] == 0,
+                     f"{name} rich mix: {g_st['unexpected_recompiles']} "
+                     f"unexpected recompiles after seal_programs")
+            rich_disp = {f"{f}{list(k)}": n for (f, k), n in disp.items()
+                         if f in ("ragged", "decode", "prefill",
+                                  "prefill_prefix") and k[-1]}
+            _require(rich_disp, f"{name}: no rich program dispatched")
+            twin_gaps = check_rich(
+                g_outs, mask, f"8B rich mix ({name})",
+                gap=lambda i, a, b: first_gap(dec, specs[i][0], a, b))
+            # a fresh eager engine draws from PRNGKey(0): so does the
+            # sealed engine's next run
+            eng._key = prng.PRNGKey(0)
+            g_outs, _, _ = drive(eng, specs)
+            e_outs, _, _ = serve(dec, 8, ragged=ragged, reqs=specs)
+            for i, (a, b) in enumerate(zip(g_outs, e_outs)):
+                _require(np.array_equal(a, b),
+                         f"{name} rich request {i} ({specs[i][1]}) differs "
+                         f"between graphs and eager programs")
+            runs = {"plain": [], "rich": []}
+            for _ in range(3):
+                for mix, reqs in (("plain", plain), ("rich", specs)):
+                    _, wall, st = drive(eng, reqs)
+                    runs[mix].append(st["generated_tokens"] / wall)
+            # a decode chunk at ctx 512: greedy, sampled, rich
+            fam, base, sids = chunk_case(dec, ragged, eng._scratch_block)
+            chunk = {}
+            with torch.inference_mode():
+                for tag, sampled, rich in (("greedy", False, False),
+                                           ("sampled", True, False),
+                                           ("rich", True, True)):
+                    key, arrays = flavour(fam, base, sampled, rich)
+                    eng.programs.run(fam, key, arrays)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    for _ in range(5):
+                        eng.programs.run(fam, key, arrays)
+                    torch.cuda.synchronize()
+                    wall = (time.perf_counter() - t0) * 1e3
+                    prof = _device_breakdown(
+                        torch, lambda: [eng.programs.run(fam, key, arrays)
+                                        for _ in range(5)], wall)
+                    fams = prof["device_ms_by_family"]
+                    chunk[tag] = {
+                        "step_device_ms": prof["device_ms"] / 40,
+                        "step_wall_ms": wall / 40,
+                        "sort_share": fams.get("sort", 0.0)
+                        / prof["device_ms"],
+                        "top_other": prof["top_other"]}
+            for sid in sids:
+                dec.cache.free(sid)
+            # the widest program the rich run dispatched, plain and rich
+            wide_fam = "ragged" if ragged else "prefill"
+            wide = max([k for (f, k) in disp if f == wide_fam]
+                       or [(512, 4) if not ragged else (1, 8)],
+                       key=lambda k: k[0] * k[1])
+            widest = {}
+            with torch.inference_mode():
+                for rich in (False, True):
+                    key = tuple(wide[:2]) + (True, rich)
+                    arrays = scratch_program(eng, wide_fam, key)
+                    widest["rich" if rich else "plain"] = timer(
+                        lambda: eng.programs.run(wide_fam, key, arrays),
+                        iters=5)
+            rows = wide[1]
+            info[name] = {
+                "launches": launched, "rich_dispatches": rich_disp,
+                "unexpected_recompiles": g_st["unexpected_recompiles"],
+                "graphs_equal_eager": True,
+                "twin_divergences": twin_gaps,
+                "masked_inside_mask": True,
+                "tok_per_s": {mix: {"runs": v, "median": float(np.median(v))}
+                              for mix, v in runs.items()},
+                "chunk_T8_W8_ctx512": chunk,
+                "widest": {"family": wide_fam, "key": list(wide),
+                           "device_ms": widest},
+                "sampler_ms_8_rows": sampler_costs(8),
+                f"sampler_ms_{rows}_rows": sampler_costs(rows)}
+        info["capture"] = shared.get("capture")
+        return info
+
+    _phase("serve-rich-int4", serve_rich_int4)
+
+    FAULT_BLOCKS = 21          # blocks of 64 the fault phase's engines get
+
+    def serve_faults_int4():
+        """Optimistic admission on a tight pool (8 requests of 300..512
+        prompt tokens, 64 new, on 21 free blocks of 64 -- the rest of the
+        decoder's pool held by a placeholder sequence), both engines, as
+        CUDA graphs after warmup_programs + seal_programs: a clean run
+        that preempts at least 4 times with the high-priority request
+        never preempted; then the same requests with a cancel mid-decode,
+        a deadline abort and a seeded ChaosMonkey (dispatch and
+        collection faults at 0.05, allocator OOMs at 0.01, no backoff),
+        the pool checked after every step. Gates: every retry and every
+        exhaustion answers one injected fault, every failed request
+        names one; no unexpected recompile; each finished stream equals
+        the worst-case run's, or leaves it at a near-tie (serve-prefix-int4's
+        rule: a logit gap of at most twice the noise);
+        tok/s optimistic against worst-case on the same requests,
+        alternated."""
+        dec = the_dec()
+        cache = dec.cache
+        cache.clear_prefix_cache()
+        hold = cache.free_blocks - FAULT_BLOCKS
+        cache.allocate(-2, hold * cache.block_size)
+        frng = np.random.RandomState(9)
+        f_prompts = [frng.randint(0, cfg.vocab_size, int(n))
+                     for n in frng.randint(300, 513, 8)]
+        base = [(p, dict(max_new_tokens=64, priority=int(i == 0)))
+                for i, p in enumerate(f_prompts)]
+        info = {"free_blocks": FAULT_BLOCKS}
+        try:
+            for name, ragged in (("ragged", True), ("dense", False)):
+                wc = sealed_engine(name)
+                opt = engine(dec, ragged, graphs=True,
+                             admission="optimistic", retry_backoff_s=0.0)
+                t0 = time.perf_counter()
+                opt.warmup_programs()
+                opt.seal_programs()
+                torch.cuda.synchronize()
+                cap_s = time.perf_counter() - t0
+                runs = {"optimistic": [], "worst_case": []}
+                outs = {}
+                for _ in range(2):
+                    for mode, eng in (("optimistic", opt),
+                                      ("worst_case", wc)):
+                        rids = [eng.add_request(p, SamplingParams(**kw))
+                                for p, kw in base]
+                        torch.cuda.synchronize()
+                        t1 = time.perf_counter()
+                        while eng.step():
+                            cache.debug_check()
+                        torch.cuda.synchronize()
+                        wall = time.perf_counter() - t1
+                        st = eng.stats()
+                        _clean_run(st, f"{name} {mode}")
+                        outs[mode] = [eng.result(r) for r in rids]
+                        runs[mode].append({
+                            "tok_per_s": st["generated_tokens"] / wall,
+                            "preemptions": st["preemptions"],
+                            "recompute_tokens": st["recompute_tokens"],
+                            "hi_priority_epoch": eng.request(
+                                rids[0]).epoch})
+                        _require(st["finished"] == 8
+                                 and st["unexpected_recompiles"] == 0,
+                                 f"{name} {mode}: {st['finished']} finished, "
+                                 f"{st['unexpected_recompiles']} unexpected "
+                                 f"recompiles")
+                        eng.clear_finished()
+                        cache.clear_prefix_cache()
+                for r in runs["optimistic"]:
+                    _require(r["preemptions"] >= 4
+                             and r["hi_priority_epoch"] == 0,
+                             f"{name}: the tight pool preempted "
+                             f"{r['preemptions']} times (4 wanted), the "
+                             f"high-priority request's epoch "
+                             f"{r['hi_priority_epoch']}")
+                clean_gaps = [first_gap(dec, p, a, b) for (p, _), a, b
+                              in zip(base, outs["optimistic"],
+                                     outs["worst_case"])]
+                for g in clean_gaps:
+                    _require(g is None or abs(g[1]) <= 2 * g[2],
+                             f"{name}: a recomputed stream leaves the "
+                             f"worst-case one at (token, gap, noise) {g}")
+                # the chaos run
+                specs = [(p, dict(kw)) for p, kw in base]
+                # request 7 (last in line) expires while it waits; seed 1
+                # injects dispatch and collection faults, allocator OOMs
+                # and an exhausted retry on this schedule (a CPU run of
+                # the scheduler alone with the chip's call sequence)
+                specs[7][1]["deadline_s"] = 0.02
+                monkey = ChaosMonkey(seed=1, p_dispatch=0.05, p_collect=0.05,
+                                     p_alloc_oom=0.01).attach(opt)
+                reset_dense()
+                rids = [opt.add_request(p, SamplingParams(**kw))
+                        for p, kw in specs]
+                cancelled = None         # (request, tokens it had)
+                while opt.step():
+                    cache.debug_check()
+                    if cancelled is not None:
+                        continue
+                    for i in range(1, 7):
+                        r = opt._find_request(rids[i])
+                        if r.state == "running" and len(r.out_tokens) >= 4:
+                            opt.cancel(rids[i])
+                            cancelled = (i, len(r.out_tokens))
+                            break
+                monkey.detach(opt)
+                launched = dense_counts()
+                st = opt.stats()
+                faults = monkey.counts["dispatch_faults"] \
+                    + monkey.counts["collect_faults"]
+                _require(st["retries"] + st["dispatch_exhaustions"] == faults,
+                         f"{name}: {st['retries']} retries and "
+                         f"{st['dispatch_exhaustions']} exhaustions for "
+                         f"{faults} injected faults ({monkey.log})")
+                _require(all(launched[k] > 0 for k in path_kernels(ragged)),
+                         f"{name} chaos run launched {launched}")
+                _require(st["unexpected_recompiles"] == 0,
+                         f"{name} chaos run: {st['unexpected_recompiles']} "
+                         f"unexpected recompiles")
+                states, gaps = {}, []
+                for i, rid in enumerate(rids):
+                    req = opt.request(rid)
+                    states[i] = req.state
+                    if req.state == "failed":
+                        _require("chaos: injected" in (req.error or ""),
+                                 f"{name}: request {i} failed without an "
+                                 f"injected fault: {req.error}")
+                    elif req.state == "aborted":
+                        _require(cancelled is not None
+                                 and i in (cancelled[0], 7),
+                                 f"{name}: request {i} aborted: {req.error}")
+                    else:
+                        g = first_gap(dec, f_prompts[i], req.out_tokens,
+                                      outs["worst_case"][i])
+                        _require(g is None or abs(g[1]) <= 2 * g[2],
+                                 f"{name}: request {i} under chaos leaves "
+                                 f"the clean stream at {g}")
+                        gaps.append(g)
+                _require(cancelled is not None
+                         and opt.request(rids[cancelled[0]]).error
+                         == "cancelled"
+                         and "deadline" in (opt.request(rids[7]).error or ""),
+                         f"{name}: cancel {cancelled} / deadline did not "
+                         f"abort: {states}")
+                opt.close()
+                cache.debug_check()
+
+                def med(mode, k):
+                    return float(np.median([r[k] for r in runs[mode]]))
+
+                info[name] = {
+                    "capture_s": cap_s, "runs": runs,
+                    "tok_per_s_optimistic": med("optimistic", "tok_per_s"),
+                    "tok_per_s_worst_case": med("worst_case", "tok_per_s"),
+                    "clean_first_divergences": clean_gaps,
+                    "chaos": {"counts": dict(monkey.counts),
+                              "log": monkey.log[:40],
+                              "stats": {k: st[k] for k in (
+                                  "preemptions", "recompute_tokens",
+                                  "retries", "aborted", "failed",
+                                  "deadline_misses",
+                                  "dispatch_exhaustions", "finished")},
+                              "states": states, "cancelled_at": cancelled,
+                              "first_divergences": gaps,
+                              "launches": launched}}
+        finally:
+            cache.free(-2)
+        return info
+
+    _phase("serve-faults-int4", serve_faults_int4)
+    for eng in shared.get("graph_engines", {}).values():
+        eng.close()
     shared.clear()
     gc.collect()
     torch.cuda.empty_cache()
@@ -2513,8 +3151,7 @@ def main():
         """A program that cannot be captured (a host sync inside it):
         its first dispatch raises, no graph is kept, and nothing runs it
         eagerly instead."""
-        ps = ProgramSet("cuda", torch.Generator(device="cuda"),
-                        CompileWatch())
+        ps = ProgramSet("cuda", CompileWatch())
         ran = []
 
         def host_sync(key, x):
@@ -2535,6 +3172,10 @@ def main():
         return {"raised": err}
 
     _phase("capture-failure", capture_failure)
+    if _ONLY is not None:
+        print(f"chip_smoke: ran only {sorted(_ONLY)}; no result",
+              file=sys.stderr)
+        return 0
 
     tpu = "paddle_tpu/ops/pallas/"
     for key, name, launches, src, rep in (

@@ -19,11 +19,12 @@ A key's first use before ``seal`` is its "compile": on the card an
 eager run on a side stream first (it builds the kernel library, copies
 the flash work lists to the device and sizes the paged kernels' counter
 buffer, none of which a capture may do), then the capture. The eager
-run draws from a scratch generator, its launches are not counted, and
-the tensors a family names in ``preserve`` get their contents back
-after it, so neither the engine's random stream, the launch counters
-nor the state a replay reads see it. (It rewrites the K/V slots of its
-own rows, which the replay writes again before any row reads them.)
+run's launches are not counted, and the tensors a family names in
+``preserve`` get their contents back after it, so neither the launch
+counters nor the state a replay reads see it. (It rewrites the K/V
+slots of its own rows, which the replay writes again before any row
+reads them.) Random draws take their keys from the operands, so a
+replay draws exactly what the eager run of the same operands draws.
 After ``seal`` an unseen key runs eagerly and counts as an unexpected
 recompile, the analogue of a retrace. A capture that fails raises.
 
@@ -127,15 +128,10 @@ class _Graph:
 
 
 class ProgramSet:
-    """The programs of one engine on ``device``. ``generator`` is the
-    engine's sampling generator: a family's function reads it from
-    ``self.generator`` at call time, and every graph registers it, so a
-    replay advances it as the eager run would."""
+    """The programs of one engine on ``device``."""
 
-    def __init__(self, device, generator: torch.Generator,
-                 watch: CompileWatch, graphs: bool = True):
+    def __init__(self, device, watch: CompileWatch, graphs: bool = True):
         self.device = torch.device(device)
-        self.generator = generator
         self.watch = watch
         self.graphs = bool(graphs) and self.device.type == "cuda"
         self._fns: Dict[str, Callable] = {}
@@ -183,8 +179,9 @@ class ProgramSet:
     def prepare(self, family: str, key: tuple,
                 arrays: Sequence[np.ndarray]):
         """Compile one program without dispatching it: capture it on the
-        card, or run it once eagerly with the scratch generator on the
-        CPU. A key already compiled is left alone."""
+        card, or run it once eagerly on the CPU with the family's
+        preserved tensors restored. A key already compiled is left
+        alone."""
         _check_arrays(arrays)
         if self.graphs:
             if (family, key) not in self._graphs:
@@ -209,15 +206,12 @@ class ProgramSet:
 
     @contextlib.contextmanager
     def _aside(self, family):
-        """A compile's eager run: a scratch generator, and the family's
-        preserved tensors restored afterwards."""
-        real = self.generator
+        """A compile's eager run: the family's preserved tensors restored
+        afterwards."""
         saved = [t.clone() for t in self._preserve[family]]
-        self.generator = torch.Generator(device=self.device)
         try:
             yield
         finally:
-            self.generator = real
             for t, c in zip(self._preserve[family], saved):
                 t.copy_(c)
 
@@ -249,7 +243,6 @@ class ProgramSet:
             fn(key, *operands)
         torch.cuda.current_stream(dev).wait_stream(side)
         graph = torch.cuda.CUDAGraph()
-        graph.register_generator_state(self.generator)
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
         start = _read_counters()

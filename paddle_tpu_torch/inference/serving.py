@@ -23,9 +23,11 @@ prefill work, then one decode chunk:
   ``torch.where`` against host values for fresh slots, inside the
   chunk's program, over an engine-owned copy of that output).
 With ``overlap=True`` one decode chunk stays in flight while the host
-schedules the next. Every chunk's tokens are copied to pinned host
-memory behind an event right after its dispatch; waiting on that event
-at collection is the only host sync of the dense path.
+schedules the next (not while a running request uses a repetition
+penalty: its seen mask needs the fetched history, as in JAX). Every
+chunk's tokens are copied to pinned host memory behind an event right
+after its dispatch; waiting on that event at collection is the only
+host sync of the dense path.
 
 The RAGGED path (``ragged=True``). Every step is ONE unified chunk: a
 [T, W] schedule of flattened rows run as T sequential ministeps of
@@ -35,17 +37,42 @@ one ministep to the next on the device; prefill rows (a budget of prompt
 tokens per step, spread ministep-major over the columns past the decode
 columns) write K/V only, except a prompt's final row, which samples the
 request's first token. W is the real row count padded up a rung of
-``RAGGED_WIDTHS``; a shrinking W keeps the previous chunk's width while
-T is unchanged (the sticky width). Each chunk's [T, W] tokens are copied to pinned host
-memory behind an event right after its dispatch, and collected before
-the step returns: ``overlap`` applies to the dense path only here.
+``RAGGED_WIDTHS``. An idle engine keeps dispatching pure-prefill chunks
+within one step; such a chunk keeps the width of the chunk before it
+while T is unchanged (the sticky width), and a wider one first
+collects the chunks in flight, as JAX does. Each chunk's [T, W] tokens
+are copied to pinned host memory behind an event right after its
+dispatch, and collected before the step returns: the ragged path
+schedules as JAX's ragged engine with ``overlap=False``.
 
-Admission is worst-case: a request is admitted only when its prompt plus
-``max_new_tokens`` fits the blocks it can claim, so a running request
-never exhausts the pool. A prompt longer than the largest prompt bucket
-is refused at ``add_request`` on both paths, as in JAX. One scratch page
-takes the writes of padding rows; table row ``max_batch_size`` is the
-scratch row the ragged path's padding rows read.
+Admission (``admission``): ``"worst_case"`` (the default) admits a
+request only when its prompt plus ``max_new_tokens`` fits the blocks it
+can claim, so a running request never exhausts the pool.
+``"optimistic"`` reserves the prefill and one decode slot and grows on
+demand; under pressure the engine preempts the lowest-priority, newest
+request (``_pick_victim``): its blocks are freed at once, it goes back
+to the queue, and on re-admission prompt ++ its generated history is
+prefilled again through the no-sample programs (dense mid chunks,
+ragged prefill rows), so no key is drawn for it and greedy streams are
+token-identical. Epochs drop a dead life's in-flight tokens at
+collection, and a victim's rows already placed in the chunk being built
+are re-aimed at the scratch page (dense ``neutralize``, ragged
+``blank``). A prompt longer than the largest prompt bucket is refused
+at ``add_request`` on both paths, as in JAX. One scratch page takes the
+writes of padding rows; table row ``max_batch_size`` is the scratch row
+the ragged path's padding rows read.
+
+Faults, as in JAX: ``cancel`` and ``SamplingParams.deadline_s`` move a
+request to the terminal state ``aborted`` from any live state (partial
+tokens kept); ``add_request`` raises ``EngineOverloaded`` at the
+``max_queue_depth`` cap or when the backlog over the measured token
+rate misses the deadline; every dispatch and every collection goes
+through ``_device_call``: ``ChaosMonkey`` injection (``utils/chaos.py``),
+then up to ``max_dispatch_retries`` retries of the same call with the
+same operands and keys, then the terminal state ``failed`` with
+``Request.error`` for the requests it carried. ``step()`` never raises
+on a per-request fault. With ``PADDLE_TPU_POOL_DEBUG=1`` the pool
+invariant is checked after every step.
 
 Prefix caching (``prefix_caching=True``, the default, as in JAX): at
 admission ``PagedKVCache.allocate_with_prefix`` splices the cached full
@@ -61,53 +88,81 @@ at ``close()``.
 
 Every device dispatch goes through ``self.programs``
 (``inference/programs.py``), one program per static key: the ragged
-chunk per (T, W, sampled), the dense decode chunk per (T, sampled), the
-final prefill per (bucket, rows, sampled), plain and prefix, and the
-no-sample mid chunk at offset 0 and per prefix-page width. On the card
-each program is a CUDA graph (``cuda_graphs=True``, the default);
-``warmup_programs`` captures the whole reachable grid without touching
-the pool or the random stream, and ``seal_programs`` closes the set: a
-key first seen after it runs eagerly and counts in
-``unexpected_recompiles``.
+chunk per (T, W, sampled, rich), the dense decode chunk per (T,
+sampled, rich), the final prefill per (bucket, rows, sampled, rich),
+plain and prefix, and the no-sample mid chunk at offset 0 and per
+prefix-page width. On the card each program is a CUDA graph
+(``cuda_graphs=True``, the default); ``warmup_programs`` captures the
+whole reachable grid without touching the pool or the key stream, and
+``seal_programs`` closes the set: a key first seen after it runs
+eagerly and counts in ``unexpected_recompiles``.
 
-Sampling is greedy (temperature <= 0) or temperature sampling with an
-engine-wide top_k, drawn by Gumbel-max from a ``torch.Generator`` seeded
-by ``seed``. Whether a program draws is decided per dispatch (every
-ministep of a ragged chunk draws when any row of the chunk samples), so
-the eager run and the graph give one stream for one seed; that stream is
-not the JAX package's threefry stream. Serving runs under
-``torch.inference_mode()``.
+Sampling draws on JAX's threefry key stream (``utils/prng.py``): the
+engine key starts at ``PRNGKey(seed)`` and each dispatch that samples
+or could sample consumes one ``_next_key()`` as the JAX engine does,
+greedy or not (a decode or ragged chunk splits it into T ministep keys,
+a final uses it whole; mid chunks and resumes draw none). Keys reach a
+program as operands, so eager runs and graph replays draw the same
+numbers, and a token is ``categorical(key, logits / T)``: JAX's Gumbel
+draw. ``sampled`` (some row of the dispatch has temperature > 0)
+decides whether a program computes the draw at all. A request with
+per-request ``top_k``, ``top_p``, ``repetition_penalty`` or
+``allowed_tokens`` makes its dispatch ``rich`` (``_sample_rich``); the
+[rows, vocab] seen and allowed masks live in engine-owned device
+planes, rewritten row by row before the dispatch only where their
+content changes. Serving runs under ``torch.inference_mode()``.
 
-Not ported yet, each with its ROADMAP queue 1 item: deadlines,
-priorities, cancel and preemption (item 2), per-request top_k, top_p,
-repetition penalty and allowed-token masks (item 3), LoRA adapters
-(item 5) and the tracer (item 8). A request whose ``SamplingParams``
-asks for one of them is refused, naming the item; the engine has no
-parameter for the others yet.
+Not ported yet: LoRA adapters (ROADMAP queue 1 item 5; a request with
+``adapter_id`` is refused, naming the item) and the tracer (item 8).
 """
 from __future__ import annotations
 
 import itertools
+import os
 import time
 from collections import deque
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from ..ops.paged_attention import KVCacheExhausted
+from ..utils import prng
 from ..utils.telemetry import CompileWatch
 from .paged_decode import PagedLlamaDecoder
 from .programs import ProgramSet
 
-__all__ = ["SamplingParams", "Request", "ServingEngine"]
+__all__ = ["EngineOverloaded", "SamplingParams", "Request",
+           "ServingEngine"]
+
+
+class EngineOverloaded(RuntimeError):
+    """Admission refused by overload shedding: the queue is at
+    ``max_queue_depth``, or the backlog over the engine's measured token
+    rate says the request cannot meet its deadline. Raised by
+    ``add_request`` before the request is queued."""
+
+
+class _DispatchFailed(Exception):
+    """A dispatch or collection exhausted its retries: the site kind and
+    the last exception. The call site fails the requests involved; the
+    engine keeps serving."""
+
+    def __init__(self, kind: str, cause: BaseException):
+        super().__init__(f"{kind}: {cause!r}")
+        self.kind = kind
+        self.cause = cause
 
 
 @dataclass
 class SamplingParams:
-    """Per-request sampling: temperature <= 0 is greedy. The other
-    fields are the JAX package's; a value other than its default is
-    refused at ``add_request`` until its ROADMAP item is ported."""
+    """Per-request sampling, the JAX package's fields. temperature <= 0
+    is greedy; top_k None defers to the engine's top_k and 0 disables
+    it; top_p 1.0 and repetition_penalty 1.0 are off; allowed_tokens is
+    a bool mask of length vocab or a list of token ids; deadline_s is a
+    wall-clock budget from submission; a higher priority is preempted
+    later. ``adapter_id`` is refused until ROADMAP queue 1 item 5."""
     temperature: float = 0.0
     max_new_tokens: int = 32
     eos_token_id: Optional[int] = None
@@ -119,19 +174,17 @@ class SamplingParams:
     adapter_id: Optional[object] = None
     allowed_tokens: Optional[object] = None
 
+    @property
+    def needs_rich_sampling(self) -> bool:
+        # an explicit top_k (0 included, which overrides an engine
+        # default) takes the per-request path, as does a vocab mask
+        return (self.top_k is not None or self.top_p < 1.0
+                or self.repetition_penalty != 1.0
+                or self.allowed_tokens is not None)
+
 
 # (field, its default, what it needs): a request that sets one raises
 _UNPORTED = (
-    ("top_k", None, "per-request top_k is rich sampling (ROADMAP queue 1 "
-                    "item 3); use the engine's top_k"),
-    ("top_p", 1.0, "top_p is rich sampling (ROADMAP queue 1 item 3)"),
-    ("repetition_penalty", 1.0,
-     "repetition_penalty is rich sampling (ROADMAP queue 1 item 3)"),
-    ("allowed_tokens", None,
-     "allowed_tokens masks are rich sampling (ROADMAP queue 1 item 3)"),
-    ("deadline_s", None, "deadlines are fault tolerance (ROADMAP queue 1 "
-                         "item 2)"),
-    ("priority", 0, "priorities serve preemption (ROADMAP queue 1 item 2)"),
     ("adapter_id", None, "LoRA adapters are ROADMAP queue 1 item 5"),
 )
 
@@ -146,10 +199,21 @@ class Request:
     t_admit: Optional[float] = None
     t_first_token: Optional[float] = None
     t_done: Optional[float] = None
-    state: str = "queued"                 # queued | prefilling | running | done
+    # queued | prefilling | running | done, and the terminal fault
+    # states aborted (cancel, deadline) and failed (error says why)
+    state: str = "queued"
+    error: Optional[str] = None
     planned: int = 0                      # tokens scheduled (prefill final + decode)
-    n_cached: int = 0                     # prompt tokens spliced from a cache
-    prefill_sent: int = 0                 # prompt tokens dispatched so far
+    # preemption with recompute: a request preempted while running
+    # resumes by prefilling ctx = prompt ++ out_tokens[:-1] through the
+    # no-sample programs and decodes on from out_tokens[-1]; epoch is
+    # bumped whenever the request loses its slot, so collection drops
+    # a previous life's tokens
+    resume: bool = False
+    ctx: Optional[np.ndarray] = None
+    epoch: int = 0
+    n_cached: int = 0                     # prefill tokens spliced from a cache
+    prefill_sent: int = 0                 # prefill tokens dispatched so far
     slot: Optional[int] = None
     itls: List[float] = field(default_factory=list)
     t_last_emit: Optional[float] = None
@@ -158,12 +222,28 @@ class Request:
     # that readers may splice before this request's rows are dispatched
     deps: List[tuple] = field(default_factory=list)
     pending_blocks: List[int] = field(default_factory=list)
+    # allowed_tokens as a [vocab] bool mask (None: unrestricted), and a
+    # serial naming it in the engine's allowed-mask plane
+    allowed_mask: Optional[np.ndarray] = None
+    allowed_serial: int = 0
+
+    @property
+    def prefill_tokens(self) -> np.ndarray:
+        """What the current allocation prefills: the prompt, or prompt
+        ++ generated history for a resume."""
+        return self.ctx if self.ctx is not None else self.prompt
 
     @property
     def suffix_len(self) -> int:
-        """Prompt tokens that must run (past a cached prefix; without
-        prefix caching, n_cached is 0 and this is the prompt)."""
-        return int(self.prompt.size) - self.n_cached
+        """Prefill tokens that must run (past a cached prefix; without
+        prefix caching, n_cached is 0)."""
+        return int(len(self.prefill_tokens)) - self.n_cached
+
+    @property
+    def deadline_at(self) -> Optional[float]:
+        if self.sampling.deadline_s is None:
+            return None
+        return self.t_submit + self.sampling.deadline_s
 
     @property
     def ttft_s(self) -> Optional[float]:
@@ -192,6 +272,50 @@ def _bucket_for(n: int, buckets: Sequence[int]) -> int:
         f"configured prompt_buckets={tuple(buckets)} top out at "
         f"{buckets[-1]} tokens; raise prompt_buckets (or shorten the "
         f"prompt)")
+
+
+class _MaskPlanes:
+    """The [rows, vocab] bool planes the rich programs read: ``seen``
+    (tokens a repetition-penalty row has seen) and ``allowed`` (its
+    vocab mask). Their addresses stay fixed, as captured graphs read
+    them. ``write`` brings the rows a dispatch consumes to the content
+    it names, copying only rows whose content differs from what they
+    hold; copies are queued on the current stream ahead of the
+    dispatch, so earlier programs read the old rows. A program that
+    updates ``seen`` does so on a clone."""
+
+    def __init__(self, rows: int, vocab: int, device):
+        self.seen = torch.zeros((rows, vocab), dtype=torch.bool,
+                                device=device)
+        self.allowed = torch.ones((rows, vocab), dtype=torch.bool,
+                                  device=device)
+        self.vocab = vocab
+        # what each row holds: a seen row's (request, tokens) or None
+        # (no token seen), an allowed row's mask serial (0: all ones)
+        self._held = {"seen": [None] * rows, "allowed": [0] * rows}
+
+    def write(self, plane: str, wanted: Dict[int, tuple]):
+        """``wanted`` maps a row to (content key, numpy [vocab] bool row,
+        or a function making it). Rows not named are left as they
+        are."""
+        held = self._held[plane]
+        rows = [r for r, (k, _) in sorted(wanted.items()) if held[r] != k]
+        if not rows:
+            return
+        data = np.stack([self._row(wanted[r][1]) for r in rows])
+        dst = getattr(self, plane)
+        src = torch.from_numpy(data)
+        idx = torch.as_tensor(rows, dtype=torch.long)
+        if dst.device.type == "cuda":
+            src = src.pin_memory().to(dst.device, non_blocking=True)
+            idx = idx.pin_memory().to(dst.device, non_blocking=True)
+        dst.index_copy_(0, idx, src)
+        for r in rows:
+            held[r] = wanted[r][0]
+
+    def _row(self, content):
+        row = content() if callable(content) else content
+        return np.asarray(row, bool).reshape(self.vocab)
 
 
 class ServingEngine:
@@ -225,12 +349,20 @@ class ServingEngine:
                  prompt_buckets: Sequence[int] = (32, 64, 128, 256, 512),
                  overlap: bool = True,
                  prefill_budget: Optional[int] = None,
+                 max_dispatch_retries: int = 2,
+                 retry_backoff_s: float = 0.05,
+                 admission: str = "worst_case",
+                 max_queue_depth: Optional[int] = None,
                  ragged: bool = False, prefix_caching: bool = True,
                  ragged_idle_cap: Optional[int] = None,
                  cuda_graphs: bool = True):
         if not isinstance(dec, PagedLlamaDecoder):
             raise TypeError(f"ServingEngine needs a PagedLlamaDecoder, got "
                             f"{type(dec).__name__}")
+        if admission not in ("worst_case", "optimistic"):
+            raise ValueError(
+                f"admission must be 'worst_case' or 'optimistic', got "
+                f"{admission!r}")
         self.dec = dec
         self.device = dec.device
         self.ragged = bool(ragged)
@@ -252,9 +384,13 @@ class ServingEngine:
         self.prefill_chunk = int(prefill_chunk) if prefill_chunk else None
         self.prefill_budget = max(1, int(prefill_budget)) \
             if prefill_budget else (self.prefill_chunk or 0)
+        # the width of a resume's no-sample chunks: the mid chunk when
+        # chunked prefill is on, else a 64-wide rung of its own
+        self._recompute_chunk = self.prefill_chunk or 64
         # ragged path: prefill tokens folded into one chunk while
         # decodes run
-        self._ragged_cap = self.prefill_budget or self.prefill_chunk or 64
+        self._ragged_cap = (self.prefill_budget or self.prefill_chunk
+                            or self._recompute_chunk)
         if ragged_idle_cap is not None and int(ragged_idle_cap) < 1:
             raise ValueError(f"ragged_idle_cap must be >= 1, got "
                              f"{ragged_idle_cap}")
@@ -262,12 +398,27 @@ class ServingEngine:
                                  if ragged_idle_cap is not None
                                  else self._RAGGED_IDLE_CAP)
         self._force_chunk: Optional[int] = None
+        # measured seconds per chunk of each rung (warmup), read by
+        # _pick_chunk; empty: the zero-waste heuristic
+        self._chunk_cost: Dict[int, float] = {}
         self.prefix_caching = bool(prefix_caching)
+        # faults: bounded retry of every dispatch and collection, the
+        # admission policy, the shedding cap, the chaos hook
+        self.max_dispatch_retries = max(0, int(max_dispatch_retries))
+        self.retry_backoff_s = float(retry_backoff_s)
+        self.admission = admission
+        self.max_queue_depth = (int(max_queue_depth)
+                                if max_queue_depth is not None else None)
+        self.chaos = None
+        # every decoder of the port has the no-sample programs a resume
+        # needs; tests clear this to take the no-recompute path
+        self._can_recompute = True
+        self._debug_pool = os.environ.get(
+            "PADDLE_TPU_POOL_DEBUG", "") not in ("", "0")
         # writers' splice-pending blocks: block -> (writer, its
         # prefill_sent that covers the block)
         self._pending_writes: Dict[int, tuple] = {}
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(int(seed))
+        self._key = prng.PRNGKey(int(seed))
         cache = dec.cache
         # the decoder (and its index) outlives engines: start clean
         cache.clear_prefix_cache()
@@ -280,7 +431,9 @@ class ServingEngine:
         self._scratch_slot = self._scratch_block * cache.block_size
         # prefix-table width of a final (a prompt is at most the largest
         # bucket), and the power-of-two widths of mid chunks, whose
-        # prefix is only the chunks before them
+        # prefix is only the chunks before them; resumes run mid chunks
+        # past the largest bucket, so the ladder goes on doubling to the
+        # longest table one sequence can hold
         self._prefix_pages = -(-self.buckets[-1] // cache.block_size)
         self._prefix_page_buckets = []
         p = 1
@@ -288,28 +441,35 @@ class ServingEngine:
             self._prefix_page_buckets.append(p)
             p *= 2
         self._prefix_page_buckets.append(self._prefix_pages)
+        cap_pages = min(dec.max_pages, max(1, cache.num_blocks - 1))
+        while p < cap_pages and self._prefix_page_buckets[-1] < cap_pages:
+            if p > self._prefix_page_buckets[-1]:
+                self._prefix_page_buckets.append(min(p, cap_pages))
+            p *= 2
+        if self._prefix_page_buckets[-1] < cap_pages:
+            self._prefix_page_buckets.append(cap_pages)
 
         self._slots: List[Optional[Request]] = [None] * self.max_b
         self._last_tok = np.zeros(self.max_b, np.int32)
         self._queue: deque = deque()
         self._done: Dict[int, Request] = {}
         self._ids = itertools.count()
+        self._mask_serials = itertools.count(1)
         # dispatched, uncollected chunks in device order: "prefill" and
         # "decode" entries (dense), "ragged" entries
         self._inflight: deque = deque()
         # dense: slots (re)filled since the last decode dispatch, whose
         # first token comes from the host
         self._fresh_slots: set = set()
-        # (T, W) of the previous chunk of an unbroken run of dispatching
-        # steps: the sticky width keeps W while T is unchanged
-        self._prev_shape = None
         self._closed = False
         # dense decode: the newest decode chunk's tokens [mb, T], written
         # inside its program, which the next chunk's merge reads
         self._carry = torch.zeros((self.max_b, max(self.chunks)),
                                   dtype=torch.int32, device=self.device)
+        # the rich programs' seen / allowed planes, made at first use
+        self._masks: Optional[_MaskPlanes] = None
         self.compile_watch = CompileWatch()
-        self.programs = ProgramSet(self.device, gen, self.compile_watch,
+        self.programs = ProgramSet(self.device, self.compile_watch,
                                    graphs=cuda_graphs)
         info = {"decoder": type(dec).__name__, "tp": 1,
                 "kv_quant": dec.kv_quant or "none",
@@ -330,6 +490,16 @@ class ServingEngine:
         self.device_dispatches = 0
         self.decode_slot_steps = 0
         self.decode_useful_tokens = 0
+        self.masked_decode_columns = 0
+        # robustness counters (stats(); reset by clear_finished)
+        self.preemptions = 0
+        self.recompute_tokens = 0
+        self.aborted = 0
+        self.failed = 0
+        self.deadline_misses = 0
+        self.shed_requests = 0
+        self.retries = 0
+        self.dispatch_exhaustions = 0
         # wall seconds at the dense path's host call sites: prefill
         # dispatch and collection, waits on decode tokens, and decode
         # scheduling and dispatch
@@ -337,11 +507,315 @@ class ServingEngine:
         self.time_stall_s = 0.0
         self.time_host_s = 0.0
 
+    # -- the key stream ------------------------------------------------------
+    def _next_key(self) -> np.ndarray:
+        """JAX's ``_next_key``: split the engine key, keep the first half,
+        hand out the second."""
+        self._key, k = prng.split(self._key)
+        return k
+
+    @staticmethod
+    def _key_operand(keys: np.ndarray) -> np.ndarray:
+        """uint32 keys as the int32 operand a program takes."""
+        return np.ascontiguousarray(keys, np.uint32).view(np.int32)
+
+    def _mask_planes(self) -> _MaskPlanes:
+        if self._masks is None:
+            rows = self.max_b
+            if self.ragged:
+                rows = max([rows] + [max(self.reachable_ragged_widths(T))
+                                     for T in set(self.chunks) | {1}])
+            self._masks = _MaskPlanes(rows, self.dec.cfg.vocab_size,
+                                      self.device)
+        return self._masks
+
+    # -- faults --------------------------------------------------------------
+    def _device_call(self, kind: str, fn, *args):
+        """Every dispatch (``kind`` "dispatch:*") and collection
+        ("collect:*") goes through here: the chaos hook, then the call,
+        retried on an exception up to ``max_dispatch_retries`` times with
+        the same arguments (the same operands and keys, so a successful
+        retry is token-identical) after an exponential backoff. Pool
+        exhaustion passes through (preemption handles it); an exception
+        that outlives the retries becomes ``_DispatchFailed``, which the
+        call site turns into failed requests. The chaos hook raises
+        before the call, so an injected fault is always safe to
+        retry."""
+        attempt = 0
+        while True:
+            try:
+                if self.chaos is not None:
+                    self.chaos.before_call(self, kind)
+                out = fn(*args)
+                if kind.startswith("dispatch:"):
+                    self.device_dispatches += 1
+                return out
+            except KVCacheExhausted:
+                raise
+            except Exception as e:          # noqa: BLE001 -- the fault wall
+                if attempt >= self.max_dispatch_retries:
+                    self.dispatch_exhaustions += 1
+                    raise _DispatchFailed(kind, e) from e
+                attempt += 1
+                self.retries += 1
+                if self.retry_backoff_s > 0:
+                    time.sleep(self.retry_backoff_s * (2 ** (attempt - 1)))
+
+    def cancel(self, req_id: int) -> bool:
+        """Abort a request in any live state: queued, prefilling (its
+        allocation unwound: splice-pending hashes dropped, dependent
+        readers restarted, blocks freed) or running (partial tokens
+        kept; pages freed once no chunk in flight uses them). False if
+        the request is already terminal; KeyError for an unknown id."""
+        req = self._find_request(req_id)
+        if req is None:
+            raise KeyError(f"unknown req_id {req_id}")
+        if req.state in ("done", "aborted", "failed"):
+            return False
+        self._abort_request(req, "cancelled")
+        return True
+
+    def _find_request(self, req_id: int) -> Optional[Request]:
+        if req_id in self._done:
+            return self._done[req_id]
+        for r in self._slots:
+            if r is not None and r.req_id == req_id:
+                return r
+        for r in self._queue:
+            if r.req_id == req_id:
+                return r
+        return None
+
+    def _enforce_deadlines(self):
+        """Abort every live request past its deadline (partial tokens
+        kept)."""
+        now = time.perf_counter()
+        expired = [r for r in list(self._queue)
+                   + [s for s in self._slots if s is not None]
+                   if r.deadline_at is not None and now > r.deadline_at]
+        for req in expired:
+            self.deadline_misses += 1
+            self._abort_request(
+                req, f"deadline exceeded "
+                     f"({req.sampling.deadline_s:.3f}s budget)")
+
+    def _estimate_completion_s(self, sp: SamplingParams
+                               ) -> Optional[float]:
+        """Backlog tokens (queued and running remainders plus the
+        candidate's budget) over the engine's measured token rate; None
+        until the engine has a rate, so a cold engine never sheds on
+        deadline math."""
+        busy = self.time_prefill_s + self.time_stall_s + self.time_host_s
+        if self.generated_tokens < 8 or busy <= 0:
+            return None
+        rate = self.generated_tokens / busy
+        backlog = sum(r.sampling.max_new_tokens - len(r.out_tokens)
+                      for r in self._queue)
+        backlog += sum(r.sampling.max_new_tokens - len(r.out_tokens)
+                       for r in self._slots if r is not None)
+        return (backlog + sp.max_new_tokens) / rate
+
+    def _pick_victim(self, exclude=()) -> Optional[Request]:
+        """The preemption victim: lowest priority first, newest req_id on
+        ties, so the oldest highest-priority request always progresses.
+        Running requests first (they free the most), prefilling ones
+        only when none runs."""
+        if not self._can_recompute:
+            return None
+        for states in (("running",), ("prefilling",)):
+            cands = [r for r in self._slots
+                     if r is not None and r.state in states
+                     and r not in exclude]
+            if cands:
+                return max(cands, key=lambda r: (-r.sampling.priority,
+                                                 r.req_id))
+        return None
+
+    def _preempt(self, victim: Request):
+        """Evict ``victim`` from its slot, free its blocks now (a chunk in
+        flight that touches them was dispatched earlier and runs first
+        in stream order; collection drops its tokens by epoch) and put
+        it back in the queue. A running victim resumes by prefilling
+        prompt ++ history through the no-sample programs; a prefilling
+        one restarts its prefill."""
+        self.preemptions += 1
+        self._evict_to_queue(victim)
+        self._requeue_front([victim])
+
+    def _evict_to_queue(self, req: Request):
+        """Move a slotted request back to a fresh queued life: bump the
+        epoch, vacate the slot, unwind or free the allocation (while its
+        coverage is still intact, so met reader deps prune first), and
+        reset the per-life prefill progress. The free is immediate: the
+        request may be admitted again before the next collection. The
+        caller requeues."""
+        req.epoch += 1
+        si = req.slot
+        if si is not None:
+            self._slots[si] = None
+            self._fresh_slots.discard(si)
+        req.slot = None
+        if req.state == "prefilling":
+            self._unwind_alloc(req, immediate=True)
+        else:
+            self._restart_dependent_readers(req)
+            self.dec.cache.free(req.req_id)
+        req.resume = bool(req.out_tokens)
+        req.state = "queued"
+        req.planned = len(req.out_tokens)
+        req.n_cached = 0
+        req.prefill_sent = 0
+        req.deps = []
+        req.pending_blocks = []
+        req.ctx = None
+
+    def _extend_with_preempt(self, req: Request, exclude=()) -> int:
+        """``cache.extend`` that preempts the policy victim on exhaustion
+        and tries again; when ``req`` itself is the victim the exhaustion
+        propagates and the caller fails ``req``."""
+        while True:
+            try:
+                return self.dec.cache.extend(req.req_id)
+            except KVCacheExhausted:
+                victim = self._pick_victim(exclude=tuple(exclude))
+                if victim is None or victim is req:
+                    raise
+                self._preempt(victim)
+
+    def _requeue_front(self, reqs: Sequence[Request]):
+        """Put evicted requests back in the queue in req_id order: ahead
+        of every later arrival, FIFO among themselves."""
+        if not reqs:
+            return
+        merged = sorted(list(self._queue) + list(reqs),
+                        key=lambda r: r.req_id)
+        self._queue.clear()
+        self._queue.extend(merged)
+
+    def _unwind_alloc(self, req: Request, immediate: bool = False):
+        """Unwind a prefilling request's allocation: drop the hashes of
+        its own full blocks whose rows were never dispatched, drop its
+        splice-pending entries, restart the readers that spliced blocks
+        it will now never write, and free the blocks (now, or after the
+        newest chunk in flight)."""
+        cache = self.dec.cache
+        bs = cache.block_size
+        covered = req.n_cached + req.prefill_sent
+        try:
+            table = cache.seq_blocks(req.req_id)
+        except KeyError:
+            table = None
+        if table is not None:
+            own_uncovered = [
+                table[j]
+                for j in range(req.n_cached // bs,
+                               len(req.prefill_tokens) // bs)
+                if (j + 1) * bs > covered and j < len(table)]
+            cache.unregister_block_hashes(own_uncovered)
+        self._clear_pending_writes(req)
+        self._restart_dependent_readers(req)
+        if table is not None:
+            if immediate or not self._inflight:
+                cache.free(req.req_id)
+            else:
+                self._inflight[-1]["free_after"].append(req.req_id)
+
+    def _restart_dependent_readers(self, writer: Request):
+        """Settle every splice dependency on ``writer`` against its
+        current coverage before preemption or an unwind resets it: met
+        ones are pruned (they name rows already dispatched), and readers
+        still waiting restart from scratch."""
+        for r in self._slots:
+            if r is not None and r.deps:
+                r.deps = [(w, need) for w, need in r.deps
+                          if not (w is writer
+                                  and writer.prefill_sent >= need)]
+        readers = [r for r in self._slots
+                   if r is not None and r.state == "prefilling"
+                   and any(w is writer for w, need in r.deps)]
+        restarted = []
+        for r in readers:
+            # the recursion below may already have restarted r
+            if r.state != "prefilling":
+                continue
+            self._evict_to_queue(r)
+            restarted.append(r)
+        self._requeue_front(restarted)
+
+    def _abort_request(self, req: Request, msg: str):
+        self.aborted += 1
+        self._finalize(req, "aborted", msg)
+
+    def _fail_request(self, req: Request, msg: str):
+        self.failed += 1
+        self._finalize(req, "failed", msg)
+
+    def _finalize(self, req: Request, state: str, msg: str):
+        """Move a live request to a terminal fault state, unwinding the
+        stage it was in; partial tokens are kept and ``error`` says
+        why."""
+        if req.state == "queued":
+            try:
+                self._queue.remove(req)
+            except ValueError:
+                pass
+        else:
+            si = req.slot
+            if si is not None:
+                self._slots[si] = None
+                self._fresh_slots.discard(si)
+            req.slot = None
+            req.epoch += 1     # chunks in flight drop its tokens
+            if req.state == "prefilling":
+                self._unwind_alloc(req)
+            elif req.req_id in self.dec.cache._tables:
+                # running: freed after the newest chunk in flight, which
+                # was dispatched assuming it continues (as _retire)
+                if self._inflight:
+                    self._inflight[-1]["free_after"].append(req.req_id)
+                else:
+                    self.dec.cache.free(req.req_id)
+        req.state = state
+        req.error = msg
+        req.t_done = time.perf_counter()
+        self._done[req.req_id] = req
+
+    def debug_dump(self) -> str:
+        """A readable snapshot of the scheduler: requests by slot, queue
+        and pipeline depth, the robustness counters, pool occupancy."""
+        cache = self.dec.cache
+        lines = ["serving engine state:"]
+        for si, r in enumerate(self._slots):
+            if r is None:
+                lines.append(f"  slot {si}: idle")
+            else:
+                lines.append(
+                    f"  slot {si}: req {r.req_id} state={r.state} "
+                    f"out={len(r.out_tokens)}/{r.sampling.max_new_tokens}"
+                    f" planned={r.planned} prefill={r.prefill_sent}/"
+                    f"{r.suffix_len} epoch={r.epoch} resume={r.resume}")
+        lines.append(f"  queue depth={len(self._queue)} ids="
+                     f"{[r.req_id for r in self._queue][:16]}")
+        lines.append(f"  inflight={len(self._inflight)} "
+                     f"finished={len(self._done)}")
+        lines.append(
+            f"  counters: preemptions={self.preemptions} "
+            f"retries={self.retries} aborted={self.aborted} "
+            f"failed={self.failed} deadline_misses={self.deadline_misses}"
+            f" shed={self.shed_requests} "
+            f"recompute_tokens={self.recompute_tokens}")
+        lines.append(
+            f"  cache: free_blocks={cache.free_blocks} "
+            f"cached_blocks={cache.cached_blocks} "
+            f"referenced={len(cache._ref)} of {cache.num_blocks}")
+        return "\n".join(lines) + "\n"
+
     # -- requests ------------------------------------------------------------
     def _validate_new_request(self, prompt, sp: SamplingParams):
         """Prompt intake and the checks every request passes on both
         paths: the bucket bound, the pool and table geometry, the vocab
-        range and the unported sampling fields. Returns the prompt."""
+        range, the allowed-token mask and the unported fields. Returns
+        (prompt, allowed mask or None)."""
         prompt = _normalize_prompt(prompt)
         for name, default, why in _UNPORTED:
             if getattr(sp, name) != default:
@@ -365,25 +839,80 @@ class ServingEngine:
         vocab = self.dec.cfg.vocab_size
         if prompt.min() < 0 or prompt.max() >= vocab:
             raise ValueError(f"prompt ids must lie in [0, {vocab})")
-        return prompt
+        allowed = None
+        if sp.allowed_tokens is not None:
+            allowed = self._normalize_allowed(sp.allowed_tokens, vocab)
+        return prompt, allowed
+
+    @staticmethod
+    def _normalize_allowed(allowed_tokens, vocab: int) -> np.ndarray:
+        """allowed_tokens (a bool mask of length vocab, or a sequence of
+        token ids) as a [vocab] bool mask; empty masks, out-of-range ids
+        and integer 0/1 vectors of length vocab are refused."""
+        arr = np.asarray(allowed_tokens)
+        if arr.dtype == bool:
+            if arr.shape != (vocab,):
+                raise ValueError(
+                    f"allowed_tokens bool mask must have shape "
+                    f"({vocab},), got {arr.shape}")
+            mask = arr.copy()
+        else:
+            if (arr.ndim == 1 and arr.size == vocab and vocab > 2
+                    and np.isin(arr, (0, 1)).all()):
+                raise ValueError(
+                    f"allowed_tokens is a length-{vocab} integer 0/1 "
+                    f"vector -- ambiguous between a mask and an id "
+                    f"list; pass a bool mask (astype(bool)) or a list "
+                    f"of allowed token ids")
+            ids = arr.astype(np.int64).reshape(-1)
+            if ids.size and (ids.min() < 0 or ids.max() >= vocab):
+                raise ValueError(
+                    f"allowed_tokens ids out of range [0, {vocab})")
+            mask = np.zeros(vocab, bool)
+            mask[ids] = True
+        if not mask.any():
+            raise ValueError("allowed_tokens permits no token -- "
+                             "nothing could ever be sampled")
+        return mask
 
     def add_request(self, prompt, sampling: Optional[SamplingParams] = None
                     ) -> int:
-        """Queue a prompt ([len] ids). Returns its request id."""
+        """Queue a prompt ([len] ids). Returns its request id. Raises
+        ``EngineOverloaded`` when shedding refuses it."""
         if self._closed:
             raise RuntimeError("engine is closed")
         sp = sampling or SamplingParams()
-        prompt = self._validate_new_request(prompt, sp)
+        prompt, allowed = self._validate_new_request(prompt, sp)
+        if self.max_queue_depth is not None and \
+                len(self._queue) >= self.max_queue_depth:
+            self.shed_requests += 1
+            raise EngineOverloaded(
+                f"queue depth {len(self._queue)} at the "
+                f"max_queue_depth={self.max_queue_depth} cap")
+        if sp.deadline_s is not None:
+            est = self._estimate_completion_s(sp)
+            if est is not None and est > sp.deadline_s:
+                self.shed_requests += 1
+                raise EngineOverloaded(
+                    f"estimated completion {est:.3f}s exceeds the "
+                    f"{sp.deadline_s:.3f}s deadline "
+                    f"(backlog {len(self._queue)} queued)")
         rid = next(self._ids)
-        self._queue.append(Request(rid, prompt, sp,
-                                   t_submit=time.perf_counter()))
+        req = Request(rid, prompt, sp, t_submit=time.perf_counter())
+        if allowed is not None:
+            req.allowed_mask = allowed
+            req.allowed_serial = next(self._mask_serials)
+        self._queue.append(req)
         return rid
 
     def result(self, req_id: int) -> np.ndarray:
-        """Generated tokens (prompt excluded) of a finished request."""
+        """Generated tokens (prompt excluded) of a terminal request; for
+        an aborted or failed one, the tokens made before the fault."""
         return np.asarray(self._done[req_id].out_tokens, np.int32)
 
     def request(self, req_id: int) -> Request:
+        """The terminal request record (state done, aborted or failed;
+        error says why for the fault states)."""
         return self._done[req_id]
 
     @property
@@ -393,14 +922,16 @@ class ServingEngine:
 
     # -- scheduler -----------------------------------------------------------
     def _admit(self):
-        """Claim free slots for queued requests, FIFO, reserving the whole
-        worst case (prompt + max_new_tokens) up front, net of the blocks
-        a prefix splice reuses. With prefix caching the capacity check
-        happens inside ``allocate_with_prefix`` before any mutation, so a
-        refusal leaves the pool untouched; a spliced block that a writer
-        has not dispatched yet becomes a dependency (``_deps_ready``),
-        and the request's own full prompt blocks become splice-pending
-        until its dispatches cover them."""
+        """Claim free slots for queued requests, FIFO. A resume prefills
+        prompt ++ history[:-1]. The reservation is the worst case
+        (prompt + max_new_tokens) or, optimistic, the prefill plus one
+        decode slot, net of the blocks a prefix splice reuses. With
+        prefix caching the capacity check happens inside
+        ``allocate_with_prefix`` before any mutation, so a refusal
+        leaves the pool untouched; a spliced block that a writer has not
+        dispatched yet becomes a dependency (``_deps_ready``), and the
+        request's own full prefill blocks become splice-pending until
+        its dispatches cover them."""
         cache = self.dec.cache
         for si in range(self.max_b):
             if self._slots[si] is not None:
@@ -408,31 +939,46 @@ class ServingEngine:
             if not self._queue:
                 break
             req = self._queue[0]
-            total = int(req.prompt.size) + req.sampling.max_new_tokens
+            if req.resume and req.out_tokens:
+                toks = np.concatenate(
+                    [req.prompt, np.asarray(req.out_tokens[:-1], np.int32)])
+            else:
+                toks = req.prompt
+            if self.admission == "optimistic":
+                total = int(len(toks)) + 1
+            else:
+                total = int(req.prompt.size) + req.sampling.max_new_tokens
             if self.prefix_caching:
                 try:
                     reused, n_cached = cache.allocate_with_prefix(
-                        req.req_id, req.prompt, total)
+                        req.req_id, toks, total)
                 except RuntimeError:
                     break
                 req.deps = [self._pending_writes[b] for b in reused
                             if b in self._pending_writes]
                 table = cache.seq_blocks(req.req_id)
                 bs = cache.block_size
-                for j in range(len(reused), int(req.prompt.size) // bs):
+                for j in range(len(reused), int(len(toks)) // bs):
                     self._pending_writes[table[j]] = \
                         (req, (j + 1) * bs - n_cached)
                     req.pending_blocks.append(table[j])
             else:
                 if cache.free_blocks < -(-total // cache.block_size):
                     break
-                cache.allocate(req.req_id, total)
+                try:
+                    cache.allocate(req.req_id, total)
+                except RuntimeError:
+                    break
                 n_cached = 0
             self._queue.popleft()
+            req.ctx = toks if req.resume else None
             req.n_cached = n_cached
             req.state = "prefilling"
             req.slot = si
-            req.t_admit = time.perf_counter()
+            if req.t_admit is None:
+                req.t_admit = time.perf_counter()
+            if req.resume:
+                self.recompute_tokens += req.suffix_len
             self._slots[si] = req
 
     def _deps_ready(self, req: Request) -> bool:
@@ -465,18 +1011,23 @@ class ServingEngine:
         if self._inflight:
             # a chunk still in flight was dispatched assuming the request
             # continues and writes its pages: free them when the newest
-            # one is collected, as JAX does (the device would order the
-            # writes anyway; the deferral keeps admission in step with
-            # the reference)
+            # one is collected, as JAX does
             self._inflight[-1]["free_after"].append(req.req_id)
         else:
             self.dec.cache.free(req.req_id)
 
+    def _rep_active(self) -> bool:
+        return any(r is not None and r.state == "running"
+                   and r.sampling.repetition_penalty != 1.0
+                   for r in self._slots)
+
     def _pick_chunk(self, active) -> int:
         """The ministep count T of this chunk. One rung: that rung.
         Several: queue pressure with EOS-able requests pins the smallest
-        (such a slot may free any step); else the largest rung every
-        running budget covers when nothing is queued, or the largest the
+        (such a slot may free any step). With the per-rung cost table
+        that ``warmup`` measures, the rung that delivers the most tokens
+        per second; without it the largest rung every running budget
+        covers when nothing is queued, or the largest the
         soonest-draining slot covers when requests wait."""
         if self._force_chunk:
             return self._force_chunk
@@ -488,6 +1039,16 @@ class ServingEngine:
             return self.chunks[0]
         lefts = [self._slots[si].sampling.max_new_tokens
                  - self._slots[si].planned for si in active]
+        if self._chunk_cost:
+            best, best_rate = self.chunks[0], -1.0
+            for c in self.chunks:
+                cost = self._chunk_cost.get(c)
+                if cost is None:
+                    continue
+                rate = sum(min(c, max(0, lf)) for lf in lefts) / cost
+                if rate > best_rate + 1e-9:
+                    best, best_rate = c, rate
+            return best
         bound = min(lefts) if self._queue else max(lefts)
         best = self.chunks[0]
         for c in self.chunks[1:]:
@@ -500,6 +1061,12 @@ class ServingEngine:
             if w <= b:
                 return b
         return -(-w // 64) * 64
+
+    def _newest_ragged_entry(self):
+        for e in reversed(self._inflight):
+            if e["kind"] == "ragged":
+                return e
+        return None
 
     def _ragged_plan(self):
         """(T, dcols, takes): this step's decode columns (slot, request,
@@ -557,19 +1124,38 @@ class ServingEngine:
         step's prefill tokens ministep-major over the remaining columns
         (a row lands at the same or a later ministep than every earlier
         row of its request, and pool writes precede attention inside a
-        ministep, so row_ctx alone keeps the chunk causal). Returns True
-        when a chunk ran."""
+        ministep, so row_ctx alone keeps the chunk causal). A request
+        preempted while the chunk is built has every cell it was given
+        re-aimed at the scratch page (``blank``): a later row of this
+        chunk may take its freed blocks. Returns True when a chunk
+        ran."""
+        t0 = time.perf_counter()
         cache = self.dec.cache
         mp = self.dec.max_pages
         T, dcols, takes = self._ragged_plan()
         if not dcols and not takes:
+            self.time_host_s += time.perf_counter() - t0
             return False
-        ptotal = sum(t for _, t in takes)
-        W = self._ragged_width(len(dcols)
-                               + (-(-ptotal // T) if ptotal else 0))
-        prev = self._prev_shape
-        if prev is not None and prev[0] == T and W < prev[1]:
-            W = prev[1]        # sticky width: a shrink keeps the width
+
+        def width(dcols, takes):
+            ptotal = sum(t for _, t in takes)
+            return self._ragged_width(len(dcols)
+                                      + (-(-ptotal // T) if ptotal else 0))
+
+        W = width(dcols, takes)
+        prev = self._newest_ragged_entry()
+        if prev is not None and prev["T"] == T and W < prev["W"]:
+            W = prev["W"]      # sticky width: a shrink keeps the width
+        if prev is not None and (prev["T"] != T or prev["W"] != W):
+            # another shape than the chunk in flight: collect first, as
+            # JAX does, and plan again on what collection changed
+            while self._inflight:
+                self._collect_oldest()
+            T, dcols, takes = self._ragged_plan()
+            if not dcols and not takes:
+                self.time_host_s += time.perf_counter() - t0
+                return False
+            W = width(dcols, takes)
 
         scratch_row = self.max_b
         ids = np.zeros((T, W), np.int32)
@@ -579,100 +1165,251 @@ class ServingEngine:
         rctx = np.zeros((T, W), np.int32)
         ucar = np.zeros((T, W), np.int32)
         temps = np.zeros((T, W), np.float32)
+        top_ks = np.zeros((T, W), np.int32)
+        top_ps = np.ones((T, W), np.float32)
+        reps = np.ones((T, W), np.float32)
+        upd = np.zeros(W, np.int32)
         override = np.zeros(W, np.int32)
+        rows_of: Dict[int, List[Tuple[int, int]]] = {}
+        sched: Dict[int, Tuple[Request, int]] = {}  # req_id -> (req, epoch)
         col_of: Dict[int, int] = {}
         steps_of: Dict[int, int] = {}
         reqs_of: Dict[int, Request] = {}
-        take_of: Dict[int, tuple] = {}
-        finals: List[tuple] = []
+        epochs_of: Dict[int, int] = {}
+        take_of: Dict[int, int] = {}
+        finals: List[tuple] = []           # (req, epoch, t, c)
+
+        def set_sampling(t, c, sp):
+            temps[t, c] = sp.temperature
+            top_ks[t, c] = self.top_k if sp.top_k is None else sp.top_k
+            top_ps[t, c] = sp.top_p
+            reps[t, c] = sp.repetition_penalty
 
         col = 0
         for si, req, steps in dcols:
-            for t in range(steps):
-                ctx = cache.context_len(req.req_id)
-                slots[t, col] = cache.extend(req.req_id)
-                pos[t, col] = ctx
-                rctx[t, col] = ctx + 1
-                rseq[t, col] = si
+            if self._slots[si] is not req or req.state != "running":
+                continue        # preempted by an earlier column
+            cells = rows_of.setdefault(req.req_id, [])
+            # registered before the extends: if req becomes its own
+            # victim, the sweep below blanks its partial rows
+            sched[req.req_id] = (req, req.epoch)
+            try:
+                for t in range(steps):
+                    ctx = cache.context_len(req.req_id)
+                    slots[t, col] = self._extend_with_preempt(req)
+                    pos[t, col] = ctx
+                    rctx[t, col] = ctx + 1
+                    rseq[t, col] = si
+                    cells.append((t, col))
+            except KVCacheExhausted:
+                if self._can_recompute:
+                    self._preempt(req)
+                else:
+                    self._fail_request(
+                        req, "KV pool exhausted and decoder does not "
+                             "support preemption-with-recompute")
+                col += 1
+                continue
             req.planned += steps
             ucar[:, col] = 1
-            temps[:, col] = req.sampling.temperature
+            for t in range(T):
+                set_sampling(t, col, req.sampling)
+            upd[col] = 1
             override[col] = self._last_tok[si]
             col_of[si] = col
             steps_of[si] = steps
             reqs_of[si] = req
+            epochs_of[si] = req.epoch
             col += 1
 
         pcells = [(t, c) for t in range(T) for c in range(col, W)]
         pi = 0
         for req, take in takes:
+            if req.state != "prefilling" or req.slot is None:
+                continue   # evicted by decode-side pressure mid-build
             si = req.slot
+            src = req.prefill_tokens
+            base = req.n_cached + req.prefill_sent
+            cells = rows_of.setdefault(req.req_id, [])
+            sched[req.req_id] = (req, req.epoch)
             scheduled = 0
-            for j in range(take):
-                if pi >= len(pcells):
-                    break
-                off = req.n_cached + req.prefill_sent + j
-                t, c = pcells[pi]
-                is_final = off + 1 == req.prompt.size
-                if is_final:
-                    # at most one sampling final per column
-                    while any(fc == c for _, _, fc in finals):
-                        pi += 1
-                        if pi >= len(pcells):
-                            break
-                        t, c = pcells[pi]
+            try:
+                for j in range(take):
                     if pi >= len(pcells):
                         break
-                slots[t, c] = cache.extend(req.req_id)
-                ids[t, c] = int(req.prompt[off])
-                pos[t, c] = off
-                rctx[t, c] = off + 1
-                rseq[t, c] = si
-                scheduled += 1
-                pi += 1
-                if is_final:
-                    temps[t, c] = req.sampling.temperature
-                    finals.append((req, t, c))
+                    off = base + j
+                    t, c = pcells[pi]
+                    is_final = not req.resume and off + 1 == len(src)
+                    if is_final:
+                        # at most one sampling final per column (its
+                        # seen row is seeded per column)
+                        while any(fc == c for *_, fc in finals):
+                            pi += 1
+                            if pi >= len(pcells):
+                                break
+                            t, c = pcells[pi]
+                        if pi >= len(pcells):
+                            break
+                    slot = self._extend_with_preempt(req)
+                    ids[t, c] = int(src[off])
+                    pos[t, c] = off
+                    rctx[t, c] = off + 1
+                    slots[t, c] = slot
+                    rseq[t, c] = si
+                    cells.append((t, c))
+                    scheduled += 1
+                    pi += 1
+                    if is_final:
+                        set_sampling(t, c, req.sampling)
+                        finals.append((req, req.epoch, t, c))
+            except KVCacheExhausted as e:
+                self._fail_request(
+                    req, f"KV pool exhausted mid-prefill with no "
+                         f"preemption victim: {e}")
+                continue
             if scheduled:
-                take_of[req.req_id] = (req, scheduled)
+                take_of[req.req_id] = scheduled
+
+        # the staleness sweep: blank every cell of a request that lost
+        # its life while the chunk was built, before the dispatch, so a
+        # blanked row never writes into pages a survivor took
+        def blank(cells):
+            for t, c in cells:
+                ids[t, c] = pos[t, c] = rctx[t, c] = 0
+                slots[t, c] = self._scratch_slot
+                rseq[t, c] = scratch_row
+                temps[t, c] = 0.0
+                top_ks[t, c] = 0
+                top_ps[t, c] = 1.0
+                reps[t, c] = 1.0
+
+        for rid in list(sched):
+            req, epoch = sched[rid]
+            if (req.epoch == epoch and req.slot is not None
+                    and req.state in ("running", "prefilling")):
+                continue
+            blank(rows_of.get(rid, []))
+            for si in [s for s, r in reqs_of.items() if r is req]:
+                c = col_of.pop(si, None)
+                if c is not None:
+                    upd[c] = 0
+                    ucar[:, c] = 0
+                steps_of.pop(si, None)
+                reqs_of.pop(si, None)
+                epochs_of.pop(si, None)
+            take_of.pop(rid, None)
+            finals[:] = [f for f in finals if f[0] is not req]
+            del sched[rid]
+        if not sched:
+            self.time_host_s += time.perf_counter() - t0
+            return False
 
         # one table row per slot plus the scratch row at max_b; after the
         # extends above every block list is final for the whole chunk
         tables = np.full((self.max_b + 1, mp), self._scratch_block,
                          np.int32)
-        for req in list(reqs_of.values()) + [r for r, _ in take_of.values()]:
+        for req, _ in sched.values():
             tables[req.slot] = cache.block_table(req.req_id, mp)
 
+        rich = any(r.sampling.needs_rich_sampling
+                   for r in reqs_of.values()) \
+            or any(f[0].sampling.needs_rich_sampling for f in finals)
         sampled = bool((temps > 0.0).any())
-        toks, = self.programs.run(
-            "ragged", (T, W, sampled),
-            [override, np.stack([ids, pos, slots, rseq, rctx, ucar]),
-             tables, temps])
+        keys = self._key_operand(prng.split(self._next_key(), T))
+        arrays = [override, np.stack([ids, pos, slots, rseq, rctx, ucar]),
+                  tables, temps, keys]
+        if rich:
+            arrays += [top_ks, top_ps, reps, upd]
+            self._write_masks(
+                {c: reqs_of[si] for si, c in col_of.items()},
+                {c: req for req, _, _, c in finals})
+            self.masked_decode_columns += sum(
+                1 for r in reqs_of.values() if r.allowed_mask is not None)
+        try:
+            toks, = self._device_call(
+                "dispatch:ragged", self.programs.run, "ragged",
+                (T, W, sampled, rich), arrays)
+        except _DispatchFailed as e:
+            # one program: every request riding it fails together
+            for req, epoch in sched.values():
+                if req.epoch == epoch and req.state in ("running",
+                                                        "prefilling"):
+                    self._fail_request(
+                        req, f"ragged dispatch failed after retries: {e}")
+            self.time_host_s += time.perf_counter() - t0
+            return False
         host, ev = self._to_host(toks)
-        self.device_dispatches += 1
-        for req, n in take_of.values():
-            req.prefill_sent += n
-            if req.prefill_sent >= req.suffix_len:
-                self._clear_pending_writes(req)
+        # the scheduled prefill rows are dispatched: move the splice
+        # watermark, complete resumes (decode goes on from the host's
+        # last token), drop the pending writes of finished finals
+        for rid, (req, epoch) in sched.items():
+            take = take_of.get(rid, 0)
+            if take and req.state == "prefilling":
+                req.prefill_sent += take
+                if req.prefill_sent >= req.suffix_len:
+                    if req.resume:
+                        self._resume_complete(req)
+                    else:
+                        self._clear_pending_writes(req)
         self._inflight.append({
             "kind": "ragged", "free_after": [], "host": host, "event": ev,
-            "T": T, "W": W, "cols": col_of,
-            "steps": steps_of, "reqs": reqs_of, "finals": finals,
-            "real_rows": sum(n for _, n in take_of.values())})
-        self._prev_shape = (T, W)
+            "T": T, "W": W, "cols": col_of, "steps": steps_of,
+            "reqs": reqs_of, "epochs": epochs_of, "finals": finals,
+            "real_rows": sum(take_of.values())})
+        self.time_host_s += time.perf_counter() - t0
         return True
 
+    def _write_masks(self, decode_rows: Dict[int, Request],
+                     final_rows: Dict[int, Request]):
+        """Bring the mask planes to what one rich dispatch reads: the
+        allowed row of every consuming row (its request's mask, or all
+        ones), and the seen row of every repetition-penalty row (the
+        prompt, plus the generated tokens for a decode row). Rows whose
+        output is never consumed, and seen rows without a penalty, are
+        left as they are: the sampler does not read them."""
+        planes = self._mask_planes()
+        allowed, seen = {}, {}
+        for rows, decode in ((decode_rows, True), (final_rows, False)):
+            for r, req in rows.items():
+                allowed[r] = (req.allowed_serial, req.allowed_mask
+                              if req.allowed_mask is not None
+                              else np.ones(planes.vocab, bool))
+                if req.sampling.repetition_penalty == 1.0:
+                    continue
+                toks = list(req.out_tokens) if decode else []
+
+                def make(req=req, toks=toks):
+                    row = np.zeros(planes.vocab, bool)
+                    row[req.prompt] = True
+                    if toks:
+                        row[np.asarray(toks)] = True
+                    return row
+                seen[r] = ((req.req_id, len(toks)), make)
+        planes.write("allowed", allowed)
+        planes.write("seen", seen)
+
     # -- the program families (inference/programs.py) ------------------------
-    def _ragged_program(self, key, override, sched, tables, temps):
-        """The ragged chunk, key (T, W, sampled): T ministeps. sched [6,
-        T, W] int32 holds ids, positions, slots, row_seq, row_ctx and the
-        carry flag; a carry column takes the token sampled in the
+    def _ragged_program(self, key, override, sched, tables, temps, keys,
+                        *rich_ops):
+        """The ragged chunk, key (T, W, sampled, rich): T ministeps. sched
+        [6, T, W] int32 holds ids, positions, slots, row_seq, row_ctx and
+        the carry flag; a carry column takes the token sampled in the
         previous ministep (its first from ``override`` [W]); tables
-        [max_b + 1, max_pages]; temps [T, W]. Every ministep draws when
-        ``sampled``. Returns (tokens [T, W],)."""
-        _, _, sampled = key
+        [max_b + 1, max_pages]; temps [T, W]; keys [T, 2] (ministep t
+        draws with keys[t]). A rich chunk also takes top_ks / top_ps /
+        reps [T, W] and upd [W]: the seen mask is a copy of the seen
+        plane's first W rows, and only upd columns (decode columns) add
+        their samples to it. Returns (tokens [T, W],)."""
+        _, W, sampled, rich = key
         dec = self.dec
         cache = dec.cache
+        if rich:
+            top_ks, top_ps, reps, upd = rich_ops
+            planes = self._mask_planes()
+            seen = planes.seen[:W].clone()
+            allowed = planes.allowed[:W]
+            rows = torch.arange(W, device=override.device)
+            updb = upd != 0
         cur = override
         out = []
         for t in range(sched.shape[1]):
@@ -680,53 +1417,93 @@ class ServingEngine:
             logits, _, _ = dec._ragged_logits(
                 dec.weights, cache.k, cache.v, ids, sched[1, t],
                 sched[2, t], sched[3, t], sched[4, t], tables)
-            cur = self._sample(logits, temps[t], sampled)
+            if rich:
+                cur = self._sample_rich(logits, temps[t], keys[t],
+                                        top_ks[t], top_ps[t], reps[t],
+                                        seen, allowed, sampled)
+                hit = cur.long()
+                seen[rows, hit] = seen[rows, hit] | updb
+            else:
+                cur = self._sample(logits, temps[t], keys[t], sampled)
             out.append(cur)
         return (torch.stack(out),)
 
     def _decode_program(self, key, tables, ctx, slots, last_idx, over,
-                        use_host, temps):
-        """The dense decode chunk, key (T, sampled): first tokens merged
-        from the previous chunk's tokens in ``_carry`` (at each slot's
-        ``last_idx``) or the host's ``over`` where ``use_host``, then T
-        steps over tables [T, mb, max_pages], ctx / slots [T, mb], temps
-        [mb]. The tokens [mb, T] are also written to ``_carry``. Returns
-        (tokens,)."""
-        T, sampled = key
-        rows = torch.arange(self.max_b, device=over.device)
+                        use_host, temps, keys, *rich_ops):
+        """The dense decode chunk, key (T, sampled, rich): first tokens
+        merged from the previous chunk's tokens in ``_carry`` (at each
+        slot's ``last_idx``) or the host's ``over`` where ``use_host``,
+        then T steps over tables [T, mb, max_pages], ctx / slots [T, mb],
+        temps [mb], keys [T, 2]. A rich chunk also takes top_ks / top_ps
+        / reps [mb] and carries a copy of the seen plane's first mb rows,
+        every step's samples added. The tokens [mb, T] are also written
+        to ``_carry``. Returns (tokens,)."""
+        T, sampled, rich = key
+        mb = self.max_b
+        rows = torch.arange(mb, device=over.device)
         first = torch.where(use_host != 0, over,
                             self._carry[rows, last_idx.long()])
+        if rich:
+            top_ks, top_ps, reps = rich_ops
+            planes = self._mask_planes()
+            seen = planes.seen[:mb].clone()
+            allowed = planes.allowed[:mb]
+            # a device tensor, not a Python True: a scalar operand would
+            # be a host-to-device copy, which a graph cannot capture
+            hit = torch.ones(mb, dtype=torch.bool, device=over.device)
+        step = [0]
+
+        def sample(logits):
+            t = step[0]
+            step[0] += 1
+            if not rich:
+                return self._sample(logits, temps, keys[t], sampled)
+            nxt = self._sample_rich(logits, temps, keys[t], top_ks, top_ps,
+                                    reps, seen, allowed, sampled)
+            seen[rows, nxt.long()] = hit
+            return nxt
+
         dec = self.dec
         toks, _, _ = dec._decode_scan_impl(
             dec.weights, dec.cache.k, dec.cache.v, first, tables, ctx, slots,
-            sample=lambda lg: self._sample(lg, temps, sampled))
+            sample=sample)
         self._carry[:, :T].copy_(toks)
         return (toks,)
 
     def _final_program(self, key, ids, slots, last_idx, *rest):
-        """A dense final prefill, key (bucket, rows, sampled): ids / slots
-        [rows, bucket], last_idx and temps [rows]; the prefix family
-        takes n_cached [rows] and prefix tables [rows, prefix_pages]
-        before temps. Returns (first tokens [rows],)."""
-        sampled = key[2]
+        """A dense final prefill, key (bucket, rows, sampled, rich): ids /
+        slots [rows, bucket], last_idx [rows]; the prefix family takes
+        n_cached [rows] and prefix tables [rows, prefix_pages]; then
+        temps [rows] and the key [2]; a rich final also top_ks / top_ps /
+        reps [rows] over the mask planes' first rows. Returns (first
+        tokens [rows],)."""
+        _, gp, sampled, rich = key
         dec = self.dec
         cache = dec.cache
-        if len(rest) == 3:
-            ncv, ptab, temps = rest
+        if rich:
+            rest, (top_ks, top_ps, reps) = rest[:-3], rest[-3:]
+        if len(rest) == 4:
+            ncv, ptab, temps, keys = rest
             logits, _, _ = dec._prefill_prefix_impl(
                 dec.weights, cache.k, cache.v, ids, slots, last_idx, ncv,
                 ptab)
         else:
-            temps, = rest
+            temps, keys = rest
             logits, _, _ = dec._prefill_impl(dec.weights, cache.k, cache.v,
                                              ids, slots, last_idx)
-        return (self._sample(logits, temps, sampled),)
+        if not rich:
+            return (self._sample(logits, temps, keys, sampled),)
+        planes = self._mask_planes()
+        return (self._sample_rich(logits, temps, keys, top_ks, top_ps, reps,
+                                  planes.seen[:gp], planes.allowed[:gp],
+                                  sampled),)
 
     def _mid_program(self, key, ids, slots, *prefix):
-        """A no-sample mid chunk, ids / slots [1, prefill_chunk]: at
-        offset 0 (key (chunk,)) through ``_prefill_impl``, or with the
-        offset [1] and the prefix table [1, width] (key (chunk, width))
-        through ``_prefill_prefix_impl``. Writes K/V only."""
+        """A no-sample mid chunk, ids / slots [1, width]: at offset 0
+        (key (width,)) through ``_prefill_impl``, or with the offset [1]
+        and the prefix table [1, pages] (key (width, pages)) through
+        ``_prefill_prefix_impl``. Writes K/V only; a resume's short
+        tail pads its ids with zeros aimed at the scratch slot."""
         dec = self.dec
         cache = dec.cache
         if prefix:
@@ -738,25 +1515,59 @@ class ServingEngine:
                               logits=False)
         return ()
 
-    def _sample(self, logits, temp, any_sampled: bool):
-        """Per-row temperature (<= 0: greedy argmax), engine-static top_k,
-        Gumbel-max draws from the engine's generator. ``any_sampled``,
-        static for a program, says some row of the dispatch has
-        temperature > 0; without one no random number is drawn."""
+    def _sample(self, logits, temp, key, sampled: bool):
+        """JAX's ``_sample``: per-row temperature (<= 0: greedy argmax)
+        and the engine's top_k, drawn by ``categorical(key, logits /
+        t)``. ``sampled``, static for a program, says some row has
+        temperature > 0; without one nothing is drawn."""
         greedy = logits.argmax(dim=-1).to(torch.int32)
-        if not any_sampled:
+        if not sampled:
             return greedy
         if self.top_k > 0:
             kth = logits.topk(self.top_k, dim=-1).values[..., -1:]
             logits = torch.where(logits < kth,
                                  torch.full_like(logits, -1e30), logits)
         t = temp.clamp(min=1e-6)[:, None]
-        u = torch.rand(logits.shape, generator=self.programs.generator,
-                       device=logits.device)
-        gumbel = -torch.log(-torch.log(
-            u.clamp(min=torch.finfo(torch.float32).tiny)))
-        sampled = (logits / t + gumbel).argmax(dim=-1).to(torch.int32)
-        return torch.where(temp > 0.0, sampled, greedy)
+        drawn = prng.categorical(key, logits / t)
+        return torch.where(temp > 0.0, drawn, greedy)
+
+    def _sample_rich(self, logits, temp, key, top_ks, top_ps, rep, seen,
+                     allowed, sampled: bool):
+        """JAX's ``_sample_rich``: the repetition penalty over ``seen``
+        (positive logits divided, negative ones multiplied), the allowed
+        mask before the greedy argmax, then one descending sort serving
+        the per-row top_k (the k-th largest tempered logit) and top_p
+        (the nucleus of the top_k-filtered distribution), and
+        ``categorical``. logits [rows, V] float32; temp / top_ps / rep
+        [rows] float32; top_ks [rows] int32; seen / allowed [rows, V]
+        bool. Without ``sampled`` the filters and the draw are skipped:
+        every row is greedy."""
+        v = logits.shape[-1]
+        neg = torch.full_like(logits, -1e30)
+        repc = rep[:, None]
+        pen = torch.where(logits > 0, logits / repc, logits * repc)
+        logits = torch.where(seen & (rep != 1.0)[:, None], pen, logits)
+        logits = torch.where(allowed, logits, neg)
+        greedy = logits.argmax(dim=-1).to(torch.int32)
+        if not sampled:
+            return greedy
+        lt = logits / temp.clamp(min=1e-6)[:, None]
+        sorted_l = torch.sort(lt, dim=-1, descending=True).values
+        k_idx = (top_ks.long() - 1).clamp(0, v - 1)
+        kth = sorted_l.gather(1, k_idx[:, None])
+        has_k = (top_ks > 0)[:, None]
+        lt = torch.where(has_k & (lt < kth), neg, lt)
+        rank = torch.arange(v, device=logits.device)[None, :]
+        sorted_k = torch.where(has_k & (rank >= top_ks[:, None].long()),
+                               neg, sorted_l)
+        probs = torch.softmax(sorted_k, dim=-1)
+        cum = torch.cumsum(probs, dim=-1)
+        cutoff = cum - probs > top_ps[:, None]
+        pth = torch.where(cutoff, torch.full_like(sorted_k, float("inf")),
+                          sorted_k).min(dim=-1, keepdim=True).values
+        lt = torch.where((top_ps < 1.0)[:, None] & (lt < pth), neg, lt)
+        drawn = prng.categorical(key, lt)
+        return torch.where(temp > 0.0, drawn, greedy)
 
     # -- the dense per-phase path ------------------------------------------
     def _to_host(self, toks):
@@ -781,10 +1592,11 @@ class ServingEngine:
         """Dispatch prefill work for prefilling slots, oldest request
         first. While decodes run, the tokens dispatched this step are
         capped at ``prefill_budget``; an idle engine dispatches
-        everything ready. A remainder longer than ``prefill_chunk`` goes
-        out as a width-1 mid chunk; a remainder that fits one dispatch
-        is a final, grouped with the other ready finals of its bucket
-        (closing a group early when it crosses the budget)."""
+        everything ready. A remainder longer than ``prefill_chunk``, and
+        every chunk of a resume, goes out as a width-1 mid chunk; a
+        remainder that fits one dispatch is a final, grouped with the
+        other ready finals of its bucket (closing a group early when it
+        crosses the budget)."""
         pending = sorted((r for r in self._slots
                           if r is not None and r.state == "prefilling"
                           and r.prefill_sent < r.suffix_len),
@@ -797,12 +1609,19 @@ class ServingEngine:
                                          self.prefill_budget) else None
 
         def is_mid(r):
+            # a resume runs every chunk through the no-sample program:
+            # its next token is known, and drawing would shift the key
+            # stream of every other request
+            if r.resume:
+                return True
             return (self.prefill_chunk is not None
                     and r.suffix_len - r.prefill_sent > self.prefill_chunk)
 
         spent = 0
         while True:
-            ready = [r for r in pending if r.prefill_sent < r.suffix_len
+            ready = [r for r in pending
+                     if r.state == "prefilling" and r.slot is not None
+                     and r.prefill_sent < r.suffix_len
                      and self._deps_ready(r)]
             if not ready:
                 return
@@ -823,6 +1642,10 @@ class ServingEngine:
                 if len(group) > 1 else 1
             sub, toks = [], 0
             for row in group:
+                if row[1].state != "prefilling" or row[1].slot is None:
+                    # preempted by an earlier sub-group's pressure: it
+                    # comes back through the queue
+                    continue
                 sub.append(row)
                 toks += int(row[1].prompt.size) - row[2]
                 if len(sub) == w or (budget is not None
@@ -839,38 +1662,67 @@ class ServingEngine:
                     return
 
     def _dispatch_mid(self, req: Request) -> int:
-        """Dispatch ONE no-sample prefill chunk of exactly
-        ``prefill_chunk`` tokens (width 1) at offset n_cached +
-        prefill_sent; the pages before it ride along as a scratch-padded
-        prefix table whose width is the next power-of-two rung. Returns
-        the tokens dispatched."""
+        """Dispatch ONE no-sample prefill chunk (width 1) at offset
+        n_cached + prefill_sent; the pages before it ride along as a
+        scratch-padded prefix table whose width is the next power-of-two
+        rung. A resume's last chunk may be short: its ids pad with
+        zeros aimed at the scratch slot. Returns the tokens dispatched
+        (0 when the request failed)."""
         t0 = time.perf_counter()
         cache = self.dec.cache
-        c = self.prefill_chunk
+        c = self.prefill_chunk or self._recompute_chunk
+        src = req.prefill_tokens
         off = req.n_cached + req.prefill_sent
         take = min(c, req.suffix_len - req.prefill_sent)
         ids = np.zeros((1, c), np.int32)
-        ids[0, :take] = req.prompt[off:off + take]
+        ids[0, :take] = src[off:off + take]
         slots = np.full((1, c), self._scratch_slot, np.int32)
-        for j in range(take):
-            slots[0, j] = cache.extend(req.req_id)
-        if off:
-            need = -(-off // cache.block_size)
-            width = next(b for b in self._prefix_page_buckets if b >= need)
-            ptab = np.full((1, width), self._scratch_block, np.int32)
-            pb = cache.seq_blocks(req.req_id)[:need]
-            ptab[0, :len(pb)] = pb
-            self.programs.run("prefill_mid", (c, width),
-                              [ids, slots, np.asarray([off], np.int32),
-                               ptab])
-        else:
-            self.programs.run("prefill_mid0", (c,), [ids, slots])
-        self.device_dispatches += 1
+        try:
+            for j in range(take):
+                slots[0, j] = self._extend_with_preempt(req)
+        except KVCacheExhausted as e:
+            self.time_prefill_s += time.perf_counter() - t0
+            self._fail_request(req, f"KV pool exhausted mid-prefill "
+                                    f"with no preemption victim: {e}")
+            return 0
+        try:
+            if off:
+                need = -(-off // cache.block_size)
+                width = next(b for b in self._prefix_page_buckets
+                             if b >= need)
+                ptab = np.full((1, width), self._scratch_block, np.int32)
+                pb = cache.seq_blocks(req.req_id)[:need]
+                ptab[0, :len(pb)] = pb
+                self._device_call(
+                    "dispatch:prefill_mid", self.programs.run,
+                    "prefill_mid", (c, width),
+                    [ids, slots, np.asarray([off], np.int32), ptab])
+            else:
+                self._device_call("dispatch:prefill_mid", self.programs.run,
+                                  "prefill_mid0", (c,), [ids, slots])
+        except _DispatchFailed as e:
+            self.time_prefill_s += time.perf_counter() - t0
+            self._fail_request(req, f"prefill dispatch failed after "
+                                    f"retries: {e}")
+            return 0
         req.prefill_sent += take
         self._inflight.append({"kind": "prefill", "toks": None,
                                "group": [], "free_after": []})
+        if req.resume and req.prefill_sent >= req.suffix_len:
+            self._resume_complete(req)
         self.time_prefill_s += time.perf_counter() - t0
         return take
+
+    def _resume_complete(self, req: Request):
+        """A resume finishes at dispatch: no sampling final; decode goes
+        on from the last token already emitted, supplied from the host
+        like a fresh prefill's first token."""
+        req.state = "running"
+        self._clear_pending_writes(req)
+        si = req.slot
+        self._last_tok[si] = req.out_tokens[-1]
+        self._fresh_slots.add(si)
+        req.planned = len(req.out_tokens)
 
     def _dispatch_final(self, bucket: int, group, gp: int):
         """Dispatch one FINAL (first-token sampling) prefill of ``gp``
@@ -888,46 +1740,78 @@ class ServingEngine:
         ptab = np.full((gp, self._prefix_pages), self._scratch_block,
                        np.int32)
         temps = np.zeros(gp, np.float32)
-        for row, (_si, req, off) in enumerate(group):
-            n = int(req.prompt.size) - off
-            ids[row, :n] = req.prompt[off:]
-            slots[row, :n] = [cache.extend(req.req_id) for _ in range(n)]
-            last_idx[row] = n - 1
-            ncv[row] = off
-            if off:
-                pb = cache.seq_blocks(req.req_id)[
-                    : -(-off // cache.block_size)]
-                ptab[row, :len(pb)] = pb
-            temps[row] = req.sampling.temperature
-        key = (bucket, gp, bool((temps > 0.0).any()))
-        if any(off for _, _, off in group):
-            toks, = self.programs.run("prefill_prefix", key,
-                                      [ids, slots, last_idx, ncv, ptab,
-                                       temps])
-        else:
-            toks, = self.programs.run("prefill", key,
-                                      [ids, slots, last_idx, temps])
+        top_ks = np.zeros(gp, np.int32)
+        top_ps = np.ones(gp, np.float32)
+        reps = np.ones(gp, np.float32)
+        members = [req for _, req, _ in group]
+        try:
+            for row, (_si, req, off) in enumerate(group):
+                n = int(req.prompt.size) - off
+                ids[row, :n] = req.prompt[off:]
+                slots[row, :n] = [
+                    self._extend_with_preempt(req, exclude=members)
+                    for _ in range(n)]
+                last_idx[row] = n - 1
+                ncv[row] = off
+                if off:
+                    pb = cache.seq_blocks(req.req_id)[
+                        : -(-off // cache.block_size)]
+                    ptab[row, :len(pb)] = pb
+                sp = req.sampling
+                temps[row] = sp.temperature
+                top_ks[row] = self.top_k if sp.top_k is None else sp.top_k
+                top_ps[row] = sp.top_p
+                reps[row] = sp.repetition_penalty
+        except KVCacheExhausted as e:
+            # the group shares one dispatch: fail it whole
+            self.time_prefill_s += time.perf_counter() - t0
+            for req in members:
+                self._fail_request(
+                    req, f"KV pool exhausted building prefill group: {e}")
+            return
+        rich = any(r.sampling.needs_rich_sampling for r in members)
+        key = (bucket, gp, bool((temps > 0.0).any()), rich)
+        tail = [temps, self._key_operand(self._next_key())]
+        if rich:
+            tail += [top_ks, top_ps, reps]
+            self._write_masks({}, dict(enumerate(members)))
+        try:
+            if any(off for _, _, off in group):
+                toks, = self._device_call(
+                    "dispatch:prefill", self.programs.run, "prefill_prefix",
+                    key, [ids, slots, last_idx, ncv, ptab] + tail)
+            else:
+                toks, = self._device_call(
+                    "dispatch:prefill", self.programs.run, "prefill", key,
+                    [ids, slots, last_idx] + tail)
+        except _DispatchFailed as e:
+            self.time_prefill_s += time.perf_counter() - t0
+            for req in members:
+                self._fail_request(
+                    req, f"prefill dispatch failed after retries: {e}")
+            return
         host, ev = self._to_host(toks)
-        self.device_dispatches += 1
         for _si, req, _off in group:
             req.prefill_sent = req.suffix_len
             self._clear_pending_writes(req)
         self._inflight.append({"kind": "prefill", "toks": toks,
                                "host": host, "event": ev,
-                               "group": [(si, req) for si, req, _ in group],
+                               "group": [(si, req, req.epoch)
+                                         for si, req, _ in group],
                                "free_after": []})
         self.time_prefill_s += time.perf_counter() - t0
 
     def _prefill_complete(self, toks: np.ndarray, group):
-        """A collected final: each request leaves "prefilling" with its
-        first token."""
+        """A collected final: each request still in the life it was
+        dispatched in leaves "prefilling" with its first token."""
         now = time.perf_counter()
-        for row, (si, req) in enumerate(group):
-            if req.state != "prefilling":
+        for row, (si, req, epoch) in enumerate(group):
+            if req.state != "prefilling" or req.epoch != epoch:
                 continue
             tok = int(toks[row])
             req.state = "running"
-            req.t_first_token = now
+            if req.t_first_token is None:
+                req.t_first_token = now
             req.t_last_emit = now
             req.out_tokens.append(tok)
             req.planned = 1
@@ -949,7 +1833,10 @@ class ServingEngine:
         token budget, inactive or still prefilling aim at the scratch
         page with ctx 0. First tokens of continuing slots come from the
         newest in-flight decode chunk's device output, fresh slots'
-        from the host. Returns True when a chunk was dispatched."""
+        from the host. A slot preempted while the chunk is built is
+        re-aimed at the scratch page (``neutralize``): a later slot may
+        take its freed blocks. Returns True when a chunk was
+        dispatched."""
         t0 = time.perf_counter()
         cache = self.dec.cache
         active = [si for si in range(self.max_b)
@@ -964,22 +1851,71 @@ class ServingEngine:
         ctx = np.zeros((T, mb), np.int32)
         slots = np.full((T, mb), self._scratch_slot, np.int32)
         temps = np.zeros(mb, np.float32)
+        top_ks = np.zeros(mb, np.int32)
+        top_ps = np.ones(mb, np.float32)
+        reps = np.ones(mb, np.float32)
         steps_of: Dict[int, int] = {}
         reqs_of: Dict[int, Request] = {}
+        epochs_of: Dict[int, int] = {}
+
+        def neutralize(vsi: int):
+            slots[:, vsi] = self._scratch_slot
+            ctx[:, vsi] = 0
+            tables[:, vsi, :] = self._scratch_block
+            steps_of.pop(vsi, None)
+            reqs_of.pop(vsi, None)
+            epochs_of.pop(vsi, None)
+            temps[vsi] = 0.0
+            top_ks[vsi] = 0
+            top_ps[vsi] = 1.0
+            reps[vsi] = 1.0
+
         for si in active:
             req = self._slots[si]
+            if req is None or req.state != "running":
+                continue    # preempted by an earlier slot's pressure
             sp = req.sampling
             # the budget at DISPATCH time: tokens planned, not fetched
             steps = max(0, min(T, sp.max_new_tokens - req.planned))
-            for t in range(steps):
-                ctx[t, si] = cache.context_len(req.req_id)
-                slots[t, si] = cache.extend(req.req_id)
+            try:
+                for t in range(steps):
+                    ctx[t, si] = cache.context_len(req.req_id)
+                    while True:
+                        try:
+                            slots[t, si] = cache.extend(req.req_id)
+                            break
+                        except KVCacheExhausted:
+                            victim = self._pick_victim()
+                            if victim is None or victim is req:
+                                raise
+                            vsi = victim.slot
+                            self._preempt(victim)
+                            if vsi is not None:
+                                neutralize(vsi)
+            except KVCacheExhausted:
+                # req is the policy victim itself (or nothing can be
+                # preempted): its partial rows are blanked, as its
+                # pages may go to a later slot of this chunk
+                if self._can_recompute:
+                    self._preempt(req)
+                else:
+                    self._fail_request(
+                        req, "KV pool exhausted and decoder does not "
+                             "support preemption-with-recompute")
+                neutralize(si)
+                continue
             req.planned += steps
             steps_of[si] = steps
             reqs_of[si] = req
+            epochs_of[si] = req.epoch
             temps[si] = sp.temperature
+            top_ks[si] = self.top_k if sp.top_k is None else sp.top_k
+            top_ps[si] = sp.top_p
+            reps[si] = sp.repetition_penalty
             # after the extends the block list is final for the chunk
             tables[:, si, :] = cache.block_table(req.req_id, mp)[None]
+        # over the survivors only: a neutralized row no longer counts
+        rich = any(r.sampling.needs_rich_sampling for r in reqs_of.values())
         if all(s == 0 for s in steps_of.values()):
             # every running slot is drained and awaits collection
             self.time_host_s += time.perf_counter() - t0
@@ -991,21 +1927,42 @@ class ServingEngine:
             for si, req in reqs_of.items():
                 psteps = prev["steps"].get(si, 0)
                 if (psteps > 0 and si not in self._fresh_slots
-                        and prev["reqs"].get(si) is req):
+                        and prev["reqs"].get(si) is req
+                        and prev["epochs"].get(si) == req.epoch):
                     use_host[si] = 0
                     last_idx[si] = psteps - 1
         self._fresh_slots.clear()
         if prev is not None:
             self.device_dispatches += 1      # the merge (JAX's own program)
-        toks, = self.programs.run(
-            "decode", (T, bool((temps > 0.0).any())),
-            [tables, ctx, slots, last_idx, self._last_tok.astype(np.int32),
-             use_host, temps])
+        keys = self._key_operand(prng.split(self._next_key(), T))
+        arrays = [tables, ctx, slots, last_idx,
+                  self._last_tok.astype(np.int32), use_host, temps, keys]
+        if rich:
+            arrays += [top_ks, top_ps, reps]
+            self._write_masks(dict(reqs_of), {})
+            self.masked_decode_columns += sum(
+                1 for si, r in reqs_of.items()
+                if r.allowed_mask is not None and steps_of.get(si, 0) > 0)
+        try:
+            toks, = self._device_call(
+                "dispatch:decode", self.programs.run, "decode",
+                (T, bool((temps > 0.0).any()), rich), arrays)
+        except _DispatchFailed as e:
+            # the chunk's requests fail; 0-step slots awaiting
+            # collection and prefilling requests are untouched
+            for si, steps in steps_of.items():
+                req = reqs_of[si]
+                if steps > 0 and self._slots[si] is req \
+                        and req.state == "running":
+                    self._fail_request(
+                        req, f"decode dispatch failed after retries: {e}")
+            self.time_host_s += time.perf_counter() - t0
+            return False
         host, ev = self._to_host(toks)
-        self.device_dispatches += 1
         self._inflight.append({"kind": "decode",
                                "host": host, "event": ev,
                                "steps": steps_of, "reqs": reqs_of,
+                               "epochs": epochs_of,
                                "T": T, "free_after": []})
         self.time_host_s += time.perf_counter() - t0
         return True
@@ -1018,7 +1975,8 @@ class ServingEngine:
         """Collect the oldest in-flight chunk: a mid prefill carries no
         result, a final delivers first tokens, a decode chunk up to T
         tokens per slot (with the mid-chunk EOS cut), a ragged chunk
-        through ``_collect_ragged``."""
+        through ``_collect_ragged``. A collection that outlives its
+        retries fails the requests waiting on it."""
         ch = self._inflight.popleft()
         if ch["kind"] == "ragged":
             self._collect_ragged(ch)
@@ -1026,75 +1984,113 @@ class ServingEngine:
         if ch["kind"] == "prefill":
             if ch["toks"] is not None:
                 t0 = time.perf_counter()
-                toks = self._host_tokens(ch)
+                try:
+                    toks = self._device_call("collect:prefill",
+                                             self._host_tokens, ch)
+                except _DispatchFailed as e:
+                    self.time_prefill_s += time.perf_counter() - t0
+                    self._fail_prefill_group(ch["group"], e)
+                    self._free_after(ch)
+                    return
                 self.time_prefill_s += time.perf_counter() - t0
                 self._prefill_complete(toks, ch["group"])
             self._free_after(ch)
             return
         t0 = time.perf_counter()
-        toks = self._host_tokens(ch)
+        try:
+            toks = self._device_call("collect:decode", self._host_tokens,
+                                     ch)
+        except _DispatchFailed as e:
+            self.time_stall_s += time.perf_counter() - t0
+            self._fail_chunk_requests(ch, e)
+            self._free_after(ch)
+            return
         self.time_stall_s += time.perf_counter() - t0
         now = time.perf_counter()
         self.decode_steps += ch["T"]
         self.decode_slot_steps += ch["T"] * self.max_b
         for si, steps in ch["steps"].items():
             req = ch["reqs"][si]
-            if req.state != "running":
-                continue   # retired while the chunk flew
-            delivered = 0
-            for t in range(steps):
-                tok = int(toks[si, t])
-                req.out_tokens.append(tok)
-                delivered += 1
-                self.generated_tokens += 1
-                self._last_tok[si] = tok
-                if self._is_finished(req):
-                    break      # mid-chunk EOS: discard the tail
-            self.decode_useful_tokens += delivered
-            self._note_itl(req, now, delivered)
-            if self._is_finished(req) and self._slots[si] is req:
-                self._retire(si)
+            if req.state != "running" or req.epoch != ch["epochs"].get(si):
+                continue   # retired or preempted while the chunk flew
+            self._deliver(req, si, [int(toks[si, t]) for t in range(steps)],
+                          now)
         self._free_after(ch)
+
+    def _deliver(self, req: Request, si: int, toks: List[int], now: float):
+        """A decode column's tokens, cut at a mid-chunk EOS."""
+        delivered = 0
+        for tok in toks:
+            req.out_tokens.append(tok)
+            delivered += 1
+            self.generated_tokens += 1
+            self._last_tok[si] = tok
+            if self._is_finished(req):
+                break          # mid-chunk EOS: discard the tail
+        self.decode_useful_tokens += delivered
+        self._note_itl(req, now, delivered)
+        if self._is_finished(req) and self._slots[si] is req:
+            self._retire(si)
+
+    def _fail_chunk_requests(self, ch, e: Exception):
+        """Fail the live decode columns of an uncollectable chunk."""
+        for si, steps in ch["steps"].items():
+            req = ch["reqs"][si]
+            if steps > 0 and req.state == "running" \
+                    and req.epoch == ch["epochs"].get(si) \
+                    and self._slots[si] is req:
+                self._fail_request(
+                    req, f"chunk collection failed after retries: {e}")
+
+    def _fail_prefill_group(self, group, e: Exception):
+        """Fail every request of an uncollectable final that still waits
+        on it (requests restarted since the dispatch are left alone)."""
+        for si, req, epoch in group:
+            if req.state == "prefilling" and req.epoch == epoch:
+                self._fail_request(
+                    req, f"prefill collection failed after retries: {e}")
 
     def _collect_ragged(self, ch):
         """Deliver one chunk's tokens (one host copy of [T, W]): decode
         columns up to their scheduled ministeps with the mid-chunk EOS
-        cut, sampling finals the first token of their request."""
-        toks = self._host_tokens(ch)
+        cut, sampling finals the first token of their request; a
+        previous life's cells are dropped by epoch."""
+        t0 = time.perf_counter()
+        try:
+            toks = self._device_call("collect:ragged", self._host_tokens, ch)
+        except _DispatchFailed as e:
+            self.time_stall_s += time.perf_counter() - t0
+            self._fail_chunk_requests(ch, e)
+            self._fail_prefill_group(
+                [(None, req, epoch) for req, epoch, _, _ in ch["finals"]], e)
+            self._free_after(ch)
+            return
+        self.time_stall_s += time.perf_counter() - t0
         now = time.perf_counter()
         self.decode_steps += ch["T"]
         self.decode_slot_steps += ch["T"] * ch["W"]
         self.decode_useful_tokens += ch["real_rows"]
         for si, steps in ch["steps"].items():
             req = ch["reqs"][si]
-            if req.state != "running":
+            if req.state != "running" or req.epoch != ch["epochs"].get(si):
                 continue
             c = ch["cols"][si]
-            delivered = 0
-            for t in range(steps):
-                tok = int(toks[t, c])
-                req.out_tokens.append(tok)
-                delivered += 1
-                self.generated_tokens += 1
-                self._last_tok[si] = tok
-                if self._is_finished(req):
-                    break          # mid-chunk EOS: discard the tail
-            self.decode_useful_tokens += delivered
-            self._note_itl(req, now, delivered)
-            if self._is_finished(req) and self._slots[si] is req:
-                self._retire(si)
-        for req, t, c in ch["finals"]:
-            if req.state != "prefilling":
+            self._deliver(req, si, [int(toks[t, c]) for t in range(steps)],
+                          now)
+        for req, epoch, t, c in ch["finals"]:
+            if req.state != "prefilling" or req.epoch != epoch:
                 continue
             si = req.slot
             tok = int(toks[t, c])
             req.state = "running"
-            req.t_first_token = now
+            if req.t_first_token is None:
+                req.t_first_token = now
             req.t_last_emit = now
             req.out_tokens.append(tok)
             req.planned = 1
             self.generated_tokens += 1
             self._last_tok[si] = tok
+            self._fresh_slots.add(si)
             if self._is_finished(req):
                 self._retire(si)
         self._free_after(ch)
@@ -1110,25 +2106,30 @@ class ServingEngine:
         req.t_last_emit = now
 
     def step(self) -> bool:
-        """One engine iteration: admit, dispatch, collect. Dense: prefill
-        dispatches, then one decode chunk, then collection down to the
-        pipeline depth (one decode chunk stays in flight with
-        ``overlap``); ragged: the unified chunk(s), all collected.
-        Returns True while there is work left."""
+        """One engine iteration: deadlines, admit, dispatch, collect.
+        Dense: prefill dispatches, then one decode chunk, then collection
+        down to the pipeline depth (one decode chunk stays in flight
+        with ``overlap`` unless a running request uses a repetition
+        penalty); ragged: the unified chunk(s), all collected. Faults
+        are absorbed per request. Returns True while there is work
+        left."""
         if self._closed:
             raise RuntimeError("engine is closed")
         with torch.inference_mode():
+            self._enforce_deadlines()
             self._admit()
             if self.ragged:
-                if not self._dispatch_ragged():
-                    self._prev_shape = None
+                self._dispatch_ragged()
                 depth = 0
             else:
                 self._dispatch_prefill()
                 dispatched = self._dispatch_chunk()
-                depth = 1 if (dispatched and self.overlap) else 0
+                depth = 1 if (dispatched and self.overlap
+                              and not self._rep_active()) else 0
             while len(self._inflight) > depth:
                 self._collect_oldest()
+        if self._debug_pool:
+            self.dec.cache.debug_check()
         return self.has_work
 
     def run_to_completion(self) -> Dict[int, np.ndarray]:
@@ -1138,7 +2139,8 @@ class ServingEngine:
         return {rid: self.result(rid) for rid in list(self._done)}
 
     def stats(self) -> dict:
-        """Throughput and latency summary over finished requests."""
+        """Throughput, latency and robustness summary; the latency
+        percentiles cover requests that finished (state done)."""
         cache = self.dec.cache
         ok = [r for r in self._done.values() if r.state == "done"]
         ttfts = [r.ttft_s for r in ok if r.ttft_s is not None]
@@ -1149,6 +2151,14 @@ class ServingEngine:
 
         return {
             "finished": len(ok),
+            "preemptions": self.preemptions,
+            "recompute_tokens": self.recompute_tokens,
+            "aborted": self.aborted,
+            "failed": self.failed,
+            "deadline_misses": self.deadline_misses,
+            "shed_requests": self.shed_requests,
+            "retries": self.retries,
+            "dispatch_exhaustions": self.dispatch_exhaustions,
             "generated_tokens": self.generated_tokens,
             "device_dispatches": self.device_dispatches,
             "tokens_per_dispatch": (
@@ -1162,6 +2172,7 @@ class ServingEngine:
             "decode_utilization": (
                 self.decode_useful_tokens / self.decode_slot_steps
                 if self.decode_slot_steps else 0.0),
+            "masked_decode_columns": self.masked_decode_columns,
             "time_prefill_s": self.time_prefill_s,
             "time_decode_stall_s": self.time_stall_s,
             "time_host_s": self.time_host_s,
@@ -1197,14 +2208,15 @@ class ServingEngine:
     def warmup(self, prompt_len: Optional[int] = None,
                seal_programs: bool = False):
         """Compile the serving programs with throwaway traffic (JAX's
-        ``warmup``): one request and a burst of ``PREFILL_GROUP`` for
-        every bucket (or ``prompt_len``'s), prefix-cache hits at every
-        suffix bucket a hit can reach, and each decode rung greedy and
-        sampled. A pool too small for a round skips it. The prefix cache
-        and the finished requests' stats are cleared afterwards.
-        ``seal_programs=True`` then captures the whole reachable grid
-        (``warmup_programs``) and seals it. The traffic draws from the
-        engine's generator; ``warmup_programs`` alone does not."""
+        ``warmup``, request for request, so it consumes the same keys):
+        one request and a burst of ``PREFILL_GROUP`` for every bucket
+        (or ``prompt_len``'s), prefix-cache hits at every suffix bucket
+        a hit can reach, each decode rung rich (temperature 1.0, top_k
+        1) and greedy, and, with several rungs, each rung's cost over
+        up to 3 chunks for ``_pick_chunk``. A pool too small for a round
+        skips it. The prefix cache and the finished requests' stats are
+        cleared afterwards. ``seal_programs=True`` then captures the
+        whole reachable grid (``warmup_programs``) and seals it."""
         plens = [prompt_len] if prompt_len is not None \
             else list(self.buckets)
         cache = self.dec.cache
@@ -1248,17 +2260,37 @@ class ServingEngine:
                         and cache.available_blocks >= width * per_hit:
                     serve(hits(width), max_new_tokens=2)
                     burst_done = True
+        warmed = set()
         for c in self.chunks:
             if -(-(plens[0] + c + 2) // cache.block_size) \
                     > cache.available_blocks:
                 continue
+            warmed.add(c)
             self._force_chunk = c
             try:
                 serve([self._warmup_prompt(plens[0])],
-                      max_new_tokens=c + 2, temperature=1.0)
+                      max_new_tokens=c + 2, temperature=1.0, top_k=1)
                 serve([self._warmup_prompt(plens[0])], max_new_tokens=c + 2)
             finally:
                 self._force_chunk = None
+        if len(self.chunks) > 1:
+            for c in sorted(warmed):
+                n_chunks = 3
+                while n_chunks > 0 and -(-(plens[0] + n_chunks * c)
+                                         // cache.block_size) \
+                        > cache.available_blocks:
+                    n_chunks -= 1
+                if n_chunks == 0:
+                    continue
+                self._force_chunk = c
+                try:
+                    before = self.time_stall_s + self.time_host_s
+                    serve([self._warmup_prompt(plens[0])],
+                          max_new_tokens=n_chunks * c)
+                    delta = self.time_stall_s + self.time_host_s - before
+                finally:
+                    self._force_chunk = None
+                self._chunk_cost[c] = max(delta / n_chunks, 1e-6)
         cache.clear_prefix_cache()
         if seal_programs:
             self.warmup_programs()
@@ -1297,35 +2329,47 @@ class ServingEngine:
         """Compile the reachable program grid by direct invocation (JAX's
         ``warmup_programs``): every operand aims at the scratch page and
         row, so no block is claimed and no scheduler state changes, and
-        the compiles draw from a scratch generator, so a warmed engine
-        serves token-identical to a cold one, stochastic rows included.
-        Dense: the final prefill per (bucket, rows 1 and PREFILL_GROUP,
-        sampled), plain and prefix, the mid chunk at offset 0 and per
-        prefix-page width, the decode chunk per (rung, sampled). Ragged:
+        the keys are ``PRNGKey(0)``'s, so the engine key is left alone
+        and a warmed engine serves token-identical to a cold one,
+        stochastic rows included. Each key is compiled plain and rich,
+        greedy and sampled. Dense: the final prefill per (bucket, rows 1
+        and PREFILL_GROUP), plain and prefix, the mid chunk at offset 0
+        and per prefix-page width, the decode chunk per rung. Ragged:
         the chunk per (T in the rungs and 1, W in
-        ``reachable_ragged_widths``, sampled); ``max_width`` clamps W
-        (to leave a rung cold on purpose)."""
+        ``reachable_ragged_widths``); ``max_width`` clamps W (to leave a
+        rung cold on purpose)."""
         mb, mp = self.max_b, self.dec.max_pages
         sb, ss = self._scratch_block, self._scratch_slot
         prepare = self.programs.prepare
         f32 = np.float32
+        key0 = prng.PRNGKey(0)
+        self._mask_planes()
+        grid = [(s, r) for s in (False, True) for r in (False, True)]
+
+        def rich_ops(*shape):
+            return [np.zeros(shape, np.int32), np.ones(shape, f32),
+                    np.ones(shape, f32)]
+
         with torch.inference_mode():
             if not self.ragged:
+                k1 = self._key_operand(key0)
                 for b in self.buckets:
                     for w in sorted({1, min(self.PREFILL_GROUP, mb)}):
                         ids = np.zeros((w, b), np.int32)
                         slots = np.full((w, b), ss, np.int32)
                         zeros = np.zeros(w, np.int32)
-                        temps = np.zeros(w, f32)
+                        tail = [np.zeros(w, f32), k1]
                         ptab = np.full((w, self._prefix_pages), sb,
                                        np.int32)
-                        for sampled in (False, True):
-                            prepare("prefill", (b, w, sampled),
-                                    [ids, slots, zeros, temps])
-                            prepare("prefill_prefix", (b, w, sampled),
-                                    [ids, slots, zeros, zeros, ptab, temps])
-                if self.prefill_chunk:
-                    c = self.prefill_chunk
+                        for sampled, rich in grid:
+                            extra = rich_ops(w) if rich else []
+                            prepare("prefill", (b, w, sampled, rich),
+                                    [ids, slots, zeros] + tail + extra)
+                            prepare("prefill_prefix", (b, w, sampled, rich),
+                                    [ids, slots, zeros, zeros, ptab] + tail
+                                    + extra)
+                if self._can_recompute:
+                    c = self.prefill_chunk or self._recompute_chunk
                     ids = np.zeros((1, c), np.int32)
                     slots = np.full((1, c), ss, np.int32)
                     prepare("prefill_mid0", (c,), [ids, slots])
@@ -1338,20 +2382,26 @@ class ServingEngine:
                     sched = [np.full((T, mb, mp), sb, np.int32),
                              np.zeros((T, mb), np.int32),
                              np.full((T, mb), ss, np.int32), zeros, zeros,
-                             np.ones(mb, np.int32), np.zeros(mb, f32)]
-                    for sampled in (False, True):
-                        prepare("decode", (T, sampled), sched)
+                             np.ones(mb, np.int32), np.zeros(mb, f32),
+                             self._key_operand(prng.split(key0, T))]
+                    for sampled, rich in grid:
+                        prepare("decode", (T, sampled, rich),
+                                sched + (rich_ops(mb) if rich else []))
                 return
             tables = np.full((mb + 1, mp), sb, np.int32)
             for T in sorted(set(self.chunks) | {1}):
+                keys = self._key_operand(prng.split(key0, T))
                 for W in self.reachable_ragged_widths(T, max_width):
                     z = np.zeros((T, W), np.int32)
                     sched = np.stack([z, z, np.full((T, W), ss, np.int32),
                                       np.full((T, W), mb, np.int32), z, z])
-                    for sampled in (False, True):
-                        prepare("ragged", (T, W, sampled),
-                                [np.zeros(W, np.int32), sched, tables,
-                                 np.zeros((T, W), f32)])
+                    base = [np.zeros(W, np.int32), sched, tables,
+                            np.zeros((T, W), f32), keys]
+                    for sampled, rich in grid:
+                        extra = rich_ops(T, W) + [np.zeros(W, np.int32)] \
+                            if rich else []
+                        prepare("ragged", (T, W, sampled, rich),
+                                base + extra)
 
     def seal_programs(self):
         """Declare the program set complete: from here a program key seen
@@ -1361,15 +2411,24 @@ class ServingEngine:
 
     def clear_finished(self):
         """Drop finished requests and reset the counters (after warmup),
-        the prefix cache's hit and eviction counters included, so stats()
-        reflect only the traffic that follows. The program set and its
-        sealed flag stay."""
+        the robustness counters and the prefix cache's hit and eviction
+        counters included, so stats() reflect only the traffic that
+        follows. The program set and its sealed flag stay."""
         self._done.clear()
         self.decode_steps = 0
         self.generated_tokens = 0
         self.device_dispatches = 0
         self.decode_slot_steps = 0
         self.decode_useful_tokens = 0
+        self.masked_decode_columns = 0
+        self.preemptions = 0
+        self.recompute_tokens = 0
+        self.aborted = 0
+        self.failed = 0
+        self.deadline_misses = 0
+        self.shed_requests = 0
+        self.retries = 0
+        self.dispatch_exhaustions = 0
         self.time_prefill_s = 0.0
         self.time_stall_s = 0.0
         self.time_host_s = 0.0

@@ -270,12 +270,18 @@ class PagedKVCache:
         self.prefix_hit_tokens = 0
         self.prefix_query_tokens = 0
         self.prefix_evictions = 0
+        # fault injection (utils/chaos.py): called at the top of every
+        # _take_block, before any mutation, so an injected
+        # KVCacheExhausted leaves the pool untouched
+        self.fault_hook = None
 
     # -- allocation ----------------------------------------------------------
     def _take_block(self) -> int:
         """Pop a writable block: the free list first, then (free list
         dry) the least recently parked cached block, whose hash is
         dropped so it can never be spliced again."""
+        if self.fault_hook is not None:
+            self.fault_hook()
         if self._free:
             return self._free.pop()
         if self._lru:

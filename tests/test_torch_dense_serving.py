@@ -218,15 +218,20 @@ def test_requests_refused_at_the_door(fp32_pair, ragged):
     eng = ServingEngine(tdec, ragged=ragged, **SERVING)
     with pytest.raises(ValueError, match="largest prefill bucket"):
         eng.add_request(np.arange(33) % 512)
+    # LoRA adapters still wait for ROADMAP queue 1 item 5; the other
+    # per-request fields are served (and these requests cancelled)
+    with pytest.raises(NotImplementedError, match="item 5"):
+        eng.add_request([1, 2, 3], SamplingParams(adapter_id="a"))
     for field, value in (("top_p", 0.9), ("repetition_penalty", 1.3),
-                         ("deadline_s", 1.0), ("adapter_id", "a"),
-                         ("top_k", 4)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            eng.add_request([1, 2, 3], SamplingParams(**{field: value}))
+                         ("deadline_s", 100.0), ("priority", 2),
+                         ("top_k", 4), ("allowed_tokens", [3, 4])):
+        assert eng.cancel(eng.add_request(
+            [1, 2, 3], SamplingParams(**{field: value})))
     rid = eng.add_request(np.arange(32) % 512,
                           SamplingParams(max_new_tokens=3))
     out = eng.run_to_completion()
-    assert list(out) == [rid] and len(out[rid]) == 3
+    assert len(out[rid]) == 3 and eng.request(rid).state == "done"
+    assert eng.stats()["aborted"] == 6
     eng.close()
     with pytest.raises(RuntimeError):
         eng.add_request([1, 2])

@@ -11,9 +11,10 @@ the cold rung is counted, with its family and signature; the grid
 warmup is schedule-neutral (seed 11 with a temperature-1.0 row: the
 same streams as a cold engine, no block claimed, the dense carry buffer
 untouched); ``warmup()`` leaves the prefix cache clean; one seed gives
-one stream, and a ragged chunk draws the same random numbers whichever
-of its ministeps hold the sampled rows. Also the port's ``CompileWatch``
-and the operand packing of ``ProgramSet``.
+one stream, with one engine key consumed per sampling-capable dispatch;
+and ministep t of a ragged chunk draws with the t-th key of its key
+operand. Also the port's ``CompileWatch`` and the operand packing of
+``ProgramSet``.
 """
 import numpy as np
 import pytest
@@ -31,6 +32,7 @@ from paddle_tpu_torch.inference import (PagedLlamaDecoder, SamplingParams,
 from paddle_tpu_torch.inference.programs import (_check_arrays, _pack,
                                                  _views)  # noqa: E402
 from paddle_tpu_torch.models import llama_tiny  # noqa: E402
+from paddle_tpu_torch.utils import prng  # noqa: E402
 from paddle_tpu_torch.utils.telemetry import CompileWatch  # noqa: E402
 
 # tests/test_program_observatory.py CFG and KW
@@ -152,44 +154,68 @@ def test_warmup_leaves_prefix_cache_clean(dec):
         eng.close()
 
 
-def test_one_stream_per_seed(dec):
+def _iterated_key(seed, n):
+    """The engine key after n ``_next_key()`` calls."""
+    key = prng.PRNGKey(seed)
+    for _ in range(n):
+        key = prng.split(key)[0]
+    return key
+
+
+@pytest.mark.parametrize("ragged", [True, False])
+def test_one_stream_per_seed(dec, ragged):
+    """One seed gives one stream; the engine key is consumed once per
+    sampling-capable dispatch (ragged chunks, dense decode chunks and
+    finals; no-sample mid chunks draw none), as in JAX."""
     specs = [(_prompt(seed=s), dict(max_new_tokens=8, temperature=0.9))
              for s in range(3)]
     runs = []
     for seed in (7, 7, 8):
-        eng = ServingEngine(dec, ragged=True, seed=seed, **KW)
+        eng = ServingEngine(dec, ragged=ragged, seed=seed, **KW)
         runs.append(_serve(eng, specs))
+        drawing = sum(n for (fam, _), n in eng.programs.dispatches.items()
+                      if not fam.startswith("prefill_mid"))
+        assert (eng._key == _iterated_key(seed, drawing)).all()
         eng.close()
     assert runs[0] == runs[1] and runs[0] != runs[2]
 
 
 def test_ragged_chunk_draws_per_chunk(dec):
-    """Every ministep of a chunk with a sampled row draws, wherever the
-    row sits: the generator ends in the same state for a sampled row at
-    the first ministep or at the last, and a greedy chunk draws
-    nothing."""
+    """A ragged chunk draws ministep t with keys[t] of its [T, 2] key
+    operand: with every row on the scratch page each ministep sees the
+    same logits, so a sampled row at the first ministep under key k and
+    one at the last ministep under key k draw the same token, a greedy
+    chunk ignores its keys, and the same operands replay the same
+    tokens."""
     eng = ServingEngine(dec, ragged=True, seed=3, **KW)
     T, W, mb = 4, 2, eng.max_b
     sched = np.zeros((6, T, W), np.int32)
     sched[2] = eng._scratch_slot
     sched[3] = mb
     tables = np.full((mb + 1, dec.max_pages), eng._scratch_block, np.int32)
-    gen = eng.programs.generator
-    states = []
-    for sampled_at in (0, T - 1, None):
-        gen.manual_seed(3)
+    keys = prng.split(prng.PRNGKey(5), T)
+
+    def run(sampled_at, keys, temp=50.0):
         temps = np.zeros((T, W), np.float32)
         if sampled_at is not None:
-            temps[sampled_at, 1] = 1.0
-        key = (T, W, sampled_at is not None)
+            temps[sampled_at, 1] = temp
+        key = (T, W, sampled_at is not None, False)
         with torch.inference_mode():
-            eng.programs.run("ragged", key, [np.zeros(W, np.int32), sched,
-                                             tables, temps])
-        states.append(gen.get_state())
-    gen.manual_seed(3)
-    assert torch.equal(states[0], states[1])
-    assert torch.equal(states[2], gen.get_state())
-    assert not torch.equal(states[0], states[2])
+            toks, = eng.programs.run(
+                "ragged", key, [np.zeros(W, np.int32), sched, tables,
+                                temps, eng._key_operand(keys)])
+        return toks.numpy()
+
+    first = run(0, keys)
+    last = run(T - 1, np.roll(keys, -1, axis=0))
+    assert first[0, 1] == last[T - 1, 1]
+    assert (run(0, keys) == first).all()
+    greedy = run(None, keys)
+    assert (run(None, prng.split(prng.PRNGKey(9), T)) == greedy).all()
+    draws = {int(run(0, prng.split(prng.PRNGKey(s), T))[0, 1])
+             for s in range(8)}
+    assert len(draws) > 1          # hot rows do draw
+    eng.close()
 
 
 def test_compile_watch_sealed_set():
