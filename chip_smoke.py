@@ -109,8 +109,8 @@ failure ends the run with a non-zero exit code and no result:
                  paged-decode and 129 GEMV kernels; its wall and device
                  time beside the ragged ministep of phase 8; generate() at
                  b 4, prompt 256, 32 new tokens; then both engines on the
-                 same 8 requests, alternately, 3 runs each, and their
-                 decode steps alternately, 3 each (median, min, max);
+                 same 8 requests, alternately, 2 runs each, and their
+                 decode steps alternately, 2 each (median, min, max);
                  the decode_matmul and attention families' device ms per
                  run and step.
 10. serve-prefix-int4  both engines on 8 requests that share a
@@ -131,7 +131,7 @@ failure ends the run with a non-zero exit code and no result:
                  unexpected recompile; the launch counters equal what the
                  run's program dispatches call for under the eager gates;
                  the shared-prefix requests equal serve-prefix-int4's with
-                 2,688 hit tokens; eager and graph runs alternated, 3 each
+                 2,688 hit tokens; eager and graph runs alternated, 2 each
                  (median, min, max of tok/s, TTFT, ITL p50 / p99); the
                  idle share of one graph run; a decode chunk (T 8) of 8
                  sequences at ctx 512, eager against graph, alternated 3
@@ -165,16 +165,56 @@ failure ends the run with a non-zero exit code and no result:
                  failed request names one, no unexpected recompile, each
                  finished stream the clean one or a near-tie; tok/s
                  optimistic against worst-case, alternated, 2 runs each.
-14. serve-bf16-kv8  the same model with bf16 weights and an int8 KV pool
+14. tiny-ms-spec-lora-parity  llama_tiny float32 with int4 weights on the
+                 card (graphs) and the CPU: multi_step=4, spec decode
+                 (draft_len 4, n-gram drafter, motif prompts) and a
+                 mixed batch over two register_random adapters give
+                 equal greedy streams on both; on the card each equals
+                 its multi_step=1, spec-off or registry-less engine
+                 (base rows); one _lora_delta within 1e-4 of the plain
+                 gathered formulation.
+15. serve-ms-int4  multi_step=4 (32-ministep windows) on the 8B int4
+                 ragged engine as graphs (captured as first used, then
+                 sealed) against serve-graphs' multi_step=1 engine,
+                 serve-dense-int4's requests: launches, greedy streams
+                 equal or a near-tie, windows, capture (graphs, s, pool
+                 GB); the two alternated 3 runs each (tok/s, TTFT, ITL)
+                 with no recompile; a run's device ms and idle share; a
+                 window against a T 8 chunk, device ms a ministep.
+16. serve-spec-int4  spec decode at draft_len 3 (<= 32 verify rows: the
+                 GEMV) and 8 (72: cuBLAS over the unpacked int4)
+                 against spec off on 8 prompts that quote their own
+                 text, 64 new: with the n-gram drafter, then oracles of
+                 the spec-off streams and of each pass's own streams;
+                 acceptance, tokens per verify dispatch, the verify
+                 ministep's device ms at both widths, greedy streams
+                 equal or a near-tie; draft_len 3 runs warmup_programs +
+                 seal_programs before its first request (its whole grid
+                 held to no unexpected recompile), draft_len 8 captures
+                 as first used, then seals; the three alternated 3 runs
+                 each.
+17. serve-lora-int4  AdapterRegistry(rank=8) of 4 register_random adapters,
+                 8 requests (2 base, 6 over 3 adapters): launches, no
+                 recompile, base rows equal the registry-less engine's
+                 or a near-tie, hits / misses / evictions per run (each
+                 run's prefix-cache clear evicts the parked adapters, so
+                 the next run faults them back in), the page gather's
+                 and one ministep's deltas' device ms; every module's
+                 delta at 8B widths against the plain float32
+                 formulation (bf16 within twice a perfect bf16 answer's
+                 rounding, float32 within 1e-4 relative); graphs captured
+                 as first used, then sealed; tok/s against the base
+                 engine, alternated 3 runs each.
+18. serve-bf16-kv8  the same model with bf16 weights and an int8 KV pool
                  (4 requests): the int8 branch of the attention kernel on
                  the serving path; one W 8 ministep launches exactly 32
                  attention kernels; the attention family's device ms per
                  run and per ministep.
-15. tiny-train-parity  llama_tiny(hidden_size=256) in float32 (head_dim 64)
+19. tiny-train-parity  llama_tiny(hidden_size=256) in float32 (head_dim 64)
                  with the same weights on the card and the CPU: 3 TrainSteps
                  of AdamW(1e-3) give losses within 1e-4 relative, and the
                  card ran all three flash kernels.
-16. tiny-ring-parity  llama_tiny(hidden_size=256, sep_degree=4) in
+20. tiny-ring-parity  llama_tiny(hidden_size=256, sep_degree=4) in
                  float32 (head_dim 64) at b 2 x s 256 under a sep-4 fleet
                  mesh, the same weights on the card (["cuda:0"] * 4) and on
                  the CPU (["cpu"] * 4): 3 TrainSteps of AdamW(1e-3) give
@@ -182,7 +222,7 @@ failure ends the run with a non-zero exit code and no result:
                  model's at sep_degree=1 within 1e-4, and the flash counters
                  read exactly what the ring calls for (2 layers x 4 ranks
                  x 6 blocks per step of each kernel).
-17. train-mid    THE TRAINING PATH: llama_mid (0.65B) at full width and all
+21. train-mid    THE TRAINING PATH: llama_mid (0.65B) at full width and all
                  11 layers, bf16 compute, seed 0, batch 4 x seq 2048 (ids as
                  bench.py makes them), AdamW(1e-4, weight_decay=0.01): 2 warm
                  and 10 timed TrainSteps. The flash counters are set to 0
@@ -191,7 +231,7 @@ failure ends the run with a non-zero exit code and no result:
                  last below the first. Step ms, tokens/s, MFU by bench.py's
                  formula against 989 TFLOP/s, peak memory, device time by
                  kernel family and the idle share.
-18. train-mid8k  THE LONG-CONTEXT PATH: llama_mid(dtype="bfloat16",
+22. train-mid8k  THE LONG-CONTEXT PATH: llama_mid(dtype="bfloat16",
                  chunked_ce_tokens=1024, max_position_embeddings=8192,
                  sep_degree=4), all 11 layers, b 1 x s 8192 (ids as bench.py
                  makes them), AdamW(1e-4, weight_decay=0.01), under a sep-4
@@ -207,7 +247,7 @@ failure ends the run with a non-zero exit code and no result:
                  and sep 4 within 1e-2 relative. Step ms, tokens/s, MFU at
                  seq 8192, peak memory, device time by kernel family (the
                  flash family's ms apart) and the idle share of both.
-19. capture-failure  a program with a host sync inside: its first
+23. capture-failure  a program with a host sync inside: its first
                  dispatch raises, no graph is kept and it is not run
                  eagerly in its place (last, as a failed capture may
                  leave the allocator's pool unusable).
@@ -1136,6 +1176,8 @@ def main():
               "the card", file=sys.stderr)
         return 1
     import numpy as np
+    from paddle_tpu_torch.inference.lora import AdapterRegistry, LoRALayout
+    from paddle_tpu_torch.inference.spec_decode import Drafter, SpecConfig
     from paddle_tpu_torch.inference import (PagedLlamaDecoder,
                                             SamplingParams, ServingEngine)
     from paddle_tpu_torch.inference.programs import ProgramSet
@@ -1946,10 +1988,10 @@ def main():
         prof["top_other"] = {k: v / n for k, v in prof["top_other"].items()}
         return one, wall_ms, prof
 
-    def engines_alternated(dec, reqs, reps=3):
+    def engines_alternated(dec, reqs, reps=2):
         """Both engines on the same requests, run alternately (ragged,
         dense, ragged, ...) reps times each, then their decode steps at
-        8 rows and ctx 512 alternately 3 times each: per engine, each
+        8 rows and ctx 512 alternately reps times each: per engine, each
         run's numbers and their median, min and max. The host's time
         drifts within a call, so only this interleaving compares them."""
         runs = {"ragged": [], "dense": []}
@@ -1963,7 +2005,7 @@ def main():
                     "itl_p50_s": st["itl_p50_s"],
                     "itl_p99_s": st["itl_p99_s"]})
         steps = {"ragged": [], "dense": []}
-        for _ in range(3):
+        for _ in range(reps):
             steps["ragged"].append(decode_ministep(dec, profile=False)[1])
             steps["dense"].append(dense_decode_step(dec, profile=False)[1])
         def spread(xs):
@@ -2206,8 +2248,10 @@ def main():
         exp = {"paged_attention_decode": 0, "ragged_paged_attention": 0,
                "decode_matmul": 0, "flash_fwd": 0}
         for (fam, key), n in dispatches.items():
-            if fam == "ragged":
-                T, W = key[:2]
+            if fam.startswith(("ragged", "spec")):
+                # every ragged family's key leads with (T, W), a verify
+                # ministep's with W
+                T, W = key[:2] if fam.startswith("ragged") else (1, key[0])
                 exp["ragged_paged_attention"] += n * L * T
                 exp["decode_matmul"] += n * T * (4 * L + 1) * (W <= 32)
             elif fam == "decode":
@@ -2363,7 +2407,7 @@ def main():
         (stochastic rows included), no unexpected recompile, launches
         equal to what the dispatches call for; the shared-prefix
         requests equal serve-prefix-int4's with 2688 hit tokens; then
-        eager and graph runs alternated, 3 each; one graph run's idle
+        eager and graph runs alternated, 2 each; one graph run's idle
         share; and the decode chunk at ctx 512 eager against graph."""
         dec = shared["dec"]
         reqs = shared["dense_reqs"]
@@ -2416,7 +2460,7 @@ def main():
                      f"{p_st['prefix_cache_hit_tokens']} tokens, or "
                      f"recompiled {p_st['unexpected_recompiles']}")
             runs = {"eager": [], "graph": []}
-            for _ in range(3):
+            for _ in range(2):
                 for mode in runs:
                     if mode == "eager":
                         _, wall, st = serve(dec, 8, ragged=ragged, reqs=reqs)
@@ -2831,6 +2875,569 @@ def main():
         return info
 
     _phase("serve-faults-int4", serve_faults_int4)
+
+    # -- multi-step windows, speculative decoding, many-LoRA ------------------
+    def family_run(dec, specs, **kw):
+        """specs [(prompt, SamplingParams kwargs)] through a fresh tiny
+        ragged engine on dec: (streams, stats)."""
+        eng = ServingEngine(dec, ragged=True, max_batch_size=3, chunk_size=4,
+                            prefill_chunk=8, prompt_buckets=(16, 32), **kw)
+        rids = [eng.add_request(p, SamplingParams(**sp)) for p, sp in specs]
+        eng.run_to_completion()
+        st = eng.stats()
+        _clean_run(st, f"tiny family run {sorted(kw)}: "
+                       f"{[eng.request(r).error for r in rids]}")
+        _require(st["finished"] == len(specs),
+                 f"tiny family run {sorted(kw)}: {st['finished']} finished")
+        outs = [eng.result(r).tolist() for r in rids]
+        eng.close()
+        dec.cache.debug_check()
+        return outs, st
+
+    def tiny_registry():
+        reg = AdapterRegistry(rank=2)
+        for i in range(2):
+            reg.register_random(f"a{i}", seed=100 + i, scale=0.2)
+        return reg
+
+    def plain_lora_delta(lay, flat, row_seq, x, li, name):
+        """The JAX package's formulation of one module's delta: each
+        row's A and B gathered by its slot, float32 einsums."""
+        off_a, off_b, din, dout, _ = lay.entry(li, name)
+        s, r = flat.shape[0], lay.rank
+        a = flat[:, off_a:off_a + din * r].reshape(s, din, r)[row_seq.long()]
+        b = flat[:, off_b:off_b + r * dout].reshape(s, r, dout)[
+            row_seq.long()]
+        xa = torch.einsum("wd,wdr->wr", x.float(), a)
+        return torch.einsum("wr,wro->wo", xa, b).to(x.dtype)
+
+    def tiny_ms_spec_lora_parity():
+        """llama_tiny float32 with int4 weights, the card (graphs) against
+        the CPU (plain versions): multi_step=4, SpecConfig(draft_len=4)
+        with the n-gram drafter on motif prompts, and a mixed batch over
+        two register_random adapters and a base row each give equal
+        greedy streams on both; on the card each equals its multi_step=1,
+        spec-off or registry-less engine (base rows, for LoRA); one
+        _lora_delta on the card within 1e-4 of the plain gathered
+        formulation."""
+        cfg_t = llama_tiny()
+        cpu, gpu = cpu_and_card(cfg_t)
+        V = cfg_t.vocab_size
+        trng = np.random.RandomState(11)
+        ps = [trng.randint(0, V, n) for n in (12, 9, 17)]
+        motifs = [np.tile(trng.randint(0, V, 5), 3) for _ in range(2)]
+        cases = {
+            "multi_step": ([(p, dict(max_new_tokens=14)) for p in ps],
+                           lambda: dict(multi_step=4), dict(multi_step=1)),
+            "spec": ([(p, dict(max_new_tokens=16)) for p in motifs + ps[:1]],
+                     lambda: dict(spec_decode=SpecConfig(draft_len=4)),
+                     dict()),
+            "lora": ([(p, dict(max_new_tokens=10, adapter_id=a))
+                      for p, a in zip(ps, ("a0", None, "a1"))],
+                     lambda: dict(lora=tiny_registry()), None)}
+        info = {}
+        reset_dense()
+        for name, (specs, kw, base_kw) in cases.items():
+            res = {d: family_run(dec, specs, **kw())
+                   for d, dec in (("cpu", cpu), ("card", gpu))}
+            _require(res["card"][0] == res["cpu"][0],
+                     f"tiny {name}: card and CPU streams differ: {res}")
+            if base_kw is None:     # base rows against no registry
+                plain = [(p, {k: v for k, v in sp.items()
+                              if k != "adapter_id"}) for p, sp in specs]
+                base, _ = family_run(gpu, plain)
+                rows = [i for i, (_, sp) in enumerate(specs)
+                        if sp["adapter_id"] is None]
+                _require(all(res["card"][0][i] == base[i] for i in rows),
+                         f"tiny lora: base rows leave the registry-less "
+                         f"engine's streams")
+                _require(any(res["card"][0][i] != base[i] for i in
+                             range(len(specs)) if i not in rows),
+                         "tiny lora: no adapter changed its stream")
+            else:
+                base, _ = family_run(gpu, specs, **base_kw)
+                _require(res["card"][0] == base,
+                         f"tiny {name}: streams leave the baseline engine's")
+            st = res["card"][1]
+            info[name] = {k: st[k] for k in (
+                "multi_step_windows", "drafted_tokens",
+                "accepted_draft_tokens", "adapter_cache_misses",
+                "lora_rows_per_dispatch")}
+        _require(info["multi_step"]["multi_step_windows"] >= 1
+                 and info["spec"]["accepted_draft_tokens"] > 0
+                 and info["lora"]["adapter_cache_misses"] == 2,
+                 f"tiny families did not run their programs: {info}")
+        launched = dense_counts()
+        _require(launched["ragged_paged_attention"] > 0
+                 and launched["decode_matmul"] > 0,
+                 f"tiny-ms-spec-lora-parity launched {launched}")
+        # one delta on the card: every module of layer 1, 9 slots (the
+        # last the null adapter), 8 rows
+        lay = LoRALayout(gpu.lora_target_modules(),
+                         cfg_t.num_hidden_layers, 8, 4096)
+        flat = torch.randn(9, lay.capacity, device="cuda",
+                           generator=gen) * 0.1
+        flat[8] = 0.0
+        row_seq = torch.tensor([0, 3, 8, 3, 5, 8, 1, 0], dtype=torch.int32,
+                               device="cuda")
+        factors = gpu.lora_factors(lay, flat)
+        derr = 0.0
+        for mod, din, _, _ in lay.modules:
+            x = torch.randn(8, din, device="cuda", generator=gen)
+            got = gpu._lora_delta(factors, row_seq, x, 1, mod)
+            want = plain_lora_delta(lay, flat, row_seq, x, 1, mod)
+            derr = max(derr, float((got - want).abs().max()))
+        _require(derr <= 1e-4, f"_lora_delta on the card off the plain "
+                               f"formulation by {derr}")
+        info.update(launches=launched, lora_delta_max_abs_err=derr,
+                    tokens_equal=True)
+        return info
+
+    _phase("tiny-ms-spec-lora-parity", tiny_ms_spec_lora_parity)
+
+    def lazy_capture(eng, mem0, grid="keys the runs above used"):
+        """Seal an engine (again, if warmup_programs sealed it already):
+        graphs, their capture seconds (the compile records) and the
+        reserved memory grown since ``mem0``. A whole warmup_programs
+        grid costs 30-130 s an engine at 8B, measured per configuration
+        by tools/serving_grid_probe.py; serve-spec-int4's draft_len 3
+        engine takes its whole grid before any traffic, the other new
+        engines capture what their traffic uses, and the alternated runs
+        after the seal compile nothing."""
+        eng.seal_programs()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        return {"graphs": eng.programs.captured,
+                "seconds": sum(r["wall_s"] for r in
+                               eng.compile_watch.records),
+                "pool_gb": (torch.cuda.memory_reserved() - mem0) / 1e9,
+                "grid": grid}
+
+    def drive_checked(eng, reqs, where):
+        """drive() with the phase gates: launches equal what the program
+        dispatches call for, every kernel of the path launched, no
+        unexpected recompile. Returns (tokens, wall s, stats,
+        launches)."""
+        reset_dense()
+        eng.programs.dispatches.clear()
+        outs, wall, st = drive(eng, reqs)
+        launched = dense_counts()
+        expect = graph_launches(eng.programs.dispatches,
+                                cfg.num_hidden_layers)
+        _require(launched == expect,
+                 f"{where}: launched {launched}, the dispatches "
+                 f"{dict(eng.programs.dispatches)} call for {expect}")
+        _require(all(launched[k] > 0 for k in path_kernels(True)),
+                 f"{where}: a kernel of the path never launched: {launched}")
+        _require(st["unexpected_recompiles"] == 0,
+                 f"{where}: {st['unexpected_recompiles']} unexpected "
+                 f"recompiles after seal_programs")
+        return outs, wall, st, launched
+
+    def greedy_gaps(dec, reqs, outs_a, outs_b, where):
+        """Greedy streams of two engines: equal, or parted at a near-tie
+        (serve-prefix-int4's rule). Returns the divergences."""
+        gaps = []
+        for (p, t), a, b in zip(reqs, outs_a, outs_b):
+            t = t.get("temperature", 0.0) if isinstance(t, dict) else t
+            if t > 0:
+                continue
+            g = first_gap(dec, p, a, b)
+            _require(g is None or abs(g[1]) <= 2 * g[2],
+                     f"{where}: greedy streams part at (token, logit gap, "
+                     f"noise) {g}, beyond a near-tie")
+            if g is not None:
+                gaps.append(g)
+        return gaps
+
+    def alternate(engines, reqs_of, reps=3):
+        """Sealed engines {name: engine} driven in turns, ``reps`` runs
+        each, none compiling: tok/s, TTFT p50, ITL p50 / p99 and the
+        delivery gaps' p50 / max as median, min, max. The engine's ITL
+        splits the wall between two deliveries to a request evenly over
+        the tokens the second one brings; a delivery gap is that wall
+        whole (a window's or a verify's tokens arrive together)."""
+        runs = {n: [] for n in engines}
+        for _ in range(reps):
+            for n, eng in engines.items():
+                gaps, note = [], eng._note_itl
+
+                def noted(req, now, delivered, note=note, gaps=gaps):
+                    if delivered and req.t_last_emit is not None:
+                        gaps.append(now - req.t_last_emit)
+                    note(req, now, delivered)
+                eng._note_itl = noted
+                try:
+                    _, wall, st = drive(eng, reqs_of[n])
+                finally:
+                    del eng._note_itl
+                _require(st["unexpected_recompiles"] == 0,
+                         f"{n}: {st['unexpected_recompiles']} unexpected "
+                         f"recompiles after seal_programs")
+                runs[n].append({"tok_per_s": st["generated_tokens"] / wall,
+                                "ttft_p50_s": st["ttft_p50_s"],
+                                "itl_p50_s": st["itl_p50_s"],
+                                "itl_p99_s": st["itl_p99_s"],
+                                "gap_p50_s": float(np.median(gaps)),
+                                "gap_max_s": max(gaps)})
+        return {n: {k: {"runs": [r[k] for r in rs],
+                        "median": float(np.median([r[k] for r in rs])),
+                        "min": min(r[k] for r in rs),
+                        "max": max(r[k] for r in rs)} for k in rs[0]}
+                for n, rs in runs.items()}
+
+    def serve_ms_int4():
+        """multi_step=4 on the 8B int4 ragged engine as graphs (32-ministep
+        windows at the rung of 8; captured as the first run uses them,
+        then sealed), against serve-graphs' sealed multi_step=1 engine
+        on serve-dense-int4's 8 requests: launches, greedy streams equal
+        or a near-tie, windows dispatched, capture; then the two
+        alternated, 3 runs each, compiling nothing."""
+        dec = the_dec()
+        reqs = dense_requests()
+        base = sealed_engine("ragged")
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        mem0 = torch.cuda.memory_reserved()
+        ms = engine(dec, True, graphs=True, multi_step=4)
+        b_outs, _, _ = drive(base, reqs)
+        m_outs, _, m_st, launched = drive_checked(ms, reqs, "serve-ms-int4")
+        capture = lazy_capture(ms, mem0)
+        _require(m_st["multi_step_windows"] >= 1,
+                 "serve-ms-int4: no window dispatched")
+        gaps = greedy_gaps(dec, reqs, m_outs, b_outs, "serve-ms-int4")
+        alt = alternate({"k1": base, "k4": ms}, {"k1": reqs, "k4": reqs})
+        # where a run's wall goes: device ms and the idle share of one
+        # run of each (the alternated median wall)
+        runs_prof = {}
+        for name, eng in (("k1", base), ("k4", ms)):
+            wall = 256 / alt[name]["tok_per_s"]["median"]
+            prof = _device_breakdown(torch, lambda: drive(eng, reqs),
+                                     wall * 1e3)
+            runs_prof[name] = {"device_ms": prof["device_ms"],
+                               "wall_ms": wall * 1e3,
+                               "idle_share": prof["idle_share"]}
+        # one 32-ministep window at W 8, ctx 512, as a graph, against
+        # a T 8 chunk of the k = 1 engine: device ms a ministep (sampled
+        # keys, as the run's own: the sealed ms engine holds those)
+        fam, arrays, sids = chunk_case(dec, True, ms._scratch_block, T=32)
+        win = {}
+        with torch.inference_mode():
+            for name, eng, f, key, ops in (
+                    ("k4_window", ms, "ragged_ms", (32, 8, True, False),
+                     arrays + [np.full(8, -1, np.int32)]),
+                    ("k1_chunk", base, "ragged", (8, 8, True, False),
+                     [arrays[0], arrays[1][:, :8], arrays[2],
+                      arrays[3][:8], arrays[4][:8]])):
+                win[name] = timer(lambda: eng.programs.run(f, key, ops),
+                                  iters=5) / key[0]
+        for sid in sids:
+            dec.cache.free(sid)
+        _require(ms.programs.unexpected == 0,
+                 "serve-ms-int4: the window timing compiled a key")
+        ms.close()
+        return {"capture": capture, "capture_k1": shared.get(
+                    "capture", {}).get("ragged"),
+                "launches": launched,
+                "windows_per_run": m_st["multi_step_windows"],
+                "device_dispatches": m_st["device_dispatches"],
+                "tokens_per_dispatch": m_st["tokens_per_dispatch"],
+                "unexpected_recompiles": m_st["unexpected_recompiles"],
+                "greedy_divergences": gaps, "alternated": alt,
+                "run_profile": runs_prof,
+                "ministep_device_ms_W8_ctx512": win}
+
+    _phase("serve-ms-int4", serve_ms_int4)
+
+    def motif_requests(eng, n=8, new=64):
+        """Prompts that quote and continue their own text (code editing,
+        summaries quoting the source): a passage, then its opening again,
+        greedy. The passage is a seed of 40..80 random tokens and the
+        model's own greedy continuation of it (64 tokens, served on
+        ``eng`` first), so the text a request goes on with may stand
+        earlier in its prompt, as quoted text does for a trained model
+        (random weights continue nothing of their own accord)."""
+        mrng = np.random.RandomState(14)
+        seeds = [mrng.randint(0, cfg.vocab_size, int(mrng.randint(40, 81)))
+                 for _ in range(n)]
+        conts, _, _ = drive(eng, [(s, dict(max_new_tokens=64))
+                                  for s in seeds])
+        return [(np.concatenate([s, c, s]), dict(max_new_tokens=new))
+                for s, c in zip(seeds, conts)]
+
+    class SwitchDrafter(Drafter):
+        """The n-gram drafter, or with ``refs`` set an oracle proposing
+        the spec-off stream of the same request (the acceptance a draft
+        model that agreed with the target would reach)."""
+
+        def __init__(self):
+            self.ngram = SpecConfig().make_drafter()
+            self.refs = None
+
+        def propose(self, history, k):
+            if self.refs is None:
+                return self.ngram.propose(history, k)
+            h = np.asarray(history, np.int32)
+            for p, out in self.refs:
+                if h.size >= p.size and np.array_equal(h[:p.size], p):
+                    done = h.size - p.size
+                    return np.asarray(out[done:done + k], np.int32)
+            return np.zeros(0, np.int32)
+
+    def spec_run(eng, reqs, where):
+        """drive_checked on a spec engine, counting the tokens its verify
+        dispatches delivered (first tokens of finals riding them
+        included). Returns (tokens, stats, launches, spec info)."""
+        collect, delivered = eng._collect_spec, [0]
+
+        def counted(ch):
+            before = eng.generated_tokens
+            collect(ch)
+            delivered[0] += eng.generated_tokens - before
+        eng._collect_spec = counted
+        try:
+            outs, _, st, launched = drive_checked(eng, reqs, where)
+        finally:
+            del eng._collect_spec
+        disp = {k: n for (f, k), n in eng.programs.dispatches.items()
+                if f == "spec"}
+        n = sum(disp.values())
+        return outs, st, launched, {
+            "acceptance_rate": st["draft_acceptance_rate"],
+            "drafted_tokens": st["drafted_tokens"],
+            "accepted_draft_tokens": st["accepted_draft_tokens"],
+            "spec_rollbacks": st["spec_rollbacks"],
+            "verify_dispatches": n,
+            "tokens_per_verify_dispatch": delivered[0] / n if n else 0.0,
+            "tokens_per_dispatch": st["tokens_per_dispatch"],
+            "verify_widths": {str(k[0]): c for k, c in disp.items()}}
+
+    def serve_spec_int4():
+        """Spec decode on the 8B int4 ragged engine as graphs at
+        draft_len 3 (verify rows <= 32 at 8 columns: the GEMV) and 8 (72
+        rows: the unpacked int4 and cuBLAS route), against serve-graphs'
+        sealed spec-off engine on 8 self-quoting requests: with the
+        n-gram drafter (acceptance on this traffic), then an oracle
+        drafter that proposes the spec-off streams (every column drafts,
+        so the verify ministeps reach their full widths), then oracles of
+        the previous pass's own streams. The draft_len 3 engine runs
+        warmup_programs + seal_programs before its first request, so
+        its whole grid (plain chunks and verify widths) is held to no
+        unexpected recompile; draft_len 8 captures as the passes use its
+        keys, then seals. Gates: launches, no recompile,
+        greedy streams equal or a near-tie. Reports acceptance, tokens
+        per verify dispatch, the verify ministep's device ms at the
+        widths reached, and the three engines alternated with the last
+        oracle, 3 runs each."""
+        dec = the_dec()
+        base = sealed_engine("ragged")
+        reqs = motif_requests(base)
+        off_outs, _, off_st = drive(base, reqs)
+        refs = [(p, o.tolist()) for (p, _), o in zip(reqs, off_outs)]
+        info, engines = {}, {"off": base}
+        for dl in (3, 8):
+            drafter = SwitchDrafter()
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            mem0 = torch.cuda.memory_reserved()
+            eng = engine(dec, True, graphs=True, spec_decode=SpecConfig(
+                draft_len=dl, drafter=drafter))
+            if dl == 3:
+                eng.warmup_programs()
+                eng.seal_programs()
+            runs, oracle = {}, refs
+            # the n-gram drafter, then the oracle of the spec-off streams,
+            # then oracles of the previous pass's own streams until a pass
+            # gives back what it was told (random bf16 weights tie at
+            # every few tokens, so a verify ministep's other row count
+            # leaves the spec-off stream within a few tokens)
+            for mode in ("ngram", "oracle_off", "oracle_self",
+                         "oracle_self2"):
+                drafter.refs = None if mode == "ngram" else oracle
+                outs, st, launched, runs[mode] = spec_run(
+                    eng, reqs, f"serve-spec d{dl} {mode}")
+                runs[mode]["greedy_divergences"] = greedy_gaps(
+                    dec, reqs, outs, off_outs, f"serve-spec d{dl} {mode}")
+                runs[mode]["launches"] = launched
+                if mode == "ngram":
+                    continue
+                mine = [(p, o.tolist()) for (p, _), o in zip(reqs, outs)]
+                if mine == oracle:
+                    break
+                oracle = mine
+            last = list(runs)[-1]
+            _require(runs[last]["accepted_draft_tokens"] > 0,
+                     f"serve-spec d{dl}: the oracle's drafts were never "
+                     f"accepted")
+            capture = lazy_capture(
+                eng, mem0, "warmup_programs, before any request" if dl == 3
+                else "keys the runs above used")
+            W = max(int(w) for w in runs["oracle_off"]["verify_widths"])
+            arrays = scratch_spec(eng, W)
+            with torch.inference_mode():
+                verify_ms = timer(lambda: eng.programs.run(
+                    "spec", (W, False), arrays), iters=5)
+            _require(eng.programs.unexpected == 0,
+                     f"serve-spec d{dl}: the verify timing compiled a key")
+            info[f"draft_len_{dl}"] = {
+                "capture": capture, **runs,
+                "verify_ministep_device_ms": {"W": W, "ms": verify_ms}}
+            engines[f"d{dl}"] = eng
+        info["off_tokens_per_dispatch"] = off_st["tokens_per_dispatch"]
+        info["alternated_oracle"] = alternate(engines,
+                                              {n: reqs for n in engines})
+        with torch.inference_mode():
+            key = (1, 8, False, False)
+            ops = scratch_program(base, "ragged", key)
+            info["plain_ministep_W8_device_ms"] = timer(
+                lambda: base.programs.run("ragged", key, ops), iters=5)
+        for n in ("d3", "d8"):
+            engines[n].close()
+        return info
+
+    def scratch_spec(eng, W):
+        """A verify ministep's operands of width W on the scratch page,
+        greedy."""
+        mb, mp = eng.max_b, eng.dec.max_pages
+        z = np.zeros(W, np.int32)
+        sched = np.stack([z, z, np.full(W, eng._scratch_slot, np.int32),
+                          np.full(W, mb, np.int32), z, z,
+                          np.arange(W, dtype=np.int32), z])
+        return [sched, z, np.full((mb + 1, mp), eng._scratch_block,
+                                  np.int32), np.zeros(W, np.float32),
+                prng.PRNGKey(6).view(np.int32)]
+
+    _phase("serve-spec-int4", serve_spec_int4)
+
+    def graphed(fn):
+        """fn captured as a CUDA graph (after one eager run): its
+        replay."""
+        fn()
+        torch.cuda.synchronize()
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            fn()
+        return g.replay
+
+    def serve_lora_int4():
+        """Many-LoRA on the 8B int4 ragged engine as graphs: an
+        AdapterRegistry(rank=8) of 4 register_random adapters; 8
+        requests (serve-dense-int4's prompts, greedy), 2 base and 6 over
+        3 adapters. Each run ends by clearing the prefix cache, which
+        evicts the parked adapter pages, so the next run faults them
+        back in. Graphs are captured as the first run uses them, then
+        sealed. Gates: launches, no recompile, base rows equal the
+        registry-less engine's (or a near-tie), tenants leave them;
+        hits, misses, evictions; the device ms of one dispatch's page
+        gather and of one ministep's deltas at W 8; tok/s against
+        serve-graphs' sealed engine on the same prompts without
+        adapters, alternated, 3 runs each."""
+        dec = the_dec()
+        plain = [(p, dict(max_new_tokens=32)) for p, _ in dense_requests()]
+        aids = [None, "a0", "a1", "a2", None, "a0", "a1", "a2"]
+        tenant = [(p, dict(sp, adapter_id=a))
+                  for (p, sp), a in zip(plain, aids)]
+        reg = AdapterRegistry(rank=8)
+        for i in range(4):
+            reg.register_random(f"a{i}", seed=200 + i)
+        base = sealed_engine("ragged")
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        mem0 = torch.cuda.memory_reserved()
+        eng = engine(dec, True, graphs=True, lora=reg)
+        b_outs, _, _ = drive(base, plain)
+        runs = []
+        for _ in range(2):
+            outs, _, st, launched = drive_checked(eng, tenant,
+                                                  "serve-lora-int4")
+            runs.append({k: st[k] for k in (
+                "adapter_cache_hits", "adapter_cache_misses",
+                "adapter_cache_evictions", "lora_rows_per_dispatch")})
+        capture = lazy_capture(eng, mem0)
+        _require(runs[0]["adapter_cache_misses"] == 3
+                 and runs[1]["adapter_cache_evictions"] == 3,
+                 f"serve-lora-int4: adapter paging {runs}")
+        base_rows = [i for i, a in enumerate(aids) if a is None]
+        gaps = greedy_gaps(dec, [plain[i] for i in base_rows],
+                           [outs[i] for i in base_rows],
+                           [b_outs[i] for i in base_rows],
+                           "serve-lora-int4 base rows")
+        _require(sum(not np.array_equal(outs[i], b_outs[i])
+                     for i in range(8) if aids[i] is not None) >= 3,
+                 "serve-lora-int4: the adapters left most streams as the "
+                 "base model's")
+        lora_disp = {f"{f}{list(k)}": n
+                     for (f, k), n in eng.programs.dispatches.items()
+                     if "lora" in f}
+        _require(lora_disp, "serve-lora-int4: no lora program dispatched")
+        # the gather and the deltas alone: 3 adapters resident, 9 slots
+        lay = reg.layout
+        for a in ("a0", "a1", "a2"):
+            reg.acquire(a)
+        tables = torch.full((9, lay.n_pages), eng._scratch_block,
+                            dtype=torch.int32, device="cuda")
+        for s, a in enumerate(("a0", "a1", "a2")):
+            tables[s] = torch.as_tensor(reg.resident_blocks(a))
+        pool = dec.cache.lora_pool
+        row_seq = torch.tensor([0, 1, 2, 3, 0, 1, 2, 3], dtype=torch.int32,
+                               device="cuda")
+        L = cfg.num_hidden_layers
+        h, it = cfg.hidden_size, cfg.intermediate_size
+        xs = {d: torch.randn(8, d, device="cuda", generator=gen,
+                             dtype=torch.bfloat16) for d in (h, it)}
+        with torch.inference_mode():
+            ctx = dec.lora_context(lay, pool, tables)
+
+            def deltas():
+                for li in range(L):
+                    for mod, din, _, _ in lay.modules:
+                        dec._lora_delta(ctx, row_seq, xs[din], li, mod)
+            # as graphs, as the engine runs them: the device's time, not
+            # the host's 224 modules of launches
+            gather_ms, delta_ms = (timer(graphed(fn), iters=5) for fn in (
+                lambda: dec.lora_context(lay, pool, tables), deltas))
+            # every module of layer 0 against the plain formulation in
+            # float32: the engine's bf16 delta within twice the rounding
+            # of a perfect bf16 answer (the control: the float32 answer
+            # rounded to bf16), its float32 delta within 1e-4 of the
+            # largest |delta|
+            flat = pool[tables.reshape(-1).long()].reshape(9, -1)
+            derr = dctrl = derr32 = 0.0
+            for mod, din, _, _ in lay.modules:
+                ref = plain_lora_delta(lay, flat, row_seq, xs[din].float(),
+                                       0, mod)
+                got = dec._lora_delta(ctx, row_seq, xs[din], 0, mod)
+                got32 = dec._lora_delta(ctx, row_seq, xs[din].float(), 0,
+                                        mod)
+                derr = max(derr, float((got.float() - ref).abs().max()))
+                dctrl = max(dctrl, float((ref.to(torch.bfloat16).float()
+                                          - ref).abs().max()))
+                derr32 = max(derr32, float((got32 - ref).abs().max()
+                                           / ref.abs().max()))
+        _require(0.0 < dctrl and derr <= 2 * dctrl and derr32 <= 1e-4,
+                 f"serve-lora-int4: _lora_delta at 8B widths off the plain "
+                 f"formulation: bf16 {derr} (control {dctrl}), float32 "
+                 f"{derr32} of the largest |delta|")
+        for a in ("a0", "a1", "a2"):
+            reg.release(a)
+        alt = alternate({"base": base, "lora": eng},
+                        {"base": plain, "lora": tenant})
+        eng.close()
+        return {"capture": capture, "launches": launched,
+                "adapter_pages": lay.n_pages,
+                "page_elems": lay.page_elems,
+                "lora_pool_gb": pool.numel() * 4 / 1e9,
+                "paging_per_run": runs, "lora_dispatches": lora_disp,
+                "base_row_divergences": gaps,
+                "gather_device_ms_per_dispatch": gather_ms,
+                "gather_gb": 9 * lay.n_pages * lay.page_elems * 4 / 1e9,
+                "deltas_device_ms_per_ministep_W8": delta_ms,
+                "delta_bf16_vs_plain_f32_max_abs_err": derr,
+                "delta_bf16_rounding_control": dctrl,
+                "delta_f32_vs_plain_rel_err": derr32,
+                "alternated": alt}
+
+    _phase("serve-lora-int4", serve_lora_int4)
     for eng in shared.get("graph_engines", {}).values():
         eng.close()
     shared.clear()

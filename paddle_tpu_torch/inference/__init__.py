@@ -1,8 +1,12 @@
 """Serving: the paged-KV decoder and the ragged continuous-batching
-engine. Counterpart: ``paddle_tpu/inference``."""
+engine, with speculative decoding and many-LoRA serving. Counterpart:
+``paddle_tpu/inference``."""
+from .lora import AdapterRegistry, LoRALayout  # noqa: F401
 from .paged_decode import PagedLlamaDecoder  # noqa: F401
 from .serving import (EngineOverloaded, Request, SamplingParams,  # noqa: F401
                       ServingEngine)
+from .spec_decode import Drafter, NGramDrafter, SpecConfig  # noqa: F401
 
 __all__ = ["ServingEngine", "SamplingParams", "Request",
-           "EngineOverloaded", "PagedLlamaDecoder"]
+           "EngineOverloaded", "PagedLlamaDecoder", "SpecConfig",
+           "Drafter", "NGramDrafter", "AdapterRegistry", "LoRALayout"]

@@ -2,8 +2,7 @@
 the dense per-phase programs.
 
 Counterpart: ``paddle_tpu/inference/paged_decode.py`` (single device
-only: no tensor parallel, speculative-decoding or LoRA mixins). The
-decoder holds a dict of tensors with
+only: no tensor-parallel mixin). The decoder holds a dict of tensors with
 the same shape as the JAX ``weights`` tree — ``embed``, ``layers`` (each
 with ``ln1``, ``ln2``, fused ``wqkv``, ``wo``, fused ``wgu``, ``wd``),
 ``norm`` and ``head`` — so weights carry across one-to-one. Matmul
@@ -12,7 +11,12 @@ names its layout.
 
 ``_ragged_logits`` is one ministep of the ragged serving engine: every
 row's K/V is written to the pool (in place) before attention, so the
-per-row visible length ``row_ctx`` is the whole causal mask.
+per-row visible length ``row_ctx`` is the whole causal mask. With a
+``lora`` context (``lora_context``) each row adds its adapter's delta
+at the seven target modules; ``_spec_accept`` is the speculative verify
+step's acceptance and the zeroing of rejected drafts' K/V. Neither is a
+kernel in the JAX package (both are jnp there), so both are PyTorch ops
+here.
 
 The dense per-phase programs serve ``ServingEngine(ragged=False)`` and
 ``generate()``: ``_prefill_impl`` (a bucketed, right-padded prompt
@@ -42,7 +46,8 @@ from ..ops.cuda.decode_matmul import (_MAX_ROWS, decode_matmul,
                                       unpack_int4_halves)
 from ..ops.flash_attention import flash_attention
 from ..ops.paged_attention import (PagedKVCache, _dequantize_gather,
-                                   paged_attention_decode, pool_index,
+                                   _plane_values, paged_attention_decode,
+                                   pool_index,
                                    ragged_paged_attention,
                                    reshape_and_cache)
 from ..ops.qweight import QWeight
@@ -322,6 +327,109 @@ class PagedLlamaDecoder:
                              dim=-1)
         return _mm(F.silu(g_) * u_, w["wd"])
 
+    # -- many-LoRA serving (inference/lora.py) -----------------------------------
+    def lora_target_modules(self):
+        """(name, din, dout, kind) of the modules an adapter may change,
+        in the JAX decoder's order; kind is the base weight's
+        tensor-parallel placement."""
+        cfg = self.cfg
+        h = cfg.hidden_size
+        ad = cfg.num_attention_heads * self.head_dim
+        kvd = cfg.num_key_value_heads * self.head_dim
+        it = cfg.intermediate_size
+        return (("wq", h, ad, "col"), ("wk", h, kvd, "col"),
+                ("wv", h, kvd, "col"), ("wo", ad, h, "row"),
+                ("wg", h, it, "col"), ("wu", h, it, "col"),
+                ("wd", it, h, "row"))
+
+    def lora_context(self, layout, lora_pool, lora_tables):
+        """A dispatch's adapter factors: each table row's pages gathered
+        out of the pool plane once (``lora_tables`` [S, n_pages]; a row
+        of scratch blocks reads the all-zero null adapter), as the JAX
+        engine's ``_lora_ctx`` gathers [S, n_pages * page_elems], then
+        laid out per module by ``lora_factors``."""
+        s = lora_tables.shape[0]
+        flat = lora_pool.index_select(0, lora_tables.reshape(-1).long())
+        return self.lora_factors(layout, flat.reshape(s, -1))
+
+    @staticmethod
+    def lora_factors(layout, flat):
+        """(layout, {(layer, module): (A_cat [din, S * r], B_cat [S * r,
+        dout])}, S) from flat [S, capacity] float32: slot s's A in
+        columns s * r .. s * r + r - 1 of A_cat, its B in the same rows
+        of B_cat. Made once a dispatch, so a ministep's deltas are two
+        plain products a module."""
+        s, r = flat.shape[0], layout.rank
+        factors = {}
+        for (li, name), (off_a, off_b) in layout.offsets.items():
+            _, _, din, dout, _ = layout.entry(li, name)
+            a = flat[:, off_a:off_a + din * r].reshape(s, din, r)
+            factors[(li, name)] = (
+                a.permute(1, 0, 2).reshape(din, s * r),
+                flat[:, off_b:off_b + r * dout].reshape(s * r, dout))
+        return layout, factors, s
+
+    def _lora_delta(self, lora, row_seq, x, li: int, name: str):
+        """Each row's adapter delta of module (li, name), [rows, dout] in
+        x's dtype; x [rows, din], row_seq [rows] picks the row's factors.
+        JAX gathers a [rows, din, r] copy of A per row; here every row
+        meets every slot's A in one product ([rows, S * r]), a one-hot of
+        row_seq keeps its own slot's r columns, and one product with the
+        slots' B stacked sums them, so the other slots add exact zeros.
+        float32 throughout."""
+        layout, factors, s = lora
+        a_cat, b_cat = factors[(li, name)]
+        x2 = x.reshape(-1, x.shape[-1]).to(torch.float32)
+        cols = torch.arange(s * layout.rank, device=x.device) // layout.rank
+        keep = row_seq.long()[:, None] == cols[None, :]     # [rows, S * r]
+        xa = (x2 @ a_cat) * keep.to(torch.float32)
+        return (xa @ b_cat).to(x.dtype)
+
+    def _lora_mlp(self, w, hn, lora, row_seq, li):
+        """``_mlp`` with the adapters' deltas: wg and wu deltas added to
+        the gate and up products before SiLU, the wd delta to the down
+        product."""
+        gu = _mm(hn, w["wgu"])
+        g_, u_ = torch.split(gu, [self.cfg.intermediate_size,
+                                  gu.shape[-1] - self.cfg.intermediate_size],
+                             dim=-1)
+        g_ = g_ + self._lora_delta(lora, row_seq, hn, li, "wg")
+        u_ = u_ + self._lora_delta(lora, row_seq, hn, li, "wu")
+        mid = F.silu(g_) * u_
+        return _mm(mid, w["wd"]) + self._lora_delta(lora, row_seq, mid, li,
+                                                     "wd")
+
+    # -- speculative decoding ---------------------------------------------------
+    def _spec_accept(self, k_pool, v_pool, toks, draft_ids, slots,
+                     seg_start, is_draft, scratch_slot: int):
+        """The verify ministep's acceptance, after its forward. toks [W]:
+        each row's sampled token (a draft row's is the model's token
+        for the position after it); draft_ids [W]: each draft row's
+        proposal; slots [W]; seg_start [W]: the row index of the row's
+        column base (a column's rows are contiguous); is_draft [W].
+        Draft row r is accepted when every draft of its column up to r
+        equals the token sampled at the row before it: a cumulative sum
+        of mismatches. Rejected draft rows wrote their K/V into their
+        own slots during the forward (later drafts attend them); one
+        zero write per layer clears them, every other row aiming at the
+        scratch slot. Returns (accepted [W] bool, k_pool, v_pool)."""
+        is_draft = is_draft != 0
+        ok = is_draft & (torch.roll(toks, 1) == draft_ids)
+        cb = torch.cumsum((is_draft & ~ok).to(torch.int32), 0)
+        accepted = is_draft & (cb - cb[seg_start.long()] == 0)
+        tgt = slots.masked_fill(~(is_draft & ~accepted), scratch_slot)
+        plane = _plane_values(k_pool[0])
+        _, kvh, bs, hd = plane.shape
+        dtype = torch.float32 if isinstance(k_pool[0], tuple) \
+            else plane.dtype
+        zeros = torch.zeros((toks.shape[0], kvh, hd), dtype=dtype,
+                            device=toks.device)
+        index = pool_index(tgt, bs, kvh)
+        for li in range(len(k_pool)):
+            reshape_and_cache(zeros, zeros, k_pool[li], v_pool[li], tgt,
+                              index=index)
+        return accepted, k_pool, v_pool
+
     def _rope_tables(self, positions, dtype):
         """(cos, sin) [*positions.shape, 1, head_dim] at positions, in
         dtype."""
@@ -337,11 +445,15 @@ class PagedLlamaDecoder:
         return x * cos + rotate_half(x) * sin
 
     def _ragged_logits(self, weights, k_pool, v_pool, ids, positions, slots,
-                       row_seq, row_ctx, tables):
+                       row_seq, row_ctx, tables, lora=None):
         """One ragged ministep up to the logits. ids / positions / slots /
         row_seq / row_ctx [rows] int32 on the decoder's device; tables
         [num_seqs, max_pages] int32. The pools are updated in place and
-        returned for symmetry with the JAX signature.
+        returned for symmetry with the JAX signature. ``lora``: a
+        ``lora_context``; each row adds its table row's adapter delta to
+        q / k / v (before RoPE), to the wo product, to gate and up
+        (before SiLU) and to the wd product, as in JAX. Without it the
+        ministep runs exactly the base operations.
         Returns (logits [rows, vocab] float32, k_pool, v_pool)."""
         cfg = self.cfg
         r = ids.shape[0]
@@ -355,6 +467,13 @@ class PagedLlamaDecoder:
         for li, w in enumerate(weights["layers"]):
             hn = rms_norm(h, w["ln1"], cfg.rms_norm_eps)
             q, k, v = self._proj_qkv(w, hn)
+            if lora is not None:
+                q = q + self._lora_delta(lora, row_seq, hn, li,
+                                         "wq").reshape(q.shape)
+                k = k + self._lora_delta(lora, row_seq, hn, li,
+                                         "wk").reshape(k.shape)
+                v = v + self._lora_delta(lora, row_seq, hn, li,
+                                         "wv").reshape(v.shape)
             # one rotation for q and k together
             qk = self._rope(torch.cat([q, k], dim=1), pos, rope)
             q, k = qk[:, :nh].contiguous(), qk[:, nh:]
@@ -362,9 +481,14 @@ class PagedLlamaDecoder:
                               index=index)
             attn = ragged_paged_attention(q, k_pool[li], v_pool[li], tables,
                                           row_seq, row_ctx)
-            h = h + _mm(attn.reshape(r, -1), w["wo"])
+            af = attn.reshape(r, -1)
+            o = _mm(af, w["wo"])
+            if lora is not None:
+                o = o + self._lora_delta(lora, row_seq, af, li, "wo")
+            h = h + o
             hn = rms_norm(h, w["ln2"], cfg.rms_norm_eps)
-            h = h + self._mlp(w, hn)
+            h = h + (self._mlp(w, hn) if lora is None
+                     else self._lora_mlp(w, hn, lora, row_seq, li))
         h = rms_norm(h, weights["norm"], cfg.rms_norm_eps)
         logits = _mm(h, weights["head"]).to(torch.float32)
         return logits, k_pool, v_pool

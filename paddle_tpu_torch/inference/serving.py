@@ -112,11 +112,38 @@ per-request ``top_k``, ``top_p``, ``repetition_penalty`` or
 planes, rewritten row by row before the dispatch only where their
 content changes. Serving runs under ``torch.inference_mode()``.
 
-Not ported yet: LoRA adapters (ROADMAP queue 1 item 5; a request with
-``adapter_id`` is refused, naming the item) and the tracer (item 8).
+Three program families ride the ragged path, each forcing
+``ragged=True`` as in JAX:
+- ``multi_step=k`` fuses k pure-decode steps into one window of k * T
+  ministeps (only while no slot is prefilling). Each column carries its
+  EOS id; once it samples it, later ministeps aim its writes at the
+  scratch slot and freeze its token (a per-column ``live`` mask), and
+  collection cuts the stream at the EOS. Cancels and deadlines take
+  effect at the window's boundary. The window's keys are
+  ``split(_next_key(), k * T)``, as JAX's fused dispatch draws them.
+- ``spec_decode=SpecConfig(...)`` verifies a drafter's proposals: each
+  greedy running column rides one ministep as its carried token plus
+  up to ``draft_len`` draft rows at the next positions, prefill rows
+  fill what is left of the row budget, ``_spec_accept`` keeps the
+  longest prefix that matches the model's own tokens and zeroes the
+  rejected rows' K/V, and collection delivers 1..draft_len + 1 tokens a
+  column and rolls the allocator back past the rest. A rich request
+  anywhere in the slots pauses speculation.
+- ``lora=AdapterRegistry(...)`` serves per-request adapters
+  (``SamplingParams.adapter_id``): an adapter is acquired at admission
+  and released whenever its request leaves its slot, its pages share
+  the KV pool, and a dispatch with any adapter row runs the lora twin
+  of its program, which gathers each slot's adapter pages once and adds
+  every row's delta. A dispatch of base requests only runs the base
+  program, so base traffic is bit-identical to an engine without a
+  registry. The prefix index is salted with the adapter id.
+
+Not ported yet: tensor parallelism, the fleet and the transports
+(ROADMAP queue 1 item 5) and the tracer (item 8).
 """
 from __future__ import annotations
 
+import functools
 import itertools
 import os
 import time
@@ -130,11 +157,13 @@ import torch
 from ..ops.paged_attention import KVCacheExhausted
 from ..utils import prng
 from ..utils.telemetry import CompileWatch
+from .lora import AdapterRegistry
 from .paged_decode import PagedLlamaDecoder
 from .programs import ProgramSet
+from .spec_decode import SpecConfig
 
 __all__ = ["EngineOverloaded", "SamplingParams", "Request",
-           "ServingEngine"]
+           "ServingEngine", "SpecConfig"]
 
 
 class EngineOverloaded(RuntimeError):
@@ -162,7 +191,8 @@ class SamplingParams:
     it; top_p 1.0 and repetition_penalty 1.0 are off; allowed_tokens is
     a bool mask of length vocab or a list of token ids; deadline_s is a
     wall-clock budget from submission; a higher priority is preempted
-    later. ``adapter_id`` is refused until ROADMAP queue 1 item 5."""
+    later; adapter_id names an adapter of the engine's registry (None:
+    the base model)."""
     temperature: float = 0.0
     max_new_tokens: int = 32
     eos_token_id: Optional[int] = None
@@ -181,12 +211,6 @@ class SamplingParams:
         return (self.top_k is not None or self.top_p < 1.0
                 or self.repetition_penalty != 1.0
                 or self.allowed_tokens is not None)
-
-
-# (field, its default, what it needs): a request that sets one raises
-_UNPORTED = (
-    ("adapter_id", None, "LoRA adapters are ROADMAP queue 1 item 5"),
-)
 
 
 @dataclass
@@ -226,6 +250,8 @@ class Request:
     # serial naming it in the engine's allowed-mask plane
     allowed_mask: Optional[np.ndarray] = None
     allowed_serial: int = 0
+    # holds one AdapterRegistry.acquire of its adapter
+    lora_held: bool = False
 
     @property
     def prefill_tokens(self) -> np.ndarray:
@@ -318,6 +344,61 @@ class _MaskPlanes:
         return np.asarray(row, bool).reshape(self.vocab)
 
 
+class _ChunkRows:
+    """The row operands of one ragged chunk or verify ministep while it
+    is built: [T, W] planes (ids, positions, slots, row_seq, row_ctx,
+    temperatures, and the family's own planes), which request rides
+    which cells, and the staleness sweep. A cell never written, or
+    blanked, holds its plane's initial value: the scratch slot and row,
+    nothing sampled."""
+
+    BASE = ("ids", "pos", "slots", "rseq", "rctx", "temps")
+
+    def __init__(self, T: int, W: int, scratch_slot: int, scratch_row: int,
+                 **extra: np.ndarray):
+        init = dict(ids=np.zeros((T, W), np.int32),
+                    pos=np.zeros((T, W), np.int32),
+                    slots=np.full((T, W), scratch_slot, np.int32),
+                    rseq=np.full((T, W), scratch_row, np.int32),
+                    rctx=np.zeros((T, W), np.int32),
+                    temps=np.zeros((T, W), np.float32), **extra)
+        self.names = tuple(init)
+        self._init = {n: a.copy() for n, a in init.items()}
+        for n, a in init.items():
+            setattr(self, n, a)
+        self.rows_of: Dict[int, List[Tuple[int, int]]] = {}
+        self.sched: Dict[int, Tuple[Request, int]] = {}  # req_id -> epoch
+        self.take_of: Dict[int, int] = {}       # req_id -> prefill rows
+        self.finals: List[tuple] = []           # (req, epoch, t, c)
+
+    def set_sampling(self, t: int, c: int, sp: SamplingParams,
+                     top_k: int):
+        self.temps[t, c] = sp.temperature
+        if "top_ks" in self.names:
+            self.top_ks[t, c] = top_k if sp.top_k is None else sp.top_k
+            self.top_ps[t, c] = sp.top_p
+            self.reps[t, c] = sp.repetition_penalty
+
+    def sweep(self) -> List[Request]:
+        """Blank every cell of a request that lost its life while the
+        rows were built, before the dispatch, so a blanked row never
+        writes into pages a survivor took. Returns those requests."""
+        dropped = []
+        for rid in list(self.sched):
+            req, epoch = self.sched[rid]
+            if (req.epoch == epoch and req.slot is not None
+                    and req.state in ("running", "prefilling")):
+                continue
+            for t, c in self.rows_of.get(rid, []):
+                for n in self.names:
+                    getattr(self, n)[t, c] = self._init[n][t, c]
+            self.take_of.pop(rid, None)
+            self.finals[:] = [f for f in self.finals if f[0] is not req]
+            del self.sched[rid]
+            dropped.append(req)
+        return dropped
+
+
 class ServingEngine:
     """Continuous-batching serving of a ``PagedLlamaDecoder``.
 
@@ -355,7 +436,10 @@ class ServingEngine:
                  max_queue_depth: Optional[int] = None,
                  ragged: bool = False, prefix_caching: bool = True,
                  ragged_idle_cap: Optional[int] = None,
-                 cuda_graphs: bool = True):
+                 cuda_graphs: bool = True,
+                 spec_decode: Optional[SpecConfig] = None,
+                 lora: Optional[AdapterRegistry] = None,
+                 multi_step: int = 1):
         if not isinstance(dec, PagedLlamaDecoder):
             raise TypeError(f"ServingEngine needs a PagedLlamaDecoder, got "
                             f"{type(dec).__name__}")
@@ -363,9 +447,33 @@ class ServingEngine:
             raise ValueError(
                 f"admission must be 'worst_case' or 'optimistic', got "
                 f"{admission!r}")
+        multi_step = int(multi_step)
+        if multi_step < 1:
+            raise ValueError(f"multi_step must be >= 1, got {multi_step}")
+        if multi_step > 1 and spec_decode is not None:
+            raise ValueError(
+                "multi_step > 1 and spec_decode are mutually exclusive: "
+                "speculative verify windows re-plan every step from "
+                "collected acceptance, which a fused k-step program "
+                "cannot observe mid-window")
+        if lora is not None and not isinstance(lora, AdapterRegistry):
+            raise TypeError(f"lora must be an AdapterRegistry, got "
+                            f"{type(lora).__name__}")
+        if spec_decode is not None and not isinstance(spec_decode,
+                                                      SpecConfig):
+            raise TypeError(f"spec_decode must be a SpecConfig, got "
+                            f"{type(spec_decode).__name__}")
         self.dec = dec
         self.device = dec.device
-        self.ragged = bool(ragged)
+        # each of these families is a ragged program
+        self.multi_step = multi_step
+        self.spec = spec_decode
+        self.lora = lora
+        self.ragged = (bool(ragged) or multi_step > 1
+                       or spec_decode is not None or lora is not None)
+        self._drafter = spec_decode.make_drafter() if spec_decode else None
+        if lora is not None:
+            lora.bind(dec)
         self.max_b = int(max_batch_size)
         self.top_k = int(top_k)
         self.buckets = tuple(sorted(int(b) for b in prompt_buckets))
@@ -480,7 +588,20 @@ class ServingEngine:
                 ("prefill_mid0", self._mid_program),
                 ("prefill_mid", self._mid_program)]
         if self.ragged:
-            fams.append(("ragged", self._ragged_program))
+            # JAX's families (serving.py:1535-1546): the chunk, the
+            # multi-step window and their lora twins; JAX's _rich twin
+            # of each is its rich=True key here, as in every family
+            for ms, lo in sorted({(ms, lo)
+                                  for ms in (False, self.multi_step > 1)
+                                  for lo in (False, lora is not None)}):
+                fams.append((self._ragged_family(ms, lo),
+                             functools.partial(self._ragged_program,
+                                               ms=ms, lora=lo)))
+        if self.spec is not None:
+            fams.append(("spec", self._spec_program))
+            if lora is not None:
+                fams.append(("spec_lora", functools.partial(
+                    self._spec_program, lora=True)))
         for fam, fn in fams:
             self.programs.register(
                 fam, fn, preserve=(self._carry,) if fam == "decode" else (),
@@ -500,12 +621,28 @@ class ServingEngine:
         self.shed_requests = 0
         self.retries = 0
         self.dispatch_exhaustions = 0
+        # spec decode, lora and multi-step counters (stats())
+        self._reset_family_counters()
         # wall seconds at the dense path's host call sites: prefill
         # dispatch and collection, waits on decode tokens, and decode
         # scheduling and dispatch
         self.time_prefill_s = 0.0
         self.time_stall_s = 0.0
         self.time_host_s = 0.0
+
+    def _reset_family_counters(self):
+        """The spec decode, lora and multi-step counters of ``stats()``
+        (the multi_step gauge is configuration and stays)."""
+        self.drafted_tokens = 0
+        self.accepted_draft_tokens = 0
+        self.spec_rollbacks = 0
+        self.draft_acceptance_ema = 0.0
+        self.lora_dispatches = 0
+        self.lora_rows = 0
+        self.ms_windows = 0
+        self.ms_frozen_token_waste = 0
+        if self.lora is not None:
+            self.lora.reset_stats()
 
     # -- the key stream ------------------------------------------------------
     def _next_key(self) -> np.ndarray:
@@ -655,6 +792,8 @@ class ServingEngine:
             self._slots[si] = None
             self._fresh_slots.discard(si)
         req.slot = None
+        # the adapter pin goes with the slot; readmission acquires again
+        self._lora_release(req)
         if req.state == "prefilling":
             self._unwind_alloc(req, immediate=True)
         else:
@@ -766,6 +905,7 @@ class ServingEngine:
                 self._fresh_slots.discard(si)
             req.slot = None
             req.epoch += 1     # chunks in flight drop its tokens
+            self._lora_release(req)
             if req.state == "prefilling":
                 self._unwind_alloc(req)
             elif req.req_id in self.dec.cache._tables:
@@ -813,13 +953,10 @@ class ServingEngine:
     # -- requests ------------------------------------------------------------
     def _validate_new_request(self, prompt, sp: SamplingParams):
         """Prompt intake and the checks every request passes on both
-        paths: the bucket bound, the pool and table geometry, the vocab
-        range, the allowed-token mask and the unported fields. Returns
-        (prompt, allowed mask or None)."""
+        paths: the bucket bound, the adapter, the pool (with the adapter's
+        pages) and table geometry, the vocab range and the allowed-token
+        mask. Returns (prompt, allowed mask or None)."""
         prompt = _normalize_prompt(prompt)
-        for name, default, why in _UNPORTED:
-            if getattr(sp, name) != default:
-                raise NotImplementedError(f"SamplingParams.{name}: {why}")
         if int(sp.max_new_tokens) < 1:
             raise ValueError(f"max_new_tokens must be >= 1, got "
                              f"{sp.max_new_tokens}")
@@ -827,11 +964,23 @@ class ServingEngine:
         cache = self.dec.cache
         total = int(prompt.size) + int(sp.max_new_tokens)
         need = -(-total // cache.block_size)
-        if need > cache.num_blocks - 1:       # -1: the scratch page
+        # a tenant's request needs its adapter's pages from the same pool
+        lora_pages = 0
+        if sp.adapter_id is not None:
+            if self.lora is None:
+                raise ValueError(
+                    f"adapter_id={sp.adapter_id!r} but the engine has no "
+                    f"AdapterRegistry (pass lora= to ServingEngine)")
+            if not self.lora.is_registered(sp.adapter_id):
+                raise KeyError(f"unknown adapter {sp.adapter_id!r}: "
+                               f"register it before submitting requests")
+            lora_pages = self.lora.n_pages()
+        if need + lora_pages > cache.num_blocks - 1:   # -1: the scratch
             raise ValueError(
-                f"request needs {need} KV pages but the pool only has "
-                f"{cache.num_blocks - 1}; shrink max_new_tokens/prompt or "
-                f"grow num_blocks")
+                f"request needs {need} KV pages"
+                + (f" + {lora_pages} adapter pages" if lora_pages else "")
+                + f" but the pool only has {cache.num_blocks - 1}; shrink "
+                f"max_new_tokens/prompt or grow num_blocks")
         if need > self.dec.max_pages:
             raise ValueError(
                 f"request needs {need} KV pages but a block table holds "
@@ -874,6 +1023,57 @@ class ServingEngine:
             raise ValueError("allowed_tokens permits no token -- "
                              "nothing could ever be sampled")
         return mask
+
+    # -- adapters ------------------------------------------------------------
+    def _lora_acquire(self, req: Request):
+        """Pin the request's adapter at admission; raises
+        ``KVCacheExhausted`` when its pages do not fit."""
+        if req.sampling.adapter_id is None or req.lora_held:
+            return
+        self.lora.acquire(req.sampling.adapter_id)
+        req.lora_held = True
+
+    def _lora_release(self, req: Request):
+        """Drop the request's pin whenever it leaves its slot (retire,
+        abort or fail, preemption or restart)."""
+        if req.lora_held:
+            self.lora.release(req.sampling.adapter_id)
+            req.lora_held = False
+
+    def _lora_tables_operand(self, sched) -> np.ndarray:
+        """[max_b + 1, n_pages] adapter pages per engine slot for one
+        dispatch; base slots and the scratch row read the scratch
+        block, the all-zero null adapter."""
+        tables = np.full((self.max_b + 1, self.lora.n_pages()),
+                         self._scratch_block, np.int32)
+        for req, _ in sched.values():
+            aid = req.sampling.adapter_id
+            if aid is not None and req.slot is not None:
+                tables[req.slot] = self.lora.resident_blocks(aid)
+        return tables
+
+    def _debug_lora_check(self):
+        """The registry's use counts against the slots, then its page
+        invariants."""
+        expected: Dict[object, int] = {}
+        for r in self._slots:
+            if r is not None and r.lora_held:
+                aid = r.sampling.adapter_id
+                expected[aid] = expected.get(aid, 0) + 1
+        self.lora.debug_check(expected_use=expected)
+
+    def _use_lora(self, sched, rows_of) -> bool:
+        """Whether a dispatch runs a lora twin (some scheduled request
+        has an adapter), counting its adapter rows."""
+        if self.lora is None or not any(
+                req.sampling.adapter_id is not None
+                for req, _ in sched.values()):
+            return False
+        self.lora_dispatches += 1
+        self.lora_rows += sum(len(rows_of.get(rid, []))
+                              for rid, (req, _) in sched.items()
+                              if req.sampling.adapter_id is not None)
+        return True
 
     def add_request(self, prompt, sampling: Optional[SamplingParams] = None
                     ) -> int:
@@ -948,11 +1148,22 @@ class ServingEngine:
                 total = int(len(toks)) + 1
             else:
                 total = int(req.prompt.size) + req.sampling.max_new_tokens
+            # the adapter first: its pages come from the pool the KV
+            # allocation below draws on; an adapter that does not fit
+            # waits at the head of the queue like a KV refusal
+            try:
+                self._lora_acquire(req)
+            except KVCacheExhausted:
+                break
             if self.prefix_caching:
                 try:
+                    # salted with the adapter: a tenant's blocks hold its
+                    # adapter's K/V and splice into no other tenant
                     reused, n_cached = cache.allocate_with_prefix(
-                        req.req_id, toks, total)
+                        req.req_id, toks, total,
+                        salt=req.sampling.adapter_id)
                 except RuntimeError:
+                    self._lora_release(req)
                     break
                 req.deps = [self._pending_writes[b] for b in reused
                             if b in self._pending_writes]
@@ -964,10 +1175,12 @@ class ServingEngine:
                     req.pending_blocks.append(table[j])
             else:
                 if cache.free_blocks < -(-total // cache.block_size):
+                    self._lora_release(req)
                     break
                 try:
                     cache.allocate(req.req_id, total)
                 except RuntimeError:
+                    self._lora_release(req)
                     break
                 n_cached = 0
             self._queue.popleft()
@@ -1008,6 +1221,7 @@ class ServingEngine:
         req.t_done = time.perf_counter()
         self._done[req.req_id] = req
         self._slots[si] = None
+        self._lora_release(req)
         if self._inflight:
             # a chunk still in flight was dispatched assuming the request
             # continues and writes its pages: free them when the newest
@@ -1069,14 +1283,21 @@ class ServingEngine:
         return None
 
     def _ragged_plan(self):
-        """(T, dcols, takes): this step's decode columns (slot, request,
-        ministeps) and prefill takes (request, tokens), computed without
-        touching the allocator."""
+        """(T, dcols, takes, fused): this step's decode columns (slot,
+        request, ministeps) and prefill takes (request, tokens), computed
+        without touching the allocator. ``fused``: a multi-step window,
+        k times the rung, only while decodes run and no slot
+        prefills."""
         running = [si for si in range(self.max_b)
                    if self._slots[si] is not None
                    and self._slots[si].state == "running"]
         T = self._force_chunk or (self._pick_chunk(running) if running
                                   else 1)
+        fused = (self.multi_step > 1 and bool(running)
+                 and not any(r is not None and r.state == "prefilling"
+                             for r in self._slots))
+        if fused:
+            T *= self.multi_step
         dcols = []
         for si in running:
             req = self._slots[si]
@@ -1089,6 +1310,11 @@ class ServingEngine:
         # added inter-token latency); an idle engine drains wider
         budget = self._ragged_cap if dcols \
             else max(self._ragged_cap, self._ragged_idle_cap)
+        return T, dcols, self._prefill_takes(budget), fused
+
+    def _prefill_takes(self, budget: int) -> List[Tuple[Request, int]]:
+        """(request, tokens) prefill takes within ``budget`` rows, oldest
+        request first."""
         takes = []
         pending = sorted((r for r in self._slots
                           if r is not None and r.state == "prefilling"
@@ -1104,12 +1330,94 @@ class ServingEngine:
             take = min(budget, r.suffix_len - r.prefill_sent)
             takes.append((r, take))
             budget -= take
-        return T, dcols, takes
+        return takes
+
+    def _place_prefill(self, rows: _ChunkRows, takes, pcells):
+        """Lay the prefill takes over the free cells ``pcells`` in order,
+        at most one sampling final per column (its seen row is seeded
+        per column); a request whose extend finds no victim fails."""
+        pi = 0
+        for req, take in takes:
+            if req.state != "prefilling" or req.slot is None:
+                continue   # evicted by decode-side pressure mid-build
+            si = req.slot
+            src = req.prefill_tokens
+            base = req.n_cached + req.prefill_sent
+            cells = rows.rows_of.setdefault(req.req_id, [])
+            rows.sched[req.req_id] = (req, req.epoch)
+            scheduled = 0
+            try:
+                for j in range(take):
+                    if pi >= len(pcells):
+                        break
+                    off = base + j
+                    t, c = pcells[pi]
+                    is_final = not req.resume and off + 1 == len(src)
+                    if is_final:
+                        while any(fc == c for *_, fc in rows.finals):
+                            pi += 1
+                            if pi >= len(pcells):
+                                break
+                            t, c = pcells[pi]
+                        if pi >= len(pcells):
+                            break
+                    rows.slots[t, c] = self._extend_with_preempt(req)
+                    rows.ids[t, c] = int(src[off])
+                    rows.pos[t, c] = off
+                    rows.rctx[t, c] = off + 1
+                    rows.rseq[t, c] = si
+                    cells.append((t, c))
+                    scheduled += 1
+                    pi += 1
+                    if is_final:
+                        rows.set_sampling(t, c, req.sampling, self.top_k)
+                        rows.finals.append((req, req.epoch, t, c))
+            except KVCacheExhausted as e:
+                self._fail_request(
+                    req, f"KV pool exhausted mid-prefill with no "
+                         f"preemption victim: {e}")
+                continue
+            if scheduled:
+                rows.take_of[req.req_id] = scheduled
+
+    def _chunk_tables(self, sched) -> np.ndarray:
+        """One block-table row per slot plus the scratch row at max_b;
+        after the extends every block list is final for the dispatch."""
+        tables = np.full((self.max_b + 1, self.dec.max_pages),
+                         self._scratch_block, np.int32)
+        for req, _ in sched.values():
+            tables[req.slot] = self.dec.cache.block_table(
+                req.req_id, self.dec.max_pages)
+        return tables
+
+    def _fail_dispatch(self, sched, what: str, e: Exception):
+        """One program: every request riding it fails together."""
+        for req, epoch in sched.values():
+            if req.epoch == epoch and req.state in ("running", "prefilling"):
+                self._fail_request(
+                    req, f"{what} dispatch failed after retries: {e}")
+
+    def _advance_prefill(self, sched, take_of):
+        """The scheduled prefill rows are dispatched: move the splice
+        watermark, complete resumes (decode goes on from the host's
+        last token), drop the pending writes of finished finals."""
+        for rid, (req, epoch) in sched.items():
+            take = take_of.get(rid, 0)
+            if take and req.state == "prefilling":
+                req.prefill_sent += take
+                if req.prefill_sent >= req.suffix_len:
+                    if req.resume:
+                        self._resume_complete(req)
+                    else:
+                        self._clear_pending_writes(req)
 
     def _dispatch_ragged(self) -> bool:
-        """Dispatch this step's unified chunk; with no running decode (cold
+        """Dispatch this step's speculative verify chunk when a drafter
+        proposes, else its unified chunk; with no running decode (cold
         start, burst admission) keep dispatching prefill-only chunks until
         no prompt token is left to send."""
+        if self._dispatch_spec_chunk():
+            return True
         if not self._dispatch_ragged_chunk():
             return False
         while (not any(r is not None and r.state == "running"
@@ -1117,6 +1425,219 @@ class ServingEngine:
                and self._dispatch_ragged_chunk()):
             pass
         return True
+
+    # -- speculative decoding ------------------------------------------------
+    def _dispatch_spec_chunk(self) -> bool:
+        """Build and run ONE speculative verify ministep (JAX's
+        ``_dispatch_spec_chunk``): every running column rides as its
+        carried token plus, for a greedy column, the drafter's proposals
+        at the next positions; prefill rows take what the drafts leave
+        of the row budget. Returns False (the caller runs the plain
+        chunk) without a drafter, while any slotted request is rich
+        (its per-column seen mask does not compose with multi-row
+        columns), with no running column, or when no column drafted.
+        Collected in the same step: acceptance decides the next
+        positions. Nothing is in flight here (the ragged engine
+        collects within each step), so the history the drafter sees is
+        exact and JAX's probe-before-flush has no case to serve."""
+        if self.spec is None:
+            return False
+        if any(r is not None and r.sampling.needs_rich_sampling
+               for r in self._slots):
+            return False
+        if not any(r is not None and r.state == "running"
+                   for r in self._slots):
+            return False
+        t0 = time.perf_counter()
+        cache = self.dec.cache
+        dcols: List[Tuple[int, Request, np.ndarray]] = []
+        total_drafts = 0
+        for si in range(self.max_b):
+            req = self._slots[si]
+            if req is None or req.state != "running":
+                continue
+            left = req.sampling.max_new_tokens - req.planned
+            if left <= 0:
+                continue
+            drafts = np.zeros(0, np.int32)
+            if req.sampling.temperature <= 0.0 and left > 1:
+                # clamped to the window and the budget, also after
+                # propose: a draft past either could never be delivered
+                k = min(self.spec.draft_len, left - 1)
+                hist = np.concatenate(
+                    [req.prompt, np.asarray(req.out_tokens, np.int32)])
+                drafts = np.asarray(self._drafter.propose(hist, k),
+                                    np.int32).reshape(-1)[:k]
+            dcols.append((si, req, drafts))
+            total_drafts += len(drafts)
+        if total_drafts == 0:
+            self.time_host_s += time.perf_counter() - t0
+            return False
+        # draft rows and prefill rows share the step's row budget
+        takes = self._prefill_takes(max(0, self._ragged_cap - total_drafts))
+        W = self._ragged_width(sum(1 + len(d) for _, _, d in dcols)
+                               + sum(t for _, t in takes))
+        r = _ChunkRows(1, W, self._scratch_slot, self.max_b,
+                       use_ov=np.zeros((1, W), np.int32),
+                       override=np.zeros((1, W), np.int32),
+                       seg_start=np.arange(W, dtype=np.int32)[None],
+                       is_draft=np.zeros((1, W), np.int32))
+        spec_of: Dict[int, dict] = {}             # slot -> verify window
+        col = 0
+        for si, req, drafts in dcols:
+            if self._slots[si] is not req or req.state != "running":
+                continue   # preempted by an earlier column's pressure
+            base, span = col, 1 + len(drafts)
+            col += span    # the rows stay reserved even if preempted
+            cells = r.rows_of.setdefault(req.req_id, [])
+            r.sched[req.req_id] = (req, req.epoch)
+            ctx0 = cache.context_len(req.req_id)
+            # the table before the window's extends: a rollback drops
+            # only blocks the window appended
+            tbl0 = len(cache.seq_blocks(req.req_id))
+            done = 0
+            try:
+                for j in range(span):
+                    c = base + j
+                    r.slots[0, c] = self._extend_with_preempt(req)
+                    r.pos[0, c] = ctx0 + j
+                    # the context and earlier drafts
+                    r.rctx[0, c] = ctx0 + j + 1
+                    r.rseq[0, c] = si
+                    cells.append((0, c))
+                    if j == 0:
+                        r.use_ov[0, c] = 1
+                        r.override[0, c] = self._last_tok[si]
+                    else:
+                        r.ids[0, c] = int(drafts[j - 1])
+                        r.is_draft[0, c] = 1
+                        r.seg_start[0, c] = base
+                    done += 1
+            except KVCacheExhausted:
+                # the base row scheduled: truncate the window to what the
+                # pool granted (preempting here would replay the same
+                # window on resume); a base row that cannot extend
+                # preempts or fails, as in the ragged chunk
+                if done == 0:
+                    if self._can_recompute:
+                        self._preempt(req)
+                    else:
+                        self._fail_request(
+                            req, "KV pool exhausted and decoder does not "
+                                 "support preemption-with-recompute")
+                    continue
+            # a stochastic column rides as a one-row window and samples
+            r.temps[0, base:base + done] = req.sampling.temperature
+            spec_of[si] = {"req": req, "epoch": req.epoch, "base": base,
+                           "k": done - 1, "ctx0": ctx0, "tbl0": tbl0}
+        self._place_prefill(r, takes, [(0, c) for c in range(col, W)])
+        for req in r.sweep():
+            for vsi in [s for s, ent in spec_of.items()
+                        if ent["req"] is req]:
+                del spec_of[vsi]
+        if not r.sched:
+            self.time_host_s += time.perf_counter() - t0
+            return False
+
+        tables = self._chunk_tables(r.sched)
+        self._fresh_slots.clear()
+        arrays = [np.concatenate([r.ids, r.pos, r.slots, r.rseq, r.rctx,
+                                  r.use_ov, r.seg_start, r.is_draft]),
+                  r.override[0], tables, r.temps[0],
+                  self._key_operand(self._next_key())]
+        use_lora = self._use_lora(r.sched, r.rows_of)
+        if use_lora:
+            arrays.append(self._lora_tables_operand(r.sched))
+        try:
+            out, = self._device_call(
+                "dispatch:spec", self.programs.run,
+                "spec_lora" if use_lora else "spec",
+                (W, bool((r.temps > 0.0).any())), arrays)
+        except _DispatchFailed as e:
+            self._fail_dispatch(r.sched, "spec", e)
+            self.time_host_s += time.perf_counter() - t0
+            return False
+        host, ev = self._to_host(out)
+        self._advance_prefill(r.sched, r.take_of)
+        self._inflight.append({
+            "kind": "spec", "host": host, "event": ev, "W": W,
+            "spec": spec_of, "finals": r.finals,
+            "real_rows": sum(r.take_of.values()), "free_after": []})
+        self.time_host_s += time.perf_counter() - t0
+        return True
+
+    def _collect_spec(self, ch):
+        """Deliver one verify ministep: per window the accepted drafts
+        (off the program's mask) and the token after them, cut at EOS or
+        the budget; the allocator rolls back to what was delivered, so
+        the next extends reissue the rejected slots. Finals deliver
+        first tokens as in the ragged chunk."""
+        t0 = time.perf_counter()
+        cache = self.dec.cache
+        try:
+            out = self._device_call("collect:spec", self._host_tokens, ch)
+        except _DispatchFailed as e:
+            self.time_stall_s += time.perf_counter() - t0
+            for si, ent in ch["spec"].items():
+                req = ent["req"]
+                if req.state == "running" and req.epoch == ent["epoch"] \
+                        and self._slots[si] is req:
+                    self._fail_request(
+                        req, f"spec collection failed after retries: {e}")
+            self._fail_prefill_group(
+                [(None, req, epoch) for req, epoch, _, _ in ch["finals"]],
+                e)
+            self._free_after(ch)
+            return
+        toks, acc = out[0], out[1]
+        self.time_stall_s += time.perf_counter() - t0
+        now = time.perf_counter()
+        self.decode_steps += 1
+        self.decode_slot_steps += ch["W"]
+        self.decode_useful_tokens += ch["real_rows"]
+        for si, ent in ch["spec"].items():
+            req = ent["req"]
+            if req.state != "running" or req.epoch != ent["epoch"] \
+                    or self._slots[si] is not req:
+                continue
+            base, k, ctx0 = ent["base"], ent["k"], ent["ctx0"]
+            m = 0
+            while m < k and acc[base + 1 + m]:
+                m += 1
+            self.drafted_tokens += k
+            self.accepted_draft_tokens += m
+            if k:
+                self.draft_acceptance_ema += 0.1 * (
+                    m / k - self.draft_acceptance_ema)
+            if m < k:
+                self.spec_rollbacks += 1
+            delivered = 0
+            for j in range(m + 1):
+                tok = int(toks[base + j])
+                req.out_tokens.append(tok)
+                delivered += 1
+                self.generated_tokens += 1
+                self._last_tok[si] = tok
+                if self._is_finished(req):
+                    break      # EOS inside the window
+            self.decode_useful_tokens += delivered
+            req.planned = len(req.out_tokens)
+            self._note_itl(req, now, delivered)
+            if k:
+                self._drafter.observe(
+                    np.concatenate([req.prompt,
+                                    np.asarray(req.out_tokens, np.int32)]),
+                    m, k)
+            if self._is_finished(req) and self._slots[si] is req:
+                self._retire(si)
+            else:
+                # the context ends at the delivered prefix's K/V (the
+                # last token's K/V is the next step's write)
+                cache.rollback(req.req_id, ctx0 + delivered,
+                               min_blocks=ent["tbl0"])
+        for req, epoch, _, c in ch["finals"]:
+            self._first_token(req, epoch, int(toks[c]), now)
+        self._free_after(ch)
 
     def _dispatch_ragged_chunk(self) -> bool:
         """Build and run ONE unified chunk: decode columns first (their
@@ -1131,8 +1652,7 @@ class ServingEngine:
         ran."""
         t0 = time.perf_counter()
         cache = self.dec.cache
-        mp = self.dec.max_pages
-        T, dcols, takes = self._ragged_plan()
+        T, dcols, takes, fused = self._ragged_plan()
         if not dcols and not takes:
             self.time_host_s += time.perf_counter() - t0
             return False
@@ -1151,55 +1671,38 @@ class ServingEngine:
             # JAX does, and plan again on what collection changed
             while self._inflight:
                 self._collect_oldest()
-            T, dcols, takes = self._ragged_plan()
+            T, dcols, takes, fused = self._ragged_plan()
             if not dcols and not takes:
                 self.time_host_s += time.perf_counter() - t0
                 return False
             W = width(dcols, takes)
 
-        scratch_row = self.max_b
-        ids = np.zeros((T, W), np.int32)
-        pos = np.zeros((T, W), np.int32)
-        slots = np.full((T, W), self._scratch_slot, np.int32)
-        rseq = np.full((T, W), scratch_row, np.int32)
-        rctx = np.zeros((T, W), np.int32)
-        ucar = np.zeros((T, W), np.int32)
-        temps = np.zeros((T, W), np.float32)
-        top_ks = np.zeros((T, W), np.int32)
-        top_ps = np.ones((T, W), np.float32)
-        reps = np.ones((T, W), np.float32)
+        r = _ChunkRows(T, W, self._scratch_slot, self.max_b,
+                       ucar=np.zeros((T, W), np.int32),
+                       top_ks=np.zeros((T, W), np.int32),
+                       top_ps=np.ones((T, W), np.float32),
+                       reps=np.ones((T, W), np.float32))
         upd = np.zeros(W, np.int32)
         override = np.zeros(W, np.int32)
-        rows_of: Dict[int, List[Tuple[int, int]]] = {}
-        sched: Dict[int, Tuple[Request, int]] = {}  # req_id -> (req, epoch)
         col_of: Dict[int, int] = {}
         steps_of: Dict[int, int] = {}
         reqs_of: Dict[int, Request] = {}
         epochs_of: Dict[int, int] = {}
-        take_of: Dict[int, int] = {}
-        finals: List[tuple] = []           # (req, epoch, t, c)
-
-        def set_sampling(t, c, sp):
-            temps[t, c] = sp.temperature
-            top_ks[t, c] = self.top_k if sp.top_k is None else sp.top_k
-            top_ps[t, c] = sp.top_p
-            reps[t, c] = sp.repetition_penalty
-
         col = 0
         for si, req, steps in dcols:
             if self._slots[si] is not req or req.state != "running":
                 continue        # preempted by an earlier column
-            cells = rows_of.setdefault(req.req_id, [])
+            cells = r.rows_of.setdefault(req.req_id, [])
             # registered before the extends: if req becomes its own
             # victim, the sweep below blanks its partial rows
-            sched[req.req_id] = (req, req.epoch)
+            r.sched[req.req_id] = (req, req.epoch)
             try:
                 for t in range(steps):
                     ctx = cache.context_len(req.req_id)
-                    slots[t, col] = self._extend_with_preempt(req)
-                    pos[t, col] = ctx
-                    rctx[t, col] = ctx + 1
-                    rseq[t, col] = si
+                    r.slots[t, col] = self._extend_with_preempt(req)
+                    r.pos[t, col] = ctx
+                    r.rctx[t, col] = ctx + 1
+                    r.rseq[t, col] = si
                     cells.append((t, col))
             except KVCacheExhausted:
                 if self._can_recompute:
@@ -1211,9 +1714,9 @@ class ServingEngine:
                 col += 1
                 continue
             req.planned += steps
-            ucar[:, col] = 1
+            r.ucar[:, col] = 1
             for t in range(T):
-                set_sampling(t, col, req.sampling)
+                r.set_sampling(t, col, req.sampling, self.top_k)
             upd[col] = 1
             override[col] = self._last_tok[si]
             col_of[si] = col
@@ -1222,140 +1725,66 @@ class ServingEngine:
             epochs_of[si] = req.epoch
             col += 1
 
-        pcells = [(t, c) for t in range(T) for c in range(col, W)]
-        pi = 0
-        for req, take in takes:
-            if req.state != "prefilling" or req.slot is None:
-                continue   # evicted by decode-side pressure mid-build
-            si = req.slot
-            src = req.prefill_tokens
-            base = req.n_cached + req.prefill_sent
-            cells = rows_of.setdefault(req.req_id, [])
-            sched[req.req_id] = (req, req.epoch)
-            scheduled = 0
-            try:
-                for j in range(take):
-                    if pi >= len(pcells):
-                        break
-                    off = base + j
-                    t, c = pcells[pi]
-                    is_final = not req.resume and off + 1 == len(src)
-                    if is_final:
-                        # at most one sampling final per column (its
-                        # seen row is seeded per column)
-                        while any(fc == c for *_, fc in finals):
-                            pi += 1
-                            if pi >= len(pcells):
-                                break
-                            t, c = pcells[pi]
-                        if pi >= len(pcells):
-                            break
-                    slot = self._extend_with_preempt(req)
-                    ids[t, c] = int(src[off])
-                    pos[t, c] = off
-                    rctx[t, c] = off + 1
-                    slots[t, c] = slot
-                    rseq[t, c] = si
-                    cells.append((t, c))
-                    scheduled += 1
-                    pi += 1
-                    if is_final:
-                        set_sampling(t, c, req.sampling)
-                        finals.append((req, req.epoch, t, c))
-            except KVCacheExhausted as e:
-                self._fail_request(
-                    req, f"KV pool exhausted mid-prefill with no "
-                         f"preemption victim: {e}")
-                continue
-            if scheduled:
-                take_of[req.req_id] = scheduled
-
-        # the staleness sweep: blank every cell of a request that lost
-        # its life while the chunk was built, before the dispatch, so a
-        # blanked row never writes into pages a survivor took
-        def blank(cells):
-            for t, c in cells:
-                ids[t, c] = pos[t, c] = rctx[t, c] = 0
-                slots[t, c] = self._scratch_slot
-                rseq[t, c] = scratch_row
-                temps[t, c] = 0.0
-                top_ks[t, c] = 0
-                top_ps[t, c] = 1.0
-                reps[t, c] = 1.0
-
-        for rid in list(sched):
-            req, epoch = sched[rid]
-            if (req.epoch == epoch and req.slot is not None
-                    and req.state in ("running", "prefilling")):
-                continue
-            blank(rows_of.get(rid, []))
-            for si in [s for s, r in reqs_of.items() if r is req]:
+        self._place_prefill(r, takes, [(t, c) for t in range(T)
+                                       for c in range(col, W)])
+        for req in r.sweep():
+            for si in [s for s, q in reqs_of.items() if q is req]:
                 c = col_of.pop(si, None)
                 if c is not None:
                     upd[c] = 0
-                    ucar[:, c] = 0
+                    r.ucar[:, c] = 0
                 steps_of.pop(si, None)
                 reqs_of.pop(si, None)
                 epochs_of.pop(si, None)
-            take_of.pop(rid, None)
-            finals[:] = [f for f in finals if f[0] is not req]
-            del sched[rid]
-        if not sched:
+        if not r.sched:
             self.time_host_s += time.perf_counter() - t0
             return False
 
-        # one table row per slot plus the scratch row at max_b; after the
-        # extends above every block list is final for the whole chunk
-        tables = np.full((self.max_b + 1, mp), self._scratch_block,
-                         np.int32)
-        for req, _ in sched.values():
-            tables[req.slot] = cache.block_table(req.req_id, mp)
-
-        rich = any(r.sampling.needs_rich_sampling
-                   for r in reqs_of.values()) \
+        finals = r.finals
+        rich = any(q.sampling.needs_rich_sampling
+                   for q in reqs_of.values()) \
             or any(f[0].sampling.needs_rich_sampling for f in finals)
-        sampled = bool((temps > 0.0).any())
+        sampled = bool((r.temps > 0.0).any())
         keys = self._key_operand(prng.split(self._next_key(), T))
-        arrays = [override, np.stack([ids, pos, slots, rseq, rctx, ucar]),
-                  tables, temps, keys]
+        arrays = [override, np.stack([r.ids, r.pos, r.slots, r.rseq, r.rctx,
+                                      r.ucar]),
+                  self._chunk_tables(r.sched), r.temps, keys]
+        if fused:
+            # each surviving decode column's EOS id (-1: none), after the
+            # staleness sweep, so a blanked column keeps -1
+            eos = np.full(W, -1, np.int32)
+            for si, c in col_of.items():
+                e = reqs_of[si].sampling.eos_token_id
+                if e is not None:
+                    eos[c] = e
+            arrays.append(eos)
+            self.ms_windows += 1
+        use_lora = self._use_lora(r.sched, r.rows_of)
+        if use_lora:
+            arrays.append(self._lora_tables_operand(r.sched))
         if rich:
-            arrays += [top_ks, top_ps, reps, upd]
+            arrays += [r.top_ks, r.top_ps, r.reps, upd]
             self._write_masks(
                 {c: reqs_of[si] for si, c in col_of.items()},
                 {c: req for req, _, _, c in finals})
             self.masked_decode_columns += sum(
-                1 for r in reqs_of.values() if r.allowed_mask is not None)
+                1 for q in reqs_of.values() if q.allowed_mask is not None)
         try:
             toks, = self._device_call(
-                "dispatch:ragged", self.programs.run, "ragged",
+                "dispatch:ragged", self.programs.run,
+                self._ragged_family(fused, use_lora),
                 (T, W, sampled, rich), arrays)
         except _DispatchFailed as e:
-            # one program: every request riding it fails together
-            for req, epoch in sched.values():
-                if req.epoch == epoch and req.state in ("running",
-                                                        "prefilling"):
-                    self._fail_request(
-                        req, f"ragged dispatch failed after retries: {e}")
+            self._fail_dispatch(r.sched, "ragged", e)
             self.time_host_s += time.perf_counter() - t0
             return False
         host, ev = self._to_host(toks)
-        # the scheduled prefill rows are dispatched: move the splice
-        # watermark, complete resumes (decode goes on from the host's
-        # last token), drop the pending writes of finished finals
-        for rid, (req, epoch) in sched.items():
-            take = take_of.get(rid, 0)
-            if take and req.state == "prefilling":
-                req.prefill_sent += take
-                if req.prefill_sent >= req.suffix_len:
-                    if req.resume:
-                        self._resume_complete(req)
-                    else:
-                        self._clear_pending_writes(req)
+        self._advance_prefill(r.sched, r.take_of)
         self._inflight.append({
             "kind": "ragged", "free_after": [], "host": host, "event": ev,
             "T": T, "W": W, "cols": col_of, "steps": steps_of,
             "reqs": reqs_of, "epochs": epochs_of, "finals": finals,
-            "real_rows": sum(take_of.values())})
+            "real_rows": sum(r.take_of.values()), "fused": fused})
         self.time_host_s += time.perf_counter() - t0
         return True
 
@@ -1389,44 +1818,96 @@ class ServingEngine:
         planes.write("seen", seen)
 
     # -- the program families (inference/programs.py) ------------------------
+    @staticmethod
+    def _ragged_family(fused: bool, use_lora: bool) -> str:
+        """The family of a ragged chunk: ragged, ragged_ms, ragged_lora or
+        ragged_ms_lora; rich is in the key."""
+        return ("ragged" + ("_ms" if fused else "")
+                + ("_lora" if use_lora else ""))
+
     def _ragged_program(self, key, override, sched, tables, temps, keys,
-                        *rich_ops):
+                        *rest, ms: bool = False, lora: bool = False):
         """The ragged chunk, key (T, W, sampled, rich): T ministeps. sched
         [6, T, W] int32 holds ids, positions, slots, row_seq, row_ctx and
         the carry flag; a carry column takes the token sampled in the
         previous ministep (its first from ``override`` [W]); tables
         [max_b + 1, max_pages]; temps [T, W]; keys [T, 2] (ministep t
-        draws with keys[t]). A rich chunk also takes top_ks / top_ps /
-        reps [T, W] and upd [W]: the seen mask is a copy of the seen
-        plane's first W rows, and only upd columns (decode columns) add
+        draws with keys[t]). Then, by family: a multi-step window (``ms``)
+        takes eos [W] (-1: none) and keeps a per-column live mask: once
+        a column samples its EOS, later ministeps write its K/V to the
+        scratch slot and repeat its token; a lora twin takes the adapter
+        page tables [max_b + 1, n_pages], gathered once for the whole
+        chunk. A rich chunk then takes top_ks / top_ps / reps [T, W] and
+        upd [W]: the seen mask is a copy of the seen plane's first W
+        rows, and only upd columns (decode columns, while live) add
         their samples to it. Returns (tokens [T, W],)."""
         _, W, sampled, rich = key
         dec = self.dec
         cache = dec.cache
+        rest = list(rest)
+        eos = rest.pop(0) if ms else None
+        lctx = dec.lora_context(self.lora.layout, cache.lora_pool,
+                                rest.pop(0)) if lora else None
         if rich:
-            top_ks, top_ps, reps, upd = rich_ops
+            top_ks, top_ps, reps, upd = rest
             planes = self._mask_planes()
             seen = planes.seen[:W].clone()
             allowed = planes.allowed[:W]
             rows = torch.arange(W, device=override.device)
             updb = upd != 0
+        if ms:
+            live = torch.ones(W, dtype=torch.bool, device=override.device)
         cur = override
         out = []
         for t in range(sched.shape[1]):
             ids = torch.where(sched[5, t] != 0, cur, sched[0, t])
+            slots = sched[2, t]
+            if ms:
+                slots = slots.masked_fill(~live, self._scratch_slot)
             logits, _, _ = dec._ragged_logits(
-                dec.weights, cache.k, cache.v, ids, sched[1, t],
-                sched[2, t], sched[3, t], sched[4, t], tables)
+                dec.weights, cache.k, cache.v, ids, sched[1, t], slots,
+                sched[3, t], sched[4, t], tables, lora=lctx)
             if rich:
-                cur = self._sample_rich(logits, temps[t], keys[t],
+                nxt = self._sample_rich(logits, temps[t], keys[t],
                                         top_ks[t], top_ps[t], reps[t],
                                         seen, allowed, sampled)
-                hit = cur.long()
-                seen[rows, hit] = seen[rows, hit] | updb
             else:
-                cur = self._sample(logits, temps[t], keys[t], sampled)
+                nxt = self._sample(logits, temps[t], keys[t], sampled)
+            if ms:
+                nxt = torch.where(live, nxt, cur)
+            if rich:
+                hit = nxt.long()
+                seen[rows, hit] = seen[rows, hit] | (updb & live if ms
+                                                     else updb)
+            if ms:
+                live = live & (nxt != eos)
+            cur = nxt
             out.append(cur)
         return (torch.stack(out),)
+
+    def _spec_program(self, key, sched, override, tables, temps, rkey,
+                      *lora_tables, lora: bool = False):
+        """One speculative verify ministep, key (W, sampled): sched [8, W]
+        int32 holds ids (a draft row's proposal), positions, slots,
+        row_seq, row_ctx, use_ov (a column base row, whose token is
+        ``override``), seg_start and is_draft; tables [max_b + 1,
+        max_pages]; temps [W]; rkey [2], the dispatch's whole key; a
+        lora twin also the adapter page tables. ``_spec_accept`` runs
+        after the forward. Returns ([2, W]: the sampled tokens and the
+        accepted mask,)."""
+        dec = self.dec
+        cache = dec.cache
+        ids, pos, slots, rseq, rctx, use_ov, seg, is_draft = sched
+        lctx = dec.lora_context(self.lora.layout, cache.lora_pool,
+                                lora_tables[0]) if lora else None
+        logits, _, _ = dec._ragged_logits(
+            dec.weights, cache.k, cache.v,
+            torch.where(use_ov != 0, override, ids), pos, slots, rseq,
+            rctx, tables, lora=lctx)
+        toks = self._sample(logits, temps, rkey, key[1])
+        acc, _, _ = dec._spec_accept(cache.k, cache.v, toks, ids, slots,
+                                     seg, is_draft, self._scratch_slot)
+        return (torch.stack([toks, acc.to(torch.int32)]),)
 
     def _decode_program(self, key, tables, ctx, slots, last_idx, over,
                         use_host, temps, keys, *rich_ops):
@@ -1981,6 +2462,9 @@ class ServingEngine:
         if ch["kind"] == "ragged":
             self._collect_ragged(ch)
             return
+        if ch["kind"] == "spec":
+            self._collect_spec(ch)
+            return
         if ch["kind"] == "prefill":
             if ch["toks"] is not None:
                 t0 = time.perf_counter()
@@ -2017,8 +2501,10 @@ class ServingEngine:
                           now)
         self._free_after(ch)
 
-    def _deliver(self, req: Request, si: int, toks: List[int], now: float):
-        """A decode column's tokens, cut at a mid-chunk EOS."""
+    def _deliver(self, req: Request, si: int, toks: List[int],
+                 now: float) -> int:
+        """A decode column's tokens, cut at a mid-chunk EOS; returns how
+        many were delivered."""
         delivered = 0
         for tok in toks:
             req.out_tokens.append(tok)
@@ -2031,6 +2517,7 @@ class ServingEngine:
         self._note_itl(req, now, delivered)
         if self._is_finished(req) and self._slots[si] is req:
             self._retire(si)
+        return delivered
 
     def _fail_chunk_requests(self, ch, e: Exception):
         """Fail the live decode columns of an uncollectable chunk."""
@@ -2075,25 +2562,33 @@ class ServingEngine:
             if req.state != "running" or req.epoch != ch["epochs"].get(si):
                 continue
             c = ch["cols"][si]
-            self._deliver(req, si, [int(toks[t, c]) for t in range(steps)],
-                          now)
+            delivered = self._deliver(
+                req, si, [int(toks[t, c]) for t in range(steps)], now)
+            if ch["fused"] and delivered < steps:
+                # frozen after an EOS inside the window: the rest of the
+                # column's ministeps ran as scratch-aimed no-ops
+                self.ms_frozen_token_waste += steps - delivered
         for req, epoch, t, c in ch["finals"]:
-            if req.state != "prefilling" or req.epoch != epoch:
-                continue
-            si = req.slot
-            tok = int(toks[t, c])
-            req.state = "running"
-            if req.t_first_token is None:
-                req.t_first_token = now
-            req.t_last_emit = now
-            req.out_tokens.append(tok)
-            req.planned = 1
-            self.generated_tokens += 1
-            self._last_tok[si] = tok
-            self._fresh_slots.add(si)
-            if self._is_finished(req):
-                self._retire(si)
+            self._first_token(req, epoch, int(toks[t, c]), now)
         self._free_after(ch)
+
+    def _first_token(self, req: Request, epoch: int, tok: int, now: float):
+        """A sampling final row's token: its request, still in the life
+        it was dispatched in, leaves "prefilling"."""
+        if req.state != "prefilling" or req.epoch != epoch:
+            return
+        si = req.slot
+        req.state = "running"
+        if req.t_first_token is None:
+            req.t_first_token = now
+        req.t_last_emit = now
+        req.out_tokens.append(tok)
+        req.planned = 1
+        self.generated_tokens += 1
+        self._last_tok[si] = tok
+        self._fresh_slots.add(si)
+        if self._is_finished(req):
+            self._retire(si)
 
     def _note_itl(self, req: Request, now: float, delivered: int):
         """Inter-token latency: the chunk's wall interval split evenly
@@ -2130,6 +2625,8 @@ class ServingEngine:
                 self._collect_oldest()
         if self._debug_pool:
             self.dec.cache.debug_check()
+            if self.lora is not None:
+                self._debug_lora_check()
         return self.has_work
 
     def run_to_completion(self) -> Dict[int, np.ndarray]:
@@ -2173,6 +2670,33 @@ class ServingEngine:
                 self.decode_useful_tokens / self.decode_slot_steps
                 if self.decode_slot_steps else 0.0),
             "masked_decode_columns": self.masked_decode_columns,
+            # speculative decoding: drafts proposed and accepted, windows
+            # with a rejected tail, the per-window acceptance EMA (0.1)
+            "drafted_tokens": self.drafted_tokens,
+            "accepted_draft_tokens": self.accepted_draft_tokens,
+            "draft_acceptance_rate": (
+                self.accepted_draft_tokens / self.drafted_tokens
+                if self.drafted_tokens else 0.0),
+            "spec_rollbacks": self.spec_rollbacks,
+            "draft_acceptance_ema": float(self.draft_acceptance_ema),
+            # many-LoRA: adapters pinned now, registry hits / misses /
+            # evictions, adapter rows per lora dispatch
+            "active_adapters": (self.lora.active_count()
+                                if self.lora is not None else 0),
+            "adapter_cache_hits": (self.lora.hits
+                                   if self.lora is not None else 0),
+            "adapter_cache_misses": (self.lora.misses
+                                     if self.lora is not None else 0),
+            "adapter_cache_evictions": (self.lora.evictions
+                                        if self.lora is not None else 0),
+            "lora_rows_per_dispatch": (
+                self.lora_rows / self.lora_dispatches
+                if self.lora_dispatches else 0.0),
+            # multi-step: the configured k, windows dispatched, and the
+            # ministeps columns spent frozen after an EOS in a window
+            "multi_step_k": float(self.multi_step),
+            "multi_step_windows": self.ms_windows,
+            "ms_frozen_token_waste": self.ms_frozen_token_waste,
             "time_prefill_s": self.time_prefill_s,
             "time_decode_stall_s": self.time_stall_s,
             "time_host_s": self.time_host_s,
@@ -2291,6 +2815,15 @@ class ServingEngine:
                 finally:
                     self._force_chunk = None
                 self._chunk_cost[c] = max(delta / n_chunks, 1e-6)
+        # one request with an adapter runs a lora twin (base traffic
+        # never does)
+        if self.lora is not None and self.lora.ids():
+            need = self.lora.n_pages() \
+                + -(-(plens[0] + 2) // cache.block_size)
+            if cache.available_blocks >= need:
+                serve([self._warmup_prompt(plens[0])], max_new_tokens=2,
+                      adapter_id=self.lora.ids()[0])
+        # parked warmup blocks and adapter pages go too
         cache.clear_prefix_cache()
         if seal_programs:
             self.warmup_programs()
@@ -2325,6 +2858,12 @@ class ServingEngine:
             w += 64
         return widths
 
+    def _spec_widths(self, max_width: Optional[int] = None) -> List[int]:
+        """The W rungs of the verify ministep: every running column fans
+        out to 1 + draft_len rows, prefill rows fill the budget."""
+        rows = self.max_b * (1 + self.spec.draft_len) + self._ragged_cap
+        return self._widths_up_to(rows, max_width)
+
     def warmup_programs(self, max_width: Optional[int] = None):
         """Compile the reachable program grid by direct invocation (JAX's
         ``warmup_programs``): every operand aims at the scratch page and
@@ -2336,8 +2875,12 @@ class ServingEngine:
         and PREFILL_GROUP), plain and prefix, the mid chunk at offset 0
         and per prefix-page width, the decode chunk per rung. Ragged:
         the chunk per (T in the rungs and 1, W in
-        ``reachable_ragged_widths``); ``max_width`` clamps W (to leave a
-        rung cold on purpose)."""
+        ``reachable_ragged_widths``) and its lora twins; with
+        ``multi_step`` k the windows at T in {k * rung} and their lora
+        twins; with spec decode the verify ministep (greedy and sampled;
+        spec never runs rich) at every ``_spec_widths`` W, and its lora
+        twin. ``max_width`` clamps W (to leave a rung cold on
+        purpose)."""
         mb, mp = self.max_b, self.dec.max_pages
         sb, ss = self._scratch_block, self._scratch_slot
         prepare = self.programs.prepare
@@ -2389,7 +2932,15 @@ class ServingEngine:
                                 sched + (rich_ops(mb) if rich else []))
                 return
             tables = np.full((mb + 1, mp), sb, np.int32)
-            for T in sorted(set(self.chunks) | {1}):
+            lora_ops = [[]]
+            if self.lora is not None:
+                lora_ops.append([np.full((mb + 1, self.lora.n_pages()), sb,
+                                         np.int32)])
+            windows = [(T, False) for T in sorted(set(self.chunks) | {1})]
+            if self.multi_step > 1:
+                windows += [(T, True) for T in sorted(
+                    {self.multi_step * c for c in self.chunks})]
+            for T, ms in windows:
                 keys = self._key_operand(prng.split(key0, T))
                 for W in self.reachable_ragged_widths(T, max_width):
                     z = np.zeros((T, W), np.int32)
@@ -2397,11 +2948,27 @@ class ServingEngine:
                                       np.full((T, W), mb, np.int32), z, z])
                     base = [np.zeros(W, np.int32), sched, tables,
                             np.zeros((T, W), f32), keys]
-                    for sampled, rich in grid:
-                        extra = rich_ops(T, W) + [np.zeros(W, np.int32)] \
-                            if rich else []
-                        prepare("ragged", (T, W, sampled, rich),
-                                base + extra)
+                    if ms:
+                        base.append(np.full(W, -1, np.int32))
+                    for lo in lora_ops:
+                        for sampled, rich in grid:
+                            extra = rich_ops(T, W) \
+                                + [np.zeros(W, np.int32)] if rich else []
+                            prepare(self._ragged_family(ms, bool(lo)),
+                                    (T, W, sampled, rich),
+                                    base + lo + extra)
+            if self.spec is not None:
+                k1 = self._key_operand(key0)
+                for W in self._spec_widths(max_width):
+                    z = np.zeros(W, np.int32)
+                    sched = np.stack([z, z, np.full(W, ss, np.int32),
+                                      np.full(W, mb, np.int32), z, z,
+                                      np.arange(W, dtype=np.int32), z])
+                    base = [sched, z, tables, np.zeros(W, f32), k1]
+                    for lo in lora_ops:
+                        for sampled in (False, True):
+                            prepare("spec_lora" if lo else "spec",
+                                    (W, sampled), base + lo)
 
     def seal_programs(self):
         """Declare the program set complete: from here a program key seen
@@ -2432,6 +2999,7 @@ class ServingEngine:
         self.time_prefill_s = 0.0
         self.time_stall_s = 0.0
         self.time_host_s = 0.0
+        self._reset_family_counters()
         self.programs.reset_stats()
         self.dec.cache.reset_prefix_stats()
 

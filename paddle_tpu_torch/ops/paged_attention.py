@@ -232,8 +232,16 @@ class PagedKVCache:
     blocks into its table (``allocate_with_prefix``: a ref-count bump,
     no copy). A freed block that still carries a hash is PARKED in an
     LRU of cached, unreferenced blocks; it is evicted (its hash dropped)
-    only when the free list runs dry. The LoRA plane of the JAX
-    allocator comes with ROADMAP queue 1 item 5."""
+    only when the free list runs dry. A ``salt`` (the serving engine
+    passes a request's adapter id) roots a chain of its own, so equal
+    prompts under two adapters never share blocks.
+
+    Adapter paging (``inference/lora.py``): ``enable_lora_pool`` adds a
+    [num_blocks, page_elems] float32 plane whose rows hold adapter pages
+    at the block ids an adapter's pseudo-sequence owns; synthetic page
+    hashes park an unused adapter in the LRU (``register_page_hashes``,
+    ``lookup_hash``, ``adopt_cached_blocks``). The scratch block's row
+    stays zero: it is the null adapter."""
 
     def __init__(self, num_layers: int, num_blocks: int, block_size: int,
                  kv_heads: int, head_dim: int, dtype=torch.float32,
@@ -270,6 +278,9 @@ class PagedKVCache:
         self.prefix_hit_tokens = 0
         self.prefix_query_tokens = 0
         self.prefix_evictions = 0
+        # the adapter-page plane (enable_lora_pool)
+        self.lora_pool: Optional[torch.Tensor] = None
+        self.lora_page_elems = 0
         # fault injection (utils/chaos.py): called at the top of every
         # _take_block, before any mutation, so an injected
         # KVCacheExhausted leaves the pool untouched
@@ -320,15 +331,17 @@ class PagedKVCache:
         return self._tables[seq_id]
 
     # -- prefix caching --------------------------------------------------------
-    def _chain_hashes(self, tokens) -> List[int]:
+    def _chain_hashes(self, tokens, salt=None) -> List[int]:
         """The chain hash of each FULL block of ``tokens``:
-        h_i = hash((h_{i-1}, tokens of block i)), h_-1 = None. Python's
-        hash of int tuples is not salted per process, so these equal the
-        JAX allocator's for the same tokens."""
+        h_i = hash((h_{i-1}, tokens of block i)), h_-1 = None, or
+        ("#tenant", salt) with a salt. Python's hash of int tuples is
+        not salted per process, so these equal the JAX allocator's for
+        the same tokens and salt (a string salt hashes differently in
+        each process, in both packages)."""
         bs = self.block_size
         toks = [int(t) for t in tokens]
         out: List[int] = []
-        h = None
+        h = None if salt is None else ("#tenant", salt)
         for i in range(len(toks) // bs):
             h = hash((h, tuple(toks[i * bs:(i + 1) * bs])))
             out.append(h)
@@ -346,12 +359,12 @@ class PagedKVCache:
             matched.pop()
         return matched
 
-    def match_prefix(self, tokens) -> List[Tuple[int, int]]:
+    def match_prefix(self, tokens, salt=None) -> List[Tuple[int, int]]:
         """The longest chain of cached full blocks covering a prefix of
-        ``tokens``, as [(hash, block)], without mutation. At least one
-        token is left uncovered: the last position's logits must be
-        computed."""
-        return self._match(self._chain_hashes(tokens), len(tokens))
+        ``tokens`` (under ``salt``), as [(hash, block)], without
+        mutation. At least one token is left uncovered: the last
+        position's logits must be computed."""
+        return self._match(self._chain_hashes(tokens, salt), len(tokens))
 
     def _prefix_capacity(self, matched, num_tokens: int):
         """(fresh blocks needed, blocks claimable) for an allocation that
@@ -362,17 +375,18 @@ class PagedKVCache:
                                          if b in self._lru)
         return needed, len(self._free) + evictable
 
-    def can_allocate_with_prefix(self, tokens, num_tokens: int) -> bool:
+    def can_allocate_with_prefix(self, tokens, num_tokens: int,
+                                 salt=None) -> bool:
         """The worst-case admission check, crediting reusable blocks."""
-        needed, avail = self._prefix_capacity(self.match_prefix(tokens),
-                                              num_tokens)
+        needed, avail = self._prefix_capacity(
+            self.match_prefix(tokens, salt), num_tokens)
         return avail >= needed
 
     def allocate_with_prefix(self, seq_id: int, tokens,
-                             num_tokens: Optional[int] = None):
+                             num_tokens: Optional[int] = None, salt=None):
         """Reserve blocks for a prompt of ``tokens`` (worst-case capacity
         ``num_tokens`` >= len(tokens)), splicing in every cached block of
-        the longest matching block-aligned prefix. Returns
+        the longest matching block-aligned prefix under ``salt``. Returns
         (reused_blocks, n_cached_tokens); the context length starts at
         n_cached_tokens. The suffix's own full prompt blocks enter the
         hash index at once (their content is fixed by the prompt); the
@@ -381,7 +395,7 @@ class PagedKVCache:
         if seq_id in self._tables:
             raise ValueError(f"seq {seq_id} already allocated")
         n_tok = len(tokens) if num_tokens is None else int(num_tokens)
-        hashes = self._chain_hashes(tokens)
+        hashes = self._chain_hashes(tokens, salt)
         matched = self._match(hashes, len(tokens))
         needed_new, avail = self._prefix_capacity(matched, n_tok)
         if avail < needed_new:
@@ -393,7 +407,17 @@ class PagedKVCache:
             self._lru.pop(blk, None)    # so eviction cannot steal a
             self._ref[blk] = self._ref.get(blk, 0) + 1   # matched block
             reused.append(blk)
-        fresh = self._take_blocks(needed_new)
+        try:
+            fresh = self._take_blocks(needed_new)
+        except RuntimeError:
+            # an injected fault part-way: park the revived blocks again,
+            # so the refusal leaves the pool as it was
+            for blk in reused:
+                self._ref[blk] -= 1
+                if self._ref[blk] == 0:
+                    del self._ref[blk]
+                    self._lru[blk] = None
+            raise
         for b in fresh:
             self._ref[b] = 1
         table = reused + fresh
@@ -435,6 +459,60 @@ class PagedKVCache:
                 if b in self._lru:
                     del self._lru[b]
                     self._free.append(b)
+
+    # -- adapter paging (inference/lora.py) -------------------------------------
+    def enable_lora_pool(self, page_elems: int):
+        """Add the adapter-page plane, [num_blocks, page_elems] float32
+        of zeros (the scratch block's row stays zero: the null adapter).
+        Idempotent for one page size; another raises."""
+        if self.lora_pool is not None:
+            if self.lora_page_elems != int(page_elems):
+                raise ValueError(
+                    f"lora pool already enabled with page_elems="
+                    f"{self.lora_page_elems}, got {page_elems}")
+            return
+        self.lora_page_elems = int(page_elems)
+        self.lora_pool = torch.zeros((self.num_blocks, self.lora_page_elems),
+                                     dtype=torch.float32, device=self.device)
+
+    def write_lora_pages(self, blocks: List[int], pages):
+        """Upload host pages ([n, page_elems]) into the plane rows of
+        ``blocks``. A plain overwrite, so a repeated upload is safe."""
+        idx = torch.as_tensor(np.asarray(blocks, np.int64),
+                              device=self.device)
+        src = torch.from_numpy(np.ascontiguousarray(pages, np.float32))
+        self.lora_pool.index_copy_(0, idx, src.to(self.device))
+
+    def lookup_hash(self, h) -> Optional[int]:
+        """The block registered under hash ``h`` (a prompt chain hash or
+        an adapter page hash), else None."""
+        return self._block_of.get(h)
+
+    def register_page_hashes(self, blocks: List[int], hashes):
+        """Register synthetic hashes on referenced blocks (an adapter
+        upload), so the blocks park in the LRU when their owner frees;
+        hashes or blocks already registered are skipped."""
+        for b, h in zip(blocks, hashes):
+            if h not in self._block_of and b not in self._hash_of:
+                self._block_of[h] = b
+                self._hash_of[b] = h
+
+    def adopt_cached_blocks(self, seq_id: int, blocks: List[int]):
+        """Claim parked blocks as ``seq_id``'s table (an adapter revived
+        without an upload). All or nothing: every block must be
+        parked."""
+        if seq_id in self._tables:
+            raise ValueError(f"seq {seq_id} already allocated")
+        for b in blocks:
+            if b not in self._lru:
+                raise KeyError(f"block {b} is not parked in the "
+                               f"cached-LRU")
+        for b in blocks:
+            del self._lru[b]
+            self._ref[b] = 1
+        self._tables[seq_id] = list(blocks)
+        self._lens[seq_id] = 0
+        return self._tables[seq_id]
 
     def extend(self, seq_id: int) -> int:
         """Room for one more token; returns its flat slot id."""

@@ -218,9 +218,9 @@ def test_requests_refused_at_the_door(fp32_pair, ragged):
     eng = ServingEngine(tdec, ragged=ragged, **SERVING)
     with pytest.raises(ValueError, match="largest prefill bucket"):
         eng.add_request(np.arange(33) % 512)
-    # LoRA adapters still wait for ROADMAP queue 1 item 5; the other
-    # per-request fields are served (and these requests cancelled)
-    with pytest.raises(NotImplementedError, match="item 5"):
+    # an adapter needs the engine's AdapterRegistry, as in JAX; the
+    # other per-request fields are served (and these requests cancelled)
+    with pytest.raises(ValueError, match="no AdapterRegistry"):
         eng.add_request([1, 2, 3], SamplingParams(adapter_id="a"))
     for field, value in (("top_p", 0.9), ("repetition_penalty", 1.3),
                          ("deadline_s", 100.0), ("priority", 2),
