@@ -47,7 +47,11 @@ failure ends the run with a non-zero exit code and no result:
                  flash_attention_bwd_block at train-mid8k's shard shapes,
                  the backward against a lse merged from two blocks, its
                  dq and dk/dv kernels also timed apart, with the pieces
-                 of the dk/dv work list),
+                 of the dk/dv work list; and serve-model-1b's float32
+                 routes at llama_1b's shapes (16 heads, 8 kv heads, d
+                 128, pages of 64): ragged W 8 at ctx 512, dense decode b
+                 8 at ctx 512, the int4 GEMV of wgu (2048 x 11264) at b 8,
+                 flash forward at b 4 x s 256),
                  with its time, the plain version's time, the time of one
                  PyTorch library call that computes the same function where
                  there is one, and the least time the card could take
@@ -222,7 +226,20 @@ failure ends the run with a non-zero exit code and no result:
                  model's at sep_degree=1 within 1e-4, and the flash counters
                  read exactly what the ring calls for (2 layers x 4 ranks
                  x 6 blocks per step of each kernel).
-21. train-mid    THE TRAINING PATH: llama_mid (0.65B) at full width and all
+21. tiny-model-parity  LlamaForCausalLM whole: llama_tiny(hidden_size=256,
+                 tie_word_embeddings=True, use_recompute=True,
+                 recompute_granularity="full_attn") in float32 with the
+                 same weights on the card and the CPU (the tied table
+                 scaled by 0.05: at N(0, 1) every stream repeats its last
+                 prompt token): 2 TrainSteps of
+                 AdamW(1e-3) give losses within 1e-4 relative and the card
+                 launches 4 flash forwards a layer (2 a step: forward and
+                 recomputed forward) and 2 dq and dk/dv; then
+                 model.generate greedy and seeded at temperature 0.8 and
+                 beam search with 3 beams, and ServingEngine(model,
+                 weight_dtype="int4") on both schedulers: tokens equal on
+                 card and CPU, every kernel of each engine launched.
+22. train-mid    THE TRAINING PATH: llama_mid (0.65B) at full width and all
                  11 layers, bf16 compute, seed 0, batch 4 x seq 2048 (ids as
                  bench.py makes them), AdamW(1e-4, weight_decay=0.01): 2 warm
                  and 10 timed TrainSteps. The flash counters are set to 0
@@ -231,7 +248,7 @@ failure ends the run with a non-zero exit code and no result:
                  last below the first. Step ms, tokens/s, MFU by bench.py's
                  formula against 989 TFLOP/s, peak memory, device time by
                  kernel family and the idle share.
-22. train-mid8k  THE LONG-CONTEXT PATH: llama_mid(dtype="bfloat16",
+23. train-mid8k  THE LONG-CONTEXT PATH: llama_mid(dtype="bfloat16",
                  chunked_ce_tokens=1024, max_position_embeddings=8192,
                  sep_degree=4), all 11 layers, b 1 x s 8192 (ids as bench.py
                  makes them), AdamW(1e-4, weight_decay=0.01), under a sep-4
@@ -247,11 +264,45 @@ failure ends the run with a non-zero exit code and no result:
                  and sep 4 within 1e-2 relative. Step ms, tokens/s, MFU at
                  seq 8192, peak memory, device time by kernel family (the
                  flash family's ms apart) and the idle share of both.
-23. capture-failure  a program with a host sync inside: its first
+24. train-1b     bench.py's 1b row: llama_1b(dtype="bfloat16",
+                 use_recompute=True, recompute_granularity="full_attn",
+                 chunked_ce_tokens=1024), all 18 layers, b 4 x s 2048,
+                 AdamW(1e-4, weight_decay=0.01, moment_dtype="bfloat16"):
+                 2 warm and 10 timed steps; the flash counters must read
+                 36 forward (18 and 18 recomputed), 18 dq and 18 dk/dv a
+                 step; every loss finite, the last below the first. Step
+                 ms, tokens/s, MFU (bench.py's formula over 989 TFLOP/s),
+                 peak memory, device time by family; then the same row
+                 without recompute from the same seed (its first loss
+                 within 1e-3 of the recompute model's, 18 of each flash
+                 kernel a step) and the two alternated, 3 runs of 2 steps
+                 each: step ms, MFU and peak memory of each.
+25. serve-model-1b  the model train-1b trained, served by
+                 ServingEngine(model, weight_dtype="int4", block_size=64,
+                 num_blocks=160) on both schedulers: float32 activations
+                 and pool (the embedding's dtype, as in JAX), so every
+                 serving kernel takes its float32 route. serve-dense-int4's
+                 request lengths, 32 new (6 greedy, 2 at 0.8); graphs
+                 captured as first used, then sealed; the sealed run's
+                 launches equal what its dispatches call for (18 attention
+                 and 73 GEMV a decode step), no recompile, greedy streams
+                 equal the capturing run's, the pool's bytes exact. tok/s,
+                 TTFT p50 / p99, latency p50 / p99, queue wait p50, ITL,
+                 pool bytes and bytes a token, a decode step's launches,
+                 wall and device ms, and the kernel routes the profiler
+                 saw (CUDA-core only). Then the weight_dtype=None engine
+                 (float32 products, eager) against the model's own
+                 generate() (bf16 activations) on two greedy prompts:
+                 equal, or parted where the float32 logit gap is at most
+                 twice the difference between the two computations'
+                 logits there.
+26. capture-failure  a program with a host sync inside: its first
                  dispatch raises, no graph is kept and it is not run
                  eagerly in its place (last, as a failed capture may
                  leave the allocator's pool unusable).
 
+Each phase line carries its seconds and profile_s, the part of them its
+profiler traces took (device activity only).
 Then a {"kernels": [...]} line, the card's name and power limit as
 nvidia-smi reports them, and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -275,6 +326,9 @@ F32_FLOPS_PER_S = 67e12     # float32 outside the tensor cores
 SHAPES_8B = {"wqkv": (4096, 6144), "wo": (4096, 4096),
              "wgu": (4096, 28672), "wd": (14336, 4096),
              "head": (4096, 128256)}
+# every GEMV case's [K, N]: the 8B projections and llama_1b's gate/up
+# (serve-model-1b's widest product, float32 x)
+GEMV_SHAPES = dict(SHAPES_8B, **{"1b_wgu": (2048, 11264)})
 # flash attention cases (all causal, bf16 unless named): the llama_mid
 # training shape first; `docs` packed documents plus a padded tail. bf16
 # at d 64/128 runs the Hopper (wgmma, TMA) kernels, float32 and d 256 the
@@ -293,6 +347,8 @@ FLASH_CASES = [
     dict(name="packed", b=1, sq=2048, sk=2048, h=16, hk=8, d=128, docs=4),
     dict(name="sq300_sk1000", b=2, sq=300, sk=1000, h=8, hk=2, d=64),
     dict(name="f32_d128", b=1, sq=512, sk=512, h=4, hk=2, d=128, docs=2,
+         dtype="float32"),
+    dict(name="f32_1b_b4_s256", b=4, sq=256, sk=256, h=16, hk=8, d=128,
          dtype="float32"),
     dict(name="d256", b=1, sq=300, sk=300, h=4, hk=1, d=256),
 ]
@@ -337,13 +393,19 @@ def _emit(obj):
 _ONLY = None
 
 
+# seconds spent inside _device_breakdown (the profiler and its trace),
+# reported per phase as profile_s
+_PROFILE_S = [0.0]
+
+
 def _phase(name, fn):
     if _ONLY is not None and name not in _ONLY | {"env", "build"}:
         return None
     t0 = time.perf_counter()
+    _PROFILE_S[0] = 0.0
     info = fn()
     _emit(dict(phase=name, seconds=round(time.perf_counter() - t0, 3),
-               **info))
+               profile_s=round(_PROFILE_S[0], 3), **info))
     return info
 
 
@@ -404,9 +466,11 @@ def _device_breakdown(torch, fn, wall_ms):
     what the profiler saw; an empty trace leaves the families empty
     rather than failing."""
     from torch.profiler import ProfilerActivity, profile
+    t0 = time.perf_counter()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # device activity only: the host ops' events add nothing read here
+    # and made the trace's processing most of a serving phase's time
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     fams, other, kernels = {}, {}, 0
@@ -440,11 +504,46 @@ def _device_breakdown(torch, fn, wall_ms):
             other[name[:60]] = other.get(name[:60], 0.0) + us / 1e3
         fams[fam] = fams.get(fam, 0.0) + us / 1e3
     busy = sum(fams.values())
+    _PROFILE_S[0] += time.perf_counter() - t0
     return {"device_ms_by_family": fams, "device_ms": busy,
             "device_kernels": kernels, "wall_ms": wall_ms,
             "idle_share": max(0.0, 1.0 - busy / wall_ms) if busy else None,
             "top_other": dict(sorted(other.items(),
                                      key=lambda kv: -kv[1])[:6])}
+
+
+# the port's kernels by route, from their names in a profile: float32
+# operands take the CUDA-core kernels (flash: flash_attention.cu), bf16
+# ones the tensor-core kernels (flash: the wgmma kernels)
+_ROUTES = (("ragged_paged_attention cuda-core", r"ragged_attention_cc_kernel"),
+           ("ragged_paged_attention tensor-core", r"ragged_attention_kernel"),
+           ("paged_attention_decode cuda-core", r"paged_decode_cc_kernel"),
+           ("paged_attention_decode tensor-core", r"paged_decode_kernel"),
+           ("decode_matmul cuda-core", r"cc::cc_kernel"),
+           ("decode_matmul tensor-core", r"tc::tc_kernel"),
+           ("flash_fwd cuda-core", r"flash_fwd_kernel"),
+           ("flash_fwd wgmma", r"flash_wg::.*fwd_kernel"))
+
+
+def _routes(torch, fn):
+    """Launches of each kernel route of the port in fn, read off the
+    kernel names torch.profiler records."""
+    from torch.profiler import ProfilerActivity, profile
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    _PROFILE_S[0] += time.perf_counter() - t0
+    out = {}
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        for route, pat in _ROUTES:
+            if re.search(pat, ev.key):
+                out[route] = out.get(route, 0) + ev.count
+                break
+    return out
 
 
 def _flash_ptxas(report):
@@ -622,7 +721,7 @@ def _flash_inputs(torch, gen, b, sq, sk, h, hk, d, docs=0,
 
 
 def _gemv_case(torch, gen, timer, dmm, kind, name, b):
-    """decode_matmul on one Llama-3-8B projection (SHAPES_8B[name]) at b
+    """decode_matmul on one projection (GEMV_SHAPES[name]) at b
     activation rows against decode_matmul_reference: kind "int4_halves",
     "int8" or "dense" with bf16 x, or "int4_halves_f32" (float32 x, the
     CUDA-core kernel). Raises unless the relative max error is below
@@ -631,7 +730,7 @@ def _gemv_case(torch, gen, timer, dmm, kind, name, b):
     of time in x's dtype (the library yardstick), the byte bound and the
     share of it reached, and the split plan."""
     from paddle_tpu_torch.ops.qweight import QWeight
-    K, N = SHAPES_8B[name]
+    K, N = GEMV_SHAPES[name]
     f32 = kind.endswith("_f32")
     wkind = kind[:-4] if f32 else kind
     dt = torch.float32 if f32 else torch.bfloat16
@@ -885,7 +984,7 @@ def _attention_case(torch, gen, quantized, n_decode=24, chunk=64,
 
 
 def _ragged_rows_case(torch, gen, decode_ctx, prefill=None, nh=32, kvh=8,
-                      d=128, bs=64, max_pages=128):
+                      d=128, bs=64, max_pages=128, dtype="bfloat16"):
     """A ragged batch in the engine's layout at the 8B attention shapes:
     one decode row per sequence at decode_ctx, then, with prefill =
     (rows, offset), that many prefill rows of one more sequence at
@@ -914,11 +1013,12 @@ def _ragged_rows_case(torch, gen, decode_ctx, prefill=None, nh=32, kvh=8,
         row_seq += [n_dec] * prefill[0]
         row_ctx += [prefill[1] + 1 + j for j in range(prefill[0])]
     rows = len(row_seq)
-    q = torch.randn((rows, nh, d), generator=gen, device=dev) \
-        .to(torch.bfloat16)
-    k, v = (torch.randn((nb, kvh, bs, d), generator=gen, device=dev)
-            .to(torch.bfloat16) for _ in range(2))
-    nbytes = 2 * q.numel() * 2 + 2 * sum(seq_ctx) * kvh * d * 2 \
+    dt = getattr(torch, dtype)
+    q = torch.randn((rows, nh, d), generator=gen, device=dev).to(dt)
+    k, v = (torch.randn((nb, kvh, bs, d), generator=gen, device=dev).to(dt)
+            for _ in range(2))
+    esz = q.element_size()
+    nbytes = 2 * q.numel() * esz + 2 * sum(seq_ctx) * kvh * d * esz \
         + 4 * sum(need) + 8 * rows
     flops = 4 * nh * d * sum(row_ctx)
     args = (q, k, v, tables,
@@ -963,6 +1063,10 @@ RAGGED_CASES = [
          geom=dict(nh=8, kvh=4, d=64, bs=32, max_ctx=1024)),
     dict(name="bf16_d64_bs16_g8",
          geom=dict(nh=16, kvh=2, d=64, bs=16, max_ctx=512)),
+    # serve-model-1b's float32 decode ministep (llama_1b: 16 heads, 8 kv
+    # heads, d 128, pages of 64): the CUDA-core kernel
+    dict(name="f32_1b_w8_ctx512", decode=[512] * 8,
+         geom=dict(nh=16, kvh=8, dtype="float32")),
 ]
 
 
@@ -991,9 +1095,11 @@ def _ragged_check(torch, gen, timer, spec):
     from paddle_tpu_torch.ops import paged_attention as pa
     from paddle_tpu_torch.ops.cuda import ragged_paged_attention as rpa
     quantized = spec.get("quantized", False)
+    f32 = spec.get("geom", {}).get("dtype") == "float32"
     if "decode" in spec:
         args, nbytes, flops = _ragged_rows_case(torch, gen, spec["decode"],
-                                                spec.get("prefill"))
+                                                spec.get("prefill"),
+                                                **spec.get("geom", {}))
     else:
         args, nbytes, flops = _attention_case(torch, gen, quantized,
                                               **spec.get("geom", {}))
@@ -1006,7 +1112,7 @@ def _ragged_check(torch, gen, timer, spec):
     torch.cuda.synchronize()
     name = spec["name"]
     err = float((out.float() - ref.float()).abs().max())
-    tol = 1e-2
+    tol = 1e-4 if f32 else 1e-2
     _require(torch.allclose(out.float(), ref.float(), atol=tol, rtol=tol),
              f"ragged_paged_attention {name} differs from its plain "
              f"version: max abs err {err}")
@@ -1021,7 +1127,7 @@ def _ragged_check(torch, gen, timer, spec):
     q, k = args[0], args[1]
     pool = k[0] if quantized else k
     case = {"kernel": "ragged_paged_attention", "case": name,
-            "pool": "int8" if quantized else "bf16",
+            "pool": "int8" if quantized else ("float32" if f32 else "bf16"),
             "rows": int(q.shape[0]), "tolerance": tol, "max_abs_err": err,
             "zero_rows": int(pad.sum()),
             "plan": _attention_plan(torch, q, pool, args[3]),
@@ -1030,7 +1136,8 @@ def _ragged_check(torch, gen, timer, spec):
                 lambda: pa.ragged_paged_attention_reference(*args),
                 iters=3),
             "library_ms": None}
-    case["bound_ms"], case["bound_by"] = _bound(nbytes, flops)
+    case["bound_ms"], case["bound_by"] = _bound(
+        nbytes, flops, F32_FLOPS_PER_S if f32 else BF16_FLOPS_PER_S)
     case["share_of_bound"] = case["bound_ms"] / case["ms"]
     ctx = spec.get("decode", [])
     if ctx and "prefill" not in spec and len(set(ctx)) == 1:
@@ -1057,6 +1164,9 @@ DECODE_CASES = [
     dict(name="int8_route", ctx=[512] * 8, quantized=True),
     dict(name="bf16_d64_bs16", ctx=[1, 17, 200, 1000], nh=8, kvh=2, d=64,
          bs=16, max_pages=64),
+    # serve-model-1b's float32 dense decode step (llama_1b, pages of 64)
+    dict(name="f32_1b_b8_ctx512", ctx=[512] * 8, nh=16, kvh=8,
+         dtype="float32"),
 ]
 
 
@@ -1182,8 +1292,9 @@ def main():
                                             SamplingParams, ServingEngine)
     from paddle_tpu_torch.inference.programs import ProgramSet
     from paddle_tpu_torch.jit import TrainStep
-    from paddle_tpu_torch.models import (LlamaForCausalLM, llama_3_8b,
-                                         llama_mid, llama_tiny)
+    from paddle_tpu_torch.models import (LlamaForCausalLM, llama_1b,
+                                         llama_3_8b, llama_mid, llama_tiny)
+    from paddle_tpu_torch.models.generation import _setup_decode
     from paddle_tpu_torch.ops import flash_attention as pfa
     from paddle_tpu_torch.ops import paged_attention as pa
     from paddle_tpu_torch.ops.cuda import _build
@@ -1275,6 +1386,8 @@ def main():
             cases.append(c)
             if spec["name"] in ("smoke_bf16", "smoke_int8"):
                 heads[c["pool"]] = c
+            if spec["name"] == "f32_1b_w8_ctx512":
+                heads["f32_ragged"] = c
             torch.cuda.empty_cache()
 
         def gemv_case(kind, name, b):
@@ -1292,18 +1405,24 @@ def main():
         for kind in ("dense", "int8"):
             for b in (1, 8, 32):
                 gemv_case(kind, "wgu", b)
-        # float32 x: the CUDA-core kernel the tiny float32 models take
+        # float32 x: the CUDA-core kernel the tiny float32 models and
+        # serve-model-1b take
         gemv_case("int4_halves_f32", "wo", 8)
+        heads["f32_gemv"] = gemv_case("int4_halves_f32", "1b_wgu", 8)
         for spec in DECODE_CASES:
             c = _decode_check(torch, gen, timer, spec)
             cases.append(c)
             if spec["name"] == "8b_b8_ctx512":
                 heads["paged_decode"] = c
+            if spec["name"] == "f32_1b_b8_ctx512":
+                heads["f32_decode"] = c
         for spec in FLASH_CASES:
             c = flash_case(**spec)
             cases.append(c)
             if spec["name"] == "llama_mid":
                 heads["flash"] = c
+            if spec["name"] == "f32_1b_b4_s256":
+                heads["f32_flash"] = c
             torch.cuda.empty_cache()
         for spec in RING_CASES:
             c = _ring_case(torch, gen, timer, **spec)
@@ -1830,7 +1949,7 @@ def main():
         for i, sid in enumerate(ids):
             tables[i] = cache.block_table(sid, dec.max_pages)
         dev = dec.device
-        args = (torch.randint(0, cfg.vocab_size, (w,), generator=gen,
+        args = (torch.randint(0, dec.cfg.vocab_size, (w,), generator=gen,
                               device=dev, dtype=torch.int32),
                 torch.full((w,), ctx, dtype=torch.int32, device=dev),
                 torch.as_tensor(slots, dtype=torch.int32, device=dev),
@@ -1952,7 +2071,7 @@ def main():
         tables = np.stack([cache.block_table(sid, dec.max_pages)
                            for sid in ids])
         dev = dec.device
-        args = (torch.randint(0, cfg.vocab_size, (b,), generator=gen,
+        args = (torch.randint(0, dec.cfg.vocab_size, (b,), generator=gen,
                               device=dev, dtype=torch.int32),
                 torch.as_tensor(tables, device=dev),
                 torch.full((b,), ctx, dtype=torch.int32, device=dev),
@@ -2019,11 +2138,11 @@ def main():
 
     dense_launches = {}
 
-    def dense_requests():
-        """serve-dense-int4's 8 requests: (prompt of 100..512 tokens,
-        temperature), 6 greedy and 2 at 0.8."""
+    def dense_requests(vocab=cfg.vocab_size):
+        """serve-dense-int4's 8 requests: (prompt of 100..512 tokens of a
+        vocabulary of ``vocab``, temperature), 6 greedy and 2 at 0.8."""
         drng = np.random.RandomState(1)
-        return list(zip([drng.randint(0, cfg.vocab_size, int(n))
+        return list(zip([drng.randint(0, vocab, int(n))
                          for n in drng.randint(100, 513, 8)], temps))
 
     def serve_dense_int4():
@@ -3015,19 +3134,19 @@ def main():
 
     def drive_checked(eng, reqs, where):
         """drive() with the phase gates: launches equal what the program
-        dispatches call for, every kernel of the path launched, no
-        unexpected recompile. Returns (tokens, wall s, stats,
+        dispatches call for, every kernel of the engine's path launched,
+        no unexpected recompile. Returns (tokens, wall s, stats,
         launches)."""
         reset_dense()
         eng.programs.dispatches.clear()
         outs, wall, st = drive(eng, reqs)
         launched = dense_counts()
         expect = graph_launches(eng.programs.dispatches,
-                                cfg.num_hidden_layers)
+                                eng.dec.cfg.num_hidden_layers)
         _require(launched == expect,
                  f"{where}: launched {launched}, the dispatches "
                  f"{dict(eng.programs.dispatches)} call for {expect}")
-        _require(all(launched[k] > 0 for k in path_kernels(True)),
+        _require(all(launched[k] > 0 for k in path_kernels(eng.ragged)),
                  f"{where}: a kernel of the path never launched: {launched}")
         _require(st["unexpected_recompiles"] == 0,
                  f"{where}: {st['unexpected_recompiles']} unexpected "
@@ -3562,6 +3681,88 @@ def main():
 
     _phase("tiny-ring-parity", tiny_ring_parity)
 
+    # -- LlamaForCausalLM whole: card against the CPU -------------------------
+    def tiny_model_parity():
+        """Tied embeddings and full_attn recompute through TrainStep, the
+        model's generate() (greedy, seeded at 0.8) and beam search, and
+        ServingEngine(model, weight_dtype="int4") on both schedulers: the
+        card and the CPU from one seed."""
+        cfg = llama_tiny(hidden_size=256, tie_word_embeddings=True,
+                         use_recompute=True,
+                         recompute_granularity="full_attn")
+        cpu = LlamaForCausalLM(cfg, seed=3, device="cpu")
+        # the N(0, 1) table as a tied head makes every stream repeat its
+        # last prompt token; scaled, the streams say something
+        with torch.no_grad():
+            cpu.model.embed_tokens.weight.mul_(0.05)
+        gpu = LlamaForCausalLM(cfg, seed=3, device="cuda")
+        gpu.load_numpy_state({n: p.detach().numpy()
+                              for n, p in cpu.named_parameters()})
+        _require(gpu.lm_head is None, "a tied model holds an lm_head")
+        ids = np.random.RandomState(7).randint(0, cfg.vocab_size, (2, 100))
+        losses = []
+        reset_flash()
+        for m in (cpu, gpu):
+            step = TrainStep(m, m.loss, AdamW(learning_rate=1e-3,
+                                              parameters=m.parameters()))
+            x = torch.as_tensor(ids, dtype=torch.int32,
+                                device=m.model.embed_tokens.weight.device)
+            losses.append([float(step(x, x)) for _ in range(2)])
+        L = cfg.num_hidden_layers
+        train_launched = flash_counts()
+        # each step: L forward, L recomputed forward, L dq, L dk/dv
+        _require(train_launched == {"flash_fwd": 4 * L, "flash_bwd_dq": 2 * L,
+                                    "flash_bwd_dkv": 2 * L},
+                 f"2 recompute steps launched {train_launched}")
+        rel = max(abs(a - b) / abs(a) for a, b in zip(*losses))
+        _require(rel < 1e-4, f"tiny-model-parity losses differ: cpu "
+                             f"{losses[0]} vs cuda {losses[1]}")
+        prompt = np.random.RandomState(8).randint(0, cfg.vocab_size, (2, 20))
+        gens = {}
+        for name, kw in (("greedy", dict(max_new_tokens=12)),
+                         ("sampled", dict(max_new_tokens=12, temperature=0.8,
+                                          seed=5)),
+                         ("beam3", dict(max_new_tokens=8, num_beams=3))):
+            out = [m.generate(torch.as_tensor(prompt), **kw).cpu().numpy()
+                   for m in (cpu, gpu)]
+            _require(np.array_equal(*out),
+                     f"generate {name}: cpu {out[0].tolist()} vs cuda "
+                     f"{out[1].tolist()}")
+            gens[name] = out[1][0, 20:].tolist()
+        rng = np.random.RandomState(9)
+        prompts_ = [rng.randint(0, cfg.vocab_size, n) for n in (5, 23, 40)]
+        streams, launched = {}, {}
+        for ragged in (True, False):
+            outs = []
+            for m, dev in ((cpu, "cpu"), (gpu, None)):
+                reset_dense()
+                eng = ServingEngine(m, weight_dtype="int4", ragged=ragged,
+                                    max_batch_size=3, num_blocks=64,
+                                    block_size=16, prompt_buckets=(32, 64),
+                                    chunk_size=4, prefill_chunk=16,
+                                    device=dev)
+                rids = [eng.add_request(p, SamplingParams(max_new_tokens=10))
+                        for p in prompts_]
+                eng.run_to_completion()
+                outs.append([eng.result(r).tolist() for r in rids])
+                eng.close()
+            name = "ragged" if ragged else "dense"
+            launched[name] = dense_counts()
+            _require(all(launched[name][k] > 0 for k in path_kernels(ragged)),
+                     f"ServingEngine(model) {name} did not launch every "
+                     f"kernel of its path: {launched[name]}")
+            _require(outs[0] == outs[1], f"ServingEngine(model) {name}: "
+                                         f"cpu {outs[0]} vs cuda {outs[1]}")
+            streams[name] = outs[1][0]
+        return {"model": "llama_tiny(hidden_size=256), tied, full_attn "
+                         "recompute, float32",
+                "losses_cpu": losses[0], "losses_cuda": losses[1],
+                "max_rel_diff": rel, "train_launches": train_launched,
+                "generate_row0": gens, "serving_row0": streams,
+                "serving_launches": launched}
+
+    _phase("tiny-model-parity", tiny_model_parity)
+
     # -- the training path: llama_mid at full width ---------------------------
     train_launches = {}
 
@@ -3752,6 +3953,261 @@ def main():
                     for k_, p_ in profs.items()}}
 
     _phase("train-mid8k", train_mid8k)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- bench.py's 1b row: full_attn recompute, chunked CE, bf16 moments ----
+    one_b = {}
+
+    def llama_1b_row(recompute=True):
+        """bench.py:204-225's model and optimizer from seed 0: (model,
+        optimizer, step)."""
+        cfg1 = llama_1b(dtype="bfloat16", use_recompute=recompute,
+                        recompute_granularity="full_attn",
+                        chunked_ce_tokens=1024)
+        model = LlamaForCausalLM(cfg1, seed=0, device="cuda")
+        opt = AdamW(learning_rate=1e-4, parameters=model.parameters(),
+                    weight_decay=0.01, moment_dtype="bfloat16")
+        return model, opt, TrainStep(model, model.loss, opt)
+
+    def train_1b():
+        b, s, warm, iters = 4, 2048, 2, 10
+        # what earlier phases left allocated: the peaks are read over it
+        start_gb = torch.cuda.memory_allocated() / 1e9
+        t0 = time.perf_counter()
+        model, opt, step = llama_1b_row()
+        cfg1 = model.cfg
+        L, H = cfg1.num_hidden_layers, cfg1.num_attention_heads
+        ids = torch.as_tensor(np.random.RandomState(0).randint(
+            0, cfg1.vocab_size, size=(b, s)).astype(np.int32), device="cuda")
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        reset_dense()
+        reset_flash()
+        losses = [step(ids, ids) for _ in range(warm)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses += [step(ids, ids) for _ in range(iters)]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        n_steps = warm + iters
+        launched = flash_counts()
+        one_b["train_launches"] = launched
+        per_step = {k_: v / n_steps for k_, v in launched.items()}
+        # L forward, L recomputed forward (full_attn), L dq, L dk/dv
+        _require(launched == {"flash_fwd": 2 * L * n_steps,
+                              "flash_bwd_dq": L * n_steps,
+                              "flash_bwd_dkv": L * n_steps},
+                 f"{n_steps} recompute steps launched {launched}, expected "
+                 f"{2 * L} forward and {L} dq / dk/dv a step")
+        _require(all(v == 0 for v in counts().values()),
+                 f"training launched serving kernels: {counts()}")
+        losses = [float(x) for x in losses]
+        _require(all(np.isfinite(losses)), f"non-finite loss: {losses}")
+        _require(losses[-1] < losses[0],
+                 f"the loss did not fall: {losses[0]} -> {losses[-1]}")
+        n_params = model.num_params()
+        fpt = 6 * n_params + 12 * L * H * (cfg1.hidden_size // H) * s
+        step_ms = wall * 1e3 / iters
+        prof = _device_breakdown(
+            torch, lambda: [step(ids, ids) for _ in range(2)], step_ms * 2)
+        for k_ in ("device_ms", "device_kernels", "wall_ms"):
+            prof[k_] /= 2
+        for k_ in ("device_ms_by_family", "top_other"):
+            prof[k_] = {a: v / 2 for a, v in prof[k_].items()}
+        # the same row without recompute, from the same seed: its first
+        # loss against the recompute model's, then the two alternated
+        # (2 steps a run, 3 runs each), each run's peak memory its own
+        plain = llama_1b_row(recompute=False)
+        reset_flash()
+        first_plain = float(plain[2](ids, ids))
+        _require(flash_counts() == {"flash_fwd": L, "flash_bwd_dq": L,
+                                    "flash_bwd_dkv": L},
+                 f"a step without recompute launched {flash_counts()}")
+        first_rel = abs(first_plain - losses[0]) / abs(losses[0])
+        _require(first_rel < 1e-3, f"first-step losses differ: recompute "
+                                   f"{losses[0]}, plain {first_plain}")
+        alt = {"recompute": [], "plain": []}
+        peak = {"recompute": [], "plain": []}
+        for _ in range(3):
+            for name, st_ in (("recompute", step), ("plain", plain[2])):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t1 = time.perf_counter()
+                for _ in range(2):
+                    st_(ids, ids)
+                torch.cuda.synchronize()
+                alt[name].append((time.perf_counter() - t1) * 1e3 / 2)
+                peak[name].append(torch.cuda.max_memory_allocated() / 1e9)
+        del plain
+        del opt, step
+        gc.collect()
+        torch.cuda.empty_cache()
+        model.eval()
+        one_b["model"] = model
+
+        def spread(xs):
+            xs = sorted(xs)
+            return {"median": xs[len(xs) // 2], "min": xs[0], "max": xs[-1]}
+
+        return {"model": "llama_1b bf16 compute (float32 Linear/Embedding "
+                         "weights), 18 layers, full_attn recompute, chunked "
+                         "CE 1024, b4 x s2048, AdamW(1e-4, wd 0.01, bf16 "
+                         "moments)",
+                "num_params": n_params, "init_s": init_s,
+                "launches": launched, "launches_per_step": per_step,
+                "steps": n_steps, "losses": losses, "step_ms": step_ms,
+                "tokens_per_s": b * s / (step_ms / 1e3),
+                "mfu": b * s / (step_ms / 1e3) * fpt / BF16_FLOPS_PER_S,
+                "flops_per_token": fpt, "peak_mem_gb": peak_gb,
+                "allocated_at_start_gb": start_gb,
+                "peak_over_start_gb": peak_gb - start_gb,
+                "first_step_loss": {"recompute": losses[0],
+                                    "plain": first_plain,
+                                    "rel_diff": first_rel},
+                "alternated_step_ms": {k_: spread(v) for k_, v in alt.items()},
+                "alternated_mfu": {
+                    k_: b * s / (spread(v)["median"] / 1e3) * fpt
+                    / BF16_FLOPS_PER_S for k_, v in alt.items()},
+                # both rows' weights and optimizer states resident
+                "alternated_peak_over_start_gb": {
+                    k_: max(v) - start_gb for k_, v in peak.items()},
+                "alternated_runs_ms": alt, "nvidia_smi": smi,
+                "step_profile": prof}
+
+    _phase("train-1b", train_1b)
+
+    # -- the model train-1b trained, served --------------------------------
+    model_launches = {}
+
+    def serve_model_1b():
+        """ServingEngine(model, weight_dtype="int4", block_size=64) on both
+        schedulers, graphs captured as first used and then sealed: the
+        float32 routes of the three serving kernels at llama_1b width."""
+        model = one_b.get("model")
+        if model is None:                   # --only: an untrained model
+            model = llama_1b_row()[0].eval()
+        cfg1 = model.cfg
+        L = cfg1.num_hidden_layers
+        reqs = dense_requests(cfg1.vocab_size)
+        kw = dict(weight_dtype="int4", block_size=64, num_blocks=160,
+                  max_batch_size=8, chunk_size=8, prefill_chunk=256, seed=0)
+        out, engines = {}, {}
+        for name in ("ragged", "dense"):
+            t0 = time.perf_counter()
+            eng = ServingEngine(model, ragged=name == "ragged", **kw)
+            build_s = time.perf_counter() - t0
+            gc.collect()
+            torch.cuda.empty_cache()
+            mem0 = torch.cuda.memory_reserved()
+            _require(eng.dec.cache.k[0].dtype == torch.float32,
+                     f"a bf16 model's decoder pool is "
+                     f"{eng.dec.cache.k[0].dtype}, JAX's is float32")
+            first, _, _ = drive(eng, reqs)          # captures as first used
+            capture = lazy_capture(eng, mem0)
+            outs, wall, st, launched = drive_checked(
+                eng, reqs, f"serve-model-1b {name}")
+            model_launches[name] = launched
+            for (p, t), a, b_ in zip(reqs, first, outs):
+                _require(t > 0 or np.array_equal(a, b_),
+                         f"{name}: a greedy stream differs between two runs")
+            pool = L * 2 * 160 * cfg1.num_key_value_heads * 64 \
+                * (cfg1.hidden_size // cfg1.num_attention_heads) * 4
+            _require(st["kv_pool_bytes"] == pool and st["kv_quant"]
+                     == "float32", f"{name}: pool {st['kv_quant']} "
+                                   f"{st['kv_pool_bytes']} bytes, expected "
+                                   f"float32 {pool}")
+            if name == "ragged":
+                one, step_ms, prof = decode_ministep(eng.dec)
+                want = {"ragged_paged_attention": L,
+                        "decode_matmul": 4 * L + 1}
+                step_fn = lambda: decode_ministep(eng.dec,  # noqa: E731
+                                                  profile=False)
+            else:
+                one, step_ms, prof = dense_decode_step(eng.dec)
+                one = {k_: v for k_, v in one.items() if v}
+                want = {"paged_attention_decode": L,
+                        "decode_matmul": 4 * L + 1}
+                gids = max((p for p, _ in reqs), key=len)[None, :256]
+
+                def step_fn(dec=eng.dec, gids=gids):
+                    dense_decode_step(dec, profile=False)
+                    dec.generate(gids, 4)
+            _require(one == want, f"{name}: one decode step launched {one}, "
+                                  f"expected {want}")
+            routes = _routes(torch, step_fn)
+            _require(all("cuda-core" in r_ for r_ in routes)
+                     and all(routes.get(f"{k_} cuda-core", 0) > 0
+                             for k_ in path_kernels(name == "ragged")),
+                     f"{name}: float32 serving took the routes {routes}")
+            out[name] = {
+                "build_s": build_s, "capture": capture,
+                "tok_per_s": st["generated_tokens"] / wall,
+                "wall_s": wall, "generated_tokens": st["generated_tokens"],
+                **{k_: st[k_] for k_ in (
+                    "ttft_p50_s", "ttft_p99_s", "latency_p50_s",
+                    "latency_p99_s", "itl_p50_s", "itl_p99_s",
+                    "queue_wait_p50_s", "kv_quant", "kv_pool_bytes",
+                    "kv_bytes_per_token", "device_dispatches")},
+                "launches": launched, "routes": routes,
+                "decode_step_launches": one, "decode_step_wall_ms": step_ms,
+                "decode_step_device_ms": prof["device_ms"],
+                "decode_step_idle_share": prof["idle_share"],
+                "decode_step_by_family": prof["device_ms_by_family"]}
+            engines[name] = eng
+        for eng in engines.values():
+            eng.close()
+        del engines
+        # weight_dtype=None (float32 products, the model's tensors shared)
+        # against the model's own generate() (bf16 activations) on two
+        # greedy prompts: equal, or parted at a near-tie, a gap within
+        # twice the difference of the two computations' logits there
+        eng = ServingEngine(model, ragged=True, block_size=64,
+                            num_blocks=64, max_batch_size=8, chunk_size=8,
+                            prefill_chunk=256, cuda_graphs=False)
+        pair = [p for p, t in reqs if t == 0][:2]
+        rids = [eng.add_request(p, SamplingParams(max_new_tokens=32))
+                for p in pair]
+        eng.run_to_completion()
+        checks = []
+        for p, rid in zip(pair, rids):
+            a = eng.result(rid)
+            b_ = model.generate(torch.as_tensor(p[None]),
+                                max_new_tokens=32)[0, len(p):].cpu().numpy()
+            i = next((j for j, (x, y) in enumerate(zip(a, b_)) if x != y),
+                     None)
+            if i is None:
+                checks.append({"equal": True, "tokens": len(a)})
+                continue
+            toks = np.concatenate([p, a[:i]]).astype(np.int32)
+            f32 = last_logits(eng.dec, toks, len(toks))
+            # generate()'s own logits there: its cached forward over the
+            # context in one prefill
+            ids1, _, _, _, caches = _setup_decode(model, toks[None], 1, None)
+            with torch.no_grad():
+                bf = model(ids1, caches=caches, pos=0)[0][0, -1].float()
+            gap = float(f32[int(a[i])] - f32[int(b_[i])])
+            noise = float((f32 - bf).abs().max())
+            _require(abs(gap) <= 2 * noise,
+                     f"the float32 engine and generate() part at token {i} "
+                     f"with a logit gap {gap}, beyond twice the noise "
+                     f"{noise}")
+            checks.append({"equal": False, "first_divergence": i,
+                           "gap": gap, "noise": noise})
+        eng.close()
+        return {"model": "llama_1b as train-1b left it; int4 weights, float32 "
+                         "activations and pool (the embedding's dtype, as "
+                         "in JAX), block 64, 160 blocks",
+                "requests": "serve-dense-int4's lengths (8 of 100-512 "
+                            "tokens), 32 new, 6 greedy, 2 at 0.8",
+                **out, "f32_engine_vs_generate": checks, "nvidia_smi": smi}
+
+    _phase("serve-model-1b", serve_model_1b)
+    one_b.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # -- last, as a capture that fails may leave the allocator unusable --
     def capture_failure():
@@ -3836,6 +4292,37 @@ def main():
             "ms": r["ms"][key], "plain_ms": r["plain_ms"][key],
             "bound_ms": r["bound_ms"][key], "bound_by": r["bound_by"][key],
             "library_ms": r["library_ms"][key]})
+    for key, name, rep, src, launches in (
+            ("f32_ragged", "ragged_paged_attention[float32]",
+             tpu + "ragged_paged_attention.py:201",
+             "paddle_tpu_torch/csrc/ragged_paged_attention.cu",
+             model_launches["ragged"]["ragged_paged_attention"]),
+            ("f32_gemv", "decode_matmul[int4, float32 x]",
+             tpu + "decode_matmul.py:135",
+             "paddle_tpu_torch/csrc/decode_matmul.cu",
+             model_launches["ragged"]["decode_matmul"]
+             + model_launches["dense"]["decode_matmul"]),
+            ("f32_decode", "paged_attention_decode[float32]",
+             tpu + "paged_attention.py:125",
+             "paddle_tpu_torch/csrc/paged_attention_decode.cu",
+             model_launches["dense"]["paged_attention_decode"])):
+        c = heads[key]
+        kernel_rows.append({
+            "name": name, "route": "cuda", "source": src, "replaces": rep,
+            "launches": launches, "max_abs_err": c["max_abs_err"],
+            "ms": c["ms"], "plain_ms": c["plain_ms"],
+            "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
+            "library_ms": c["library_ms"]})
+    f = heads["f32_flash"]
+    kernel_rows.append({
+        "name": "flash_fwd[float32]", "route": "cuda",
+        "source": "paddle_tpu_torch/csrc/flash_attention.cu",
+        "replaces": tpu + "flash_attention.py:69",
+        "launches": model_launches["dense"]["flash_fwd"],
+        "max_abs_err": f["max_abs_err"]["fwd"], "ms": f["ms"]["fwd"],
+        "plain_ms": f["plain_ms"]["fwd"], "bound_ms": f["bound_ms"]["fwd"],
+        "bound_by": f["bound_by"]["fwd"],
+        "library_ms": f["library_ms"]["fwd"]})
     _emit({"kernels": kernel_rows})
     print(smi, flush=True)
     _emit({"ok": True, "device": device})

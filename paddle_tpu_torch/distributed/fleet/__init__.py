@@ -6,18 +6,20 @@ Counterpart: ``paddle_tpu/distributed/fleet/__init__.py:48-63``.
 returns, as JAX's does; it takes ``devices`` (one torch device per
 rank) where JAX counts ``jax.devices()``. ``distributed_model`` and
 ``distributed_optimizer`` raise: their sharding recipes are ROADMAP
-queue 1 item 10.
+queue 1 item 10. ``recompute`` and ``recompute_sequential`` are
+``recompute.py``'s.
 """
 from __future__ import annotations
 
 from typing import Optional, Sequence
 
+from .recompute import recompute, recompute_sequential
 from .strategy import DistributedStrategy
 from .topology import HybridCommunicateGroup
 
 __all__ = ["init", "fleet", "DistributedStrategy", "HybridCommunicateGroup",
            "get_hybrid_communicate_group", "distributed_model",
-           "distributed_optimizer"]
+           "distributed_optimizer", "recompute", "recompute_sequential"]
 
 _hcg: Optional[HybridCommunicateGroup] = None
 _strategy: Optional[DistributedStrategy] = None

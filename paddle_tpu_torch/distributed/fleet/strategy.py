@@ -24,8 +24,10 @@ _DEFAULT_HYBRID = {
 }
 
 # JAX's other knobs, each with the ROADMAP queue 1 item that ports it
+# (recompute's only reader in JAX is the pipeline, item 10; the model's
+# own recompute is LlamaConfig.use_recompute)
 _UNPORTED = {
-    "recompute": "9(a)", "recompute_configs": "9(a)",
+    "recompute": "10", "recompute_configs": "10",
     "amp": "10", "amp_configs": "10", "sharding": "10",
     "sharding_configs": "10", "pipeline": "10", "pipeline_configs": "10",
     "gradient_merge": "10", "gradient_merge_configs": "10",

@@ -62,8 +62,10 @@ _WEIGHT_DTYPES = (None, "int8", "int4")
 def _quantize_w(w) -> QWeight:
     """Per-output-channel symmetric absmax int8 over the in dim. Bit-
     identical to the JAX ``_quantize_w``: the same float32 divisions, and
-    ``torch.round`` rounds half to even as ``jnp.round`` does."""
-    w = w.to(torch.float32)
+    ``torch.round`` rounds half to even as ``jnp.round`` does. The result
+    is row-major whatever w's strides (a tied head is a transposed
+    view)."""
+    w = w.to(torch.float32).contiguous()
     scale = w.abs().amax(dim=0) / 127.0
     scale = torch.where(scale == 0, torch.ones_like(scale), scale)
     wi = torch.clamp(torch.round(w / scale[None, :]), -127, 127) \
@@ -74,8 +76,9 @@ def _quantize_w(w) -> QWeight:
 def _quantize_w4_halves(w) -> QWeight:
     """int4 with HALVES packing: packed row r holds in-row r (low nibble)
     and in-row r + K/2 (high nibble). Bit-identical to the JAX
-    ``_quantize_w4_halves`` (round half to even in both)."""
-    w = w.to(torch.float32)
+    ``_quantize_w4_halves`` (round half to even in both); row-major
+    whatever w's strides."""
+    w = w.to(torch.float32).contiguous()
     if w.shape[0] % 2:
         raise ValueError(f"int4 packing needs even in_features, "
                          f"got {w.shape[0]}")
@@ -274,6 +277,46 @@ class PagedLlamaDecoder:
                    "norm": flat["norm"], "head": flat["head"]}
         return cls(cfg, weights, weight_dtype=weight_dtype, device=dev,
                    **kw)
+
+    @classmethod
+    def from_model(cls, model, num_blocks: int = 512, block_size: int = 16,
+                   max_pages_per_seq: Optional[int] = None,
+                   weight_dtype: Optional[str] = None,
+                   kv_quant: Optional[str] = None, device=None):
+        """Serve a ``LlamaForCausalLM`` (JAX: ``PagedLlamaDecoder(model)``
+        through ``_extract_weights``, ``paged_decode.py:216-247``) by way
+        of ``from_weight_loader``: the model's Linear weights are already
+        [in, out]; with ``weight_dtype`` they are quantized per channel,
+        the norms and the embedding stay as they are. A tied model's head
+        is the embedding transposed. Dtypes follow JAX: the pool takes
+        the embedding's dtype, float32 even under ``dtype="bfloat16"``,
+        so such a model serves in float32.
+
+        On ``device`` (``None``: cuda) the decoder shares the model's
+        tensors wherever it keeps a weight as it is: the embedding, the
+        norms, wo, wd and the head (all of them but the fused q/k/v and
+        gate/up products when ``weight_dtype`` is None). A model trained
+        after this call changes those shared weights only, so build the
+        decoder once training is done."""
+        m = model.model
+        embed = m.embed_tokens.weight
+        params = {"embed": embed, "norm": m.norm.weight,
+                  "head": embed.t() if model.lm_head is None
+                  else model.lm_head.weight}
+        for li, lyr in enumerate(m.layers):
+            a, mlp = lyr.self_attn, lyr.mlp
+            for key, mod in (("ln1", lyr.input_layernorm),
+                             ("ln2", lyr.post_attention_layernorm),
+                             ("wq", a.q_proj), ("wk", a.k_proj),
+                             ("wv", a.v_proj), ("wo", a.o_proj),
+                             ("wg", mlp.gate_proj), ("wu", mlp.up_proj),
+                             ("wd", mlp.down_proj)):
+                params[f"layers.{li}.{key}"] = mod.weight
+        return cls.from_weight_loader(
+            model.cfg, lambda name, shape: params[name].detach(),
+            weight_dtype=weight_dtype, device=device, num_blocks=num_blocks,
+            block_size=block_size, max_pages_per_seq=max_pages_per_seq,
+            kv_quant=kv_quant)
 
     @classmethod
     def from_config(cls, cfg, seed: int = 0, init_scale: float = 0.02,

@@ -138,8 +138,13 @@ Three program families ride the ragged path, each forcing
   program, so base traffic is bit-identical to an engine without a
   registry. The prefix index is salted with the adapter id.
 
+``ServingEngine(model, ...)`` builds its decoder from a
+``LlamaForCausalLM`` (``PagedLlamaDecoder.from_model``), as JAX's does,
+so a model the port trained is served as it stands.
+
 Not ported yet: tensor parallelism, the fleet and the transports
-(ROADMAP queue 1 item 5) and the tracer (item 8).
+(ROADMAP queue 1 item 5) and the tracer, the SLO monitor and sampled
+profiling (item 8).
 """
 from __future__ import annotations
 
@@ -156,7 +161,8 @@ import torch
 
 from ..ops.paged_attention import KVCacheExhausted
 from ..utils import prng
-from ..utils.telemetry import CompileWatch
+from ..models.llama import LlamaForCausalLM
+from ..utils.telemetry import CompileWatch, Reservoir
 from .lora import AdapterRegistry
 from .paged_decode import PagedLlamaDecoder
 from .programs import ProgramSet
@@ -276,6 +282,45 @@ class Request:
         if self.t_first_token is None:
             return None
         return self.t_first_token - self.t_submit
+
+    @property
+    def queue_wait_s(self) -> Optional[float]:
+        if self.t_admit is None:
+            return None
+        return self.t_admit - self.t_submit
+
+    @property
+    def latency_s(self) -> Optional[float]:
+        if self.t_done is None:
+            return None
+        return self.t_done - self.t_submit
+
+
+# JAX's engine arguments whose modules the port has not yet: each with its
+# default and the ROADMAP queue 1 item that ports it
+_UNPORTED_ARGS = {
+    "tp": (1, "5"), "mesh": (None, "5"), "devices": (None, "5"),
+    "tp_comm": (None, "5"), "tracer": (None, "8"), "slo": (None, "8"),
+    "profile_every": (None, "8"), "profile_seed": (0, "8")}
+
+
+def _refuse_unported(**given):
+    """Raise on any of JAX's tensor-parallel or telemetry arguments given
+    another value than its default. ``tp_comm="fp32"`` is the one mode a
+    single device has, so it passes; a bad value raises ``ValueError``
+    as in JAX."""
+    if given["tp_comm"] not in (None, "fp32", "int8"):
+        raise ValueError(f"tp_comm must be 'fp32' or 'int8', got "
+                         f"{given['tp_comm']!r}")
+    if int(given["tp"]) < 1:
+        raise ValueError(f"tp must be >= 1, got {given['tp']}")
+    for name, value in given.items():
+        default, item = _UNPORTED_ARGS[name]
+        if value == default or (name == "tp_comm" and value == "fp32"):
+            continue
+        raise NotImplementedError(
+            f"ServingEngine({name}={value!r}) is not ported yet (ROADMAP "
+            f"queue 1, item {item})")
 
 
 def _normalize_prompt(prompt) -> np.ndarray:
@@ -400,20 +445,27 @@ class _ChunkRows:
 
 
 class ServingEngine:
-    """Continuous-batching serving of a ``PagedLlamaDecoder``.
+    """Continuous-batching serving of a ``LlamaForCausalLM`` or a prebuilt
+    ``PagedLlamaDecoder``.
 
     Usage:
-        eng = ServingEngine(dec, max_batch_size=8)
+        eng = ServingEngine(model, weight_dtype="int4", max_batch_size=8)
+        # or ServingEngine(PagedLlamaDecoder.from_config(cfg, ...), ...)
         rid = eng.add_request(prompt_ids, SamplingParams(max_new_tokens=64))
         eng.run_to_completion()
         tokens = eng.result(rid)
 
     ``ragged=False`` (the default, as in JAX) runs the dense per-phase
-    scheduler, ``ragged=True`` the unified ragged one. The engine runs on
-    the decoder's device (chosen when the decoder was built,
-    ``device=None`` meaning cuda). ``cuda_graphs=False`` runs every
-    program eagerly on the card too (for comparison with the graphs);
-    on the CPU programs always run eagerly."""
+    scheduler, ``ragged=True`` the unified ragged one. Given a model, the
+    engine builds its decoder with ``PagedLlamaDecoder.from_model`` from
+    ``num_blocks``, ``block_size``, ``weight_dtype``, ``kv_quant`` and
+    ``device`` (``None``: cuda); a prebuilt decoder keeps its own pool
+    and device, and a ``kv_quant`` that contradicts its pool raises.
+    JAX's tensor-parallel and telemetry arguments raise
+    ``NotImplementedError`` unless left at their defaults.
+    ``cuda_graphs=False`` runs every program eagerly on the card too (for
+    comparison with the graphs); on the CPU programs always run
+    eagerly."""
 
     # row-count rungs of the [T, W] schedule; W pads up to the next rung
     RAGGED_WIDTHS = (1, 2, 4, 8, 12, 16, 24, 32, 48, 64, 96, 128)
@@ -422,27 +474,66 @@ class ServingEngine:
     _RAGGED_IDLE_CAP = 256
     # rows of a grouped dense prefill final (a lone final runs 1 row)
     PREFILL_GROUP = 4
+    # capacity of the finished-request ITL reservoir: every test and smoke
+    # workload stays exact, an unbounded run stays bounded
+    ITL_RESERVOIR_K = 4096
 
-    def __init__(self, dec: PagedLlamaDecoder, max_batch_size: int = 8,
-                 top_k: int = 0, chunk_size: int = 8,
-                 chunk_schedule: Optional[Sequence[int]] = None,
-                 seed: int = 0, prefill_chunk: Optional[int] = 256,
+    def __init__(self, model, max_batch_size: int = 8,
+                 num_blocks: int = 512, block_size: int = 16,
                  prompt_buckets: Sequence[int] = (32, 64, 128, 256, 512),
-                 overlap: bool = True,
+                 weight_dtype: Optional[str] = None, top_k: int = 0,
+                 chunk_size: int = 8, seed: int = 0,
+                 overlap: bool = True, mesh=None,
+                 chunk_schedule: Optional[Sequence[int]] = None,
+                 prefix_caching: bool = True,
+                 prefill_chunk: Optional[int] = 256,
                  prefill_budget: Optional[int] = None,
                  max_dispatch_retries: int = 2,
                  retry_backoff_s: float = 0.05,
                  admission: str = "worst_case",
                  max_queue_depth: Optional[int] = None,
-                 ragged: bool = False, prefix_caching: bool = True,
-                 ragged_idle_cap: Optional[int] = None,
-                 cuda_graphs: bool = True,
+                 ragged: bool = False, tp: int = 1,
+                 tp_comm: Optional[str] = None,
+                 devices: Optional[Sequence] = None,
                  spec_decode: Optional[SpecConfig] = None,
-                 lora: Optional[AdapterRegistry] = None,
-                 multi_step: int = 1):
-        if not isinstance(dec, PagedLlamaDecoder):
-            raise TypeError(f"ServingEngine needs a PagedLlamaDecoder, got "
-                            f"{type(dec).__name__}")
+                 lora: Optional[AdapterRegistry] = None, tracer=None,
+                 kv_quant: Optional[str] = None,
+                 slo=None,
+                 profile_every: Optional[int] = None,
+                 profile_seed: int = 0,
+                 ragged_idle_cap: Optional[int] = None,
+                 multi_step: int = 1,
+                 cuda_graphs: bool = True, device=None):
+        _refuse_unported(tp=tp, mesh=mesh, devices=devices, tp_comm=tp_comm,
+                         tracer=tracer, slo=slo, profile_every=profile_every,
+                         profile_seed=profile_seed)
+        if kv_quant not in (None, "int8"):
+            raise ValueError(f"kv_quant must be None or 'int8', got "
+                             f"{kv_quant!r}")
+        if isinstance(model, PagedLlamaDecoder):
+            # a prebuilt decoder keeps its pool, weights and device; the
+            # pool arguments here are ignored, as in JAX
+            if kv_quant is not None and model.kv_quant != kv_quant:
+                raise ValueError(
+                    f"ServingEngine(kv_quant={kv_quant!r}) got a prebuilt "
+                    f"decoder whose pool was built with kv_quant="
+                    f"{model.kv_quant!r}; pass the desired kv_quant to the "
+                    f"decoder constructor instead")
+            if device is not None and \
+                    torch.device(device) != model.device:
+                raise ValueError(
+                    f"device={device!r} only applies when the engine "
+                    f"builds the decoder; the prebuilt decoder lives on "
+                    f"{model.device}")
+            dec = model
+        elif isinstance(model, LlamaForCausalLM):
+            dec = PagedLlamaDecoder.from_model(
+                model, num_blocks=num_blocks, block_size=block_size,
+                weight_dtype=weight_dtype, kv_quant=kv_quant,
+                device=device)
+        else:
+            raise TypeError(f"ServingEngine needs a LlamaForCausalLM or a "
+                            f"PagedLlamaDecoder, got {type(model).__name__}")
         if admission not in ("worst_case", "optimistic"):
             raise ValueError(
                 f"admission must be 'worst_case' or 'optimistic', got "
@@ -465,6 +556,8 @@ class ServingEngine:
                             f"{type(spec_decode).__name__}")
         self.dec = dec
         self.device = dec.device
+        # the pool's quantization (None: dense planes), for stats()
+        self.kv_quant = dec.cache.kv_quant
         # each of these families is a ragged program
         self.multi_step = multi_step
         self.spec = spec_decode
@@ -612,6 +705,9 @@ class ServingEngine:
         self.decode_slot_steps = 0
         self.decode_useful_tokens = 0
         self.masked_decode_columns = 0
+        # finished requests' ITL samples (stats(); reset by
+        # clear_finished with the requests it sampled)
+        self._itl_res = Reservoir(self.ITL_RESERVOIR_K)
         # robustness counters (stats(); reset by clear_finished)
         self.preemptions = 0
         self.recompute_tokens = 0
@@ -1219,6 +1315,9 @@ class ServingEngine:
         req = self._slots[si]
         req.state = "done"
         req.t_done = time.perf_counter()
+        # a finished request's ITL samples join the bounded reservoir
+        # here; aborted and failed lives never reach _retire
+        self._itl_res.extend(req.itls)
         self._done[req.req_id] = req
         self._slots[si] = None
         self._lora_release(req)
@@ -2636,12 +2735,21 @@ class ServingEngine:
         return {rid: self.result(rid) for rid in list(self._done)}
 
     def stats(self) -> dict:
-        """Throughput, latency and robustness summary; the latency
-        percentiles cover requests that finished (state done)."""
+        """Throughput, latency and robustness summary, with JAX's keys and
+        definitions. Latency, TTFT and queue-wait percentiles cover
+        requests that finished (state done); the ITL percentiles cover
+        the finished requests' reservoir and the requests in a slot now
+        (aborted and failed lives are left out); quantiles are
+        interpolated. ``kv_quant``, ``kv_pool_bytes`` and
+        ``kv_bytes_per_token`` describe the pool and survive
+        ``clear_finished``."""
         cache = self.dec.cache
         ok = [r for r in self._done.values() if r.state == "done"]
+        lats = [r.latency_s for r in ok if r.latency_s is not None]
         ttfts = [r.ttft_s for r in ok if r.ttft_s is not None]
-        itls = [x for r in ok for x in r.itls]
+        waits = [r.queue_wait_s for r in ok if r.queue_wait_s is not None]
+        itls = list(self._itl_res) + [
+            x for r in self._slots if r is not None for x in r.itls]
 
         def pct(xs, p):
             return float(np.quantile(xs, p)) if xs else None
@@ -2715,9 +2823,18 @@ class ServingEngine:
             "unexpected_recompiles": self.programs.unexpected,
             "programs_sealed": self.compile_watch.sealed,
             "queued": len(self._queue),
+            "latency_p50_s": pct(lats, 0.50),
+            "latency_p99_s": pct(lats, 0.99),
             "ttft_p50_s": pct(ttfts, 0.50),
+            "ttft_p99_s": pct(ttfts, 0.99),
             "itl_p50_s": pct(itls, 0.50),
             "itl_p99_s": pct(itls, 0.99),
+            "queue_wait_p50_s": pct(waits, 0.50),
+            # the pool: its storage ("int8" or the plane dtype's name),
+            # its bytes (int8 scales included) and bytes per token slot
+            "kv_quant": self.kv_quant or cache.pool_dtype,
+            "kv_pool_bytes": cache.pool_bytes(),
+            "kv_bytes_per_token": cache.bytes_per_token(),
         }
 
     # -- warmup and the sealed program set ----------------------------------
@@ -2982,6 +3099,7 @@ class ServingEngine:
         counters included, so stats() reflect only the traffic that
         follows. The program set and its sealed flag stay."""
         self._done.clear()
+        self._itl_res = Reservoir(self.ITL_RESERVOIR_K)
         self.decode_steps = 0
         self.generated_tokens = 0
         self.device_dispatches = 0

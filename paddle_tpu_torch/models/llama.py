@@ -1,20 +1,28 @@
-"""Llama: the configuration (serving and training) and the training
-model.
+"""Llama: the configuration, the training model and its KV-cached
+forward.
 
 Counterpart: ``paddle_tpu/models/llama.py`` (``LlamaConfig`` :34-72,
-``_sep_mesh`` :80-97, ``LlamaMLP``, ``LlamaAttention`` without a cache
-:194-222, ``LlamaDecoderLayer``, ``LlamaModel``, ``LlamaForCausalLM``
-with ``forward``/``loss``/``_chunked_loss``/``num_params``, and the
-``llama_*`` configs :465-500). The port keeps its own copy so that it
-never imports the JAX package; fields, defaults and parameter names are
-the same, so JAX weights carry over one to one (``load_numpy_state``).
+``_sep_mesh`` :80-97, ``LlamaMLP``, ``LlamaAttention`` with its cache
+:171-258, ``LlamaDecoderLayer`` with recompute :261-327, ``LlamaModel``,
+``LlamaForCausalLM`` with ``forward``/``loss``/``_chunked_loss``/
+``num_params``/``generate`` :360-455, and the ``llama_*`` configs
+:457-509). The port keeps its own copy so that it never imports the JAX
+package; fields, defaults and parameter names are the same, so JAX
+weights carry over one to one (``load_numpy_state``).
 
 Dtypes follow the JAX code, not its docs: every ``Linear`` and
 ``Embedding`` weight is float32; only the RMSNorm gains take
 ``cfg.dtype``; activations turn ``cfg.dtype`` after the embedding and
 ``F.linear`` casts each weight to the activation's dtype in the product.
+A tied model's logits are ``h @ embed.T`` in the promoted dtype, as
+``jnp.matmul`` gives them (float32 under bfloat16 activations).
 
-Training without recompute is ported, with two options of JAX's:
+JAX's options, ported:
+- ``tie_word_embeddings``: no ``lm_head``; the head is the embedding.
+- ``use_recompute`` with ``recompute_granularity`` "full" (the whole
+  block), "full_attn" (ln1 + attention; the MLP's activations kept) or
+  "core_attn" (the plain forward: the flash backward already recomputes
+  the scores from q, k and v), through ``distributed.fleet.recompute``.
 - ``sep_degree > 1`` (context parallelism): with a fleet mesh whose sep
   axis has that size (``distributed.fleet.init``), attention runs zigzag
   ring attention over it, RoPE applied on global positions first;
@@ -22,19 +30,25 @@ Training without recompute is ported, with two options of JAX's:
 - ``chunked_ce_tokens > 0``: ``forward`` returns the hidden states and
   ``loss`` runs the head product and cross entropy in chunks of that
   many tokens.
-A config that asks for recompute, tensor or sequence parallelism or
-tied embeddings raises ``NotImplementedError``.
+- ``forward(input_ids, caches=, pos=)``: static [b, max_len, kv_heads,
+  head_dim] caches written in place at ``pos``, RoPE at that offset and
+  GQA attention over the cache in float32 (plain ops: JAX's is einsums,
+  not a kernel); ``generate`` and beam search are ``models/generation.py``.
+A config that asks for tensor or sequence parallelism raises
+``NotImplementedError`` (ROADMAP queue 1 item 5).
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
+from typing import Optional
 
 import torch
 from torch import nn
 
 from .. import nn as pnn
 from ..device import resolve_device
-from ..distributed.fleet import get_hybrid_communicate_group
+from ..distributed.fleet import get_hybrid_communicate_group, recompute
 from ..distributed.ring_attention import ring_attention
 from ..nn import functional as F
 from ..numpy_bridge import tensor_from_numpy
@@ -67,15 +81,15 @@ class LlamaConfig:
 
 def _check_ported(cfg: LlamaConfig):
     asked = [name for name, on in (
-        ("tie_word_embeddings", cfg.tie_word_embeddings),
-        ("use_recompute", cfg.use_recompute),
         ("tensor_parallel", cfg.tensor_parallel),
         ("sequence_parallel", cfg.sequence_parallel)) if on]
     if asked:
         raise NotImplementedError(
             f"LlamaConfig asks for {', '.join(asked)}: not ported yet "
-            f"(ROADMAP queue 1, item 9: recompute, tied embeddings; "
-            f"tensor parallelism is item 5)")
+            f"(ROADMAP queue 1, item 5)")
+
+
+_GRANULARITIES = ("full", "full_attn", "core_attn")
 
 
 def _sep_mesh(sep_degree: int):
@@ -126,11 +140,19 @@ class LlamaAttention(nn.Module):
         self.v_proj = pnn.Linear(h, kv_out, **lin)
         self.o_proj = pnn.Linear(h, h, **lin)
 
-    def forward(self, x):
+    def forward(self, x, past_kv=None, pos=None):
+        """Without ``past_kv``: causal attention over x's own positions.
+        With ``past_kv`` = (k_cache, v_cache), each [b, max_len, kv_heads,
+        head_dim], and ``pos`` (tokens already cached, an int): x's K/V
+        are written into the caches in place at ``pos``, and its queries
+        attend cache[:pos + s]; returns (out, (k_cache, v_cache))."""
         b, s = x.shape[0], x.shape[1]
         q = self.q_proj(x).reshape(b, s, self.num_heads, self.head_dim)
         k = self.k_proj(x).reshape(b, s, self.num_kv_heads, self.head_dim)
         v = self.v_proj(x).reshape(b, s, self.num_kv_heads, self.head_dim)
+        if past_kv is not None:
+            out, new_kv = self._cached_attention(q, k, v, past_kv, int(pos))
+            return self.o_proj(out), new_kv
         cos, sin = build_rope_cache(s, self.head_dim, self.rope_theta,
                                     torch.float32, device=x.device)
         q = rope_reference(q, cos.to(q.dtype), sin.to(q.dtype))
@@ -142,6 +164,38 @@ class LlamaAttention(nn.Module):
             out = F.scaled_dot_product_attention(q, k, v, is_causal=True)
         return self.o_proj(out.reshape(b, s, self.num_heads * self.head_dim))
 
+    def _cached_attention(self, q, k, v, past_kv, pos: int):
+        """JAX's ``cached_attn`` (:227-254): RoPE from a max_len table
+        sliced at pos, the caches updated at pos, and GQA attention of
+        the s new queries over every cache position <= theirs, in
+        float32."""
+        k_cache, v_cache = past_kv
+        b, s = q.shape[0], q.shape[1]
+        max_len = k_cache.shape[1]
+        cos, sin = build_rope_cache(max_len, self.head_dim, self.rope_theta,
+                                    torch.float32, device=q.device)
+        cos, sin = cos[:, pos:pos + s], sin[:, pos:pos + s]
+        q = rope_reference(q, cos.to(q.dtype), sin.to(q.dtype))
+        k = rope_reference(k, cos.to(k.dtype), sin.to(k.dtype))
+        k_cache[:, pos:pos + s] = k.to(k_cache.dtype)
+        v_cache[:, pos:pos + s] = v.to(v_cache.dtype)
+        group = self.num_heads // self.num_kv_heads
+        qg = q.reshape(b, s, self.num_kv_heads, group, self.head_dim)
+        scores = torch.einsum("bqkgd,bskd->bkgqs", qg.float(),
+                              k_cache.float())
+        # jnp.sqrt of a Python float is a float32 scalar
+        scores = scores / torch.tensor(math.sqrt(self.head_dim),
+                                       dtype=torch.float32)
+        kpos = torch.arange(max_len, device=q.device)
+        qpos = pos + torch.arange(s, device=q.device)
+        visible = kpos[None, :] <= qpos[:, None]              # [s, max_len]
+        scores = torch.where(visible, scores,
+                             torch.full((), -1e30, device=q.device))
+        probs = torch.softmax(scores, dim=-1)
+        og = torch.einsum("bkgqs,bskd->bqkgd", probs, v_cache.float())
+        out = og.reshape(b, s, self.num_heads * self.head_dim).to(q.dtype)
+        return out, (k_cache, v_cache)
+
 
 class LlamaDecoderLayer(nn.Module):
     def __init__(self, cfg: LlamaConfig, gen, dev):
@@ -152,10 +206,34 @@ class LlamaDecoderLayer(nn.Module):
         self.post_attention_layernorm = pnn.RMSNorm(
             cfg.hidden_size, cfg.rms_norm_eps, dtype=cfg.dtype, device=dev)
         self.mlp = LlamaMLP(cfg, gen, dev)
+        self.use_recompute = cfg.use_recompute
+        self.recompute_granularity = cfg.recompute_granularity
 
-    def forward(self, x):
-        h = x + self.self_attn(self.input_layernorm(x))
+    def _attn(self, x):
+        return self.self_attn(self.input_layernorm(x))
+
+    def _block(self, x):
+        h = x + self._attn(x)
         return h + self.mlp(self.post_attention_layernorm(h))
+
+    def forward(self, x, past_kv=None, pos=None):
+        if past_kv is not None:
+            attn, new_kv = self.self_attn(self.input_layernorm(x),
+                                          past_kv=past_kv, pos=pos)
+            h = x + attn
+            return h + self.mlp(self.post_attention_layernorm(h)), new_kv
+        if not self.use_recompute:
+            return self._block(x)
+        gran = self.recompute_granularity
+        if gran == "full":
+            return recompute(self._block, x)
+        if gran == "full_attn":
+            h = x + recompute(self._attn, x)
+            return h + self.mlp(self.post_attention_layernorm(h))
+        if gran == "core_attn":
+            return self._block(x)
+        raise ValueError(f"unknown recompute_granularity {gran!r}; "
+                         f"expected one of {_GRANULARITIES}")
 
 
 class LlamaModel(nn.Module):
@@ -171,10 +249,16 @@ class LlamaModel(nn.Module):
         self.norm = pnn.RMSNorm(cfg.hidden_size, cfg.rms_norm_eps,
                                 dtype=cfg.dtype, device=dev)
 
-    def forward(self, input_ids):
+    def forward(self, input_ids, caches=None, pos=None):
         h = self.embed_tokens(input_ids)
         if self.cfg.dtype != "float32":
             h = h.to(pnn.initializer.convert_dtype(self.cfg.dtype))
+        if caches is not None:
+            new_caches = []
+            for layer, kv in zip(self.layers, caches):
+                h, nkv = layer(h, past_kv=kv, pos=pos)
+                new_caches.append(nkv)
+            return self.norm(h), new_caches
         for layer in self.layers:
             h = layer(h)
         return self.norm(h)
@@ -192,14 +276,30 @@ class LlamaForCausalLM(nn.Module):
         gen.manual_seed(seed)
         self.cfg = cfg
         self.model = LlamaModel(cfg, gen, dev)
-        self.lm_head = pnn.Linear(cfg.hidden_size, cfg.vocab_size,
-                                  bias_attr=False, generator=gen, device=dev)
+        self.lm_head = None if cfg.tie_word_embeddings else pnn.Linear(
+            cfg.hidden_size, cfg.vocab_size, bias_attr=False, generator=gen,
+            device=dev)
 
-    def forward(self, input_ids):
-        h = self.model(input_ids)
-        if self.cfg.chunked_ce_tokens:
-            return h                    # loss() owns the head product
-        return self.lm_head(h)
+    def forward(self, input_ids, caches=None, pos=None):
+        """Logits [b, s, vocab]; with ``chunked_ce_tokens`` the hidden
+        states (``loss`` owns the head product). With ``caches`` (one
+        (k, v) pair a layer, see ``LlamaAttention.forward``) and ``pos``:
+        (logits, caches), the head always applied."""
+        if caches is not None:
+            h, new_caches = self.model(input_ids, caches=caches, pos=pos)
+        else:
+            h = self.model(input_ids)
+            if self.cfg.chunked_ce_tokens:
+                return h
+        if self.lm_head is None:
+            w = self.model.embed_tokens.weight
+            dt = torch.promote_types(h.dtype, w.dtype)
+            logits = torch.matmul(h.to(dt), w.t().to(dt))
+        else:
+            logits = self.lm_head(h)
+        if caches is not None:
+            return logits, new_caches
+        return logits
 
     def loss(self, logits, labels):
         """Shifted causal-LM cross entropy (float32). With
@@ -213,18 +313,50 @@ class LlamaForCausalLM(nn.Module):
 
     def _chunked_loss(self, hidden, labels):
         return F.chunked_causal_lm_loss(
-            hidden, labels, self.lm_head.weight,
+            hidden, labels,
+            None if self.lm_head is None else self.lm_head.weight,
             self.model.embed_tokens.weight, int(self.cfg.chunked_ce_tokens))
 
     def num_params(self) -> int:
         return sum(p.numel() for p in self.parameters())
 
+    def generate(self, input_ids, max_new_tokens: int = 32,
+                 max_length: Optional[int] = None,
+                 temperature: float = 0.0, top_k: int = 0,
+                 eos_token_id: Optional[int] = None, seed: int = 0,
+                 top_p: float = 1.0, repetition_penalty: float = 1.0,
+                 num_beams: int = 1, length_penalty: float = 0.0):
+        """KV-cached generation on the model's device: [b, prompt_len +
+        generated] int32 ids, the prompt included. Greedy at temperature
+        0, else JAX's seeded key stream with top_k / top_p / repetition
+        penalty; ``num_beams > 1`` is beam search, which takes no
+        sampling argument (JAX :420-455)."""
+        from . import generation
+        if num_beams > 1:
+            if temperature > 0 or top_k > 0 or top_p < 1.0 \
+                    or repetition_penalty != 1.0:
+                raise ValueError(
+                    "num_beams > 1 is deterministic beam search; "
+                    "temperature/top_k/top_p/repetition_penalty do not "
+                    "apply: drop them or use num_beams=1 sampling")
+            return generation.beam_search(
+                self, input_ids, num_beams=num_beams,
+                max_new_tokens=max_new_tokens,
+                length_penalty=length_penalty, eos_token_id=eos_token_id,
+                max_length=max_length)
+        return generation.generate(
+            self, input_ids, max_new_tokens=max_new_tokens,
+            max_length=max_length, temperature=temperature, top_k=top_k,
+            top_p=top_p, repetition_penalty=repetition_penalty,
+            eos_token_id=eos_token_id, seed=seed)
+
     @torch.no_grad()
     def load_numpy_state(self, state: dict):
         """Copy ``{name: np.ndarray}`` (the JAX model's
         ``named_parameters()`` as numpy) into this model: every name must
-        be present and no other, shapes and dtypes must be equal;
-        bfloat16 arrays are carried bit for bit."""
+        be present and no other (a tied model has no ``lm_head.weight``),
+        shapes and dtypes must be equal; bfloat16 arrays are carried bit
+        for bit."""
         params = dict(self.named_parameters())
         missing = sorted(set(params) - set(state))
         extra = sorted(set(state) - set(params))

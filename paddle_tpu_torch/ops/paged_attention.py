@@ -591,6 +591,28 @@ class PagedKVCache:
         out[:len(t)] = t
         return out
 
+    # -- the pool's footprint (JAX ops/paged_attention.py:745-770) -----------
+    @property
+    def pool_dtype(self) -> str:
+        """'int8' for the quantized layout, else the plane dtype's name
+        ('float32', 'bfloat16'), as JAX's ``np.dtype`` names it."""
+        if self.kv_quant == "int8":
+            return "int8"
+        return str(_plane_values(self.k[0]).dtype).replace("torch.", "")
+
+    def pool_bytes(self) -> int:
+        """Bytes of every K and V plane, int8 scales included."""
+        total = 0
+        for plane in list(self.k) + list(self.v):
+            for a in plane if isinstance(plane, tuple) else (plane,):
+                total += a.numel() * a.element_size()
+        return total
+
+    def bytes_per_token(self) -> float:
+        """KV bytes one token slot costs over all layers (K and V, scales
+        included): ``pool_bytes`` over the pool's slot count."""
+        return self.pool_bytes() / float(self.num_blocks * self.block_size)
+
     @property
     def free_blocks(self) -> int:
         return len(self._free)

@@ -1,5 +1,6 @@
-"""The compile ledger of the serving programs. Counterpart:
-``paddle_tpu/utils/telemetry.py:CompileWatch``; the tracer, the metrics
+"""The compile ledger of the serving programs and the bounded sample of
+the engine's ITL stream. Counterparts: ``paddle_tpu/utils/telemetry.py``
+``CompileWatch`` and ``Reservoir`` (:117-160); the tracer, the metrics
 registry and the SLO monitor come with ROADMAP queue 1 item 8.
 
 In JAX a serving program compiles the first time a shape reaches it,
@@ -15,7 +16,40 @@ from typing import Dict, List
 
 import numpy as np
 
-__all__ = ["CompileWatch"]
+__all__ = ["CompileWatch", "Reservoir"]
+
+
+class Reservoir:
+    """Seeded Algorithm-R reservoir: a bounded uniform sample of an
+    unbounded stream. Exact (every item kept, in order) while the stream
+    holds at most ``k`` items; past that each item seen is kept with
+    probability k/n. The same seed and stream give the same sample (the
+    RNG is private, so no key stream of the engine moves)."""
+
+    def __init__(self, k: int = 4096, seed: int = 0):
+        self.k = int(k)
+        self._rng = np.random.RandomState(seed)
+        self.samples: List[float] = []
+        self.n = 0                      # items seen (>= len(samples))
+
+    def append(self, x: float):
+        if self.n < self.k:
+            self.samples.append(float(x))
+        else:
+            j = int(self._rng.randint(0, self.n + 1))
+            if j < self.k:
+                self.samples[j] = float(x)
+        self.n += 1
+
+    def extend(self, xs):
+        for x in xs:
+            self.append(x)
+
+    def __len__(self) -> int:
+        return len(self.samples)
+
+    def __iter__(self):
+        return iter(self.samples)
 
 
 class CompileWatch:

@@ -136,7 +136,7 @@ def test_strategy_hybrid_configs_like_jax():
     assert t.hybrid_configs["sep_degree"] == 4
     with pytest.raises(ValueError, match="unknown hybrid_configs"):
         t.hybrid_configs = {"sep_degre": 2}
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="item 10"):
         t.recompute = True
     with pytest.raises(NotImplementedError, match="item 10"):
         t.amp = True

@@ -13,6 +13,20 @@ port's model by ``load_numpy_state``. Then, on the same token ids:
   bfloat16 RMSNorm gains carried bit for bit, bfloat16 activations): one
   ``TrainStep`` gives a loss within 2e-2 of JAX's (bfloat16 rounds at
   other places in the two frameworks).
+- The options JAX's config takes: tied embeddings (no ``lm_head``, the
+  head ``h @ embed.T``) and recompute at each granularity ("full",
+  "full_attn", "core_attn", and tied with "full_attn") at the same
+  tolerances; tied with chunked cross entropy: the loss within 1e-5 of
+  JAX's and the embedding grad within rtol 1e-3 of the port's dense tied
+  head (JAX's compiled step drops the head's share of that grad, as it
+  drops lm_head's under chunked CE: ROADMAP queue 3). Recompute gives
+  the grads of the plain forward (rtol 1e-6), an unknown granularity
+  raises ``ValueError``, and a full_attn model under a sep-2 fleet mesh
+  on ``["cpu"] * 2`` gives JAX's sep-2 loss (rtol 2e-4).
+- ``fleet.recompute`` replays an explicit generator's draws (attention
+  dropout) in the recomputation when it is named in ``generators``: the
+  grads equal the plain run's, which they do not without it.
+- Only tensor and sequence parallelism still raise.
 On the CPU the port's attention runs ``flash_attention_plain``, JAX's its
 dense ``_sdpa_core``.
 """
@@ -31,6 +45,9 @@ from paddle_tpu import optimizer as jopt  # noqa: E402
 from paddle_tpu.models import LlamaForCausalLM as JaxLlama  # noqa: E402
 from paddle_tpu.models import llama_tiny as jax_tiny  # noqa: E402
 from paddle_tpu_torch import models as tmodels  # noqa: E402
+from paddle_tpu_torch.distributed import fleet as tfleet  # noqa: E402
+import paddle_tpu.distributed as jdist  # noqa: E402
+import paddle_tpu.distributed.fleet as jfleet  # noqa: E402
 from paddle_tpu_torch.jit import TrainStep  # noqa: E402
 from paddle_tpu_torch.models import LlamaForCausalLM, llama_tiny  # noqa: E402
 from paddle_tpu_torch.optimizer import AdamW  # noqa: E402
@@ -41,10 +58,10 @@ def _ids(cfg, b=2, s=16):
         0, cfg.vocab_size, size=(b, s)).astype(np.int32)
 
 
-def _pair(dtype="float32"):
+def _pair(dtype="float32", **kw):
     paddle.seed(0)
-    jm = JaxLlama(jax_tiny(dtype=dtype))
-    tm = LlamaForCausalLM(llama_tiny(dtype=dtype), device="cpu")
+    jm = JaxLlama(jax_tiny(dtype=dtype, **kw))
+    tm = LlamaForCausalLM(llama_tiny(dtype=dtype, **kw), device="cpu")
     tm.load_numpy_state({n: np.asarray(p._value)
                          for n, p in jm.named_parameters()})
     return jm, tm
@@ -59,6 +76,28 @@ def _train(jm, tm, ids, steps):
     tx = torch.as_tensor(ids)
     return ([float(jstep(jx, jx)) for _ in range(steps)],
             [float(tstep(tx, tx)) for _ in range(steps)])
+
+
+def _jax_grads(jm, ids, labels):
+    """JAX's loss and {name: grad} as its compiled TrainStep takes them."""
+    jstep = paddle.jit.TrainStep(
+        jm, lambda o, l: jm.loss(o, l),
+        jopt.AdamW(learning_rate=1e-3, parameters=jm.parameters()))
+    loss, _, grads = jax.jit(jstep._make_loss_and_grads())(
+        [p._value for p in jstep._p_tensors], [], jax.random.PRNGKey(0),
+        (ids,), (labels,))
+    return float(loss), dict(zip(jstep._param_names, grads))
+
+
+def _port_grads(tm, ids):
+    for p in tm.parameters():
+        p.grad = None
+    tx = torch.as_tensor(ids)
+    out = tm(tx)
+    loss = tm.loss(out, tx)
+    loss.backward()
+    return out.detach(), float(loss), {n: p.grad.clone() for n, p in
+                                       tm.named_parameters()}
 
 
 def test_forward_loss_and_grads_match_jax():
@@ -115,9 +154,136 @@ def test_weights_carry_is_checked():
         tm.load_numpy_state(bad)
 
 
+OPTIONS = {
+    "tied": dict(tie_word_embeddings=True),
+    "recompute_full": dict(use_recompute=True, recompute_granularity="full"),
+    "recompute_full_attn": dict(use_recompute=True,
+                                recompute_granularity="full_attn"),
+    "recompute_core_attn": dict(use_recompute=True,
+                                recompute_granularity="core_attn"),
+    "tied_full_attn": dict(tie_word_embeddings=True, use_recompute=True,
+                           recompute_granularity="full_attn"),
+}
+
+
+@pytest.mark.parametrize("option", list(OPTIONS))
+def test_options_match_jax(option):
+    jm, tm = _pair(**OPTIONS[option])
+    if tm.cfg.tie_word_embeddings:
+        assert tm.lm_head is None and jm.lm_head is None
+    ids = _ids(tm.cfg)
+    j_loss, j_grads = _jax_grads(jm, ids, ids)
+    j_logits = np.asarray(jax.jit(
+        lambda ps, x: paddle.jit.functional_call(
+            jm, ps, [], (x,)))([p._value for p in jm.parameters()], ids)[0])
+    t_logits, t_loss, t_grads = _port_grads(tm, ids)
+    np.testing.assert_allclose(t_logits.numpy(), j_logits, atol=1e-4)
+    np.testing.assert_allclose(t_loss, j_loss, atol=1e-4)
+    assert list(t_grads) == list(j_grads)
+    for name, g in t_grads.items():
+        np.testing.assert_allclose(g.numpy(), np.asarray(j_grads[name]),
+                                   atol=5e-5, rtol=5e-4, err_msg=name)
+
+
+def test_tied_chunked_ce_matches_jax():
+    jm, tm = _pair(tie_word_embeddings=True, chunked_ce_tokens=8)
+    ids = _ids(tm.cfg, s=13)             # 24 shifted tokens: 3 chunks
+    j_loss, _ = _jax_grads(jm, ids, ids)
+    hidden, t_loss, t_grads = _port_grads(tm, ids)
+    assert hidden.shape == (2, 13, tm.cfg.hidden_size)
+    np.testing.assert_allclose(t_loss, j_loss, rtol=1e-5)
+    dense = LlamaForCausalLM(llama_tiny(tie_word_embeddings=True),
+                             device="cpu")
+    dense.load_numpy_state({n: p.detach().numpy() for n, p in
+                            tm.named_parameters()})
+    _, d_loss, d_grads = _port_grads(dense, ids)
+    np.testing.assert_allclose(t_loss, d_loss, rtol=1e-5)
+    name = "model.embed_tokens.weight"
+    np.testing.assert_allclose(t_grads[name].numpy(), d_grads[name].numpy(),
+                               rtol=1e-3, atol=1e-5)
+
+
+@pytest.mark.parametrize("granularity", ["full", "full_attn", "core_attn"])
+def test_recompute_equals_plain(granularity):
+    ids = _ids(llama_tiny())
+    plain = LlamaForCausalLM(llama_tiny(), seed=2, device="cpu")
+    remat = LlamaForCausalLM(llama_tiny(
+        use_recompute=True, recompute_granularity=granularity), seed=2,
+        device="cpu")
+    _, p_loss, p_grads = _port_grads(plain, ids)
+    _, r_loss, r_grads = _port_grads(remat, ids)
+    assert r_loss == p_loss
+    for name, g in r_grads.items():
+        np.testing.assert_allclose(g.numpy(), p_grads[name].numpy(),
+                                   rtol=1e-6, atol=0, err_msg=name)
+
+
+def test_unknown_granularity_raises():
+    m = LlamaForCausalLM(llama_tiny(use_recompute=True,
+                                    recompute_granularity="selective"),
+                         device="cpu")
+    with pytest.raises(ValueError, match="recompute_granularity"):
+        m(torch.zeros((1, 4), dtype=torch.int64))
+
+
+def test_full_attn_recompute_on_sep2_matches_jax():
+    ids = np.random.RandomState(1).randint(0, 512, (2, 64)).astype(np.int32)
+    try:
+        strategy = jdist.fleet.DistributedStrategy()
+        strategy.hybrid_configs = dict(dp_degree=2, sep_degree=2,
+                                       mp_degree=2)
+        jfleet.init(is_collective=True, strategy=strategy)
+        ts = tfleet.DistributedStrategy()
+        ts.hybrid_configs = {"sep_degree": 2}
+        tfleet.init(strategy=ts, devices=["cpu"] * 2)
+        jm, tm = _pair(sep_degree=2, max_position_embeddings=64,
+                       use_recompute=True, recompute_granularity="full_attn")
+        j_loss, j_grads = _jax_grads(jm, ids, ids)
+        _, t_loss, t_grads = _port_grads(tm, ids)
+    finally:
+        jfleet._hcg = None
+        tfleet._hcg = None
+    np.testing.assert_allclose(t_loss, j_loss, rtol=2e-4)
+    name = "model.layers.0.self_attn.q_proj.weight"
+    np.testing.assert_allclose(t_grads[name].numpy(),
+                               np.asarray(j_grads[name]), rtol=5e-3,
+                               atol=1e-5)
+
+
+def test_recompute_replays_generator_draws():
+    from paddle_tpu_torch.nn import functional as TF
+    rng = np.random.RandomState(4)
+    q, k, v = (torch.tensor(rng.randn(1, 16, 2, 8).astype(np.float32))
+               for _ in range(3))
+
+    def grads(mode):
+        gen = torch.Generator().manual_seed(7)
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+
+        def attn(a, b, c):
+            return TF.scaled_dot_product_attention(
+                a, b, c, dropout_p=0.3, is_causal=True, generator=gen)
+
+        if mode == "plain":
+            out = attn(*leaves)
+        else:
+            named = (gen,) if mode == "named" else ()
+            out = tfleet.recompute(attn, *leaves, generators=named)
+        (out * out).sum().backward()
+        after = torch.rand(4, generator=gen)      # later draws unmoved
+        return [x.grad for x in leaves], after
+
+    plain, after_plain = grads("plain")
+    named, after_named = grads("named")
+    for a, b in zip(named, plain):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+    np.testing.assert_array_equal(after_named.numpy(), after_plain.numpy())
+    unnamed, _ = grads("unnamed")
+    assert not all(torch.equal(a, b) for a, b in zip(unnamed, plain))
+
+
 @pytest.mark.parametrize("field", [
-    dict(use_recompute=True), dict(tensor_parallel=True),
-    dict(tie_word_embeddings=True)])
+    dict(tensor_parallel=True), dict(sequence_parallel=True)])
 def test_unported_training_configs_raise(field):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         LlamaForCausalLM(llama_tiny(**field), device="cpu")
