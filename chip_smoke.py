@@ -209,16 +209,56 @@ failure ends the run with a non-zero exit code and no result:
                  rounding, float32 within 1e-4 relative); graphs captured
                  as first used, then sealed; tok/s against the base
                  engine, alternated 3 runs each.
-18. serve-bf16-kv8  the same model with bf16 weights and an int8 KV pool
+18. tiny-fleet-parity  the fleet Router (dp 2, in process, the dense
+                 engine, affinity on) on llama_tiny at the fleet tests'
+                 geometry with head_dim 64 (hidden 256), float32, the
+                 same weights on the card and the CPU: 4 prompts sharing
+                 16 tokens, a ChaosMonkey wedge of replica 0 mid-decode;
+                 the streams equal a single engine's and card == CPU,
+                 routing counters too; the card ran the paged-decode and
+                 flash forward kernels.
+19. serve-telemetry-int4  serve-graphs' sealed 8B int4 ragged engine on
+                 serve-dense-int4's requests three ways, alternated, 3
+                 runs each: no telemetry, a Tracer with an SLO monitor
+                 (TTFT 2 s, ITL 50 ms at p99), profile_every=8: greedy
+                 streams equal across the three, no recompile; tok/s and
+                 the tracer's and sampling's costs, records and dropped,
+                 the Perfetto export's bytes and seconds (written to
+                 chiprun_out/ and read by tools/trace_report.analyze),
+                 the attribution p50 of host-schedule, dispatch-queue and
+                 device-execute (CUDA events) per program family, and
+                 the SLO headroom.
+20. fleet-int4   Router(dp=2, transport="inproc") of two ragged 8B int4
+                 engines over one weight tree (pools of their own, 160
+                 blocks of 64), graphs captured as used: 8 requests, 4
+                 sharing the 384-token prefix (3 affinity hits), 32 new
+                 (6 greedy); greedy streams equal the one engine's or a
+                 near-tie; a ChaosMonkey wedge of replica 1 mid-decode:
+                 every victim migrates and finishes, no failed
+                 migration, the ms from the wedge to each migrated
+                 request's next token, recompute tokens, the graphs the
+                 migrations captured; the replica healed through
+                 probation; then sealed, dp 2 against one engine
+                 alternated, 3 runs each.
+21. fleet-proc-int4  the same model and traffic with transport="process":
+                 two spawned workers build the 8B decoder from seed 0
+                 (module-level _proc_engine_factory, eager engines) and
+                 find the kernel library built; greedy streams equal
+                 fleet-int4's; inject_kill() SIGKILLs replica 1
+                 mid-decode, its requests migrate from the journal, the
+                 worker respawns onto probation; spawn and respawn
+                 seconds, the step RPC's round trip over the worker's
+                 own step, heartbeat misses, exits and restarts.
+22. serve-bf16-kv8  the same model with bf16 weights and an int8 KV pool
                  (4 requests): the int8 branch of the attention kernel on
                  the serving path; one W 8 ministep launches exactly 32
                  attention kernels; the attention family's device ms per
                  run and per ministep.
-19. tiny-train-parity  llama_tiny(hidden_size=256) in float32 (head_dim 64)
+23. tiny-train-parity  llama_tiny(hidden_size=256) in float32 (head_dim 64)
                  with the same weights on the card and the CPU: 3 TrainSteps
                  of AdamW(1e-3) give losses within 1e-4 relative, and the
                  card ran all three flash kernels.
-20. tiny-ring-parity  llama_tiny(hidden_size=256, sep_degree=4) in
+24. tiny-ring-parity  llama_tiny(hidden_size=256, sep_degree=4) in
                  float32 (head_dim 64) at b 2 x s 256 under a sep-4 fleet
                  mesh, the same weights on the card (["cuda:0"] * 4) and on
                  the CPU (["cpu"] * 4): 3 TrainSteps of AdamW(1e-3) give
@@ -226,7 +266,7 @@ failure ends the run with a non-zero exit code and no result:
                  model's at sep_degree=1 within 1e-4, and the flash counters
                  read exactly what the ring calls for (2 layers x 4 ranks
                  x 6 blocks per step of each kernel).
-21. tiny-model-parity  LlamaForCausalLM whole: llama_tiny(hidden_size=256,
+25. tiny-model-parity  LlamaForCausalLM whole: llama_tiny(hidden_size=256,
                  tie_word_embeddings=True, use_recompute=True,
                  recompute_granularity="full_attn") in float32 with the
                  same weights on the card and the CPU (the tied table
@@ -239,7 +279,7 @@ failure ends the run with a non-zero exit code and no result:
                  beam search with 3 beams, and ServingEngine(model,
                  weight_dtype="int4") on both schedulers: tokens equal on
                  card and CPU, every kernel of each engine launched.
-22. train-mid    THE TRAINING PATH: llama_mid (0.65B) at full width and all
+26. train-mid    THE TRAINING PATH: llama_mid (0.65B) at full width and all
                  11 layers, bf16 compute, seed 0, batch 4 x seq 2048 (ids as
                  bench.py makes them), AdamW(1e-4, weight_decay=0.01): 2 warm
                  and 10 timed TrainSteps. The flash counters are set to 0
@@ -248,7 +288,7 @@ failure ends the run with a non-zero exit code and no result:
                  last below the first. Step ms, tokens/s, MFU by bench.py's
                  formula against 989 TFLOP/s, peak memory, device time by
                  kernel family and the idle share.
-23. train-mid8k  THE LONG-CONTEXT PATH: llama_mid(dtype="bfloat16",
+27. train-mid8k  THE LONG-CONTEXT PATH: llama_mid(dtype="bfloat16",
                  chunked_ce_tokens=1024, max_position_embeddings=8192,
                  sep_degree=4), all 11 layers, b 1 x s 8192 (ids as bench.py
                  makes them), AdamW(1e-4, weight_decay=0.01), under a sep-4
@@ -264,7 +304,7 @@ failure ends the run with a non-zero exit code and no result:
                  and sep 4 within 1e-2 relative. Step ms, tokens/s, MFU at
                  seq 8192, peak memory, device time by kernel family (the
                  flash family's ms apart) and the idle share of both.
-24. train-1b     bench.py's 1b row: llama_1b(dtype="bfloat16",
+28. train-1b     bench.py's 1b row: llama_1b(dtype="bfloat16",
                  use_recompute=True, recompute_granularity="full_attn",
                  chunked_ce_tokens=1024), all 18 layers, b 4 x s 2048,
                  AdamW(1e-4, weight_decay=0.01, moment_dtype="bfloat16"):
@@ -277,7 +317,7 @@ failure ends the run with a non-zero exit code and no result:
                  within 1e-3 of the recompute model's, 18 of each flash
                  kernel a step) and the two alternated, 3 runs of 2 steps
                  each: step ms, MFU and peak memory of each.
-25. serve-model-1b  the model train-1b trained, served by
+29. serve-model-1b  the model train-1b trained, served by
                  ServingEngine(model, weight_dtype="int4", block_size=64,
                  num_blocks=160) on both schedulers: float32 activations
                  and pool (the embedding's dtype, as in JAX), so every
@@ -296,7 +336,7 @@ failure ends the run with a non-zero exit code and no result:
                  equal, or parted where the float32 logit gap is at most
                  twice the difference between the two computations'
                  logits there.
-26. capture-failure  a program with a host sync inside: its first
+30. capture-failure  a program with a host sync inside: its first
                  dispatch raises, no graph is kept and it is not run
                  eagerly in its place (last, as a failed capture may
                  leave the allocator's pool unusable).
@@ -314,6 +354,7 @@ and reads only its own kernels' counters.
 import gc
 import importlib
 import json
+import os
 import re
 import shutil
 import subprocess
@@ -1272,6 +1313,34 @@ def _decode_check(torch, gen, timer, spec):
     return case
 
 
+def _proc_engine_factory(replica_idx, devices):
+    """fleet-proc-int4's engine, built in a spawned worker: the kernel
+    library loaded first (noting whether this process found it built),
+    then the 8B int4 decoder from seed 0 on the card (the same weights in
+    every worker) and an eager ragged engine over it. The notes go to
+    chiprun_out/fleet_proc_worker_<pid>.json."""
+    from paddle_tpu_torch.inference import PagedLlamaDecoder, ServingEngine
+    from paddle_tpu_torch.models import llama_3_8b
+    from paddle_tpu_torch.ops.cuda import _build
+    t0 = time.perf_counter()
+    _build.load_library()
+    note = {"replica": replica_idx, "pid": os.getpid(),
+            "library_built_here": _build.build_info["built"],
+            "library_s": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    dec = PagedLlamaDecoder.from_config(
+        llama_3_8b(dtype="bfloat16"), seed=0, weight_dtype="int4",
+        block_size=64, num_blocks=160, device="cuda")
+    note["decoder_s"] = time.perf_counter() - t0
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(f"chiprun_out/fleet_proc_worker_{os.getpid()}.json", "w") as f:
+        json.dump(note, f)
+    return ServingEngine(dec, ragged=True, max_batch_size=8,
+                         prefill_chunk=256, chunk_size=8,
+                         prompt_buckets=(32, 64, 128, 256, 512, 1024),
+                         cuda_graphs=False)
+
+
 def main():
     global _ONLY
     if sys.argv[1:2] == ["--only"] and len(sys.argv) == 3:
@@ -1307,7 +1376,9 @@ def main():
     from paddle_tpu_torch.distributed import fleet
     from paddle_tpu_torch.utils import prng
     from paddle_tpu_torch.utils.chaos import ChaosMonkey
-    from paddle_tpu_torch.utils.telemetry import CompileWatch
+    from paddle_tpu_torch.inference import Router
+    from paddle_tpu_torch.utils.telemetry import (CompileWatch, SLOMonitor,
+                                                  SLOPolicy, Tracer)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3557,6 +3628,542 @@ def main():
                 "alternated": alt}
 
     _phase("serve-lora-int4", serve_lora_int4)
+
+    # -- telemetry and the fleet ---------------------------------------------
+    fleet_launches = {}
+
+    def tiny_fleet_parity():
+        """The dp-2 in-process Router on llama_tiny, float32, card against
+        CPU from one seed: 4 prompts sharing a 16-token prefix, affinity
+        on, a ChaosMonkey wedge of replica 0 mid-decode. The fleet tests'
+        geometry with head_dim 64 (hidden 256), the least the dense
+        kernels take; the dense engine (the Router's default)."""
+        cfg_t = llama_tiny(hidden_size=256, intermediate_size=96,
+                           vocab_size=256)
+        cpu = LlamaForCausalLM(cfg_t, seed=3, device="cpu")
+        gpu = LlamaForCausalLM(cfg_t, seed=3, device="cuda")
+        gpu.load_numpy_state({n: p.detach().numpy()
+                              for n, p in cpu.named_parameters()})
+        kw = dict(max_batch_size=3, num_blocks=24, block_size=8,
+                  prompt_buckets=(8, 16, 32), chunk_size=4, prefill_chunk=8)
+        frng = np.random.RandomState(0)
+        pre = frng.randint(0, cfg_t.vocab_size, 16)
+        ps = [np.concatenate([pre, frng.randint(0, cfg_t.vocab_size, 8)])
+              for _ in range(4)]
+        keys = ("routed_requests", "affinity_hits", "spills", "failovers",
+                "migrated_requests", "migrated_done", "failed_migrations",
+                "shed_requests", "finished", "generated_tokens",
+                "retries", "dispatch_exhaustions")
+        res = {}
+        for name, model, dev in (("cpu", cpu, "cpu"), ("card", gpu, "cuda")):
+            oracle = ServingEngine(model, device=dev, **kw)
+            want = []
+            for p in ps:
+                rid = oracle.add_request(p, SamplingParams(max_new_tokens=12))
+                oracle.run_to_completion()
+                want.append(oracle.result(rid).tolist())
+            oracle.close()
+            reset_dense()
+            router = Router(model, dp=2, breaker_threshold=1,
+                            max_dispatch_retries=1, retry_backoff_s=0.0,
+                            device=dev, **kw)
+            fids = [router.add_request(p, SamplingParams(max_new_tokens=12))
+                    for p in ps]
+            for _ in range(20):
+                router.step()
+                if any(router._record(f).replica == 0
+                       and router.request(f).state == "running"
+                       and router.request(f).out_tokens for f in fids):
+                    break
+            else:
+                _require(False, f"tiny-fleet-parity {name}: nothing "
+                                f"decoding on replica 0")
+            ChaosMonkey(seed=0).attach(router.replicas[0].engine).wedge()
+            router.run_to_completion()
+            launched = dense_counts()
+            st = router.stats()["fleet"]
+            res[name] = {"tokens": [router.result(f).tolist() for f in fids],
+                         "oracle": want,
+                         "replicas": [router._record(f).replica
+                                      for f in fids],
+                         "fleet": {k: st[k] for k in keys}}
+            router.close()
+            if name == "card":
+                fleet_launches["tiny-fleet-parity"] = launched
+                _require(all(launched[k] > 0 for k in path_kernels(False)
+                             if k != "decode_matmul"),
+                         f"tiny-fleet-parity: a dense kernel never launched "
+                         f"on the card: {launched}")
+        for name, r in res.items():
+            _require(r["tokens"] == r["oracle"],
+                     f"tiny-fleet-parity {name}: fleet streams differ from "
+                     f"the single engine's: {r}")
+        _require(res["card"] == res["cpu"],
+                 f"tiny-fleet-parity: card and CPU differ: {res}")
+        _require(res["card"]["fleet"]["failovers"] == 1
+                 and res["card"]["fleet"]["migrated_requests"] >= 1,
+                 f"tiny-fleet-parity: no failover: {res['card']['fleet']}")
+        return {"fleet": res["card"]["fleet"],
+                "replicas": res["card"]["replicas"],
+                "launches": fleet_launches["tiny-fleet-parity"],
+                "tokens_equal_card_cpu_oracle": True}
+
+    _phase("tiny-fleet-parity", tiny_fleet_parity)
+
+    def serve_telemetry_int4():
+        """serve-graphs' sealed 8B int4 ragged engine on serve-dense-int4's
+        requests three ways, alternated, 3 runs each: no telemetry; a
+        Tracer with an SLO monitor; profile_every=8 (the engine's own
+        registry). The modes set what the constructor's tracer=, slo=
+        and profile_every= set: set_telemetry, the monitor and the
+        sampling countdown."""
+        eng = sealed_engine("ragged")
+        reqs = dense_requests()
+        pol = SLOPolicy("all", ttft_p99_s=2.0, itl_p99_s=0.05)
+        tracer = Tracer()
+        samples = []
+        rec = eng._prof_record
+
+        def noted(kind, family, host_s, queue_s, execute_s):
+            samples.append((family, host_s, queue_s, execute_s))
+            rec(kind, family, host_s, queue_s, execute_s)
+
+        def mode(name):
+            eng.set_telemetry(tracer if name == "tracer" else None)
+            eng._slo = SLOMonitor([pol]) if name == "tracer" else None
+            eng._prof_n = 8 if name == "profile" else 0
+            eng._prof_countdown = 1 + int(
+                np.random.RandomState(0).randint(8))
+            eng._prof_metrics = None
+            if name == "profile":
+                eng._prof_record = noted
+            elif "_prof_record" in vars(eng):
+                del eng._prof_record
+
+        runs = {"none": [], "tracer": [], "profile": []}
+        outs = {}
+        slo = None
+        reset_dense()
+        try:
+            for _ in range(3):
+                for name in runs:
+                    mode(name)
+                    o, wall, st = drive(eng, reqs)
+                    if name == "tracer":
+                        slo = st["slo"]
+                    _require(st["unexpected_recompiles"] == 0,
+                             f"serve-telemetry-int4 {name}: "
+                             f"{st['unexpected_recompiles']} recompiles")
+                    outs.setdefault(name, [x.tolist() for x in o])
+                    runs[name].append(st["generated_tokens"] / wall)
+        finally:
+            mode("none")
+        launched = dense_counts()
+        fleet_launches["serve-telemetry-int4"] = launched
+        for name in ("tracer", "profile"):
+            for i, (p, t) in enumerate(reqs):
+                if t == 0.0:
+                    _require(outs[name][i] == outs["none"][i],
+                             f"serve-telemetry-int4: {name} changed greedy "
+                             f"stream {i}")
+        os.makedirs("chiprun_out", exist_ok=True)
+        path = "chiprun_out/serve_telemetry_int4.trace.json"
+        t0 = time.perf_counter()
+        tracer.export(path)
+        export_s = time.perf_counter() - t0
+        from tools.trace_report import analyze
+        with open(path) as f:
+            rep = analyze(json.load(f))
+        _require(rep["requests"]["begun"] == 3 * len(reqs)
+                 and rep["requests"]["states"] == {"done": 3 * len(reqs)},
+                 f"serve-telemetry-int4: trace_report read {rep['requests']}")
+        med = {n: float(np.median(v)) for n, v in runs.items()}
+        by_fam = {}
+        for fam, h, q, e in samples:
+            by_fam.setdefault(fam, []).append((h, q, e))
+        _require(samples, "serve-telemetry-int4: nothing was sampled")
+        return {
+            "tok_per_s": {n: {"runs": v, "median": med[n]}
+                          for n, v in runs.items()},
+            "tracer_cost_share": 1.0 - med["tracer"] / med["none"],
+            "profile_cost_share": 1.0 - med["profile"] / med["none"],
+            "records": tracer.appended, "dropped": tracer.dropped,
+            "records_per_run": tracer.appended / 3,
+            "export_bytes": os.path.getsize(path), "export_s": export_s,
+            "trace_report_phases": sorted(rep["phases"]),
+            "profiled_dispatches": len(samples),
+            "attribution_p50_s": {
+                fam: {"host_schedule": float(np.median([x[0] for x in v])),
+                      "dispatch_queue": float(np.median([x[1] for x in v])),
+                      "device_execute": float(np.median([x[2] for x in v])),
+                      "n": len(v)} for fam, v in by_fam.items()},
+            "slo_min_headroom": slo["min_headroom"],
+            "slo": {m: {k: slo["policies"]["all"]["metrics"][m][k]
+                        for k in ("target_s", "p_s", "headroom")}
+                    for m in ("ttft", "itl")},
+            "launches_9_runs": launched}
+
+    _phase("serve-telemetry-int4", serve_telemetry_int4)
+
+    def fleet_requests():
+        """fleet-int4's 8 requests: 4 opening with serve-prefix-int4's
+        384-token prefix, 4 of serve-dense-int4's prompts; 32 new tokens,
+        6 greedy and 2 at 0.8 (two of the unshared ones)."""
+        shared_p = [p for p, _ in prefix_reqs[:4]]
+        own = [p for p, _ in dense_requests()[:4]]
+        return [(p, 0.0) for p in shared_p] + list(
+            zip(own, [0.0, 0.0, 0.8, 0.8]))
+
+    def fleet_run(router, reqs, wedge_at=None, victim=None):
+        """Serve reqs through the Router: the first request, one step (its
+        prompt blocks enter replica 0's prefix index), then the rest.
+        With ``wedge_at``, replica ``victim`` is wedged once it has a
+        request decoding, after that many steps at least; the ms from the
+        wedge to each migrated request's next token are noted. Returns
+        (tokens, wall s, fleet stats, extras)."""
+        fids = [router.add_request(reqs[0][0], SamplingParams(
+            max_new_tokens=32, temperature=reqs[0][1]))]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        router.step()
+        fids += [router.add_request(p, SamplingParams(max_new_tokens=32,
+                                                      temperature=t))
+                 for p, t in reqs[1:]]
+        extras = {}
+        steps = 1
+        if wedge_at is not None:
+            def decoding():
+                return [f for f in fids
+                        if router._record(f).replica == victim
+                        and router.request(f).state == "running"
+                        and router.request(f).out_tokens]
+            while steps < wedge_at or not decoding():
+                router.step()
+                steps += 1
+            before = {f: len(router.request(f).out_tokens) for f in fids}
+            extras["victims_decoding"] = len(decoding())
+            ChaosMonkey(seed=0).attach(router.replicas[victim].engine).wedge()
+            tw = time.perf_counter()
+            next_ms = {}
+            while router.step():
+                for f in fids:
+                    if router.migrations(f) and f not in next_ms and len(
+                            router.request(f).out_tokens) > before[f]:
+                        next_ms[f] = (time.perf_counter() - tw) * 1e3
+            extras["wedge_to_next_token_ms"] = next_ms
+        else:
+            router.run_to_completion()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        st = router.stats()
+        outs = [router.result(f) for f in fids]
+        extras["migrations"] = [router.migrations(f) for f in fids]
+        extras["replicas"] = [router._record(f).replica for f in fids]
+        extras["recompute_tokens"] = sum(r["recompute_tokens"]
+                                         for r in st["replicas"])
+        router.clear_finished()
+        for rep in router.replicas:
+            rep.engine.dec.cache.clear_prefix_cache()
+        return outs, wall, st["fleet"], extras
+
+    def check_fleet_streams(dec, reqs, outs, want, migrations, where):
+        """Greedy streams against the one engine's: equal, or parted at a
+        near-tie (serve-prefix-int4's rule). A replica's batches differ
+        from the one engine's (a request prefills with other rows, or
+        splices a prefix the other prefilled), and a migrated stream's
+        history is prefilled again. Returns (streams equal, greedy
+        streams, the divergences as (request, migrated, token, gap,
+        noise))."""
+        gaps, equal, greedy = [], 0, 0
+        for i, ((p, t), a, b) in enumerate(zip(reqs, outs, want)):
+            if t > 0:
+                continue
+            greedy += 1
+            g = first_gap(dec, p, a, b)
+            _require(g is None or abs(g[1]) <= 2 * g[2],
+                     f"{where}: stream {i} (migrated {migrations[i]}) "
+                     f"parts at (token, logit gap, noise) {g}, beyond a "
+                     f"near-tie")
+            if g is None:
+                equal += 1
+            else:
+                gaps.append((i, bool(migrations[i])) + tuple(g))
+        return equal, greedy, gaps
+
+    def fleet_int4():
+        """Router(dp=2, transport="inproc") of ragged 8B int4 engines on
+        one card: both replicas over the_dec's one weight tree, each with
+        a pool of its own (160 blocks of 64), graphs captured as the
+        traffic uses them. A clean run against serve-graphs' sealed
+        engine (one engine, the same requests); a ChaosMonkey wedge of
+        replica 1 mid-decode (its requests migrate to replica 0 through
+        adopt_request); the wedged replica back through probation; then
+        seal and dp 2 against one engine, alternated, 3 runs each."""
+        dec = the_dec()
+        reqs = fleet_requests()
+        one = sealed_engine("ragged")
+        want, _, _ = drive(one, reqs)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        mem0 = torch.cuda.memory_reserved()
+        decs = []
+
+        def factory(r, devices):
+            d = PagedLlamaDecoder(cfg, dec.weights, weight_dtype="int4",
+                                  block_size=64, num_blocks=160,
+                                  device="cuda")
+            decs.append(d)
+            return engine(d, True, graphs=True)
+
+        router = Router(None, dp=2, engine_factory=factory,
+                        breaker_threshold=1, max_dispatch_retries=1,
+                        retry_backoff_s=0.0, cooldown_steps=2,
+                        probation_steps=1)
+        _require(all(d.weights["layers"][0]["wqkv"].q.data_ptr()
+                     == dec.weights["layers"][0]["wqkv"].q.data_ptr()
+                     and d.cache.k is not dec.cache.k for d in decs),
+                 "fleet-int4: replicas do not share the weights, or share "
+                 "a pool")
+        c_outs, c_wall, c_st, c_ex = fleet_run(router, reqs)
+        c_cmp = check_fleet_streams(dec, reqs, c_outs, want, [0] * 8,
+                                    "fleet-int4 clean")
+        _require(c_st["affinity_hits"] == 3 and c_ex["replicas"][:4]
+                 == [0] * 4, f"fleet-int4: affinity routed {c_ex} "
+                             f"with {c_st['affinity_hits']} hits")
+        reset_dense()
+        # keys the migrations' prefills use are captured as they first
+        # run (the set is not sealed yet): their seconds are part of the
+        # recovery measured below
+        n_rec = len(router.replicas[0].engine.compile_watch.records)
+        f_outs, f_wall, f_st, f_ex = fleet_run(router, reqs, wedge_at=3,
+                                               victim=1)
+        recs = router.replicas[0].engine.compile_watch.records[n_rec:]
+        launched = dense_counts()
+        fleet_launches["fleet-int4"] = launched
+        f_cmp = check_fleet_streams(dec, reqs, f_outs, want,
+                                    f_ex["migrations"], "fleet-int4 failover")
+        _require(f_st["failovers"] == 1 and f_st["failed_migrations"] == 0
+                 and f_st["migrated_requests"] == sum(f_ex["migrations"])
+                 == f_st["migrated_done"] >= 1 and f_st["finished"] == 8,
+                 f"fleet-int4: failover {f_st}")
+        _require(len(f_ex["wedge_to_next_token_ms"])
+                 == f_st["migrated_requests"],
+                 f"fleet-int4: a migrated request never delivered: {f_ex}")
+        victim = router.replicas[1]
+        victim.engine.chaos.detach(victim.engine)
+        victim.engine.chaos = None
+        capture = lazy_capture(router.replicas[0].engine, mem0)
+        router.seal_programs()
+        step_walls = []
+        for rep in router.replicas:
+            def timed(acks, orig=rep.transport.step):
+                res = orig(acks)
+                step_walls.append(res.wall)
+                return res
+            rep.transport.step = timed
+        runs = {"dp2": [], "one": []}
+        for _ in range(3):
+            o, wall, st, ex = fleet_run(router, reqs)
+            _require([x.tolist() for x in o][:6]
+                     == [x.tolist() for x in c_outs][:6],
+                     "fleet-int4: a sealed fleet run's greedy streams differ "
+                     "from the capturing run's")
+            _require(st["unexpected_recompiles"] == 0,
+                     f"fleet-int4: {st['unexpected_recompiles']} recompiles "
+                     f"after seal_programs")
+            runs["dp2"].append(st["generated_tokens"] / wall)
+            _, wall, st = drive(one, reqs)
+            runs["one"].append(st["generated_tokens"] / wall)
+        _require(victim.state == "healthy",
+                 f"fleet-int4: the healed replica is {victim.state}")
+        info = {"clean_run": {"replicas": c_ex["replicas"],
+                              "affinity_hits": c_st["affinity_hits"],
+                              "spills": c_st["spills"],
+                              "tok_per_s": c_st["generated_tokens"] / c_wall,
+                              "greedy_equal_to_one_engine": c_cmp[:2],
+                              "greedy_divergences": c_cmp[2]},
+                "failover": {k: f_st[k] for k in (
+                    "affinity_hits", "spills", "failovers",
+                    "migrated_requests", "migrated_done",
+                    "failed_migrations", "finished")},
+                "victims_decoding_at_wedge": f_ex["victims_decoding"],
+                "wedge_to_next_token_ms": list(
+                    f_ex["wedge_to_next_token_ms"].values()),
+                "recompute_tokens": f_ex["recompute_tokens"],
+                "captures_during_failover": {
+                    "graphs": len(recs),
+                    "seconds": sum(r["wall_s"] for r in recs)},
+                "failover_greedy_equal_to_one_engine": f_cmp[:2],
+                "failover_greedy_divergences": f_cmp[2],
+                "launches_failover_run": launched,
+                "capture_replica0": capture,
+                "tok_per_s": {n: {"runs": v, "median": float(np.median(v))}
+                              for n, v in runs.items()},
+                "healed_replica_state": victim.state}
+        shared["fleet_want"] = want
+        shared["fleet_clean"] = [x.tolist() for x in c_outs]
+        shared["fleet_step_ms"] = 1e3 * float(np.median(step_walls))
+        info["sealed_replica_step_ms_p50"] = shared["fleet_step_ms"]
+        router.close()
+        for d in decs:
+            d.cache.clear_prefix_cache()
+        decs.clear()
+        return info
+
+    _phase("fleet-int4", fleet_int4)
+
+    def fleet_proc_int4():
+        """The same model and traffic behind Router(dp=2,
+        transport="process"): each spawned worker builds the 8B int4
+        decoder from seed 0 (equal seeds, equal weights) and an eager
+        ragged engine (_proc_engine_factory). inject_kill() makes replica
+        1 SIGKILL itself mid-decode; its requests migrate from the
+        Router's journal and the supervisor respawns it onto
+        probation."""
+        import glob
+        dec = the_dec()
+        reqs = fleet_requests()
+        want = shared.get("fleet_want")
+        if want is None:
+            want, _, _ = drive(sealed_engine("ragged"), reqs)
+        for f in glob.glob("chiprun_out/fleet_proc_worker_*.json"):
+            os.remove(f)
+        t0 = time.perf_counter()
+        router = Router(None, dp=2, transport="process",
+                        engine_factory=_proc_engine_factory,
+                        breaker_threshold=1, max_dispatch_retries=1,
+                        retry_backoff_s=0.0, probation_steps=1,
+                        rpc_timeout_s=300.0)
+        spawn_s = time.perf_counter() - t0
+        rtts, respawns = [], []
+        for rep in router.replicas:
+            tr = rep.transport
+
+            def timed(acks, orig=tr.step):
+                t = time.perf_counter()
+                res = orig(acks)
+                rtts.append((time.perf_counter() - t, res.wall))
+                return res
+
+            def timed_respawn(orig=tr.respawn):
+                t = time.perf_counter()
+                orig()
+                respawns.append(time.perf_counter() - t)
+
+            tr.step = timed
+            tr.respawn = timed_respawn
+        try:
+            c_outs, c_wall, c_st, c_ex = proc_run(router, reqs)
+            c_cmp = check_fleet_streams(dec, reqs, c_outs, want, [0] * 8,
+                                        "fleet-proc-int4 clean")
+            if "fleet_clean" in shared:
+                # the in-process fleet's streams, the same replicas'
+                # schedules: equal
+                _require([x.tolist() for x in c_outs][:6]
+                         == shared["fleet_clean"][:6],
+                         "fleet-proc-int4: greedy streams differ from "
+                         "fleet-int4's")
+            k_outs, k_wall, k_st, k_ex = proc_run(router, reqs, kill=1)
+            k_cmp = check_fleet_streams(dec, reqs, k_outs, want,
+                                        k_ex["migrations"],
+                                        "fleet-proc-int4 SIGKILL")
+            _require(k_st["worker_exits"] == 1 and k_st["worker_restarts"]
+                     == 1 and k_st["failed_migrations"] == 0
+                     and k_st["migrated_requests"] >= 1
+                     and k_st["finished"] == 8,
+                     f"fleet-proc-int4: {k_st}")
+            _require(k_ex["state_after_respawn"] == "probation",
+                     f"fleet-proc-int4: the respawned replica came back "
+                     f"{k_ex['state_after_respawn']}")
+        finally:
+            router.close()
+        notes = []
+        for f in sorted(glob.glob("chiprun_out/fleet_proc_worker_*.json")):
+            with open(f) as fh:
+                notes.append(json.load(fh))
+        _require(len(notes) == 3 and not any(n["library_built_here"]
+                                             for n in notes),
+                 f"fleet-proc-int4: worker library notes {notes}")
+        rtt = [a for a, _ in rtts]
+        inner = [b for _, b in rtts]
+        return {"spawn_s_two_workers": spawn_s, "respawn_s": respawns,
+                "workers": notes,
+                "clean_tok_per_s": c_st["generated_tokens"] / c_wall,
+                "kill_run": {k: k_st[k] for k in (
+                    "failovers", "migrated_requests", "migrated_done",
+                    "failed_migrations", "worker_exits", "worker_restarts",
+                    "heartbeat_misses", "rpc_retries", "finished")},
+                "victims_decoding_at_kill": k_ex["victims_decoding"],
+                "kill_to_next_token_ms": list(
+                    k_ex["wedge_to_next_token_ms"].values()),
+                "recompute_tokens": k_ex["recompute_tokens"],
+                "clean_greedy_equal_to_one_engine": c_cmp[:2],
+                "kill_greedy_equal_to_one_engine": k_cmp[:2],
+                "kill_greedy_divergences": k_cmp[2],
+                "step_rpc_ms": {"round_trip_p50": 1e3 * float(
+                    np.median(rtt)), "worker_step_p50": 1e3 * float(
+                    np.median(inner)), "overhead_p50": 1e3 * float(
+                    np.median([a - b for a, b in rtts])), "n": len(rtt)},
+                "inproc_graph_step_ms_p50": shared.get("fleet_step_ms"),
+                "state_after_respawn": k_ex["state_after_respawn"],
+                "final_states": k_ex["final_states"]}
+
+    def proc_run(router, reqs, kill=None):
+        """fleet_run for the process Router: with ``kill``, that replica
+        SIGKILLs itself (inject_kill) once it has a request decoding."""
+        fids = [router.add_request(reqs[0][0], SamplingParams(
+            max_new_tokens=32, temperature=reqs[0][1]))]
+        t0 = time.perf_counter()
+        router.step()
+        fids += [router.add_request(p, SamplingParams(max_new_tokens=32,
+                                                      temperature=t))
+                 for p, t in reqs[1:]]
+        ex = {}
+        if kill is not None:
+            def decoding():
+                out = []
+                for f in fids:
+                    if router._record(f).replica != kill:
+                        continue
+                    v = router.request(f)
+                    if v.state == "running" and v.out_tokens:
+                        out.append(f)
+                return out
+            steps = 1
+            while steps < 3 or not decoding():
+                router.step()
+                steps += 1
+            before = {f: len(router.request(f).out_tokens) for f in fids}
+            ex["victims_decoding"] = len(decoding())
+            router.replicas[kill].transport.inject_kill()
+            tk = time.perf_counter()
+            next_ms = {}
+            ex["state_after_respawn"] = None
+            while router.has_work:
+                router.step()
+                if ex["state_after_respawn"] is None and \
+                        router.worker_restarts:
+                    ex["state_after_respawn"] = router.replicas[kill].state
+                for f in fids:
+                    if router.migrations(f) and f not in next_ms and len(
+                            router.request(f).out_tokens) > before[f]:
+                        next_ms[f] = (time.perf_counter() - tk) * 1e3
+            ex["wedge_to_next_token_ms"] = next_ms
+        else:
+            while router.has_work:
+                router.step()
+        wall = time.perf_counter() - t0
+        st = router.stats()
+        outs = [router.result(f) for f in fids]
+        ex["migrations"] = [router.migrations(f) for f in fids]
+        ex["recompute_tokens"] = sum(r.get("recompute_tokens", 0)
+                                     for r in st["replicas"])
+        ex["final_states"] = [rep.state for rep in router.replicas]
+        router.clear_finished()
+        return outs, wall, st["fleet"], ex
+
+    _phase("fleet-proc-int4", fleet_proc_int4)
+
     for eng in shared.get("graph_engines", {}).values():
         eng.close()
     shared.clear()
@@ -4264,6 +4871,12 @@ def main():
             "ms": c["ms"], "plain_ms": c["plain_ms"],
             "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
             "library_ms": c["library_ms"]})
+        if key in ("bf16", "int4"):
+            # the telemetry and fleet phases' launches of the same kernel
+            fam = name.split("[")[0]
+            kernel_rows[-1]["launches_by_phase"] = {
+                ph: n[fam] for ph, n in fleet_launches.items()
+                if ph != "tiny-fleet-parity"}
     f = heads["flash"]
     for key, name, rep in (
             ("fwd", "flash_fwd", tpu + "flash_attention.py:69"),
@@ -4313,6 +4926,11 @@ def main():
             "ms": c["ms"], "plain_ms": c["plain_ms"],
             "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
             "library_ms": c["library_ms"]})
+        if key == "f32_decode":
+            kernel_rows[-1]["launches_by_phase"] = {
+                "tiny-fleet-parity":
+                    fleet_launches["tiny-fleet-parity"][
+                        "paged_attention_decode"]}
     f = heads["f32_flash"]
     kernel_rows.append({
         "name": "flash_fwd[float32]", "route": "cuda",
@@ -4322,7 +4940,9 @@ def main():
         "max_abs_err": f["max_abs_err"]["fwd"], "ms": f["ms"]["fwd"],
         "plain_ms": f["plain_ms"]["fwd"], "bound_ms": f["bound_ms"]["fwd"],
         "bound_by": f["bound_by"]["fwd"],
-        "library_ms": f["library_ms"]["fwd"]})
+        "library_ms": f["library_ms"]["fwd"],
+        "launches_by_phase": {"tiny-fleet-parity": fleet_launches[
+            "tiny-fleet-parity"]["flash_fwd"]}})
     _emit({"kernels": kernel_rows})
     print(smi, flush=True)
     _emit({"ok": True, "device": device})

@@ -114,6 +114,10 @@ class AdapterRegistry:
         self.hits = 0
         self.misses = 0
         self.evictions = 0
+        # telemetry: the refault event on the owning engine's pid
+        # (ServingEngine.set_telemetry attaches it; None: no-op)
+        self.tracer = None
+        self.trace_pid = 0
 
     # -- registration (host only) -------------------------------------------
     def _check_new(self, adapter_id):
@@ -333,6 +337,11 @@ class AdapterRegistry:
         self.misses += 1
         if was_evicted:
             self.evictions += 1
+        if self.tracer is not None:
+            self.tracer.event(
+                "adapter_refault", pid=self.trace_pid,
+                adapter=str(adapter_id), pages=lay.n_pages,
+                evicted=bool(was_evicted))
         self._was_resident.add(adapter_id)
 
     def release(self, adapter_id):

@@ -202,13 +202,19 @@ def _weight_specs(cfg):
 
 
 def _fuse_layers(weights):
-    """Fuse q/k/v and gate/up along the out dim (idempotent)."""
+    """The tree with q/k/v and gate/up fused along the out dim. The given
+    tree is left as it was and an already-fused one passes through, so
+    several decoders (the replicas of a fleet) can be built over one set
+    of weights, each with a pool of its own."""
+    layers = []
     for lw in weights["layers"]:
+        lw = dict(lw)
         if "wq" in lw:
             lw["wqkv"] = _fuse_out([lw.pop("wq"), lw.pop("wk"),
                                     lw.pop("wv")])
             lw["wgu"] = _fuse_out([lw.pop("wg"), lw.pop("wu")])
-    return weights
+        layers.append(lw)
+    return {**weights, "layers": layers}
 
 
 class PagedLlamaDecoder:

@@ -116,12 +116,16 @@ class _Graph:
         # passed when the last copy out of ``staging`` is done
         self.event = torch.cuda.Event()
 
-    def replay(self, arrays):
+    def replay(self, arrays, events=None):
         self.event.synchronize()
         _pack(self.staging_np, arrays)
         self.static.copy_(self.staging, non_blocking=True)
         self.event.record()
+        if events is not None:
+            events[0].record()
         self.graph.replay()
+        if events is not None:
+            events[1].record()
         _write_counters([c + d for c, d in zip(_read_counters(),
                                                 self.deltas)])
         return self.outs
@@ -161,8 +165,12 @@ class ProgramSet:
         self.compiles = 0
         self.unexpected = 0
 
-    def run(self, family: str, key: tuple, arrays: Sequence[np.ndarray]):
-        """Dispatch one program: its outputs on the device."""
+    def run(self, family: str, key: tuple, arrays: Sequence[np.ndarray],
+            events=None):
+        """Dispatch one program: its outputs on the device. ``events``,
+        a pair of CUDA events, are recorded just before and just after
+        the program (its graph's replay, or its eager run once the
+        operands are on the card)."""
         _check_arrays(arrays)
         self.dispatches[(family, key)] += 1
         if self.graphs:
@@ -170,9 +178,14 @@ class ProgramSet:
             if g is None and not self.watch.sealed:
                 g = self._capture(family, key, arrays)
             if g is not None:
-                return g.replay(arrays)
+                return g.replay(arrays, events)
         t0 = time.perf_counter()
-        out = self._fns[family](key, *self._operands(arrays))
+        operands = self._operands(arrays)
+        if events is not None:
+            events[0].record()
+        out = self._fns[family](key, *operands)
+        if events is not None:
+            events[1].record()
         self._observe(family, key, t0, arrays)
         return out
 

@@ -142,9 +142,26 @@ Three program families ride the ragged path, each forcing
 ``LlamaForCausalLM`` (``PagedLlamaDecoder.from_model``), as JAX's does,
 so a model the port trained is served as it stands.
 
-Not ported yet: tensor parallelism, the fleet and the transports
-(ROADMAP queue 1 item 5) and the tracer, the SLO monitor and sampled
-profiling (item 8).
+Telemetry, as in JAX (``utils/telemetry.py``): ``tracer=`` records one
+async span per request (``begin_request`` at submission, ``end_request``
+at every terminal state, one trace id across preemption and, through
+``adopt_request``, across replicas), a queued / prefill / splice_wait /
+decode span per life, per-step events (dispatch, preempt, shed, retry,
+adopt, slo_violation, and the pool's kv_* and the registry's refault
+events) and per-step counter tracks; ``stats()`` is mirrored into the
+tracer's registry under ``engine`` (``engine{r}`` for replica r).
+``slo=`` feeds TTFT once per request and ITL at collection into an
+``SLOMonitor`` (``stats()["slo"]``). ``profile_every=n`` splits every
+n-th dispatch's wall (seeded start phase) into host-schedule (since the
+previous device call ended), dispatch-queue (a
+``torch.cuda.synchronize()`` draining earlier work, timed on the host)
+and device-execute (CUDA events around the program; on the CPU the
+host wall of the eager call). ``tracer=None`` is a bitwise no-op.
+``adopt_request`` admits a request that ran on another engine (the
+fleet Router's migration): its history re-enters through the
+preemption-recompute path, so no key is drawn.
+
+Not ported yet: tensor parallelism (ROADMAP queue 1 item 5(a)).
 """
 from __future__ import annotations
 
@@ -162,7 +179,8 @@ import torch
 from ..ops.paged_attention import KVCacheExhausted
 from ..utils import prng
 from ..models.llama import LlamaForCausalLM
-from ..utils.telemetry import CompileWatch, Reservoir
+from ..utils.telemetry import (CompileWatch, MetricsRegistry, Reservoir,
+                               SLOMonitor)
 from .lora import AdapterRegistry
 from .paged_decode import PagedLlamaDecoder
 from .programs import ProgramSet
@@ -258,6 +276,17 @@ class Request:
     allowed_serial: int = 0
     # holds one AdapterRegistry.acquire of its adapter
     lora_held: bool = False
+    # telemetry (None / 0 while no tracer is attached): the request's
+    # async-span id, kept across lives and replicas; the current queued
+    # life's start, slot admission, running transition and splice-wait
+    # start; and keep-open, which the fleet Router sets before it
+    # cancels a request it migrates, so the abort does not end the span
+    trace_id: Optional[int] = None
+    t_queued: float = 0.0
+    t_life: float = 0.0
+    t_run: Optional[float] = None
+    t_wait: Optional[float] = None
+    trace_keep_open: bool = False
 
     @property
     def prefill_tokens(self) -> np.ndarray:
@@ -300,13 +329,12 @@ class Request:
 # default and the ROADMAP queue 1 item that ports it
 _UNPORTED_ARGS = {
     "tp": (1, "5"), "mesh": (None, "5"), "devices": (None, "5"),
-    "tp_comm": (None, "5"), "tracer": (None, "8"), "slo": (None, "8"),
-    "profile_every": (None, "8"), "profile_seed": (0, "8")}
+    "tp_comm": (None, "5")}
 
 
 def _refuse_unported(**given):
-    """Raise on any of JAX's tensor-parallel or telemetry arguments given
-    another value than its default. ``tp_comm="fp32"`` is the one mode a
+    """Raise on any of JAX's tensor-parallel arguments given another
+    value than its default. ``tp_comm="fp32"`` is the one mode a
     single device has, so it passes; a bad value raises ``ValueError``
     as in JAX."""
     if given["tp_comm"] not in (None, "fp32", "int8"):
@@ -461,8 +489,9 @@ class ServingEngine:
     ``num_blocks``, ``block_size``, ``weight_dtype``, ``kv_quant`` and
     ``device`` (``None``: cuda); a prebuilt decoder keeps its own pool
     and device, and a ``kv_quant`` that contradicts its pool raises.
-    JAX's tensor-parallel and telemetry arguments raise
-    ``NotImplementedError`` unless left at their defaults.
+    JAX's tensor-parallel arguments raise ``NotImplementedError`` unless
+    left at their defaults. ``tracer``, ``slo``, ``profile_every`` and
+    ``profile_seed`` are the telemetry of the module docstring.
     ``cuda_graphs=False`` runs every program eagerly on the card too (for
     comparison with the graphs); on the CPU programs always run
     eagerly."""
@@ -504,9 +533,10 @@ class ServingEngine:
                  ragged_idle_cap: Optional[int] = None,
                  multi_step: int = 1,
                  cuda_graphs: bool = True, device=None):
-        _refuse_unported(tp=tp, mesh=mesh, devices=devices, tp_comm=tp_comm,
-                         tracer=tracer, slo=slo, profile_every=profile_every,
-                         profile_seed=profile_seed)
+        _refuse_unported(tp=tp, mesh=mesh, devices=devices, tp_comm=tp_comm)
+        if profile_every is not None and int(profile_every) < 1:
+            raise ValueError(f"profile_every must be >= 1, got "
+                             f"{profile_every}")
         if kv_quant not in (None, "int8"):
             raise ValueError(f"kv_quant must be None or 'int8', got "
                              f"{kv_quant!r}")
@@ -725,6 +755,25 @@ class ServingEngine:
         self.time_prefill_s = 0.0
         self.time_stall_s = 0.0
         self.time_host_s = 0.0
+        # sampled dispatch attribution: every profile_every-th dispatch
+        # (seeded start phase, so identical runs sample identical
+        # dispatches); off by default, as its fences cost a sync
+        self._prof_n = int(profile_every) if profile_every else 0
+        self._prof_metrics = None        # made at first use, untraced
+        self._prof_countdown = 0
+        if self._prof_n:
+            rng = np.random.RandomState(int(profile_seed))
+            self._prof_countdown = 1 + int(rng.randint(self._prof_n))
+        self._prof_mark = time.perf_counter()
+        self.profiled_dispatches = 0
+        # declared SLOs: a monitor as given, or one over the policies
+        if isinstance(slo, SLOMonitor):
+            self._slo = slo
+        else:
+            pols = SLOMonitor.coerce_policies(slo)
+            self._slo = SLOMonitor(pols) if pols else None
+        self._slo_violating: set = set()
+        self.set_telemetry(tracer)
 
     def _reset_family_counters(self):
         """The spec decode, lora and multi-step counters of ``stats()``
@@ -739,6 +788,132 @@ class ServingEngine:
         self.ms_frozen_token_waste = 0
         if self.lora is not None:
             self.lora.reset_stats()
+
+    # -- telemetry -----------------------------------------------------------
+    def set_telemetry(self, tracer, replica_id: int = 0):
+        """Attach (a ``Tracer``) or detach (None) telemetry. The tracer
+        is threaded into the KV pool, the adapter registry and the compile
+        watch, so their records ride the same flight recorder;
+        ``replica_id`` is the pid every record of this engine carries
+        (the fleet Router sets it to the replica index)."""
+        self.tracer = tracer
+        self.replica_id = int(replica_id)
+        cache = self.dec.cache
+        cache.tracer = tracer
+        cache.trace_pid = self.replica_id
+        if self.lora is not None:
+            self.lora.tracer = tracer
+            self.lora.trace_pid = self.replica_id
+        self.compile_watch.bind(tracer, pid=self.replica_id)
+
+    def _profile_metrics(self) -> MetricsRegistry:
+        """The registry the attribution histograms feed: the tracer's,
+        or the engine's own when no tracer is attached."""
+        if self.tracer is not None:
+            return self.tracer.metrics
+        if self._prof_metrics is None:
+            self._prof_metrics = MetricsRegistry()
+        return self._prof_metrics
+
+    def _prof_due(self) -> bool:
+        """Every ``profile_every``-th dispatch, from the seeded phase."""
+        if not self._prof_n:
+            return False
+        self._prof_countdown -= 1
+        if self._prof_countdown > 0:
+            return False
+        self._prof_countdown = self._prof_n
+        return True
+
+    def _prof_record(self, kind: str, family: str, host_s: float,
+                     queue_s: float, execute_s: float):
+        """One sampled dispatch: host-schedule, dispatch-queue and
+        device-execute seconds, overall and device-execute per program
+        family."""
+        m = self._profile_metrics()
+        m.histogram("profile.host_schedule_s").observe(max(0.0, host_s))
+        m.histogram("profile.dispatch_queue_s").observe(max(0.0, queue_s))
+        m.histogram("profile.device_execute_s").observe(
+            max(0.0, execute_s))
+        m.histogram(f"profile.device_execute_s.{family}").observe(
+            max(0.0, execute_s))
+        self.profiled_dispatches += 1
+        if self.tracer is not None:
+            self.tracer.event(
+                "profile_sample", pid=self.replica_id, family=family,
+                kind=kind, host_s=round(host_s, 6),
+                queue_s=round(queue_s, 6), execute_s=round(execute_s, 6))
+
+    def _slo_attrs(self, req: Request) -> dict:
+        return {"adapter_id": req.sampling.adapter_id,
+                "priority": req.sampling.priority}
+
+    def _mark_first_token(self, req: Request, now: float):
+        """First-token bookkeeping of every collection path, first life
+        only: a resume is not a first token, so neither ``ttft_s`` nor
+        the SLO windows see it twice."""
+        if req.t_first_token is None:
+            req.t_first_token = now
+            if self._slo is not None:
+                self._slo.observe("ttft", now - req.t_submit,
+                                  self._slo_attrs(req), now=now)
+        req.t_last_emit = now
+
+    def _trace_running(self, req: Request, now: float):
+        """Close the life's prefill span at its running transition
+        (call sites check the tracer)."""
+        if req.trace_id is None:
+            return
+        t0 = req.t_life or req.t_admit or now
+        self.tracer.span(
+            "prefill", req.trace_id, t0, now, pid=self.replica_id,
+            epoch=req.epoch, n_cached=int(req.n_cached),
+            recompute=bool(req.resume))
+        req.t_run = now
+
+    def _trace_life_end(self, req: Request, reason: str, now: float):
+        """Close the phase span the life was in (decode when running,
+        an interrupted prefill when prefilling, queued when it never had
+        a slot, and any splice wait) and reset the life's markers (call
+        sites check the tracer)."""
+        if req.trace_id is None:
+            return
+        tr = self.tracer
+        if req.t_run is not None:
+            tr.span("decode", req.trace_id, req.t_run, now,
+                    pid=self.replica_id, epoch=req.epoch, reason=reason,
+                    tokens=len(req.out_tokens))
+        elif req.t_life:
+            tr.span("prefill", req.trace_id, req.t_life, now,
+                    pid=self.replica_id, epoch=req.epoch, reason=reason,
+                    interrupted=True)
+        elif req.t_queued:
+            tr.span("queued", req.trace_id, req.t_queued, now,
+                    pid=self.replica_id, reason=reason)
+        if req.t_wait is not None:
+            tr.span("splice_wait", req.trace_id, req.t_wait, now,
+                    pid=self.replica_id, reason=reason)
+        req.t_run = None
+        req.t_life = 0.0
+        req.t_wait = None
+
+    def _sample_counter_tracks(self):
+        """One sample per scheduler gauge per step (tracer attached):
+        host state only."""
+        tr = self.tracer
+        pid = self.replica_id
+        cache = self.dec.cache
+        tr.counter("running_slots",
+                   sum(1 for r in self._slots
+                       if r is not None and r.state == "running"), pid)
+        tr.counter("queue_depth", len(self._queue), pid)
+        tr.counter("inflight_chunks", len(self._inflight), pid)
+        tr.counter("free_blocks", cache.free_blocks, pid)
+        tr.counter("cached_blocks", cache.cached_blocks, pid)
+        if self.spec is not None:
+            tr.counter("acceptance_ema", self.draft_acceptance_ema, pid)
+        if self.lora is not None:
+            tr.counter("active_adapters", self.lora.active_count(), pid)
 
     # -- the key stream ------------------------------------------------------
     def _next_key(self) -> np.ndarray:
@@ -775,24 +950,69 @@ class ServingEngine:
         before the call, so an injected fault is always safe to
         retry."""
         attempt = 0
+        dispatch = kind.startswith("dispatch:")
+        # sampled attribution, decided once per call (not per retry) so
+        # the seeded cadence does not depend on faults
+        prof = dispatch and self._prof_due()
         while True:
             try:
                 if self.chaos is not None:
                     self.chaos.before_call(self, kind)
-                out = fn(*args)
-                if kind.startswith("dispatch:"):
+                if prof:
+                    out = self._profiled_call(kind, fn, args)
+                    prof = False
+                else:
+                    out = fn(*args)
+                if dispatch:
                     self.device_dispatches += 1
+                if self._prof_n:
+                    self._prof_mark = time.perf_counter()
                 return out
             except KVCacheExhausted:
                 raise
             except Exception as e:          # noqa: BLE001 -- the fault wall
                 if attempt >= self.max_dispatch_retries:
                     self.dispatch_exhaustions += 1
+                    if self.tracer is not None:
+                        self.tracer.event(
+                            "dispatch_exhausted", pid=self.replica_id,
+                            kind=kind, error=type(e).__name__)
                     raise _DispatchFailed(kind, e) from e
                 attempt += 1
                 self.retries += 1
+                if self.tracer is not None:
+                    self.tracer.event("retry", pid=self.replica_id,
+                                      kind=kind, attempt=attempt)
                 if self.retry_backoff_s > 0:
                     time.sleep(self.retry_backoff_s * (2 ** (attempt - 1)))
+
+    def _profiled_call(self, kind: str, fn, args):
+        """One sampled dispatch: the host time since the previous device
+        call ended, a ``torch.cuda.synchronize()`` draining the work
+        queued before it (timed on the host), and the program itself
+        between two CUDA events recorded around its launch (around the
+        graph's replay), waited on here. On the CPU the program's time
+        is the host wall of its eager call. Values are not touched, so
+        tokens are the same sampled or not."""
+        tq0 = time.perf_counter()
+        host_s = tq0 - self._prof_mark
+        cuda = self.device.type == "cuda"
+        if cuda:
+            torch.cuda.synchronize(self.device)
+        tq1 = time.perf_counter()
+        family = args[0]            # a dispatch is programs.run(family, ...)
+        if cuda:
+            events = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+            out = fn(*args, events=events)
+            events[1].synchronize()
+            execute_s = events[0].elapsed_time(events[1]) / 1e3
+        else:
+            t0 = time.perf_counter()
+            out = fn(*args)
+            execute_s = time.perf_counter() - t0
+        self._prof_record(kind, family, host_s, tq1 - tq0, execute_s)
+        return out
 
     def cancel(self, req_id: int) -> bool:
         """Abort a request in any live state: queued, prefilling (its
@@ -872,6 +1092,11 @@ class ServingEngine:
         prompt ++ history through the no-sample programs; a prefilling
         one restarts its prefill."""
         self.preemptions += 1
+        if self.tracer is not None and victim.trace_id is not None:
+            self.tracer.event(
+                "preempt", trace=victim.trace_id, pid=self.replica_id,
+                state=victim.state, tokens=len(victim.out_tokens),
+                priority=victim.sampling.priority)
         self._evict_to_queue(victim)
         self._requeue_front([victim])
 
@@ -882,6 +1107,10 @@ class ServingEngine:
         reset the per-life prefill progress. The free is immediate: the
         request may be admitted again before the next collection. The
         caller requeues."""
+        if self.tracer is not None and req.trace_id is not None:
+            now = time.perf_counter()
+            self._trace_life_end(req, "evict", now)
+            req.t_queued = now          # the requeued life's queued span
         req.epoch += 1
         si = req.slot
         if si is not None:
@@ -1014,6 +1243,12 @@ class ServingEngine:
         req.state = state
         req.error = msg
         req.t_done = time.perf_counter()
+        if self.tracer is not None and req.trace_id is not None:
+            self._trace_life_end(req, state, req.t_done)
+            if not req.trace_keep_open:
+                self.tracer.end_request(
+                    req.trace_id, state, replica=self.replica_id,
+                    error=msg)
         self._done[req.req_id] = req
 
     def debug_dump(self) -> str:
@@ -1182,6 +1417,9 @@ class ServingEngine:
         if self.max_queue_depth is not None and \
                 len(self._queue) >= self.max_queue_depth:
             self.shed_requests += 1
+            if self.tracer is not None:
+                self.tracer.event("shed", pid=self.replica_id,
+                                  reason="queue_depth")
             raise EngineOverloaded(
                 f"queue depth {len(self._queue)} at the "
                 f"max_queue_depth={self.max_queue_depth} cap")
@@ -1189,6 +1427,9 @@ class ServingEngine:
             est = self._estimate_completion_s(sp)
             if est is not None and est > sp.deadline_s:
                 self.shed_requests += 1
+                if self.tracer is not None:
+                    self.tracer.event("shed", pid=self.replica_id,
+                                      reason="deadline_estimate")
                 raise EngineOverloaded(
                     f"estimated completion {est:.3f}s exceeds the "
                     f"{sp.deadline_s:.3f}s deadline "
@@ -1198,6 +1439,74 @@ class ServingEngine:
         if allowed is not None:
             req.allowed_mask = allowed
             req.allowed_serial = next(self._mask_serials)
+        req.t_queued = req.t_submit
+        if self.tracer is not None:
+            req.trace_id = self.tracer.begin_request(
+                rid, tenant=sp.adapter_id, replica=self.replica_id,
+                prompt_len=int(prompt.size),
+                max_new_tokens=sp.max_new_tokens)
+        self._queue.append(req)
+        return rid
+
+    def adopt_request(self, prompt, sampling: Optional[SamplingParams]
+                      = None, out_tokens: Sequence[int] = (),
+                      t_submit: Optional[float] = None,
+                      trace_id: Optional[int] = None) -> int:
+        """Admit a request that ran, in part, on another engine (the
+        fleet Router's migration). The generated history re-enters the
+        pool through the preemption-recompute path (``resume``): prompt
+        ++ out_tokens[:-1] is prefilled by the no-sample programs, no key
+        is drawn, and decode goes on from out_tokens[-1], so greedy
+        streams are token-identical across the move. Shedding is
+        bypassed (the fleet admitted the request once already); the
+        request checks still apply. ``t_submit`` keeps the original
+        submission time, so a deadline keeps its meaning. A history that
+        already meets the stop condition completes at once. ``trace_id``
+        continues the request's telemetry span (None opens one when a
+        tracer is attached)."""
+        if self._closed:
+            raise RuntimeError("engine is closed")
+        sp = sampling or SamplingParams()
+        prompt, allowed = self._validate_new_request(prompt, sp)
+        rid = next(self._ids)
+        req = Request(rid, prompt, sp,
+                      t_submit=(time.perf_counter() if t_submit is None
+                                else float(t_submit)))
+        if allowed is not None:
+            req.allowed_mask = allowed
+            req.allowed_serial = next(self._mask_serials)
+        req.t_queued = time.perf_counter()
+        if self.tracer is not None:
+            req.trace_id = (int(trace_id) if trace_id is not None
+                            else self.tracer.begin_request(
+                                rid, tenant=sp.adapter_id,
+                                replica=self.replica_id,
+                                prompt_len=int(prompt.size)))
+            self.tracer.event(
+                "adopt", trace=req.trace_id, pid=self.replica_id,
+                history=len(out_tokens), req_id=rid)
+        toks = [int(t) for t in out_tokens]
+        if toks and not self._can_recompute:
+            # without the no-sample programs the history cannot re-enter
+            # the pool without drawing keys: prefill the prompt again
+            toks = []
+        req.out_tokens = toks
+        if toks and (len(toks) >= sp.max_new_tokens
+                     or (sp.eos_token_id is not None
+                         and toks[-1] == sp.eos_token_id)):
+            # the history already finished the request: a resume would
+            # schedule one decode row past the budget before retiring
+            req.out_tokens = toks[:sp.max_new_tokens]
+            req.state = "done"
+            req.t_done = time.perf_counter()
+            if self.tracer is not None:
+                self.tracer.end_request(
+                    req.trace_id, "done", replica=self.replica_id,
+                    tokens=len(req.out_tokens))
+            self._done[rid] = req
+            return rid
+        req.resume = bool(toks)
+        req.planned = len(toks)
         self._queue.append(req)
         return rid
 
@@ -1284,8 +1593,19 @@ class ServingEngine:
             req.n_cached = n_cached
             req.state = "prefilling"
             req.slot = si
+            now = time.perf_counter()
             if req.t_admit is None:
-                req.t_admit = time.perf_counter()
+                req.t_admit = now
+            if self.tracer is not None and req.trace_id is not None:
+                self.tracer.span(
+                    "queued", req.trace_id, req.t_queued or now, now,
+                    pid=self.replica_id, epoch=req.epoch,
+                    resume=bool(req.resume))
+                self.tracer.event(
+                    "admitted", trace=req.trace_id,
+                    pid=self.replica_id, slot=si,
+                    n_cached=int(n_cached), resume=bool(req.resume))
+                req.t_life = now
             if req.resume:
                 self.recompute_tokens += req.suffix_len
             self._slots[si] = req
@@ -1297,7 +1617,19 @@ class ServingEngine:
         if req.deps:
             req.deps = [(w, need) for w, need in req.deps
                         if w.prefill_sent < need]
-        return not req.deps
+        if not req.deps:
+            if req.t_wait is not None:
+                # the splice wait is over: the reader held its rows back
+                # this long for its writer's dispatches
+                if self.tracer is not None and req.trace_id is not None:
+                    self.tracer.span(
+                        "splice_wait", req.trace_id, req.t_wait,
+                        time.perf_counter(), pid=self.replica_id)
+                req.t_wait = None
+            return True
+        if self.tracer is not None and req.t_wait is None:
+            req.t_wait = time.perf_counter()
+        return False
 
     def _clear_pending_writes(self, req: Request):
         for b in req.pending_blocks:
@@ -1318,6 +1650,17 @@ class ServingEngine:
         # a finished request's ITL samples join the bounded reservoir
         # here; aborted and failed lives never reach _retire
         self._itl_res.extend(req.itls)
+        if self.tracer is not None:
+            if req.trace_id is not None:
+                self._trace_life_end(req, "done", req.t_done)
+                self.tracer.end_request(
+                    req.trace_id, "done", replica=self.replica_id,
+                    tokens=len(req.out_tokens))
+            m = self.tracer.metrics
+            if req.latency_s is not None:
+                m.histogram("engine.latency_s").observe(req.latency_s)
+            if req.ttft_s is not None:
+                m.histogram("engine.ttft_s").observe(req.ttft_s)
         self._done[req.req_id] = req
         self._slots[si] = None
         self._lora_release(req)
@@ -1658,6 +2001,12 @@ class ServingEngine:
             return False
         host, ev = self._to_host(out)
         self._advance_prefill(r.sched, r.take_of)
+        if self.tracer is not None:
+            self.tracer.event(
+                "dispatch", pid=self.replica_id, kind="spec",
+                W=int(W), drafts=int(total_drafts),
+                decode_cols=len(spec_of),
+                prefill_rows=int(sum(r.take_of.values())))
         self._inflight.append({
             "kind": "spec", "host": host, "event": ev, "W": W,
             "spec": spec_of, "finals": r.finals,
@@ -1710,6 +2059,10 @@ class ServingEngine:
                     m / k - self.draft_acceptance_ema)
             if m < k:
                 self.spec_rollbacks += 1
+            if self.tracer is not None and k:
+                self.tracer.event(
+                    "spec_window", trace=req.trace_id,
+                    pid=self.replica_id, drafted=int(k), accepted=int(m))
             delivered = 0
             for j in range(m + 1):
                 tok = int(toks[base + j])
@@ -1879,6 +2232,14 @@ class ServingEngine:
             return False
         host, ev = self._to_host(toks)
         self._advance_prefill(r.sched, r.take_of)
+        if self.tracer is not None:
+            self.tracer.event(
+                "dispatch", pid=self.replica_id, kind="ragged",
+                T=int(T), W=int(W), decode_cols=len(col_of),
+                prefill_rows=int(sum(r.take_of.values())),
+                finals=len(finals),
+                k=int(self.multi_step if fused else 1),
+                decode_toks=int(sum(steps_of.values())))
         self._inflight.append({
             "kind": "ragged", "free_after": [], "host": host, "event": ev,
             "T": T, "W": W, "cols": col_of, "steps": steps_of,
@@ -2286,6 +2647,11 @@ class ServingEngine:
                                     f"retries: {e}")
             return 0
         req.prefill_sent += take
+        if self.tracer is not None:
+            self.tracer.event(
+                "dispatch", trace=req.trace_id, pid=self.replica_id,
+                kind="prefill_mid", rows=1, tokens=int(take),
+                offset=int(off))
         self._inflight.append({"kind": "prefill", "toks": None,
                                "group": [], "free_after": []})
         if req.resume and req.prefill_sent >= req.suffix_len:
@@ -2298,6 +2664,8 @@ class ServingEngine:
         on from the last token already emitted, supplied from the host
         like a fresh prefill's first token."""
         req.state = "running"
+        if self.tracer is not None:
+            self._trace_running(req, time.perf_counter())
         self._clear_pending_writes(req)
         si = req.slot
         self._last_tok[si] = req.out_tokens[-1]
@@ -2374,6 +2742,10 @@ class ServingEngine:
         for _si, req, _off in group:
             req.prefill_sent = req.suffix_len
             self._clear_pending_writes(req)
+        if self.tracer is not None:
+            self.tracer.event("dispatch", pid=self.replica_id,
+                              kind="prefill", rows=int(gp),
+                              bucket=int(bucket))
         self._inflight.append({"kind": "prefill", "toks": toks,
                                "host": host, "event": ev,
                                "group": [(si, req, req.epoch)
@@ -2390,9 +2762,9 @@ class ServingEngine:
                 continue
             tok = int(toks[row])
             req.state = "running"
-            if req.t_first_token is None:
-                req.t_first_token = now
-            req.t_last_emit = now
+            if self.tracer is not None:
+                self._trace_running(req, now)
+            self._mark_first_token(req, now)
             req.out_tokens.append(tok)
             req.planned = 1
             self.generated_tokens += 1
@@ -2512,8 +2884,6 @@ class ServingEngine:
                     use_host[si] = 0
                     last_idx[si] = psteps - 1
         self._fresh_slots.clear()
-        if prev is not None:
-            self.device_dispatches += 1      # the merge (JAX's own program)
         keys = self._key_operand(prng.split(self._next_key(), T))
         arrays = [tables, ctx, slots, last_idx,
                   self._last_tok.astype(np.int32), use_host, temps, keys]
@@ -2538,7 +2908,17 @@ class ServingEngine:
                         req, f"decode dispatch failed after retries: {e}")
             self.time_host_s += time.perf_counter() - t0
             return False
+        if prev is not None:
+            # the merge, JAX's own program before the decode chunk (a
+            # dispatch that failed ran neither)
+            self.device_dispatches += 1
         host, ev = self._to_host(toks)
+        if self.tracer is not None:
+            self.tracer.event(
+                "dispatch", pid=self.replica_id, kind="decode",
+                T=int(T), width=self.max_b,
+                rows=sum(1 for n in steps_of.values() if n > 0),
+                tokens=int(sum(steps_of.values())))
         self._inflight.append({"kind": "decode",
                                "host": host, "event": ev,
                                "steps": steps_of, "reqs": reqs_of,
@@ -2678,9 +3058,9 @@ class ServingEngine:
             return
         si = req.slot
         req.state = "running"
-        if req.t_first_token is None:
-            req.t_first_token = now
-        req.t_last_emit = now
+        if self.tracer is not None:
+            self._trace_running(req, now)
+        self._mark_first_token(req, now)
         req.out_tokens.append(tok)
         req.planned = 1
         self.generated_tokens += 1
@@ -2695,8 +3075,16 @@ class ServingEngine:
         if not delivered:
             return
         if req.t_last_emit is not None:
-            req.itls.extend([(now - req.t_last_emit) / delivered]
-                            * delivered)
+            itl = (now - req.t_last_emit) / delivered
+            req.itls.extend([itl] * delivered)
+            if self.tracer is not None:
+                self.tracer.metrics.histogram(
+                    "engine.itl_s").observe(itl, n=delivered)
+            if self._slo is not None:
+                # one weighted sample a chunk: the windows see every
+                # delivered token
+                self._slo.observe("itl", itl, self._slo_attrs(req),
+                                  n=delivered, now=now)
         req.t_last_emit = now
 
     def step(self) -> bool:
@@ -2722,6 +3110,8 @@ class ServingEngine:
                               and not self._rep_active()) else 0
             while len(self._inflight) > depth:
                 self._collect_oldest()
+        if self.tracer is not None:
+            self._sample_counter_tracks()
         if self._debug_pool:
             self.dec.cache.debug_check()
             if self.lora is not None:
@@ -2754,7 +3144,7 @@ class ServingEngine:
         def pct(xs, p):
             return float(np.quantile(xs, p)) if xs else None
 
-        return {
+        out = {
             "finished": len(ok),
             "preemptions": self.preemptions,
             "recompute_tokens": self.recompute_tokens,
@@ -2822,6 +3212,8 @@ class ServingEngine:
             "program_compiles": self.programs.compiles,
             "unexpected_recompiles": self.programs.unexpected,
             "programs_sealed": self.compile_watch.sealed,
+            # sampled attribution fences taken (profile_every)
+            "profiled_dispatches": self.profiled_dispatches,
             "queued": len(self._queue),
             "latency_p50_s": pct(lats, 0.50),
             "latency_p99_s": pct(lats, 0.99),
@@ -2836,6 +3228,48 @@ class ServingEngine:
             "kv_pool_bytes": cache.pool_bytes(),
             "kv_bytes_per_token": cache.bytes_per_token(),
         }
+        if self._slo is not None:
+            # burn rates and headroom per policy; the scalar minimum
+            # headroom is mirrored into the registry like any float
+            slo = self._slo.evaluate()
+            out["slo"] = slo
+            out["slo_min_headroom"] = float(slo["min_headroom"])
+            if self.tracer is not None:
+                for pname, pol in slo["policies"].items():
+                    if pol["violating"] and \
+                            pname not in self._slo_violating:
+                        self.tracer.event(
+                            "slo_violation", pid=self.replica_id,
+                            policy=pname, headroom=pol["headroom"])
+                self._slo_violating = {
+                    pname for pname, pol in slo["policies"].items()
+                    if pol["violating"]}
+                flat = {}
+                for pname, pol in slo["policies"].items():
+                    flat[f"{pname}.headroom"] = float(pol["headroom"])
+                    for metric, md in pol["metrics"].items():
+                        for wname, wd in md["windows"].items():
+                            if wd["burn_rate"] is not None:
+                                flat[f"{pname}.{metric}.burn_{wname}"] = \
+                                    float(wd["burn_rate"])
+                self.tracer.metrics.publish(
+                    "slo" if self.replica_id == 0
+                    else f"slo.r{self.replica_id}", flat)
+        if self.tracer is not None:
+            # the registry mirrors this dict (ints as counters, floats as
+            # gauges); replica r of a fleet publishes under engine{r}
+            self.tracer.metrics.publish(
+                "engine" if self.replica_id == 0
+                else f"engine{self.replica_id}", out)
+        return out
+
+    @property
+    def program_compiles(self) -> int:
+        return self.programs.compiles
+
+    @property
+    def unexpected_recompiles(self) -> int:
+        return self.programs.unexpected
 
     # -- warmup and the sealed program set ----------------------------------
     def _warmup_prompt(self, n: int) -> np.ndarray:
@@ -3120,6 +3554,10 @@ class ServingEngine:
         self._reset_family_counters()
         self.programs.reset_stats()
         self.dec.cache.reset_prefix_stats()
+        self.profiled_dispatches = 0
+        if self._slo is not None:
+            self._slo.reset()
+        self._slo_violating.clear()
 
     def close(self):
         """Collect anything dispatched, drop the programs, clear the

@@ -9,10 +9,17 @@ parallel, one ``nvcc`` each, and link once. The library goes into
 and flags, so an edited source rebuilds and an unchanged one loads at
 once. Nothing happens at import: the first kernel launch calls
 ``load_library``. A missing ``nvcc`` or a failed build raises.
+
+The check-and-build holds a thread lock and an ``fcntl.flock`` on
+``_build/.build.lock``, so of several processes (the spawned workers of
+a process fleet, say) one builds and the others wait and load what it
+built. The ptxas notes beside the library are written through a
+temporary file and ``os.replace``, so no reader sees them half written.
 """
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import json
 import os
@@ -35,9 +42,10 @@ CFLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 
 _lock = threading.Lock()
 _lib = None
-# filled by load_library: seconds spent compiling (0.0 when the library
-# was already built) and the ptxas resource report per source (kept
-# beside the library, so a process that only loads it has it too)
+# filled by load_library: seconds spent building or loading, whether this
+# process compiled the library (False when another process or an earlier
+# run had built it) and the ptxas resource report per source (kept beside
+# the library, so a process that only loads it has it too)
 build_info: dict = {}
 
 
@@ -94,6 +102,28 @@ def _compile(sources, target: Path) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def _write_atomic(path: Path, text: str):
+    """Write ``text`` to ``path`` through a temporary file in the same
+    directory and ``os.replace``: a reader sees the old file or the whole
+    new one."""
+    fd, tmp = tempfile.mkstemp(dir=path.parent, prefix=".notes_")
+    try:
+        with os.fdopen(fd, "w") as f:
+            f.write(text)
+        os.replace(tmp, path)
+    except BaseException:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+        raise
+
+
+def _open(target: Path):
+    """Load the built library and declare its entry points."""
+    lib = ctypes.CDLL(str(target))
+    _declare(lib)
+    return lib
+
+
 def _declare(lib):
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.ptt_ragged_paged_attention.argtypes = [p] * 11 + [i] * 13 + [f, p]
@@ -130,16 +160,27 @@ def load_library():
             + _digest(sorted(SRC_DIR.glob("*.cuh")) + sources) + ".so")
         t0 = time.perf_counter()
         notes = target.with_suffix(".ptxas.json")
-        if not target.exists():
-            notes.write_text(json.dumps(_compile(sources, target)))
-        report = json.loads(notes.read_text()) if notes.exists() else {}
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        built = False
+        with open(BUILD_DIR / ".build.lock", "w") as lock:
+            # across processes: the first to take the lock builds, the
+            # others find the library and its notes whole once they get
+            # it
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            try:
+                if not (target.exists() and notes.exists()):
+                    _write_atomic(notes,
+                                  json.dumps(_compile(sources, target)))
+                    built = True
+                report = json.loads(notes.read_text())
+            finally:
+                fcntl.flock(lock, fcntl.LOCK_UN)
         build_info["seconds"] = time.perf_counter() - t0
+        build_info["built"] = built
         build_info["ptxas"] = report
         build_info["library"] = target.name
-        lib = ctypes.CDLL(str(target))
-        _declare(lib)
-        _lib = lib
-        return lib
+        _lib = _open(target)
+        return _lib
 
 
 _sm_count = {}

@@ -285,6 +285,11 @@ class PagedKVCache:
         # _take_block, before any mutation, so an injected
         # KVCacheExhausted leaves the pool untouched
         self.fault_hook = None
+        # telemetry (utils/telemetry.py): alloc, evict, splice and
+        # rollback land as tracer events on the owning engine's pid
+        # (ServingEngine.set_telemetry attaches it; None: no-op)
+        self.tracer = None
+        self.trace_pid = 0
 
     # -- allocation ----------------------------------------------------------
     def _take_block(self) -> int:
@@ -299,6 +304,9 @@ class PagedKVCache:
             blk, _ = self._lru.popitem(last=False)
             self._block_of.pop(self._hash_of.pop(blk), None)
             self.prefix_evictions += 1
+            if self.tracer is not None:
+                self.tracer.event("kv_evict", pid=self.trace_pid,
+                                  block=int(blk))
             return blk
         raise KVCacheExhausted("KV cache exhausted")
 
@@ -328,6 +336,10 @@ class PagedKVCache:
             self._ref[b] = 1
         self._tables[seq_id] = blocks
         self._lens[seq_id] = 0
+        if self.tracer is not None:
+            self.tracer.event("kv_alloc", pid=self.trace_pid,
+                              seq=int(seq_id), blocks=int(needed),
+                              dtype=self.pool_dtype)
         return self._tables[seq_id]
 
     # -- prefix caching --------------------------------------------------------
@@ -426,6 +438,14 @@ class PagedKVCache:
         self._lens[seq_id] = n_cached
         self.prefix_query_tokens += len(tokens)
         self.prefix_hit_tokens += n_cached
+        if self.tracer is not None:
+            self.tracer.event("kv_alloc", pid=self.trace_pid,
+                              seq=int(seq_id), blocks=int(needed_new),
+                              spliced=len(reused), dtype=self.pool_dtype)
+            if reused:
+                self.tracer.event(
+                    "kv_splice", pid=self.trace_pid, seq=int(seq_id),
+                    blocks=len(reused), tokens=int(n_cached))
         for i in range(len(reused), len(hashes)):
             h, b = hashes[i], table[i]
             if h not in self._block_of and b not in self._hash_of:
@@ -556,6 +576,10 @@ class PagedKVCache:
                     self._block_of.pop(h, None)
                 returned.append(b)
         self._free.extend(returned)
+        if self.tracer is not None:
+            self.tracer.event(
+                "kv_rollback", pid=self.trace_pid, seq=int(seq_id),
+                new_len=new_len, dropped=len(dropped))
 
     def free(self, seq_id: int):
         """Release a sequence: ref-- on each block; a block reaching ref 0

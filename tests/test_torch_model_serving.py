@@ -25,9 +25,9 @@ model. Held:
   (finished requests' reservoir plus the live slots' samples), where the
   old finished-only aggregation gives other values;
 - a prebuilt decoder keeps its pool; a contradicting ``kv_quant``, a
-  ``device`` for a prebuilt decoder, JAX's tensor-parallel and telemetry
-  arguments and a foreign object raise; without ``device="cpu"`` the
-  model form raises on a machine without a card.
+  ``device`` for a prebuilt decoder, JAX's tensor-parallel arguments and
+  a foreign object raise; the telemetry arguments are accepted; without
+  ``device="cpu"`` the model form raises on a machine without a card.
 One torch thread.
 """
 import types
@@ -52,6 +52,7 @@ from paddle_tpu_torch.inference import (PagedLlamaDecoder, SamplingParams,
                                         ServingEngine)  # noqa: E402
 from paddle_tpu_torch.models import LlamaForCausalLM, llama_tiny  # noqa: E402
 from paddle_tpu_torch.ops.qweight import QWeight  # noqa: E402
+from paddle_tpu_torch.utils.telemetry import SLOPolicy, Tracer  # noqa: E402
 from _torch_serving_cases import assert_identical, prompts  # noqa: E402
 
 
@@ -390,13 +391,36 @@ def test_prebuilt_decoder_and_refusals(untied):
 
 @pytest.mark.parametrize("arg,value,item", [
     ("tp", 2, "5"), ("mesh", object(), "5"), ("devices", ["cpu"], "5"),
-    ("tp_comm", "int8", "5"), ("tracer", object(), "8"),
-    ("slo", object(), "8"), ("profile_every", 4, "8"),
-    ("profile_seed", 1, "8")])
+    ("tp_comm", "int8", "5")])
 def test_unported_arguments_raise(untied, arg, value, item):
     _, tm = untied
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         ServingEngine(tm, device="cpu", **{arg: value})
+
+
+@pytest.mark.parametrize("arg", ["tracer", "slo", "profile_every",
+                                 "profile_seed"])
+def test_telemetry_arguments_accepted(untied, arg):
+    """The four telemetry arguments, once refused, build an engine and set
+    what they name."""
+    _, tm = untied
+    value = {"tracer": Tracer(), "slo": [SLOPolicy("all", ttft_p99_s=1.0)],
+             "profile_every": 4, "profile_seed": 1}[arg]
+    eng = ServingEngine(tm, device="cpu", **{arg: value})
+    st = eng.stats()
+    if arg == "tracer":
+        assert eng.tracer is value and eng.dec.cache.tracer is value
+        assert value.metrics.value("engine.finished") == 0
+    elif arg == "slo":
+        assert st["slo"]["policies"]["all"]["headroom"] == 1.0
+        assert st["slo_min_headroom"] == 1.0
+    elif arg == "profile_every":
+        assert eng._prof_n == 4 and st["profiled_dispatches"] == 0
+    else:
+        # the seed sets the phase of the sampling; without profile_every
+        # nothing is sampled
+        assert eng._prof_n == 0 and st["profiled_dispatches"] == 0
+    eng.close()
 
 
 @pytest.mark.skipif(torch.cuda.is_available(),
