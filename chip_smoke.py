@@ -51,7 +51,12 @@ failure ends the run with a non-zero exit code and no result:
                  routes at llama_1b's shapes (16 heads, 8 kv heads, d
                  128, pages of 64): ragged W 8 at ctx 512, dense decode b
                  8 at ctx 512, the int4 GEMV of wgu (2048 x 11264) at b 8,
-                 flash forward at b 4 x s 256),
+                 flash forward at b 4 x s 256); and a tensor-parallel
+                 shard's shapes (serve-tp2-int4): the ragged kernel at W 8
+                 ctx 512 with 16 / 4 heads (bf16 and int8 pools) and 8 / 2
+                 heads, the int4 GEMV on the five tp-2 shard projections
+                 (wqkv 4096 x 3072, wo 2048 x 4096, wgu 4096 x 14336, wd
+                 7168 x 4096, head 4096 x 64128) at b 8 and 32,
                  with its time, the plain version's time, the time of one
                  PyTorch library call that computes the same function where
                  there is one, and the least time the card could take
@@ -249,16 +254,50 @@ failure ends the run with a non-zero exit code and no result:
                  worker respawns onto probation; spawn and respawn
                  seconds, the step RPC's round trip over the worker's
                  own step, heartbeat misses, exits and restarts.
-22. serve-bf16-kv8  the same model with bf16 weights and an int8 KV pool
+22. tiny-tp-parity  tensor-parallel serving, card against CPU from one
+                 seed: llama_tiny(hidden_size=256, num_key_value_heads=4)
+                 float32 with int4 weights; the ragged engine at tp 1, 2
+                 and 4 (every shard on cuda:0, or on the CPU; graphs
+                 captured as used), the tp-2 decoder's generate() and
+                 Router(dp=2, tp=2) over ["cuda:0"] * 4 with a
+                 ChaosMonkey wedge of replica 0 mid-decode: greedy
+                 streams equal tp 1's (the Router's equal one engine's)
+                 on each device; card == CPU, routing counters too, or,
+                 where the tp-1 engines part, a near-tie (the CPU's
+                 logit gap within twice the card / CPU logit
+                 difference); every kernel of each path launched.
+23. serve-tp2-int4  Llama-3-8B int4 at tp 2 with both shards on cuda:0
+                 (ServingEngine(dec, tp=2) over a decoder on
+                 ProcessMesh(devices=["cuda:0"] * 2), seed 0: serve-int4's
+                 weights cut by the placement table), bf16 pool of 160
+                 blocks of 64, serve-int4's 8 requests; fp32 and int8
+                 comm, each eager and then as graphs captured as used
+                 and sealed: launches exactly what the dispatches call
+                 for at two shards (64 ragged and 258 GEMV a W 8
+                 ministep), graphs == eager on every row, no recompile
+                 after the seal, fp32 greedy streams equal the sealed
+                 tp-1 engine's or a near-tie; int8 comm on one prefill:
+                 the argmax equal to fp32 comm's and each of its 64
+                 collectives within the reference's per-call bound of
+                 its exact sum (tests/test_tp_serving.py:150), the
+                 logits' relative difference reported, not held (its
+                 streams reported too); tok/s, TTFT and ITL of tp 1
+                 / tp 2 fp32 / tp 2 int8 alternated, 3 runs each; a T 8
+                 chunk's device ms at W 8 ctx 512; pool bytes a shard;
+                 then eager legs for the other shard shapes: tp 2 with
+                 an int8 pool and tp 4 (8 / 2 heads a shard; greedy
+                 streams against tp 1's near-tie rule), each with its
+                 exact launches.
+24. serve-bf16-kv8  the same model with bf16 weights and an int8 KV pool
                  (4 requests): the int8 branch of the attention kernel on
                  the serving path; one W 8 ministep launches exactly 32
                  attention kernels; the attention family's device ms per
                  run and per ministep.
-23. tiny-train-parity  llama_tiny(hidden_size=256) in float32 (head_dim 64)
+25. tiny-train-parity  llama_tiny(hidden_size=256) in float32 (head_dim 64)
                  with the same weights on the card and the CPU: 3 TrainSteps
                  of AdamW(1e-3) give losses within 1e-4 relative, and the
                  card ran all three flash kernels.
-24. tiny-ring-parity  llama_tiny(hidden_size=256, sep_degree=4) in
+26. tiny-ring-parity  llama_tiny(hidden_size=256, sep_degree=4) in
                  float32 (head_dim 64) at b 2 x s 256 under a sep-4 fleet
                  mesh, the same weights on the card (["cuda:0"] * 4) and on
                  the CPU (["cpu"] * 4): 3 TrainSteps of AdamW(1e-3) give
@@ -266,7 +305,7 @@ failure ends the run with a non-zero exit code and no result:
                  model's at sep_degree=1 within 1e-4, and the flash counters
                  read exactly what the ring calls for (2 layers x 4 ranks
                  x 6 blocks per step of each kernel).
-25. tiny-model-parity  LlamaForCausalLM whole: llama_tiny(hidden_size=256,
+27. tiny-model-parity  LlamaForCausalLM whole: llama_tiny(hidden_size=256,
                  tie_word_embeddings=True, use_recompute=True,
                  recompute_granularity="full_attn") in float32 with the
                  same weights on the card and the CPU (the tied table
@@ -279,7 +318,7 @@ failure ends the run with a non-zero exit code and no result:
                  beam search with 3 beams, and ServingEngine(model,
                  weight_dtype="int4") on both schedulers: tokens equal on
                  card and CPU, every kernel of each engine launched.
-26. train-mid    THE TRAINING PATH: llama_mid (0.65B) at full width and all
+28. train-mid    THE TRAINING PATH: llama_mid (0.65B) at full width and all
                  11 layers, bf16 compute, seed 0, batch 4 x seq 2048 (ids as
                  bench.py makes them), AdamW(1e-4, weight_decay=0.01): 2 warm
                  and 10 timed TrainSteps. The flash counters are set to 0
@@ -288,7 +327,7 @@ failure ends the run with a non-zero exit code and no result:
                  last below the first. Step ms, tokens/s, MFU by bench.py's
                  formula against 989 TFLOP/s, peak memory, device time by
                  kernel family and the idle share.
-27. train-mid8k  THE LONG-CONTEXT PATH: llama_mid(dtype="bfloat16",
+29. train-mid8k  THE LONG-CONTEXT PATH: llama_mid(dtype="bfloat16",
                  chunked_ce_tokens=1024, max_position_embeddings=8192,
                  sep_degree=4), all 11 layers, b 1 x s 8192 (ids as bench.py
                  makes them), AdamW(1e-4, weight_decay=0.01), under a sep-4
@@ -304,7 +343,7 @@ failure ends the run with a non-zero exit code and no result:
                  and sep 4 within 1e-2 relative. Step ms, tokens/s, MFU at
                  seq 8192, peak memory, device time by kernel family (the
                  flash family's ms apart) and the idle share of both.
-28. train-1b     bench.py's 1b row: llama_1b(dtype="bfloat16",
+30. train-1b     bench.py's 1b row: llama_1b(dtype="bfloat16",
                  use_recompute=True, recompute_granularity="full_attn",
                  chunked_ce_tokens=1024), all 18 layers, b 4 x s 2048,
                  AdamW(1e-4, weight_decay=0.01, moment_dtype="bfloat16"):
@@ -317,7 +356,7 @@ failure ends the run with a non-zero exit code and no result:
                  within 1e-3 of the recompute model's, 18 of each flash
                  kernel a step) and the two alternated, 3 runs of 2 steps
                  each: step ms, MFU and peak memory of each.
-29. serve-model-1b  the model train-1b trained, served by
+31. serve-model-1b  the model train-1b trained, served by
                  ServingEngine(model, weight_dtype="int4", block_size=64,
                  num_blocks=160) on both schedulers: float32 activations
                  and pool (the embedding's dtype, as in JAX), so every
@@ -336,7 +375,7 @@ failure ends the run with a non-zero exit code and no result:
                  equal, or parted where the float32 logit gap is at most
                  twice the difference between the two computations'
                  logits there.
-30. capture-failure  a program with a host sync inside: its first
+32. capture-failure  a program with a host sync inside: its first
                  dispatch raises, no graph is kept and it is not run
                  eagerly in its place (last, as a failed capture may
                  leave the allocator's pool unusable).
@@ -367,9 +406,16 @@ F32_FLOPS_PER_S = 67e12     # float32 outside the tensor cores
 SHAPES_8B = {"wqkv": (4096, 6144), "wo": (4096, 4096),
              "wgu": (4096, 28672), "wd": (14336, 4096),
              "head": (4096, 128256)}
-# every GEMV case's [K, N]: the 8B projections and llama_1b's gate/up
-# (serve-model-1b's widest product, float32 x)
-GEMV_SHAPES = dict(SHAPES_8B, **{"1b_wgu": (2048, 11264)})
+# a tp-2 shard's int4 products at 8B (serve-tp2-int4): column shards
+# halve N (q/k/v of 16 / 4 / 4 heads, gate/up, the head's vocab half),
+# row shards halve K (wo, wd)
+SHAPES_8B_TP2 = {"wqkv_tp2": (4096, 3072), "wo_tp2": (2048, 4096),
+                 "wgu_tp2": (4096, 14336), "wd_tp2": (7168, 4096),
+                 "head_tp2": (4096, 64128)}
+# every GEMV case's [K, N]: the 8B projections whole and at a tp-2
+# shard, and llama_1b's gate/up (serve-model-1b's widest product,
+# float32 x)
+GEMV_SHAPES = dict(SHAPES_8B, **SHAPES_8B_TP2, **{"1b_wgu": (2048, 11264)})
 # flash attention cases (all causal, bf16 unless named): the llama_mid
 # training shape first; `docs` packed documents plus a padded tail. bf16
 # at d 64/128 runs the Hopper (wgmma, TMA) kernels, float32 and d 256 the
@@ -1025,7 +1071,8 @@ def _attention_case(torch, gen, quantized, n_decode=24, chunk=64,
 
 
 def _ragged_rows_case(torch, gen, decode_ctx, prefill=None, nh=32, kvh=8,
-                      d=128, bs=64, max_pages=128, dtype="bfloat16"):
+                      d=128, bs=64, max_pages=128, dtype="bfloat16",
+                      quantized=False):
     """A ragged batch in the engine's layout at the 8B attention shapes:
     one decode row per sequence at decode_ctx, then, with prefill =
     (rows, offset), that many prefill rows of one more sequence at
@@ -1033,7 +1080,8 @@ def _ragged_rows_case(torch, gen, decode_ctx, prefill=None, nh=32, kvh=8,
     sequence's visible pages distinct, the rest of its table pointing
     anywhere. Also the bytes the function must move (q and out once,
     each sequence's visible K/V rows of each kv-head once, the table
-    entries they take, row_seq / row_ctx) and its flops."""
+    entries they take, row_seq / row_ctx) and its flops. ``quantized``:
+    an int8 pool with float32 scales per (slot, kv-head)."""
     dev = "cuda"
     n_dec = len(decode_ctx)
     seq_ctx = list(decode_ctx) + ([prefill[0] + prefill[1]] if prefill
@@ -1056,10 +1104,20 @@ def _ragged_rows_case(torch, gen, decode_ctx, prefill=None, nh=32, kvh=8,
     rows = len(row_seq)
     dt = getattr(torch, dtype)
     q = torch.randn((rows, nh, d), generator=gen, device=dev).to(dt)
-    k, v = (torch.randn((nb, kvh, bs, d), generator=gen, device=dev).to(dt)
-            for _ in range(2))
+
+    def plane():
+        if quantized:
+            return (torch.randint(-127, 128, (nb, kvh, bs, d), generator=gen,
+                                  device=dev).to(torch.int8),
+                    (torch.rand((nb, kvh, bs), generator=gen, device=dev)
+                     * 0.05 + 0.001))
+        return torch.randn((nb, kvh, bs, d), generator=gen,
+                           device=dev).to(dt)
+
+    k, v = plane(), plane()
     esz = q.element_size()
-    nbytes = 2 * q.numel() * esz + 2 * sum(seq_ctx) * kvh * d * esz \
+    per_pos = kvh * (d + 4) if quantized else kvh * d * esz
+    nbytes = 2 * q.numel() * esz + 2 * sum(seq_ctx) * per_pos \
         + 4 * sum(need) + 8 * rows
     flops = 4 * nh * d * sum(row_ctx)
     args = (q, k, v, tables,
@@ -1072,9 +1130,12 @@ def _sdpa_ms(torch, timer, q, k, v, tables, ctx):
     """The yardstick of a case whose rows are one sequence each and all
     see ctx positions: torch's scaled_dot_product_attention over the same
     K/V rows gathered beforehand into contiguous [b, kv_heads, ctx, d]
-    (enable_gqa). Not paged, so not the same function: the port never
-    calls it."""
+    (enable_gqa); an int8 pool dequantized beforehand too. Not paged, so
+    not the same function: the port never calls it."""
     import torch.nn.functional as F
+    if isinstance(k, tuple):
+        k, v = ((p[0].float() * p[1][..., None]).to(q.dtype)
+                for p in (k, v))
     b, nh, d = q.shape
     _, kvh, bs, _ = k.shape
     idx = tables[:b, :-(-ctx // bs)].long()
@@ -1108,6 +1169,13 @@ RAGGED_CASES = [
     # heads, d 128, pages of 64): the CUDA-core kernel
     dict(name="f32_1b_w8_ctx512", decode=[512] * 8,
          geom=dict(nh=16, kvh=8, dtype="float32")),
+    # serve-tp2-int4's decode ministep at a shard's heads: the 8B at tp 2
+    # holds 16 query / 4 kv heads a shard (bf16 and int8 pools), at tp 4
+    # 8 / 2
+    dict(name="tp2_w8_ctx512", decode=[512] * 8, geom=dict(nh=16, kvh=4)),
+    dict(name="tp2_int8_w8_ctx512", decode=[512] * 8, quantized=True,
+         geom=dict(nh=16, kvh=4)),
+    dict(name="tp4_w8_ctx512", decode=[512] * 8, geom=dict(nh=8, kvh=2)),
 ]
 
 
@@ -1140,6 +1208,7 @@ def _ragged_check(torch, gen, timer, spec):
     if "decode" in spec:
         args, nbytes, flops = _ragged_rows_case(torch, gen, spec["decode"],
                                                 spec.get("prefill"),
+                                                quantized=quantized,
                                                 **spec.get("geom", {}))
     else:
         args, nbytes, flops = _attention_case(torch, gen, quantized,
@@ -1373,7 +1442,7 @@ def main():
     from paddle_tpu_torch.ops.cuda import ragged_paged_attention as rpa
     from paddle_tpu_torch.ops.qweight import QWeight
     from paddle_tpu_torch.optimizer import AdamW
-    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed import ProcessMesh, fleet
     from paddle_tpu_torch.utils import prng
     from paddle_tpu_torch.utils.chaos import ChaosMonkey
     from paddle_tpu_torch.inference import Router
@@ -1459,6 +1528,8 @@ def main():
                 heads[c["pool"]] = c
             if spec["name"] == "f32_1b_w8_ctx512":
                 heads["f32_ragged"] = c
+            if spec["name"].startswith(("tp2_", "tp4_")):
+                heads[spec["name"]] = c
             torch.cuda.empty_cache()
 
         def gemv_case(kind, name, b):
@@ -1480,6 +1551,13 @@ def main():
         # serve-model-1b take
         gemv_case("int4_halves_f32", "wo", 8)
         heads["f32_gemv"] = gemv_case("int4_halves_f32", "1b_wgu", 8)
+        # a tp-2 shard's products (serve-tp2-int4): decode rows and the
+        # widest rung the GEMV takes
+        for name in SHAPES_8B_TP2:
+            for b in (8, 32):
+                c = gemv_case("int4_halves", name, b)
+                if b == 8:
+                    heads[f"gemv_{name}"] = c
         for spec in DECODE_CASES:
             c = _decode_check(torch, gen, timer, spec)
             cases.append(c)
@@ -1642,11 +1720,12 @@ def main():
                 return QWeight(w.q.cuda(), w.scale.cuda(), w.kind)
             return w.cuda()
 
-        weights = {"embed": cpu.weights["embed"].cuda(),
-                   "norm": cpu.weights["norm"].cuda(),
-                   "head": to_cuda(cpu.weights["head"]),
+        tree = cpu.weights[0]
+        weights = {"embed": tree["embed"].cuda(),
+                   "norm": tree["norm"].cuda(),
+                   "head": to_cuda(tree["head"]),
                    "layers": [{k: to_cuda(v) for k, v in lw.items()}
-                              for lw in cpu.weights["layers"]]}
+                              for lw in tree["layers"]]}
         gpu = PagedLlamaDecoder(cfg, weights, weight_dtype="int4",
                                 num_blocks=num_blocks, block_size=8,
                                 device="cuda")
@@ -1710,6 +1789,7 @@ def main():
 
     def reset_dense():
         pdc.launches = rpa.launches = dmm.launches = 0
+        dmm.launches_by_shape.clear()
         reset_flash()
 
     def tiny_dense_parity():
@@ -2087,8 +2167,8 @@ def main():
         weight_bytes = sum(
             (w.q.numel() + w.scale.numel() * 4) if isinstance(w, QWeight)
             else w.numel() * w.element_size()
-            for lw in dec.weights["layers"] for w in lw.values()) \
-            + dec.weights["head"].q.numel()
+            for lw in dec.weights[0]["layers"] for w in lw.values()) \
+            + dec.weights[0]["head"].q.numel()
         # throughput and latencies of the second (warm) run
         info = {"model": "llama_3_8b int4 (halves), bf16 KV pool, 32 layers",
                 "load_s": round(load_s, 3),
@@ -3205,15 +3285,15 @@ def main():
 
     def drive_checked(eng, reqs, where):
         """drive() with the phase gates: launches equal what the program
-        dispatches call for, every kernel of the engine's path launched,
-        no unexpected recompile. Returns (tokens, wall s, stats,
-        launches)."""
+        dispatches call for (each shard's kernels under tp), every kernel
+        of the engine's path launched, no unexpected recompile. Returns
+        (tokens, wall s, stats, launches)."""
         reset_dense()
         eng.programs.dispatches.clear()
         outs, wall, st = drive(eng, reqs)
         launched = dense_counts()
-        expect = graph_launches(eng.programs.dispatches,
-                                eng.dec.cfg.num_hidden_layers)
+        expect = {k: v * eng.dec.n_shards for k, v in graph_launches(
+            eng.programs.dispatches, eng.dec.cfg.num_hidden_layers).items()}
         _require(launched == expect,
                  f"{where}: launched {launched}, the dispatches "
                  f"{dict(eng.programs.dispatches)} call for {expect}")
@@ -3242,8 +3322,8 @@ def main():
 
     def alternate(engines, reqs_of, reps=3):
         """Sealed engines {name: engine} driven in turns, ``reps`` runs
-        each, none compiling: tok/s, TTFT p50, ITL p50 / p99 and the
-        delivery gaps' p50 / max as median, min, max. The engine's ITL
+        each, none compiling: tok/s, TTFT p50 / p99, ITL p50 / p99 and
+        the delivery gaps' p50 / max as median, min, max. The engine's ITL
         splits the wall between two deliveries to a request evenly over
         the tokens the second one brings; a delivery gap is that wall
         whole (a window's or a verify's tokens arrive together)."""
@@ -3266,6 +3346,7 @@ def main():
                          f"recompiles after seal_programs")
                 runs[n].append({"tok_per_s": st["generated_tokens"] / wall,
                                 "ttft_p50_s": st["ttft_p50_s"],
+                                "ttft_p99_s": st["ttft_p99_s"],
                                 "itl_p50_s": st["itl_p50_s"],
                                 "itl_p99_s": st["itl_p99_s"],
                                 "gap_p50_s": float(np.median(gaps)),
@@ -3909,7 +3990,7 @@ def main():
         decs = []
 
         def factory(r, devices):
-            d = PagedLlamaDecoder(cfg, dec.weights, weight_dtype="int4",
+            d = PagedLlamaDecoder(cfg, dec.weights[0], weight_dtype="int4",
                                   block_size=64, num_blocks=160,
                                   device="cuda")
             decs.append(d)
@@ -3919,8 +4000,8 @@ def main():
                         breaker_threshold=1, max_dispatch_retries=1,
                         retry_backoff_s=0.0, cooldown_steps=2,
                         probation_steps=1)
-        _require(all(d.weights["layers"][0]["wqkv"].q.data_ptr()
-                     == dec.weights["layers"][0]["wqkv"].q.data_ptr()
+        _require(all(d.weights[0]["layers"][0]["wqkv"].q.data_ptr()
+                     == dec.weights[0]["layers"][0]["wqkv"].q.data_ptr()
                      and d.cache.k is not dec.cache.k for d in decs),
                  "fleet-int4: replicas do not share the weights, or share "
                  "a pool")
@@ -4163,6 +4244,351 @@ def main():
         return outs, wall, st["fleet"], ex
 
     _phase("fleet-proc-int4", fleet_proc_int4)
+
+    # -- tensor-parallel serving ----------------------------------------------
+    tp_launches = {}
+
+    def tiny_tp_parity():
+        """Tensor-parallel serving, card against CPU from one seed: a
+        llama_tiny-width float32 model with 4 kv heads and head_dim 64
+        (hidden 256, the least the dense kernels take), int4 weights.
+        The ragged engine at tp 1, 2 and 4 (every shard on cuda:0, or
+        on the CPU; graphs captured as used on the card); the tp-2
+        decoder's generate() against tp 1's; Router(dp=2, tp=2) over
+        four shard devices, 4 prompts sharing 16 tokens, a ChaosMonkey
+        wedge of replica 0 mid-decode, against one tp-1 engine serving
+        the prompts one at a time. Greedy streams equal across tp on
+        each device, and card == CPU, routing counters too; where the
+        card's tp-1 engine parts from the CPU's (a float32 kernel
+        against its plain version, the same at every tp), it must part
+        at a near-tie: the CPU's logit gap between the two tokens at
+        most twice the largest card / CPU logit difference there."""
+        cfg_t = llama_tiny(hidden_size=256, num_key_value_heads=4)
+        cpu = LlamaForCausalLM(cfg_t, seed=3, device="cpu")
+        gpu = LlamaForCausalLM(cfg_t, seed=3, device="cuda")
+        gpu.load_numpy_state({n: p.detach().numpy()
+                              for n, p in cpu.named_parameters()})
+        kw = dict(max_batch_size=3, num_blocks=48, block_size=8,
+                  prompt_buckets=(8, 16, 32, 64), chunk_size=4,
+                  prefill_chunk=8, weight_dtype="int4")
+        trng = np.random.RandomState(5)
+        ps = [trng.randint(0, cfg_t.vocab_size, int(n))
+              for n in (5, 30, 60, 9)]
+        pre = trng.randint(0, cfg_t.vocab_size, 16)
+        fps = [np.concatenate([pre, trng.randint(0, cfg_t.vocab_size, 8)])
+               for _ in range(4)]
+        gen_ids = trng.randint(0, cfg_t.vocab_size, (2, 7)).astype(np.int32)
+        keys = ("routed_requests", "affinity_hits", "spills", "failovers",
+                "migrated_requests", "migrated_done", "failed_migrations",
+                "finished", "generated_tokens", "retries",
+                "dispatch_exhaustions")
+        res, launched, decs = {}, {}, {}
+        for name, model, dev in (("cpu", cpu, "cpu"),
+                                 ("card", gpu, "cuda:0")):
+            r = res[name] = {}
+            for tp in (1, 2, 4):
+                place = (dict(device=dev) if tp == 1
+                         else dict(devices=[dev] * tp))
+                eng = ServingEngine(model, ragged=True, tp=tp, **place, **kw)
+                reset_dense()
+                rids = [eng.add_request(p, SamplingParams(max_new_tokens=10))
+                        for p in ps]
+                eng.run_to_completion()
+                _clean_run(eng.stats(), f"tiny-tp-parity {name} tp {tp}")
+                r[f"tp{tp}"] = [eng.result(i).tolist() for i in rids]
+                if name == "card":
+                    launched[f"engine_tp{tp}"] = dense_counts()
+                eng.close()
+            for tp in (1, 2):
+                mesh = (None if tp == 1 else ProcessMesh(
+                    [0, 1], ["tp"], devices=[dev] * 2))
+                dec = PagedLlamaDecoder.from_model(
+                    model, num_blocks=32, block_size=8, weight_dtype="int4",
+                    device=dev if tp == 1 else None, mesh=mesh,
+                    mp_axis="tp", tp_shard_map=tp > 1)
+                reset_dense()
+                r[f"generate_tp{tp}"] = dec.generate(
+                    gen_ids, max_new_tokens=8).tolist()
+                if tp == 1:
+                    decs[name] = dec
+                if name == "card":
+                    launched[f"generate_tp{tp}"] = dense_counts()
+            oracle = ServingEngine(model, ragged=True, device=dev, **kw)
+            want = []
+            for p in fps:
+                rid = oracle.add_request(p, SamplingParams(max_new_tokens=12))
+                oracle.run_to_completion()
+                want.append(oracle.result(rid).tolist())
+            oracle.close()
+            reset_dense()
+            router = Router(model, dp=2, tp=2, devices=[dev] * 4,
+                            breaker_threshold=1, max_dispatch_retries=1,
+                            retry_backoff_s=0.0, **kw)
+            fids = [router.add_request(p, SamplingParams(max_new_tokens=12))
+                    for p in fps]
+            for _ in range(20):
+                router.step()
+                if any(router._record(f).replica == 0
+                       and router.request(f).state == "running"
+                       and router.request(f).out_tokens for f in fids):
+                    break
+            else:
+                _require(False, f"tiny-tp-parity {name}: nothing decoding "
+                                f"on replica 0")
+            ChaosMonkey(seed=0).attach(router.replicas[0].engine).wedge()
+            router.run_to_completion()
+            st = router.stats()["fleet"]
+            r["router"] = [router.result(f).tolist() for f in fids]
+            r["router_oracle"] = want
+            r["replicas"] = [router._record(f).replica for f in fids]
+            r["fleet"] = {k: st[k] for k in keys}
+            if name == "card":
+                launched["router"] = dense_counts()
+                _require([e.engine.dec.devices for e in router.replicas]
+                         == [[torch.device("cuda", 0)] * 2] * 2,
+                         "tiny-tp-parity: replicas not on their rows")
+            router.close()
+        for name, r in res.items():
+            _require(r["tp2"] == r["tp1"] and r["tp4"] == r["tp1"],
+                     f"tiny-tp-parity {name}: tp streams differ: {r}")
+            _require(r["generate_tp2"] == r["generate_tp1"],
+                     f"tiny-tp-parity {name}: the tp-2 generate() differs")
+            _require(r["router"] == r["router_oracle"],
+                     f"tiny-tp-parity {name}: the dp x tp Router's streams "
+                     f"differ from one engine's: {r}")
+        for k in res["cpu"]:
+            _require(k in ("tp1", "tp2", "tp4")
+                     or res["card"][k] == res["cpu"][k],
+                     f"tiny-tp-parity: card and CPU differ in {k}: {res}")
+        ties = []
+        for p, a, b in zip(ps, res["cpu"]["tp1"], res["card"]["tp1"]):
+            i = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y),
+                     None)
+            if i is None:
+                continue
+            toks = np.concatenate([p, a[:i]]).astype(np.int32)
+            lc = last_logits(decs["cpu"], toks, len(toks))
+            lg = last_logits(decs["card"], toks, len(toks)).cpu()
+            tie = (i, float(lc[a[i]] - lc[b[i]]),
+                   float((lc - lg).abs().max()))
+            _require(abs(tie[1]) <= 2 * tie[2],
+                     f"tiny-tp-parity: card and CPU part at (token, CPU "
+                     f"logit gap, card / CPU logit difference) {tie}, "
+                     f"beyond a near-tie")
+            ties.append(tie)
+        _require(res["card"]["fleet"]["failovers"] == 1
+                 and res["card"]["fleet"]["migrated_requests"] >= 1,
+                 f"tiny-tp-parity: no failover: {res['card']['fleet']}")
+        for k, n in launched.items():
+            need = (("paged_attention_decode", "flash_fwd", "decode_matmul")
+                    if k.startswith("generate")
+                    else ("ragged_paged_attention", "decode_matmul"))
+            _require(all(n[x] > 0 for x in need),
+                     f"tiny-tp-parity {k}: a kernel never launched: {n}")
+        tp_launches["tiny-tp-parity"] = launched
+        return {"fleet": res["card"]["fleet"],
+                "replicas": res["card"]["replicas"], "launches": launched,
+                "card_cpu_near_ties": ties}
+
+    _phase("tiny-tp-parity", tiny_tp_parity)
+
+    def serve_tp2_int4():
+        """Llama-3-8B int4 at tp 2 with both shards on one card:
+        ServingEngine(dec, tp=2) over a decoder built from seed 0 on
+        ProcessMesh(devices=["cuda:0"] * 2) (the same weights as
+        serve-int4's, cut by the placement table), bf16 pool of 160
+        blocks of 64, serve-int4's 8 requests. fp32 and int8 comm, each
+        eager and then as graphs captured as used and sealed: launches
+        exactly what the dispatches call for at two shards (64 ragged a
+        ministep, twice tp 1's GEMV), graphs == eager on every row, no
+        recompile after the seal; fp32 greedy streams equal the sealed
+        tp-1 engine's or part at a near-tie; int8 comm on one prefill:
+        the argmax equal to fp32's and each of its collectives within the
+        reference's per-call bound of its exact sum, the logits'
+        relative difference reported, not held (at these weights it
+        lies above JAX's llama_tiny 0.02 on the CPU as on the card:
+        tools/tp_int8_port_probe.py; its streams are reported, not
+        held). Then tok/s, TTFT and ITL of tp 1 / tp 2
+        fp32 / tp 2 int8 alternated (3 runs each), a T 8 chunk's device
+        ms at W 8 ctx 512 and pool bytes per shard."""
+        dec1 = the_dec()
+        base = sealed_engine("ragged")
+        reqs = list(zip(prompts[:8], temps))
+        b_outs, _, _ = drive(base, reqs)
+        mesh = ProcessMesh([0, 1], ["tp"], devices=["cuda:0"] * 2)
+        info, engines, decs = {}, {}, {}
+        for comm in ("fp32", "int8"):
+            t0 = time.perf_counter()
+            dec = decs[comm] = PagedLlamaDecoder.from_config(
+                cfg, seed=0, weight_dtype="int4", block_size=64,
+                num_blocks=160, mesh=mesh, mp_axis="tp", tp_shard_map=True,
+                tp_comm=comm)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+            where = f"serve-tp2-int4 {comm}"
+            eager = engine(dec, True, tp=2)
+            e_outs, e_wall, e_st, e_launch = drive_checked(
+                eager, reqs, where + " eager")
+            # the eager run's GEMV launches by shard shape, counted where
+            # the kernel launches
+            gemv_by_shape = dict(dmm.launches_by_shape)
+            _require(sum(gemv_by_shape.values())
+                     == e_launch["decode_matmul"],
+                     f"{where}: GEMV launches by shape {gemv_by_shape} do "
+                     f"not add up to {e_launch['decode_matmul']}")
+            eager.close()
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            mem0 = torch.cuda.memory_reserved()
+            g = engines[comm] = engine(dec, True, graphs=True, tp=2)
+            c_outs, _, _, _ = drive_checked(g, reqs, where + " capturing")
+            capture = lazy_capture(g, mem0)
+            # the sealed run from the engine's first key again, so its
+            # sampled rows draw what the eager run's drew
+            g._key = prng.PRNGKey(0)
+            g_outs, g_wall, g_st, g_launch = drive_checked(
+                g, reqs, where + " sealed")
+            for i, (a, b, c) in enumerate(zip(g_outs, e_outs, c_outs)):
+                _require(np.array_equal(a, b) and np.array_equal(c, b),
+                         f"{where}: request {i} differs between graphs and "
+                         f"eager")
+            if comm == "fp32":
+                gaps = greedy_gaps(dec1, reqs, e_outs, b_outs, where)
+            else:
+                gaps = [first_gap(dec1, p, a, b) for (p, t), a, b
+                        in zip(reqs, e_outs, b_outs) if t == 0]
+            one, wall_ms, _ = decode_ministep(dec, profile=False)
+            _require(one == {"ragged_paged_attention": 64,
+                             "decode_matmul": 258},
+                     f"{where}: one pure-decode ministep at W=8 launched "
+                     f"{one}, expected 64 attention and 258 GEMV kernels")
+            info[comm] = {
+                "load_s": load_s, "eager_launches": e_launch,
+                "sealed_launches": g_launch, "capture": capture,
+                "eager_tok_per_s": e_st["generated_tokens"] / e_wall,
+                "greedy_divergences_vs_tp1": gaps,
+                "streams_equal_tp1": sum(
+                    np.array_equal(a, b) for a, b in zip(e_outs, b_outs)),
+                "decode_ministep_launches": one,
+                "decode_ministep_W8_ctx512_wall_ms": wall_ms,
+                "unexpected_recompiles": g_st["unexpected_recompiles"],
+                "pool_bytes_per_shard":
+                    dec.cache.pool_bytes() / dec.n_shards}
+            tp_launches[f"serve-tp2-int4 {comm}"] = dict(
+                e_launch, gemv_by_shape=gemv_by_shape)
+        # int8 comm against fp32 comm on one prefill (serve-int4's first
+        # prompt): the argmax equal, each of its 2 x 32 collectives
+        # within the reference's bound of the exact sum of its real
+        # inputs (tests/test_tp_serving.py:150: 2.05 quantization steps,
+        # plus the bf16 rounding of the result), the logits' relative
+        # difference reported beside fp32 comm's against tp 1
+        toks = np.asarray(prompts[0], np.int32)
+        d8, calls = decs["int8"], []
+        reduce8 = d8._block_reduce
+
+        def checked(parts):
+            out = reduce8(parts)
+            x = torch.stack([p.float() for p in parts])
+            exact = x.sum(0)
+            step = (float(x.abs().max()) / 127.0 * len(parts)
+                    + float(exact.abs().max()) / 127.0)
+            calls.append((float((out[0].float() - exact).abs().max()),
+                          2.05 * step + float(exact.abs().max()) / 256.0))
+            return out
+
+        d8._block_reduce = checked
+        try:
+            li = last_logits(d8, toks, len(toks))
+        finally:
+            del d8._block_reduce
+        lf = last_logits(decs["fp32"], toks, len(toks))
+        l1 = last_logits(dec1, toks, len(toks))
+        rel = float((lf - li).abs().max() / lf.abs().max())
+        _require(len(calls) == 2 * cfg.num_hidden_layers
+                 and all(e <= b for e, b in calls),
+                 f"serve-tp2-int4: an int8 all-reduce off the exact sum "
+                 f"beyond its bound: {[c for c in calls if c[0] > c[1]]}")
+        _require(int(lf.argmax()) == int(li.argmax()),
+                 f"serve-tp2-int4: int8-comm prefill argmax "
+                 f"{int(li.argmax())} against fp32 comm's "
+                 f"{int(lf.argmax())} (rel {rel})")
+        info["int8_vs_fp32_logits_rel"] = rel
+        info["int8_collective_err_over_bound_max"] = max(e / b
+                                                         for e, b in calls)
+        info["fp32_vs_tp1_logits_rel"] = float((lf - l1).abs().max()
+                                               / l1.abs().max())
+        alt = alternate({"tp1": base, "tp2_fp32": engines["fp32"],
+                         "tp2_int8": engines["int8"]},
+                        {n: reqs for n in ("tp1", "tp2_fp32", "tp2_int8")})
+        # a T 8 decode chunk at W 8, ctx 512, as a graph: device ms of
+        # the chunk (sampled keys: the run's own, captured above)
+        chunk = {}
+        key = (8, 8, True, False)
+        with torch.inference_mode():
+            for name, eng in (("tp1", base), ("tp2_fp32", engines["fp32"]),
+                              ("tp2_int8", engines["int8"])):
+                _require(("ragged", key) in eng.programs._graphs,
+                         f"serve-tp2-int4: {name} holds no graph of {key}")
+                fam, arrays, sids = chunk_case(eng.dec, True,
+                                               eng._scratch_block)
+                before = eng.programs.unexpected
+                ms = timer(lambda: eng.programs.run(fam, key, arrays),
+                           iters=5)
+                prof = _device_breakdown(
+                    torch, lambda: eng.programs.run(fam, key, arrays), ms)
+                chunk[name] = {"device_ms": ms,
+                               "profiled_device_ms": prof["device_ms"],
+                               "by_family": prof["device_ms_by_family"],
+                               "kernels": prof["device_kernels"],
+                               "top_other": prof["top_other"]}
+                _require(eng.programs.unexpected == before,
+                         f"serve-tp2-int4: the chunk timing compiled {key}")
+                for sid in sids:
+                    eng.dec.cache.free(sid)
+        info["alternated"] = alt
+        info["chunk_T8_W8_ctx512_device_ms"] = chunk
+        info["pool_bytes_tp1"] = dec1.cache.pool_bytes()
+        for eng in engines.values():
+            eng.close()
+        del engines, decs, dec
+        gc.collect()
+        torch.cuda.empty_cache()
+        # the shard shapes no tp-2 bf16-pool run gives the kernels: an
+        # int8 pool at tp 2 and the 8 / 2-head shards of tp 4, eager, on
+        # the same requests: launches exactly what the dispatches call
+        # for; tp 4's greedy streams against tp 1's near-tie rule
+        for leg, n, kvq in (("tp2_kv8", 2, "int8"), ("tp4", 4, None)):
+            dec = PagedLlamaDecoder.from_config(
+                cfg, seed=0, weight_dtype="int4", block_size=64,
+                num_blocks=160, kv_quant=kvq, mp_axis="tp",
+                tp_shard_map=True, mesh=ProcessMesh(
+                    list(range(n)), ["tp"], devices=["cuda:0"] * n))
+            eng = engine(dec, True, tp=n)
+            outs, wall, st, launched = drive_checked(
+                eng, reqs, f"serve-tp2-int4 {leg}")
+            eng.close()
+            one, _, _ = decode_ministep(dec, profile=False)
+            _require(one == {"ragged_paged_attention": 32 * n,
+                             "decode_matmul": 129 * n},
+                     f"serve-tp2-int4 {leg}: one W 8 ministep launched {one}")
+            info[leg] = {"launches": launched, "ministep_launches": one,
+                         "tok_per_s_eager": st["generated_tokens"] / wall,
+                         "pool_bytes_per_shard":
+                             dec.cache.pool_bytes() / n,
+                         "streams_equal_tp1": sum(
+                             np.array_equal(a, b)
+                             for a, b in zip(outs, b_outs))}
+            if kvq is None:
+                info[leg]["greedy_divergences_vs_tp1"] = greedy_gaps(
+                    dec1, reqs, outs, b_outs, f"serve-tp2-int4 {leg}")
+            tp_launches[f"serve-tp2-int4 {leg}"] = launched
+            del dec, eng
+            gc.collect()
+            torch.cuda.empty_cache()
+        return info
+
+    _phase("serve-tp2-int4", serve_tp2_int4)
+
 
     for eng in shared.get("graph_engines", {}).values():
         eng.close()
@@ -4709,9 +5135,9 @@ def main():
             gc.collect()
             torch.cuda.empty_cache()
             mem0 = torch.cuda.memory_reserved()
-            _require(eng.dec.cache.k[0].dtype == torch.float32,
+            _require(eng.dec.cache.k[0][0].dtype == torch.float32,
                      f"a bf16 model's decoder pool is "
-                     f"{eng.dec.cache.k[0].dtype}, JAX's is float32")
+                     f"{eng.dec.cache.k[0][0].dtype}, JAX's is float32")
             first, _, _ = drive(eng, reqs)          # captures as first used
             capture = lazy_capture(eng, mem0)
             outs, wall, st, launched = drive_checked(
@@ -4943,6 +5369,37 @@ def main():
         "library_ms": f["library_ms"]["fwd"],
         "launches_by_phase": {"tiny-fleet-parity": fleet_launches[
             "tiny-fleet-parity"]["flash_fwd"]}})
+    # the kernels at a tp shard's shapes: their launches from
+    # serve-tp2-int4's runs (fp32 comm eager; the int8-pool and tp-4
+    # legs), the GEMV's by shard projection as counted at its launch
+    # site (every row count up to 32; the row's times are at b 8)
+    for key, name, run in (
+            ("tp2_w8_ctx512", "ragged_paged_attention[tp2 shard, 16/4 "
+             "heads]", "serve-tp2-int4 fp32"),
+            ("tp2_int8_w8_ctx512", "ragged_paged_attention[tp2 shard, "
+             "16/4 heads, int8 pool]", "serve-tp2-int4 tp2_kv8"),
+            ("tp4_w8_ctx512", "ragged_paged_attention[tp4 shard, 8/2 "
+             "heads]", "serve-tp2-int4 tp4")):
+        c = heads[key]
+        kernel_rows.append({
+            "name": name, "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/ragged_paged_attention.cu",
+            "replaces": tpu + "ragged_paged_attention.py:201",
+            "launches": tp_launches[run]["ragged_paged_attention"],
+            "max_abs_err": c["max_abs_err"], "ms": c["ms"],
+            "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+            "bound_by": c["bound_by"], "library_ms": c["library_ms"]})
+    gemv_by_shape = tp_launches["serve-tp2-int4 fp32"]["gemv_by_shape"]
+    for name, shape in SHAPES_8B_TP2.items():
+        c = heads[f"gemv_{name}"]
+        kernel_rows.append({
+            "name": f"decode_matmul[int4, {name}]", "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/decode_matmul.cu",
+            "replaces": tpu + "decode_matmul.py:135",
+            "launches": gemv_by_shape.get(shape, 0), "timed_rows": 8,
+            "max_abs_err": c["max_abs_err"], "ms": c["ms"],
+            "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+            "bound_by": c["bound_by"], "library_ms": c["library_ms"]})
     _emit({"kernels": kernel_rows})
     print(smi, flush=True)
     _emit({"ok": True, "device": device})

@@ -8,8 +8,9 @@ card) where JAX counts ``jax.devices()``, and dp is filled in from it as
 JAX fills it. The program is single-controller (``global_rank`` 0).
 
 Only the sep axis is placed: a degree above 1 on any other axis,
-an auto-filled dp included, raises ``NotImplementedError`` (tensor
-parallelism is ROADMAP queue 1 item 5; dp, pp and sharding item 10).
+an auto-filled dp included, raises ``NotImplementedError`` (training's
+tensor parallelism is ROADMAP queue 1 item 5(c); dp, pp and sharding
+item 10).
 """
 from __future__ import annotations
 
@@ -23,7 +24,7 @@ from ..mesh import ProcessMesh
 __all__ = ["HybridCommunicateGroup", "hybrid_degrees"]
 
 _AXIS_ORDER = ["dp", "pp", "sharding", "sep", "mp"]
-_UNPORTED_AXIS = {"mp": "5", "dp": "10", "pp": "10", "sharding": "10"}
+_UNPORTED_AXIS = {"mp": "5(c)", "dp": "10", "pp": "10", "sharding": "10"}
 
 
 def hybrid_degrees(n: int, dp_degree=1, mp_degree=1, pp_degree=1,
@@ -66,8 +67,8 @@ class HybridCommunicateGroup:
             raise NotImplementedError(
                 f"hybrid degrees {degrees}: only the sep axis is placed; "
                 f"{sorted(unported)} > 1 is not ported yet (ROADMAP "
-                f"queue 1, item {' and '.join(items)}: tensor parallelism "
-                f"is item 5, dp / pp / sharding item 10)")
+                f"queue 1, item {' and '.join(items)}: training's tensor "
+                f"parallelism is item 5(c), dp / pp / sharding item 10)")
         self._degrees = degrees
         shape = tuple(degrees[a] for a in _AXIS_ORDER)
         self._mesh = ProcessMesh(np.arange(len(devices)).reshape(shape),

@@ -38,10 +38,13 @@ replicas (each a full ServingEngine) and adds the replica-level half:
   seal calls replayed, then probation).
 
 Replicas never talk during a step: affinity is a host-side lookup and
-migration a host-side re-enqueue. ``tp=1`` only: every replica builds
-its engine on the engine's device (``engine_kwargs["device"]``; None:
-cuda), so a dp fleet on one card shares it. Tensor-parallel replicas
-(``tp > 1``) are not ported yet (ROADMAP queue 1, item 5(a)).
+migration a host-side re-enqueue. At ``tp=1`` every replica builds its
+engine on the engine's device (``engine_kwargs["device"]``; None:
+cuda), so a dp fleet on one card shares it. At ``tp > 1`` replica r is a
+tp engine on row r of ``SpecLayout.fleet_device_slices(dp, tp,
+devices)``: disjoint slices of ``devices`` (None: the visible cards),
+where a device may repeat (``["cuda:0"] * 4`` holds a dp 2 x tp 2 fleet
+on one card). A spawned worker computes its own row.
 
 Usage::
 
@@ -68,6 +71,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..distributed.spec_layout import SpecLayout
 from ..utils.telemetry import FLEET_PID, Reservoir, SLOMonitor, SLOPolicy
 from .serving import (EngineOverloaded, SamplingParams, ServingEngine,
                       _normalize_prompt)
@@ -162,8 +166,10 @@ class Router:
         engine builds its own decoder and pool from it). Ignored when
         ``engine_factory`` is given.
     dp : replica count R.
-    tp : per-replica tensor-parallel degree; only 1 is ported (tp > 1
-        raises ``NotImplementedError``, ROADMAP queue 1 item 5(a)).
+    tp : per-replica tensor-parallel degree; tp > 1 places replica r on
+        row r of ``SpecLayout.fleet_device_slices(dp, tp, devices)``.
+    devices : the devices of the dp x tp grid (tp > 1 only; None: the
+        visible cards).
     affinity : route by longest cached chain-hash coverage (True, the
         default) or purely by load (False).
     breaker_threshold : consecutive faulty steps before a replica is
@@ -211,22 +217,22 @@ class Router:
                  rpc_timeout_s: float = 120.0,
                  rpc_retries: int = 2,
                  respawn: bool = True,
-                 tracer=None, slo=None,
+                 tracer=None, slo=None, devices=None,
                  **engine_kwargs):
         dp = int(dp)
         if dp < 1:
             raise ValueError(f"dp must be >= 1, got {dp}")
-        if int(tp) > 1:
-            raise NotImplementedError(
-                f"Router(tp={tp}): tensor-parallel replicas are not ported "
-                f"yet (ROADMAP queue 1, item 5(a))")
         if int(tp) < 1:
             raise ValueError(f"tp must be >= 1, got {tp}")
-        if engine_kwargs.get("devices") is not None:
+        if devices is not None and int(tp) == 1:
             raise ValueError(
                 "devices= requires tp > 1: a single-chip engine builds on "
                 "the default device (the fleet Router passes devices only "
                 "for tp-sharded replicas)")
+        # per-replica device rows of the canonical dp x tp grid (tp=1
+        # replicas share the engine's device)
+        slices = (SpecLayout().fleet_device_slices(dp, tp, devices)
+                  if int(tp) > 1 else [None] * dp)
         if transport not in ("inproc", "process"):
             raise ValueError(f"transport must be 'inproc' or "
                              f"'process', got {transport!r}")
@@ -274,6 +280,8 @@ class Router:
             if transport == "process":
                 spec = WorkerSpec(
                     factory=engine_factory, dp=dp, tp=self.tp,
+                    devices=(None if devices is None
+                             else [str(d) for d in devices]),
                     engine_kwargs=dict(engine_kwargs),
                     slo_policies=tuple(self._slo_policies),
                     traced=tracer is not None,
@@ -285,13 +293,13 @@ class Router:
                 self.replicas.append(Replica(r, None, transport=tr))
                 continue
             if engine_factory is not None:
-                # tp 1: no device slice; the engine's device is its own
-                eng = engine_factory(r, None)
+                eng = engine_factory(r, slices[r])
             else:
                 kw = dict(engine_kwargs)
                 if self._slo_policies:
                     kw["slo"] = SLOMonitor(self._slo_policies)
-                eng = ServingEngine(model, **kw)
+                eng = ServingEngine(model, tp=self.tp, devices=slices[r],
+                                    **kw)
             if tracer is not None:
                 eng.set_telemetry(tracer, replica_id=r)
             self.replicas.append(Replica(r, eng,

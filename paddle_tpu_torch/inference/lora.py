@@ -1,9 +1,7 @@
 """Many-LoRA serving, the host half: the packing layout and the adapter
 registry.
 
-Counterpart: ``paddle_tpu/inference/lora.py`` (single device: the
-tensor-parallel slicing, ``LoRALayout.check_tp`` and ``bind``'s
-``sharding``, comes with tensor parallelism, ROADMAP queue 1 item 5).
+Counterpart: ``paddle_tpu/inference/lora.py``.
 
 Adapters are paged through the KV pool's own allocator
 (``PagedKVCache``): an adapter's flattened (A, B) factors fill
@@ -15,6 +13,14 @@ under synthetic page hashes, where any allocation may evict it, and
 acquiring it again revives the pages or uploads them anew. The device
 half is ``PagedLlamaDecoder.lora_context`` / ``_lora_delta`` and the
 engine's lora program families.
+
+Tensor parallelism, as in JAX: the plane replicates (one plane, on the
+first shard's device; shards read their factors from it), and each
+shard slices the whole factors to its own part of the base weight: a
+COLUMN module (wq / wk / wv / wg / wu) applies A whole and takes its
+out columns of B, a ROW module (wo / wd) takes its in rows of A, and its
+partial delta is added before the block's one all-reduce, which reduces
+base and delta together. The collectives stay the base program's.
 """
 from __future__ import annotations
 
@@ -69,6 +75,16 @@ class LoRALayout:
         off_a, off_b = self.offsets[(li, name)]
         din, dout, kind = self._dims[name]
         return off_a, off_b, din, dout, kind
+
+    def check_tp(self, tp: int):
+        """Each module's sharded dim (a column module's out dim, a row
+        module's in dim) divides by the tp degree."""
+        for n, di, do, k in self.modules:
+            dim = do if k == "col" else di
+            if dim % tp:
+                raise ValueError(
+                    f"LoRA module {n}: {'out' if k == 'col' else 'in'} dim "
+                    f"{dim} not divisible by tp={tp}")
 
     def module_names(self) -> Tuple[str, ...]:
         return tuple(n for n, _, _, _ in self.modules)
@@ -161,11 +177,13 @@ class AdapterRegistry:
         return adapter_id in self
 
     # -- binding -------------------------------------------------------------
-    def bind(self, dec):
+    def bind(self, dec, sharding=None):
         """Attach to a decoder's cache: the layout from the decoder's
-        target modules, the cache's adapter plane, the owner ids. One
-        registry binds one cache. The default page holds one KV block's
-        element count (K and V, every layer)."""
+        target modules (``check_tp`` under tp), the cache's adapter
+        plane, the owner ids. One registry binds one cache. The default
+        page holds one KV block's element count (K and V, every layer,
+        all heads). ``sharding``: the plane's spec (``SpecLayout().spec(
+        "lora_pool")``), which must replicate."""
         if self._cache is not None:
             if self._cache is dec.cache:
                 return
@@ -174,13 +192,17 @@ class AdapterRegistry:
         cache = dec.cache
         page_elems = self._page_elems_arg
         if page_elems is None:
-            plane = cache.k[0]
-            plane = plane[0] if isinstance(plane, tuple) else plane
-            _, kvh, bs, hd = plane.shape
-            page_elems = 2 * len(cache.k) * kvh * bs * hd
-        self.layout = LoRALayout(dec.lora_target_modules(),
-                                 dec.cfg.num_hidden_layers, self.rank,
-                                 page_elems)
+            page_elems = (2 * cache.num_layers * cache.kv_heads
+                          * cache.block_size * cache.head_dim)
+        if sharding is not None and any(e is not None for e in sharding):
+            raise ValueError(f"the adapter plane replicates over tp; got "
+                             f"the spec {sharding!r}")
+        layout = LoRALayout(dec.lora_target_modules(),
+                            dec.cfg.num_hidden_layers, self.rank,
+                            page_elems)
+        if len(cache.devices) > 1:
+            layout.check_tp(len(cache.devices))
+        self.layout = layout
         cache.enable_lora_pool(self.layout.page_elems)
         self._cache = cache
         for i, aid in enumerate(self.ids()):

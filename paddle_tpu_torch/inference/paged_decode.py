@@ -1,13 +1,14 @@
 """Paged-KV decoder for Llama-family models: the ragged serving step and
 the dense per-phase programs.
 
-Counterpart: ``paddle_tpu/inference/paged_decode.py`` (single device
-only: no tensor-parallel mixin). The decoder holds a dict of tensors with
-the same shape as the JAX ``weights`` tree — ``embed``, ``layers`` (each
-with ``ln1``, ``ln2``, fused ``wqkv``, ``wo``, fused ``wgu``, ``wd``),
-``norm`` and ``head`` — so weights carry across one-to-one. Matmul
-weights are [in, out]; a quantized one is a ``QWeight`` whose ``kind``
-names its layout.
+Counterpart: ``paddle_tpu/inference/paged_decode.py``. The decoder holds
+a dict of tensors with the same shape as the JAX ``weights`` tree —
+``embed``, ``layers`` (each with ``ln1``, ``ln2``, fused ``wqkv``,
+``wo``, fused ``wgu``, ``wd``), ``norm`` and ``head`` — so weights carry
+across one-to-one. Matmul weights are [in, out]; a quantized one is a
+``QWeight`` whose ``kind`` names its layout. Tensor parallelism (JAX's
+``_TPDecoderMixin``) holds one such tree per shard: see
+``PagedLlamaDecoder``.
 
 ``_ragged_logits`` is one ministep of the ragged serving engine: every
 row's K/V is written to the pool (in place) before attention, so the
@@ -41,6 +42,10 @@ import torch
 import torch.nn.functional as F
 
 from ..device import resolve_device
+from ..distributed.collective import (all_gather_logits, all_reduce,
+                                      int8_all_reduce)
+from ..distributed.mesh import ProcessMesh
+from ..distributed.spec_layout import SpecLayout, cut
 from ..models.llama import LlamaConfig
 from ..ops.cuda.decode_matmul import (_MAX_ROWS, decode_matmul,
                                       unpack_int4_halves)
@@ -201,6 +206,37 @@ def _weight_specs(cfg):
     return specs
 
 
+def _mesh_devices(mesh, mp_axis: str):
+    """The devices of a ``ProcessMesh``'s tp axis, one per shard."""
+    if not isinstance(mesh, ProcessMesh):
+        raise TypeError(f"mesh must be a paddle_tpu_torch ProcessMesh, got "
+                        f"{type(mesh).__name__}")
+    return [resolve_device(d) for d in mesh.axis_devices(mp_axis)]
+
+
+def _load_device(device, mesh, mp_axis: str):
+    """Where a decoder's whole weights are made: ``device``, or the first
+    shard's device of a mesh."""
+    if mesh is None:
+        return resolve_device(device)
+    return _mesh_devices(mesh, mp_axis)[0]
+
+
+def _check_tp_flags(mesh, tp_shard_map: bool, tp_comm: str):
+    """JAX's refusals of a tensor-parallel request it would drop."""
+    if tp_comm not in ("fp32", "int8"):
+        raise ValueError(f"tp_comm must be 'fp32' or 'int8', got "
+                         f"{tp_comm!r}")
+    if tp_shard_map and mesh is None:
+        raise ValueError("tp_shard_map=True needs a mesh (the tp request "
+                         "would otherwise be silently dropped)")
+    if tp_comm != "fp32" and not tp_shard_map:
+        raise ValueError("tp_comm='int8' requires the manual shard_map "
+                         "path (mesh + tp_shard_map=True); on any other "
+                         "path the compressed collective would be "
+                         "silently dropped")
+
+
 def _fuse_layers(weights):
     """The tree with q/k/v and gate/up fused along the out dim. The given
     tree is left as it was and an already-fused one passes through, so
@@ -218,52 +254,128 @@ def _fuse_layers(weights):
 
 
 class PagedLlamaDecoder:
-    """Paged-KV Llama decoder on one device (``device=None``: cuda)."""
+    """Paged-KV Llama decoder on one device (``device=None``: cuda), or
+    tensor-parallel over the ``mp_axis`` of a ``ProcessMesh``.
+
+    Tensor parallelism (JAX ``_TPDecoderMixin``, ``paged_decode.py:269-
+    420``): ``mesh=`` with ``tp_shard_map=True`` is JAX's fully-manual
+    decoder. The per-projection weight tree is cut by the canonical
+    table (``distributed/spec_layout.py``) into one tree per shard, on
+    the shard's device, and each shard's q/k/v and gate/up are fused as
+    on one device. The pool splits its kv heads over the shards. Every
+    program runs each layer shard by shard on the shard's heads and
+    intermediate slice, with exactly one ``_block_reduce`` after wo and
+    one after wd (fp32 sum, or the int8 collective under
+    ``tp_comm="int8"``) and the logits' gather before sampling, which
+    leaves the whole logits on shard 0's device. ``mesh=`` without
+    ``tp_shard_map`` is JAX's GSPMD decoder: it computes the same
+    function, and the port runs it on the same sharded execution with
+    the fp32 sum (its ``_tp`` stays 1, as in JAX). Shards may share a
+    device (``devices=["cuda:0"] * 2``). ``weights`` is the list of shard trees
+    and ``cache.k`` / ``cache.v`` the lists of the shards' planes (one
+    shard on one device), the operands every program takes."""
 
     def __init__(self, cfg: LlamaConfig, weights: dict,
                  num_blocks: int = 512, block_size: int = 16,
                  max_pages_per_seq: Optional[int] = None,
                  weight_dtype: Optional[str] = None,
-                 kv_quant: Optional[str] = None, device=None):
+                 kv_quant: Optional[str] = None, device=None, mesh=None,
+                 mp_axis: str = "mp", tp_shard_map: bool = False,
+                 tp_comm: str = "fp32"):
         if weight_dtype not in _WEIGHT_DTYPES:
             raise ValueError(f"weight_dtype must be None, 'int8' or "
                              f"'int4', got {weight_dtype!r}")
         if kv_quant not in (None, "int8"):
             raise ValueError(f"kv_quant must be None or 'int8', got "
                              f"{kv_quant!r}")
-        self.device = resolve_device(device)
+        _check_tp_flags(mesh, tp_shard_map, tp_comm)
         self.cfg = cfg
+        self.mesh = mesh
+        self.mp_axis = mp_axis
+        self.tp_comm = tp_comm
+        self._tp_manual = bool(tp_shard_map)
+        if mesh is None:
+            self.devices = [resolve_device(device)]
+        else:
+            if device is not None:
+                raise ValueError("pass either device= or a mesh, not both: "
+                                 "the mesh places every shard")
+            self.devices = _mesh_devices(mesh, mp_axis)
+        self.device = self.devices[0]
+        self.n_shards = len(self.devices)
+        # JAX's _tp: the manual path's degree, 1 on the GSPMD path
+        self._tp = self.n_shards if self._tp_manual else 1
         self.block_size = block_size
         self.head_dim = cfg.hidden_size // cfg.num_attention_heads
         self.max_pages = max_pages_per_seq or \
             -(-cfg.max_position_embeddings // block_size)
         self.weight_dtype = weight_dtype
         self.kv_quant = kv_quant
-        self.weights = _fuse_layers(weights)
+        if self.n_shards > 1:
+            self._check_tp_divisibility(self.n_shards)
+            trees = SpecLayout().shard_tree(weights, self.devices,
+                                            strict=True)
+        else:
+            trees = [weights]
+        self.weights = [_fuse_layers(t) for t in trees]
+        dtype = self.weights[0]["embed"].dtype
         self.cache = PagedKVCache(
             num_layers=cfg.num_hidden_layers, num_blocks=num_blocks,
             block_size=block_size, kv_heads=cfg.num_key_value_heads,
-            head_dim=self.head_dim, dtype=self.weights["embed"].dtype,
-            kv_quant=kv_quant, device=self.device)
+            head_dim=self.head_dim, dtype=dtype, kv_quant=kv_quant,
+            devices=self.devices)
         cos, sin = build_rope_cache(cfg.max_position_embeddings,
                                     self.head_dim, cfg.rope_theta,
                                     torch.float32, device=self.device)
         self._cos = cos[0, :, 0, :]   # [max_len, head_dim]
         self._sin = sin[0, :, 0, :]
+        # the tables on each shard's device (the same tensors on one)
+        self._rope_of = {}
+        for dev in self.devices:
+            key = (self._cos.new_empty(0, device=dev).device)
+            self._rope_of[key] = (self._cos.to(dev), self._sin.to(dev))
+
+    def _check_tp_divisibility(self, mp: int):
+        """JAX's rule: heads, kv heads, intermediate and vocab divide by
+        the degree; under int4 so do hidden/2 and intermediate/2 (a row
+        shard's packed in-dim)."""
+        cfg = self.cfg
+        kvh = cfg.num_key_value_heads
+        if (cfg.num_attention_heads % mp or kvh % mp
+                or cfg.intermediate_size % mp):
+            raise ValueError(
+                f"TP serving needs heads ({cfg.num_attention_heads}/{kvh}) "
+                f"and intermediate size ({cfg.intermediate_size}) "
+                f"divisible by the '{self.mp_axis}' degree {mp}")
+        if cfg.vocab_size % mp:
+            raise ValueError(
+                f"TP serving needs vocab ({cfg.vocab_size}) divisible by "
+                f"the '{self.mp_axis}' degree {mp} (the logits gather "
+                f"concatenates equal per-shard slices)")
+        if self.weight_dtype == "int4" and (
+                (cfg.hidden_size // 2) % mp
+                or (cfg.intermediate_size // 2) % mp):
+            raise ValueError(
+                f"int4 TP serving needs hidden_size/2 "
+                f"({cfg.hidden_size // 2}) and intermediate_size/2 "
+                f"({cfg.intermediate_size // 2}) divisible by the "
+                f"'{self.mp_axis}' degree {mp} (nibble-packed in-dim)")
 
     # -- construction --------------------------------------------------------
     @classmethod
     def from_weight_loader(cls, cfg, load, weight_dtype: Optional[str] = None,
-                           device=None, **kw):
+                           device=None, mesh=None, **kw):
         """Build from ``load(name, shape)``, which returns one raw [in, out]
         tensor per weight (names as in ``_weight_specs``). Each matmul
         weight is quantized on the device as it arrives and the full-
         precision original dropped, so the peak is about the quantized
-        total plus one layer in full precision."""
+        total plus one layer in full precision. With a ``mesh`` the
+        weights load on its first device and are then cut into shards
+        (the scales are those of the whole matrix, as in JAX)."""
         if weight_dtype not in _WEIGHT_DTYPES:
             raise ValueError(f"weight_dtype must be None, 'int8' or "
                              f"'int4', got {weight_dtype!r}")
-        dev = resolve_device(device)
+        dev = _load_device(device, mesh, kw.get("mp_axis", "mp"))
         qf = _QUANTIZERS[weight_dtype]
         layers = [dict() for _ in range(cfg.num_hidden_layers)]
         flat = {}
@@ -281,6 +393,9 @@ class PagedLlamaDecoder:
             del arr
         weights = {"embed": flat["embed"], "layers": layers,
                    "norm": flat["norm"], "head": flat["head"]}
+        if mesh is not None:
+            return cls(cfg, weights, weight_dtype=weight_dtype, mesh=mesh,
+                       **kw)
         return cls(cfg, weights, weight_dtype=weight_dtype, device=dev,
                    **kw)
 
@@ -288,7 +403,7 @@ class PagedLlamaDecoder:
     def from_model(cls, model, num_blocks: int = 512, block_size: int = 16,
                    max_pages_per_seq: Optional[int] = None,
                    weight_dtype: Optional[str] = None,
-                   kv_quant: Optional[str] = None, device=None):
+                   kv_quant: Optional[str] = None, device=None, **tp_kw):
         """Serve a ``LlamaForCausalLM`` (JAX: ``PagedLlamaDecoder(model)``
         through ``_extract_weights``, ``paged_decode.py:216-247``) by way
         of ``from_weight_loader``: the model's Linear weights are already
@@ -296,14 +411,16 @@ class PagedLlamaDecoder:
         the norms and the embedding stay as they are. A tied model's head
         is the embedding transposed. Dtypes follow JAX: the pool takes
         the embedding's dtype, float32 even under ``dtype="bfloat16"``,
-        so such a model serves in float32.
+        so such a model serves in float32. ``tp_kw`` are the tensor-
+        parallel arguments (``mesh``, ``mp_axis``, ``tp_shard_map``,
+        ``tp_comm``).
 
         On ``device`` (``None``: cuda) the decoder shares the model's
         tensors wherever it keeps a weight as it is: the embedding, the
         norms, wo, wd and the head (all of them but the fused q/k/v and
         gate/up products when ``weight_dtype`` is None). A model trained
         after this call changes those shared weights only, so build the
-        decoder once training is done."""
+        decoder once training is done. Shards are copies."""
         m = model.model
         embed = m.embed_tokens.weight
         params = {"embed": embed, "norm": m.norm.weight,
@@ -322,16 +439,18 @@ class PagedLlamaDecoder:
             model.cfg, lambda name, shape: params[name].detach(),
             weight_dtype=weight_dtype, device=device, num_blocks=num_blocks,
             block_size=block_size, max_pages_per_seq=max_pages_per_seq,
-            kv_quant=kv_quant)
+            kv_quant=kv_quant, **tp_kw)
 
     @classmethod
     def from_config(cls, cfg, seed: int = 0, init_scale: float = 0.02,
-                    device=None, **kw):
+                    device=None, mesh=None, **kw):
         """Randomly initialized decoder from a config: norm gains are
         ones, every other weight N(0, init_scale) in the config's dtype,
         drawn per weight from a ``torch.Generator`` on the device seeded
-        by (seed, crc32(name)). Not the JAX package's threefry bits."""
-        dev = resolve_device(device)
+        by (seed, crc32(name)). Not the JAX package's threefry bits. With
+        a ``mesh`` the draws are made on its first device, so a tp
+        decoder holds the same weights as a one-device decoder there."""
+        dev = _load_device(device, mesh, kw.get("mp_axis", "mp"))
         dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
         gen = torch.Generator(device=dev)
 
@@ -344,25 +463,47 @@ class PagedLlamaDecoder:
             return (torch.randn(shape, generator=gen, dtype=torch.float32,
                                 device=dev) * init_scale).to(dtype)
 
+        if mesh is not None:
+            return cls.from_weight_loader(cfg, load, mesh=mesh, **kw)
         return cls.from_weight_loader(cfg, load, device=dev, **kw)
 
     @classmethod
     def from_numpy_weights(cls, cfg, tree, weight_dtype: Optional[str] = None,
-                           device=None, **kw):
+                           device=None, int4_layout: str = "halves", **kw):
         """Build from the JAX decoder's ``weights`` tree turned into numpy
-        (see ``inference.weights.weights_from_numpy``)."""
+        (see ``inference.weights.weights_from_numpy``; a JAX tp decoder's
+        tree is per-projection with ``int4_layout="interleaved"``). With
+        a ``mesh`` in ``kw`` the tree is cut into the port's shards."""
         from .weights import weights_from_numpy
-        dev = resolve_device(device)
+        mesh = kw.get("mesh")
+        dev = _load_device(device, mesh, kw.get("mp_axis", "mp"))
         weights = weights_from_numpy(tree, weight_dtype=weight_dtype,
-                                     device=dev)
-        return cls(cfg, weights, weight_dtype=weight_dtype, device=dev,
-                   **kw)
+                                     device=dev, int4_layout=int4_layout)
+        if mesh is None:
+            kw["device"] = dev
+        return cls(cfg, weights, weight_dtype=weight_dtype, **kw)
+
+    # -- tensor parallelism ------------------------------------------------------
+    def _on_shards(self, *ts):
+        """[shard][i]: each of ts on each shard's device (the same tensor
+        where it already is; None stays None)."""
+        return [[None if t is None else t.to(d, non_blocking=True)
+                 for t in ts] for d in self.devices]
+
+    def _block_reduce(self, parts):
+        """The one collective of an attention or MLP block: the shards'
+        partial row-parallel products summed, fp32 or int8 per
+        ``tp_comm`` (JAX ``_block_reduce``). One shard passes through."""
+        if self.tp_comm == "int8":
+            return int8_all_reduce(parts)
+        return all_reduce(parts)
 
     # -- building blocks ------------------------------------------------------
     def _proj_qkv(self, w, hn):
         cfg = self.cfg
-        nh, kvh, hd = (cfg.num_attention_heads, cfg.num_key_value_heads,
-                       self.head_dim)
+        n = self.n_shards
+        nh, kvh, hd = (cfg.num_attention_heads // n,
+                       cfg.num_key_value_heads // n, self.head_dim)
         qkv = _mm(hn, w["wqkv"])
         q, k, v = torch.split(qkv, [nh * hd, kvh * hd, kvh * hd], dim=-1)
         lead = hn.shape[:-1]
@@ -371,16 +512,52 @@ class PagedLlamaDecoder:
 
     def _mlp(self, w, hn):
         gu = _mm(hn, w["wgu"])
-        g_, u_ = torch.split(gu, [self.cfg.intermediate_size,
-                                  gu.shape[-1] - self.cfg.intermediate_size],
-                             dim=-1)
+        it = self.cfg.intermediate_size // self.n_shards
+        g_, u_ = torch.split(gu, [it, gu.shape[-1] - it], dim=-1)
         return _mm(F.silu(g_) * u_, w["wd"])
+
+    def _layers(self, ws, h, attn, lora=None, row_seq=None):
+        """The layer stack over the shards. h: the hidden state on each
+        shard's device; ``attn(s, li, w, hn)`` runs shard s's attention
+        of layer li (writing its K/V) and returns its [..., heads * hd]
+        output. Each block's shard products meet in one
+        ``_block_reduce``. ``lora``/``row_seq``: the adapters' deltas on
+        wo and the MLP. Returns the final h per shard."""
+        eps = self.cfg.rms_norm_eps
+        for li in range(self.cfg.num_hidden_layers):
+            parts = []
+            for s, w in enumerate(ws):
+                lw = w["layers"][li]
+                af = attn(s, li, lw, rms_norm(h[s], lw["ln1"], eps))
+                o = _mm(af, lw["wo"])
+                if lora is not None:
+                    o = o + self._lora_delta(lora, row_seq[s], af, li, "wo",
+                                             shard=s)
+                parts.append(o)
+            h = [a + b for a, b in zip(h, self._block_reduce(parts))]
+            parts = []
+            for s, w in enumerate(ws):
+                lw = w["layers"][li]
+                hn = rms_norm(h[s], lw["ln2"], eps)
+                parts.append(self._mlp(lw, hn) if lora is None else
+                             self._lora_mlp(lw, hn, lora, row_seq[s], li,
+                                            shard=s))
+            h = [a + b for a, b in zip(h, self._block_reduce(parts))]
+        return h
+
+    def _head_logits(self, ws, h):
+        """Float32 logits of the final hidden rows h (per shard): the
+        norm, each shard's vocab slice, the gather on shard 0's device."""
+        eps = self.cfg.rms_norm_eps
+        return all_gather_logits(
+            [_mm(rms_norm(hs, w["norm"], eps), w["head"]).to(torch.float32)
+             for w, hs in zip(ws, h)])
 
     # -- many-LoRA serving (inference/lora.py) -----------------------------------
     def lora_target_modules(self):
         """(name, din, dout, kind) of the modules an adapter may change,
-        in the JAX decoder's order; kind is the base weight's
-        tensor-parallel placement."""
+        in the JAX decoder's order, over the whole (unsharded) dims; kind
+        is the base weight's tensor-parallel placement."""
         cfg = self.cfg
         h = cfg.hidden_size
         ad = cfg.num_attention_heads * self.head_dim
@@ -396,7 +573,8 @@ class PagedLlamaDecoder:
         out of the pool plane once (``lora_tables`` [S, n_pages]; a row
         of scratch blocks reads the all-zero null adapter), as the JAX
         engine's ``_lora_ctx`` gathers [S, n_pages * page_elems], then
-        laid out per module by ``lora_factors``."""
+        laid out per module by ``lora_factors``. The plane is one, on
+        shard 0's device; shards slice the factors."""
         s = lora_tables.shape[0]
         flat = lora_pool.index_select(0, lora_tables.reshape(-1).long())
         return self.lora_factors(layout, flat.reshape(s, -1))
@@ -418,35 +596,45 @@ class PagedLlamaDecoder:
                 flat[:, off_b:off_b + r * dout].reshape(s * r, dout))
         return layout, factors, s
 
-    def _lora_delta(self, lora, row_seq, x, li: int, name: str):
+    def _lora_delta(self, lora, row_seq, x, li: int, name: str,
+                    shard: int = 0):
         """Each row's adapter delta of module (li, name), [rows, dout] in
         x's dtype; x [rows, din], row_seq [rows] picks the row's factors.
         JAX gathers a [rows, din, r] copy of A per row; here every row
         meets every slot's A in one product ([rows, S * r]), a one-hot of
         row_seq keeps its own slot's r columns, and one product with the
         slots' B stacked sums them, so the other slots add exact zeros.
-        float32 throughout."""
+        float32 throughout. Under tp shard ``shard`` takes its slice, as
+        JAX's: a column module B's out columns, a row module A's in rows
+        (its delta is a partial sum, reduced with the base product)."""
         layout, factors, s = lora
         a_cat, b_cat = factors[(li, name)]
+        n = self.n_shards
+        if n > 1:
+            if layout.entry(li, name)[4] == "col":
+                b_cat = cut(b_cat, 1, shard, n)
+            else:
+                a_cat = cut(a_cat, 0, shard, n)
+            a_cat = a_cat.to(x.device, non_blocking=True)
+            b_cat = b_cat.to(x.device, non_blocking=True)
         x2 = x.reshape(-1, x.shape[-1]).to(torch.float32)
         cols = torch.arange(s * layout.rank, device=x.device) // layout.rank
         keep = row_seq.long()[:, None] == cols[None, :]     # [rows, S * r]
         xa = (x2 @ a_cat) * keep.to(torch.float32)
         return (xa @ b_cat).to(x.dtype)
 
-    def _lora_mlp(self, w, hn, lora, row_seq, li):
+    def _lora_mlp(self, w, hn, lora, row_seq, li, shard: int = 0):
         """``_mlp`` with the adapters' deltas: wg and wu deltas added to
         the gate and up products before SiLU, the wd delta to the down
         product."""
         gu = _mm(hn, w["wgu"])
-        g_, u_ = torch.split(gu, [self.cfg.intermediate_size,
-                                  gu.shape[-1] - self.cfg.intermediate_size],
-                             dim=-1)
-        g_ = g_ + self._lora_delta(lora, row_seq, hn, li, "wg")
-        u_ = u_ + self._lora_delta(lora, row_seq, hn, li, "wu")
+        it = self.cfg.intermediate_size // self.n_shards
+        g_, u_ = torch.split(gu, [it, gu.shape[-1] - it], dim=-1)
+        g_ = g_ + self._lora_delta(lora, row_seq, hn, li, "wg", shard)
+        u_ = u_ + self._lora_delta(lora, row_seq, hn, li, "wu", shard)
         mid = F.silu(g_) * u_
         return _mm(mid, w["wd"]) + self._lora_delta(lora, row_seq, mid, li,
-                                                     "wd")
+                                                     "wd", shard)
 
     # -- speculative decoding ---------------------------------------------------
     def _spec_accept(self, k_pool, v_pool, toks, draft_ids, slots,
@@ -461,29 +649,33 @@ class PagedLlamaDecoder:
         of mismatches. Rejected draft rows wrote their K/V into their
         own slots during the forward (later drafts attend them); one
         zero write per layer clears them, every other row aiming at the
-        scratch slot. Returns (accepted [W] bool, k_pool, v_pool)."""
+        scratch slot; under tp each shard clears its own heads. Returns
+        (accepted [W] bool, k_pool, v_pool)."""
         is_draft = is_draft != 0
         ok = is_draft & (torch.roll(toks, 1) == draft_ids)
         cb = torch.cumsum((is_draft & ~ok).to(torch.int32), 0)
         accepted = is_draft & (cb - cb[seg_start.long()] == 0)
         tgt = slots.masked_fill(~(is_draft & ~accepted), scratch_slot)
-        plane = _plane_values(k_pool[0])
-        _, kvh, bs, hd = plane.shape
-        dtype = torch.float32 if isinstance(k_pool[0], tuple) \
-            else plane.dtype
-        zeros = torch.zeros((toks.shape[0], kvh, hd), dtype=dtype,
-                            device=toks.device)
-        index = pool_index(tgt, bs, kvh)
-        for li in range(len(k_pool)):
-            reshape_and_cache(zeros, zeros, k_pool[li], v_pool[li], tgt,
-                              index=index)
+        for kp, vp in zip(k_pool, v_pool):
+            plane = _plane_values(kp[0])
+            _, kvh, bs, hd = plane.shape
+            tgt_s = tgt.to(plane.device, non_blocking=True)
+            dtype = torch.float32 if isinstance(kp[0], tuple) \
+                else plane.dtype
+            zeros = torch.zeros((toks.shape[0], kvh, hd), dtype=dtype,
+                                device=plane.device)
+            index = pool_index(tgt_s, bs, kvh)
+            for li in range(len(kp)):
+                reshape_and_cache(zeros, zeros, kp[li], vp[li], tgt_s,
+                                  index=index)
         return accepted, k_pool, v_pool
 
     def _rope_tables(self, positions, dtype):
         """(cos, sin) [*positions.shape, 1, head_dim] at positions, in
-        dtype."""
-        return (self._cos[positions][..., None, :].to(dtype),
-                self._sin[positions][..., None, :].to(dtype))
+        dtype, from the tables on positions' device."""
+        cos, sin = self._rope_of[positions.device]
+        return (cos[positions][..., None, :].to(dtype),
+                sin[positions][..., None, :].to(dtype))
 
     def _rope(self, x, positions, tables=None):
         """x [..., heads, head_dim] at positions broadcasting over its
@@ -506,53 +698,52 @@ class PagedLlamaDecoder:
         Returns (logits [rows, vocab] float32, k_pool, v_pool)."""
         cfg = self.cfg
         r = ids.shape[0]
-        nh = cfg.num_attention_heads
-        h = weights["embed"][ids.long()]                   # [r, d]
+        nh = cfg.num_attention_heads // self.n_shards
         pos = positions.long().clamp(max=cfg.max_position_embeddings - 1)
+        ops = self._on_shards(ids, pos, slots, row_seq, row_ctx, tables)
         # per-ministep constants shared by every layer: the RoPE rows of
         # these positions and the pool index of these slots
-        rope = self._rope_tables(pos, h.dtype)
-        index = pool_index(slots, self.block_size, cfg.num_key_value_heads)
-        for li, w in enumerate(weights["layers"]):
-            hn = rms_norm(h, w["ln1"], cfg.rms_norm_eps)
+        rope = [self._rope_tables(o[1], weights[s]["embed"].dtype)
+                for s, o in enumerate(ops)]
+        index = [pool_index(o[2], self.block_size,
+                            cfg.num_key_value_heads // self.n_shards)
+                 for o in ops]
+
+        def attn(s, li, w, hn):
+            _, p, sl, rs, rc, tb = ops[s]
             q, k, v = self._proj_qkv(w, hn)
             if lora is not None:
-                q = q + self._lora_delta(lora, row_seq, hn, li,
-                                         "wq").reshape(q.shape)
-                k = k + self._lora_delta(lora, row_seq, hn, li,
-                                         "wk").reshape(k.shape)
-                v = v + self._lora_delta(lora, row_seq, hn, li,
-                                         "wv").reshape(v.shape)
+                q = q + self._lora_delta(lora, rs, hn, li, "wq",
+                                         s).reshape(q.shape)
+                k = k + self._lora_delta(lora, rs, hn, li, "wk",
+                                         s).reshape(k.shape)
+                v = v + self._lora_delta(lora, rs, hn, li, "wv",
+                                         s).reshape(v.shape)
             # one rotation for q and k together
-            qk = self._rope(torch.cat([q, k], dim=1), pos, rope)
+            qk = self._rope(torch.cat([q, k], dim=1), p, rope[s])
             q, k = qk[:, :nh].contiguous(), qk[:, nh:]
-            reshape_and_cache(k, v, k_pool[li], v_pool[li], slots,
-                              index=index)
-            attn = ragged_paged_attention(q, k_pool[li], v_pool[li], tables,
-                                          row_seq, row_ctx)
-            af = attn.reshape(r, -1)
-            o = _mm(af, w["wo"])
-            if lora is not None:
-                o = o + self._lora_delta(lora, row_seq, af, li, "wo")
-            h = h + o
-            hn = rms_norm(h, w["ln2"], cfg.rms_norm_eps)
-            h = h + (self._mlp(w, hn) if lora is None
-                     else self._lora_mlp(w, hn, lora, row_seq, li))
-        h = rms_norm(h, weights["norm"], cfg.rms_norm_eps)
-        logits = _mm(h, weights["head"]).to(torch.float32)
-        return logits, k_pool, v_pool
+            reshape_and_cache(k, v, k_pool[s][li], v_pool[s][li], sl,
+                              index=index[s])
+            return ragged_paged_attention(q, k_pool[s][li], v_pool[s][li],
+                                          tb, rs, rc).reshape(r, -1)
+
+        h = [w["embed"][o[0].long()] for w, o in zip(weights, ops)]
+        h = self._layers(weights, h, attn, lora, [o[3] for o in ops])
+        return self._head_logits(weights, h), k_pool, v_pool
 
     # -- dense per-phase programs ----------------------------------------------
-    def _final_logits(self, weights, h, last_idx):
-        """Float32 logits of h [b, s, hidden] at each row's last_idx
-        (None: the last position)."""
-        b = h.shape[0]
-        if last_idx is None:
-            hl = h[:, -1]
-        else:
-            hl = h[torch.arange(b, device=h.device), last_idx.long()]
-        hl = rms_norm(hl, weights["norm"], self.cfg.rms_norm_eps)
-        return _mm(hl, weights["head"]).to(torch.float32)
+    def _final_logits(self, ws, h, last_idx):
+        """Float32 logits of h [b, s, hidden] (per shard) at each row's
+        last_idx (None: the last position)."""
+        hl = []
+        for hs in h:
+            if last_idx is None:
+                hl.append(hs[:, -1])
+            else:
+                b = hs.shape[0]
+                hl.append(hs[torch.arange(b, device=hs.device),
+                             last_idx.to(hs.device).long()])
+        return self._head_logits(ws, hl)
 
     def _prefill_impl(self, weights, k_pool, v_pool, ids, slots,
                       last_idx=None, *, logits: bool = True):
@@ -565,27 +756,30 @@ class PagedLlamaDecoder:
         ``logits`` is False, k_pool, v_pool)."""
         cfg = self.cfg
         b, s = ids.shape
-        kvh, hd = cfg.num_key_value_heads, self.head_dim
-        h = weights["embed"][ids.long()]                    # [b, s, d]
+        kvh = cfg.num_key_value_heads // self.n_shards
+        hd = self.head_dim
         # clamped like the offset programs: a bucket's padding rows may
         # sit past max_position_embeddings (JAX's gather clamps them)
         pos = torch.arange(s, device=ids.device).clamp(
             max=cfg.max_position_embeddings - 1)
-        rope = self._rope_tables(pos, h.dtype)
-        index = pool_index(slots.reshape(-1), self.block_size, kvh)
-        for li, w in enumerate(weights["layers"]):
-            hn = rms_norm(h, w["ln1"], cfg.rms_norm_eps)
+        ops = self._on_shards(ids, pos, slots.reshape(-1))
+        rope = [self._rope_tables(o[1], weights[i]["embed"].dtype)
+                for i, o in enumerate(ops)]
+        index = [pool_index(o[2], self.block_size, kvh) for o in ops]
+
+        def attn(i, li, w, hn):
             q, k, v = self._proj_qkv(w, hn)
-            q = self._rope(q, pos, rope)
-            k = self._rope(k, pos, rope)
+            q = self._rope(q, ops[i][1], rope[i])
+            k = self._rope(k, ops[i][1], rope[i])
             v = v.contiguous()
-            attn = flash_attention(q, k, v, causal=True)
-            h = h + _mm(attn.reshape(b, s, -1), w["wo"])
-            hn = rms_norm(h, w["ln2"], cfg.rms_norm_eps)
-            h = h + self._mlp(w, hn)
+            out = flash_attention(q, k, v, causal=True)
             reshape_and_cache(k.reshape(b * s, kvh, hd),
-                              v.reshape(b * s, kvh, hd), k_pool[li],
-                              v_pool[li], None, index=index)
+                              v.reshape(b * s, kvh, hd), k_pool[i][li],
+                              v_pool[i][li], None, index=index[i])
+            return out.reshape(b, s, -1)
+
+        h = [w["embed"][o[0].long()] for w, o in zip(weights, ops)]
+        h = self._layers(weights, h, attn)
         out = self._final_logits(weights, h, last_idx) if logits else None
         return out, k_pool, v_pool
 
@@ -600,27 +794,32 @@ class PagedLlamaDecoder:
         or None, k_pool, v_pool)."""
         cfg = self.cfg
         b, s = ids.shape
-        kvh, hd = cfg.num_key_value_heads, self.head_dim
-        h = weights["embed"][ids.long()]
+        kvh = cfg.num_key_value_heads // self.n_shards
+        hd = self.head_dim
         pos = (torch.arange(s, device=ids.device)[None]
                + n_cached.long()[:, None]).clamp(
                    max=cfg.max_position_embeddings - 1)     # [b, s]
-        rope = self._rope_tables(pos, h.dtype)
-        index = pool_index(slots.reshape(-1), self.block_size, kvh)
-        for li, w in enumerate(weights["layers"]):
-            hn = rms_norm(h, w["ln1"], cfg.rms_norm_eps)
+        ops = self._on_shards(ids, pos, slots.reshape(-1), n_cached,
+                              prefix_tables)
+        rope = [self._rope_tables(o[1], weights[i]["embed"].dtype)
+                for i, o in enumerate(ops)]
+        index = [pool_index(o[2], self.block_size, kvh) for o in ops]
+
+        def attn(i, li, w, hn):
+            _, p, _, ncv, ptab = ops[i]
             q, k, v = self._proj_qkv(w, hn)
-            q = self._rope(q, pos, rope)
-            k = self._rope(k, pos, rope)
-            k_pre = _gather_prefix_pages(k_pool[li], prefix_tables)
-            v_pre = _gather_prefix_pages(v_pool[li], prefix_tables)
-            attn = _prefix_suffix_attention(q, k, v, k_pre, v_pre, n_cached)
-            h = h + _mm(attn.reshape(b, s, -1), w["wo"])
-            hn = rms_norm(h, w["ln2"], cfg.rms_norm_eps)
-            h = h + self._mlp(w, hn)
+            q = self._rope(q, p, rope[i])
+            k = self._rope(k, p, rope[i])
+            k_pre = _gather_prefix_pages(k_pool[i][li], ptab)
+            v_pre = _gather_prefix_pages(v_pool[i][li], ptab)
+            out = _prefix_suffix_attention(q, k, v, k_pre, v_pre, ncv)
             reshape_and_cache(k.reshape(b * s, kvh, hd),
-                              v.reshape(b * s, kvh, hd), k_pool[li],
-                              v_pool[li], None, index=index)
+                              v.reshape(b * s, kvh, hd), k_pool[i][li],
+                              v_pool[i][li], None, index=index[i])
+            return out.reshape(b, s, -1)
+
+        h = [w["embed"][o[0].long()] for w, o in zip(weights, ops)]
+        h = self._layers(weights, h, attn)
         out = self._final_logits(weights, h, last_idx) if logits else None
         return out, k_pool, v_pool
 
@@ -634,27 +833,28 @@ class PagedLlamaDecoder:
         Returns (logits [b, vocab] float32, k_pool, v_pool)."""
         cfg = self.cfg
         b = last_ids.shape[0]
-        nh = cfg.num_attention_heads
-        h = weights["embed"][last_ids.long()]               # [b, d]
+        nh = cfg.num_attention_heads // self.n_shards
         pos = ctx_lens.long().clamp(max=cfg.max_position_embeddings - 1)
-        rope = self._rope_tables(pos, h.dtype)
-        index = pool_index(slots, self.block_size, cfg.num_key_value_heads)
-        visible = ctx_lens + 1
-        for li, w in enumerate(weights["layers"]):
-            hn = rms_norm(h, w["ln1"], cfg.rms_norm_eps)
+        ops = self._on_shards(last_ids, pos, slots, tables, ctx_lens + 1)
+        rope = [self._rope_tables(o[1], weights[i]["embed"].dtype)
+                for i, o in enumerate(ops)]
+        index = [pool_index(o[2], self.block_size,
+                            cfg.num_key_value_heads // self.n_shards)
+                 for o in ops]
+
+        def attn(i, li, w, hn):
+            _, p, sl, tb, visible = ops[i]
             q, k, v = self._proj_qkv(w, hn)
-            qk = self._rope(torch.cat([q, k], dim=1), pos, rope)
+            qk = self._rope(torch.cat([q, k], dim=1), p, rope[i])
             q, k = qk[:, :nh].contiguous(), qk[:, nh:]
-            reshape_and_cache(k, v, k_pool[li], v_pool[li], slots,
-                              index=index)
-            attn = paged_attention_decode(q, k_pool[li], v_pool[li], tables,
-                                          visible)
-            h = h + _mm(attn.reshape(b, -1), w["wo"])
-            hn = rms_norm(h, w["ln2"], cfg.rms_norm_eps)
-            h = h + self._mlp(w, hn)
-        h = rms_norm(h, weights["norm"], cfg.rms_norm_eps)
-        logits = _mm(h, weights["head"]).to(torch.float32)
-        return logits, k_pool, v_pool
+            reshape_and_cache(k, v, k_pool[i][li], v_pool[i][li], sl,
+                              index=index[i])
+            return paged_attention_decode(q, k_pool[i][li], v_pool[i][li], tb,
+                                          visible).reshape(b, -1)
+
+        h = [w["embed"][o[0].long()] for w, o in zip(weights, ops)]
+        h = self._layers(weights, h, attn)
+        return self._head_logits(weights, h), k_pool, v_pool
 
     def _decode_scan_impl(self, weights, k_pool, v_pool, first_ids,
                           tables_all, ctx_all, slots_all, sample=None):

@@ -134,10 +134,21 @@ class _Graph:
 class ProgramSet:
     """The programs of one engine on ``device``."""
 
-    def __init__(self, device, watch: CompileWatch, graphs: bool = True):
+    def __init__(self, device, watch: CompileWatch, graphs: bool = True,
+                 devices: Sequence = ()):
         self.device = torch.device(device)
         self.watch = watch
         self.graphs = bool(graphs) and self.device.type == "cuda"
+        # a tensor-parallel engine's shards: one graph holds them all on
+        # one card; across cards a capture would need one graph per card
+        cards = {torch.device(d) for d in devices} | {self.device}
+        if self.graphs and len({(d.type, d.index or 0)
+                                for d in cards}) > 1:
+            raise NotImplementedError(
+                f"CUDA graphs of a tensor-parallel engine whose shards span "
+                f"distinct cards ({sorted(map(str, cards))}) are not ported "
+                f"yet (ROADMAP queue 1, item 11(d)); pass cuda_graphs=False "
+                f"to run its programs eagerly")
         self._fns: Dict[str, Callable] = {}
         self._preserve: Dict[str, tuple] = {}
         self._graphs: Dict[Tuple[str, tuple], _Graph] = {}

@@ -161,7 +161,17 @@ host wall of the eager call). ``tracer=None`` is a bitwise no-op.
 fleet Router's migration): its history re-enters through the
 preemption-recompute path, so no key is drawn.
 
-Not ported yet: tensor parallelism (ROADMAP queue 1 item 5(a)).
+Tensor parallelism, as in JAX: ``tp=N`` builds the decoder over a
+``ProcessMesh`` of the first N of ``devices`` (default: the visible
+cards; a device may repeat) with one weight tree and pool plane per
+shard (``PagedLlamaDecoder``), forces the ragged path, and samples the
+gathered logits on the first shard's device, so the key stream is
+unchanged. ``tp_comm`` picks the all-reduce ("fp32" or "int8"); a
+prebuilt decoder's degree and comm mode must match the engine's;
+``mesh=`` is JAX's GSPMD decoder placement (tp 1 for the engine), and
+``devices=`` at tp 1 raises. Every program family runs at tp; a program
+key of one engine is one CUDA graph that holds every shard's kernels
+when the shards share a card.
 """
 from __future__ import annotations
 
@@ -176,6 +186,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..distributed.mesh import ProcessMesh
+from ..distributed.spec_layout import SpecLayout, default_devices
 from ..ops.paged_attention import KVCacheExhausted
 from ..utils import prng
 from ..models.llama import LlamaForCausalLM
@@ -325,32 +337,6 @@ class Request:
         return self.t_done - self.t_submit
 
 
-# JAX's engine arguments whose modules the port has not yet: each with its
-# default and the ROADMAP queue 1 item that ports it
-_UNPORTED_ARGS = {
-    "tp": (1, "5"), "mesh": (None, "5"), "devices": (None, "5"),
-    "tp_comm": (None, "5")}
-
-
-def _refuse_unported(**given):
-    """Raise on any of JAX's tensor-parallel arguments given another
-    value than its default. ``tp_comm="fp32"`` is the one mode a
-    single device has, so it passes; a bad value raises ``ValueError``
-    as in JAX."""
-    if given["tp_comm"] not in (None, "fp32", "int8"):
-        raise ValueError(f"tp_comm must be 'fp32' or 'int8', got "
-                         f"{given['tp_comm']!r}")
-    if int(given["tp"]) < 1:
-        raise ValueError(f"tp must be >= 1, got {given['tp']}")
-    for name, value in given.items():
-        default, item = _UNPORTED_ARGS[name]
-        if value == default or (name == "tp_comm" and value == "fp32"):
-            continue
-        raise NotImplementedError(
-            f"ServingEngine({name}={value!r}) is not ported yet (ROADMAP "
-            f"queue 1, item {item})")
-
-
 def _normalize_prompt(prompt) -> np.ndarray:
     """Prompt intake: tensor or sequence to a flat int32 array; an empty
     prompt is rejected."""
@@ -489,8 +475,8 @@ class ServingEngine:
     ``num_blocks``, ``block_size``, ``weight_dtype``, ``kv_quant`` and
     ``device`` (``None``: cuda); a prebuilt decoder keeps its own pool
     and device, and a ``kv_quant`` that contradicts its pool raises.
-    JAX's tensor-parallel arguments raise ``NotImplementedError`` unless
-    left at their defaults. ``tracer``, ``slo``, ``profile_every`` and
+    ``tp``, ``tp_comm``, ``mesh`` and ``devices`` follow JAX's rules (the
+    module docstring). ``tracer``, ``slo``, ``profile_every`` and
     ``profile_seed`` are the telemetry of the module docstring.
     ``cuda_graphs=False`` runs every program eagerly on the card too (for
     comparison with the graphs); on the CPU programs always run
@@ -533,7 +519,15 @@ class ServingEngine:
                  ragged_idle_cap: Optional[int] = None,
                  multi_step: int = 1,
                  cuda_graphs: bool = True, device=None):
-        _refuse_unported(tp=tp, mesh=mesh, devices=devices, tp_comm=tp_comm)
+        tp = int(tp)
+        if tp < 1:
+            raise ValueError(f"tp must be >= 1, got {tp}")
+        if tp_comm not in (None, "fp32", "int8"):
+            raise ValueError(f"tp_comm must be 'fp32' or 'int8', got "
+                             f"{tp_comm!r}")
+        if tp > 1 and mesh is not None:
+            raise ValueError("pass either tp=N (manual shard_map serving) "
+                             "or mesh= (GSPMD decoder placement), not both")
         if profile_every is not None and int(profile_every) < 1:
             raise ValueError(f"profile_every must be >= 1, got "
                              f"{profile_every}")
@@ -555,12 +549,51 @@ class ServingEngine:
                     f"device={device!r} only applies when the engine "
                     f"builds the decoder; the prebuilt decoder lives on "
                     f"{model.device}")
+            if devices is not None:
+                raise ValueError(
+                    "devices= only applies when the engine builds the "
+                    "decoder itself; a prebuilt decoder's mesh already "
+                    "fixed its device placement")
+            if tp > 1 and model._tp != tp:
+                raise ValueError(
+                    f"ServingEngine(tp={tp}) got a prebuilt decoder with tp "
+                    f"degree {model._tp}; build the decoder with the "
+                    f"matching mesh (tp_shard_map=True) or drop the engine "
+                    f"tp argument")
+            if tp_comm is not None and model.tp_comm != tp_comm:
+                raise ValueError(
+                    f"ServingEngine(tp_comm={tp_comm!r}) got a prebuilt "
+                    f"decoder built with tp_comm={model.tp_comm!r}; pass "
+                    f"the desired tp_comm to the decoder constructor "
+                    f"instead")
             dec = model
         elif isinstance(model, LlamaForCausalLM):
+            if devices is not None and tp == 1:
+                raise ValueError(
+                    "devices= requires tp > 1: a single-chip engine builds "
+                    "on the default device (the fleet Router passes "
+                    "devices only for tp-sharded replicas)")
+            if tp > 1:
+                devs = (list(devices) if devices is not None
+                        else default_devices())
+                if len(devs) < tp:
+                    raise ValueError(f"tp={tp} needs {tp} devices, found "
+                                     f"{len(devs)}")
+                if device is not None and any(
+                        torch.device(d).type != torch.device(device).type
+                        for d in devs[:tp]):
+                    raise ValueError(
+                        f"device={device!r} contradicts devices="
+                        f"{devs[:tp]!r}; at tp > 1 devices= places the "
+                        f"shards")
+                mesh = ProcessMesh(list(range(tp)), ["tp"],
+                                   devices=devs[:tp])
             dec = PagedLlamaDecoder.from_model(
                 model, num_blocks=num_blocks, block_size=block_size,
                 weight_dtype=weight_dtype, kv_quant=kv_quant,
-                device=device)
+                device=device if mesh is None else None, mesh=mesh,
+                mp_axis="tp" if tp > 1 else "mp", tp_shard_map=tp > 1,
+                tp_comm=tp_comm or "fp32")
         else:
             raise TypeError(f"ServingEngine needs a LlamaForCausalLM or a "
                             f"PagedLlamaDecoder, got {type(model).__name__}")
@@ -586,17 +619,24 @@ class ServingEngine:
                             f"{type(spec_decode).__name__}")
         self.dec = dec
         self.device = dec.device
+        # the decoder's tp degree and comm mode (JAX: a GSPMD mesh
+        # decoder's tp is 1)
+        self.tp = dec._tp
+        self.tp_comm = dec.tp_comm
         # the pool's quantization (None: dense planes), for stats()
         self.kv_quant = dec.cache.kv_quant
         # each of these families is a ragged program
         self.multi_step = multi_step
         self.spec = spec_decode
         self.lora = lora
-        self.ragged = (bool(ragged) or multi_step > 1
+        self.ragged = (bool(ragged) or multi_step > 1 or self.tp > 1
                        or spec_decode is not None or lora is not None)
         self._drafter = spec_decode.make_drafter() if spec_decode else None
         if lora is not None:
-            lora.bind(dec)
+            # the adapter plane's placement comes from the canonical table
+            # (replicated) like every other sharded serving array
+            lora.bind(dec, sharding=SpecLayout().spec("lora_pool")
+                      if self.tp > 1 else None)
         self.max_b = int(max_batch_size)
         self.top_k = int(top_k)
         self.buckets = tuple(sorted(int(b) for b in prompt_buckets))
@@ -701,8 +741,9 @@ class ServingEngine:
         self._masks: Optional[_MaskPlanes] = None
         self.compile_watch = CompileWatch()
         self.programs = ProgramSet(self.device, self.compile_watch,
-                                   graphs=cuda_graphs)
-        info = {"decoder": type(dec).__name__, "tp": 1,
+                                   graphs=cuda_graphs, devices=dec.devices)
+        info = {"decoder": type(dec).__name__, "tp": self.tp,
+                "tp_comm": self.tp_comm,
                 "kv_quant": dec.kv_quant or "none",
                 "weight_dtype": dec.weight_dtype or "none"}
         fams = [("prefill", self._final_program),
@@ -3225,6 +3266,8 @@ class ServingEngine:
             # the pool: its storage ("int8" or the plane dtype's name),
             # its bytes (int8 scales included) and bytes per token slot
             "kv_quant": self.kv_quant or cache.pool_dtype,
+            # the tensor-parallel degree (a configuration gauge)
+            "tp": self.tp,
             "kv_pool_bytes": cache.pool_bytes(),
             "kv_bytes_per_token": cache.bytes_per_token(),
         }

@@ -356,13 +356,16 @@ class WorkerSpec:
     ``LlamaForCausalLM`` on the engine's device (``engine_kwargs
     ["device"]``; None: cuda) before ``ServingEngine(model, ...)``; the
     factory path carries a module-level callable ``f(replica_idx,
-    devices)`` returning the engine. ``torch_threads`` sets the worker's
+    devices)`` returning the engine. At tp > 1 the worker computes its
+    own row of ``SpecLayout.fleet_device_slices(dp, tp, devices)``
+    (``devices`` as strings; None: the worker's visible cards). ``torch_threads`` sets the worker's
     CPU threads when given."""
     config: Any = None
     state: Optional[Dict[str, tuple]] = None
     factory: Optional[Callable] = None
     dp: int = 1
     tp: int = 1
+    devices: Optional[list] = None
     engine_kwargs: Dict[str, Any] = field(default_factory=dict)
     slo_policies: tuple = ()
     traced: bool = False
@@ -370,12 +373,13 @@ class WorkerSpec:
 
 
 def _build_worker_engine(spec: WorkerSpec, replica_id: int):
+    devices = None
     if spec.tp > 1:
-        raise NotImplementedError(
-            "tensor-parallel replicas are not ported yet (ROADMAP queue 1, "
-            "item 5(a))")
+        from ..distributed.spec_layout import SpecLayout
+        devices = SpecLayout().fleet_device_slices(
+            spec.dp, spec.tp, spec.devices)[replica_id]
     if spec.factory is not None:
-        return spec.factory(replica_id, None)
+        return spec.factory(replica_id, devices)
     from ..models.llama import LlamaForCausalLM
     from .serving import ServingEngine
     kw = dict(spec.engine_kwargs)
@@ -384,7 +388,7 @@ def _build_worker_engine(spec: WorkerSpec, replica_id: int):
     if spec.slo_policies:
         from ..utils.telemetry import SLOMonitor
         kw["slo"] = SLOMonitor(list(spec.slo_policies))
-    return ServingEngine(model, **kw)
+    return ServingEngine(model, tp=spec.tp, devices=devices, **kw)
 
 
 def _cuda_spec(spec: WorkerSpec) -> bool:

@@ -34,8 +34,9 @@ JAX's options, ported:
   head_dim] caches written in place at ``pos``, RoPE at that offset and
   GQA attention over the cache in float32 (plain ops: JAX's is einsums,
   not a kernel); ``generate`` and beam search are ``models/generation.py``.
-A config that asks for tensor or sequence parallelism raises
-``NotImplementedError`` (ROADMAP queue 1 item 5).
+A config that asks for tensor or sequence parallelism in training raises
+``NotImplementedError`` (ROADMAP queue 1 item 5(c); serving's tensor
+parallelism is ``ServingEngine(tp=)``).
 """
 from __future__ import annotations
 
@@ -86,7 +87,7 @@ def _check_ported(cfg: LlamaConfig):
     if asked:
         raise NotImplementedError(
             f"LlamaConfig asks for {', '.join(asked)}: not ported yet "
-            f"(ROADMAP queue 1, item 5)")
+            f"(ROADMAP queue 1, item 5(c))")
 
 
 _GRANULARITIES = ("full", "full_attn", "core_attn")

@@ -11,16 +11,19 @@ from __future__ import annotations
 
 import torch
 
-from ..qweight import QWeight
+from ..qweight import QWeight, int4_nibbles
 from ._build import check, load_library, sm_count
 
 __all__ = ["decode_matmul", "decode_matmul_supported",
            "decode_matmul_reference", "dequantize", "unpack_int4_halves",
-           "split_plan", "launches"]
+           "split_plan", "launches", "launches_by_shape"]
 
 _MAX_ROWS = 32
 # kernel launches since import; callers reset it to 0 to count a run
 launches = 0
+# the same launches by the weight's (K, N), counted at the launch site
+# only (a CUDA graph replay adds to ``launches`` alone); callers clear it
+launches_by_shape = {}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _KINDS = {None: 0, "int8": 1, "int4_halves": 2}
@@ -73,8 +76,7 @@ def unpack_int4_halves(q, dtype=torch.int8):
     """(lo, hi) of a halves-packed int4 weight [K/2, N] int8: lo holds
     in-rows 0..K/2-1 and hi in-rows K/2..K-1, each sign-extended from its
     nibble by int8 shifts, as the JAX composition does."""
-    lo = (q << 4) >> 4
-    hi = q >> 4
+    lo, hi = int4_nibbles(q)
     return lo.to(dtype), hi.to(dtype)
 
 
@@ -160,4 +162,5 @@ def decode_matmul(x, w):
             b, K, N, splits, per, _KINDS[kind], _DTYPES[x.dtype], stream)
     check(lib, code, "decode_matmul")
     launches += 1
+    launches_by_shape[(K, N)] = launches_by_shape.get((K, N), 0) + 1
     return out

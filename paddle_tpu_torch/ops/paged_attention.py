@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import math
 from collections import Counter, OrderedDict
-from typing import List, Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -221,8 +221,17 @@ class PagedKVCache:
 
     Each sequence owns a list of physical blocks (its table) and a
     context length; ``extend`` hands out one flat slot per new token.
-    Pools are per-layer lists of planes on ``device`` (``None`` means
-    cuda), updated in place by ``reshape_and_cache``.
+    Pools are lists of shards, each a per-layer list of planes on its
+    device: ``k[s][li]`` / ``v[s][li]`` (one shard on ``device``,
+    ``None`` meaning cuda, unless ``devices`` is given), updated in
+    place by ``reshape_and_cache``.
+
+    Tensor parallelism (``devices``, one per shard): the planes split
+    their kv-head dim (``distributed/spec_layout.py``, cache_k / cache_v
+    and the int8 scales), shard s holding heads s * kvh / n .. on
+    ``devices[s]``. One set of block tables, one prefix index and one
+    allocator serve every shard: allocation is host-side and knows no
+    shards. ``pool_bytes`` counts the whole (global) pool, as JAX's.
 
     Automatic prefix caching, as in the JAX allocator: every block
     carries a ref count, and a FULL block whose tokens are known gets a
@@ -245,27 +254,35 @@ class PagedKVCache:
 
     def __init__(self, num_layers: int, num_blocks: int, block_size: int,
                  kv_heads: int, head_dim: int, dtype=torch.float32,
-                 kv_quant: Optional[str] = None, device=None):
+                 kv_quant: Optional[str] = None, device=None,
+                 devices: Optional[Sequence] = None):
         if kv_quant not in (None, "int8"):
             raise ValueError(
                 f"kv_quant must be None or 'int8', got {kv_quant!r}")
-        dev = resolve_device(device)
-        self.device = dev
+        devs = ([resolve_device(device)] if devices is None
+                else [resolve_device(d) for d in devices])
+        if kv_heads % len(devs):
+            raise ValueError(f"{kv_heads} kv heads do not divide over "
+                             f"{len(devs)} shards")
+        self.device = devs[0]
+        self.devices = devs
         self.num_layers = num_layers
         self.num_blocks = num_blocks
         self.block_size = block_size
+        self.kv_heads = kv_heads
+        self.head_dim = head_dim
         self.kv_quant = kv_quant
-        shape = (num_blocks, kv_heads, block_size, head_dim)
+        shape = (num_blocks, kv_heads // len(devs), block_size, head_dim)
 
-        def _plane():
+        def _plane(dev):
             if kv_quant == "int8":
                 return (torch.zeros(shape, dtype=torch.int8, device=dev),
                         torch.zeros(shape[:3], dtype=torch.float32,
                                     device=dev))
             return torch.zeros(shape, dtype=dtype, device=dev)
 
-        self.k = [_plane() for _ in range(num_layers)]
-        self.v = [_plane() for _ in range(num_layers)]
+        self.k = [[_plane(d) for _ in range(num_layers)] for d in devs]
+        self.v = [[_plane(d) for _ in range(num_layers)] for d in devs]
         self._free = list(range(num_blocks - 1, -1, -1))
         self._tables: dict = {}   # seq_id -> [block ids]
         self._lens: dict = {}     # seq_id -> context length
@@ -622,12 +639,15 @@ class PagedKVCache:
         ('float32', 'bfloat16'), as JAX's ``np.dtype`` names it."""
         if self.kv_quant == "int8":
             return "int8"
-        return str(_plane_values(self.k[0]).dtype).replace("torch.", "")
+        return str(_plane_values(self.k[0][0]).dtype) \
+            .replace("torch.", "")
 
     def pool_bytes(self) -> int:
-        """Bytes of every K and V plane, int8 scales included."""
+        """Bytes of every K and V plane of every shard, int8 scales
+        included."""
         total = 0
-        for plane in list(self.k) + list(self.v):
+        for plane in [p for planes in self.k + self.v
+                      for p in planes]:
             for a in plane if isinstance(plane, tuple) else (plane,):
                 total += a.numel() * a.element_size()
         return total

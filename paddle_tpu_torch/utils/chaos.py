@@ -20,8 +20,8 @@ One ``numpy.random.RandomState(seed)`` drives everything, so the same
 seed and the same engine behaviour give the same schedule. The monkey
 never changes engine state itself: it only raises or sleeps at the
 hooks. The transport hooks (``transport_fault``, ``kill``) serve the
-multi-process transport of ROADMAP queue 1 item 5 and are kept as in the
-JAX package.
+multi-process transport of the fleet (``inference/transport.py``) and are
+kept as in the JAX package.
 
 Usage::
 

@@ -1,5 +1,6 @@
 """Helpers shared by the port's serving tests: the first-divergence
-report for greedy streams held against the JAX engine."""
+report for greedy streams held against the JAX engine, and a JAX
+tensor-parallel decoder with the port's twin over its weights."""
 import numpy as np
 import pytest
 import torch
@@ -44,3 +45,25 @@ def assert_identical(tdec, reqs, port, ref):
         else:
             why = f"lengths differ: port {len(a)} vs jax {len(b)}"
         pytest.fail(f"greedy streams differ ({why})\nport {a}\njax  {b}")
+
+
+def tp_pair(n, jax_cfg, torch_cfg, **pool):
+    """JAX's fully-manual tp-n decoder from a seeded config (its weights
+    per projection, int4 interleaved) on the first n virtual devices,
+    and the port's tp-n decoder over its numpy tree, every shard on the
+    CPU. ``pool``: the decoders' pool and weight arguments."""
+    import jax
+    from jax.sharding import Mesh
+    from paddle_tpu.inference.paged_decode import \
+        PagedLlamaDecoder as JaxDecoder
+    from paddle_tpu_torch.distributed import ProcessMesh
+    from paddle_tpu_torch.inference import PagedLlamaDecoder
+    jdec = JaxDecoder.from_config(
+        jax_cfg, seed=0, mesh=Mesh(np.asarray(jax.devices()[:n]), ("tp",)),
+        mp_axis="tp", tp_shard_map=True, **pool)
+    tree = jax.tree.map(np.asarray, jdec.weights)
+    tdec = PagedLlamaDecoder.from_numpy_weights(
+        torch_cfg, tree, int4_layout="interleaved",
+        mesh=ProcessMesh(list(range(n)), ["tp"], devices=["cpu"] * n),
+        mp_axis="tp", tp_shard_map=True, **pool)
+    return jdec, tdec

@@ -67,8 +67,8 @@ def _run_both(jdec, tdec, name, *args):
     tv = [torch.from_numpy(a.copy()) for a in vp]
     with torch.inference_mode():
         tl, tk2, tv2 = getattr(tdec, name)(
-            tdec.weights, tk, tv, *[torch.from_numpy(a) for a in args])
-    assert tk2 is tk and tv2 is tv               # pools updated in place
+            tdec.weights, [tk], [tv], *[torch.from_numpy(a) for a in args])
+    assert tk2[0] is tk and tv2[0] is tv         # pools updated in place
     return np.asarray(jl), tl.numpy(), jk + jv, tk + tv
 
 

@@ -106,8 +106,11 @@ def test_hcg_sep_mesh_and_queries():
     (dict(pp_degree=2, sep_degree=2), 4, "item 10"),
     (dict(sharding_degree=2), 2, "item 10")])
 def test_non_sep_axis_raises(degrees, n, item):
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(NotImplementedError, match=item) as err:
         tdist.fleet.HybridCommunicateGroup(devices=["cpu"] * n, **degrees)
+    if item == "item 5":
+        # serving's tp is ported; training's mp axis waits for item 5(c)
+        assert "item 5(c)" in str(err.value)
 
 
 def test_hcg_default_devices_are_the_cards():

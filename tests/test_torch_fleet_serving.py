@@ -7,16 +7,17 @@ JAX's ``LlamaForCausalLM`` at ``tests/test_fleet_serving.py``'s geometry
 ``load_numpy_state``; each Router builds its replicas from its own model.
 Held against JAX, scenario by scenario (``test_fleet_serving.py``'s):
 the tie-break, affinity on and off, the spill, fleet saturation shedding,
-cross-replica greedy identity, and failover mid-decode and mid-prefill
-through a ``ChaosMonkey`` wedge: the replica each request lands on, the
+cross-replica greedy identity, failover mid-decode and mid-prefill
+through a ``ChaosMonkey`` wedge, and JAX's ``TestDpTp`` (dp 2 x tp 2,
+also through a wedge): the replica each request lands on, the
 routing and breaker counters, the replicas' health records and the greedy
 streams are equal. ``adopt_request`` (mid-history, a finished history,
 the queue-cap bypass, the kept submit time) against JAX's. The port alone
 (the same assertions as JAX's tests): the stall strike, probation and the
 re-wedge on probation, ``clear_finished``, the SLO headroom roll-up, one
 continuous request span across replica pids with fleet events on
-``FLEET_PID``, ``tp=2`` raising for ROADMAP item 5 and ``devices`` with
-tp 1 raising as JAX's engine does; decoders over one weight tree (fused
+``FLEET_PID``, ``tp=2`` replicas placed on the rows of the device grid
+and ``devices`` with tp 1 raising as JAX's engine does; decoders over one weight tree (fused
 or not) sharing its tensors with pools of their own, and a Router over
 such replicas serving one engine's streams through a failover. One torch
 thread. The GPT twin's fleet case waits for ROADMAP queue 1 item 6.
@@ -80,11 +81,15 @@ def sides():
     jax_side = types.SimpleNamespace(
         name="jax", model=jm, Router=jinf.Router, Engine=jinf.ServingEngine,
         SP=jinf.SamplingParams, Overloaded=jinf.EngineOverloaded,
-        Monkey=JMonkey, kw=dict(KW))
+        Monkey=JMonkey, kw=dict(KW),
+        # tp replicas run the ragged engine, which the port collects
+        # within its step: JAX's without overlap
+        tp_kw=dict(KW, overlap=False))
     port = types.SimpleNamespace(
         name="port", model=tm, Router=tinf.Router, Engine=ServingEngine,
         SP=SamplingParams, Overloaded=EngineOverloaded, Monkey=ChaosMonkey,
-        kw=dict(KW, device="cpu"))
+        kw=dict(KW, device="cpu"),
+        tp_kw=dict(KW, device="cpu", devices=["cpu"] * 4))
     return jax_side, port
 
 
@@ -253,11 +258,41 @@ def _failover_prefill(s):
     return dict(v, victim=victim)
 
 
+def _dp_tp(s, wedge=False):
+    """tests/test_fleet_serving.py:470 TestDpTp: two tp-2 replicas (rows
+    of the dp x tp device grid) serve greedy traffic token for token
+    equal to one tp-1 engine; with ``wedge`` a replica wedged
+    mid-decode hands its requests to the other tp replica."""
+    prompts = _prompts(3)
+    oracle = _oracle(s, prompts, max_new=10)
+    router = s.Router(s.model, dp=2, tp=2, breaker_threshold=1,
+                      max_dispatch_retries=1, retry_backoff_s=0.0,
+                      **s.tp_kw)
+    assert [rep.engine.tp for rep in router.replicas] == [2, 2]
+    fids = []
+    for p in prompts:
+        fids.append(router.add_request(p, s.SP(max_new_tokens=10)))
+        router.step()
+    if wedge:
+        router.step()
+        victim = router._record(fids[0]).replica
+        assert len(router.request(fids[0]).out_tokens) > 0
+        _wedge(s, router, victim)
+    router.run_to_completion()
+    v = _view(router, fids)
+    assert v["tokens"] == oracle
+    if wedge:
+        assert v["fleet"]["failovers"] == 1
+    return v
+
+
 SCENARIOS = {"tie_break": _tie_break, "affinity_on": _affinity_on,
              "affinity_off": _affinity_off, "spill": _spill,
              "saturated_shed": _saturated, "cross_replica": _cross_replica,
              "failover_mid_decode": _failover_decode,
-             "failover_mid_prefill": _failover_prefill}
+             "failover_mid_prefill": _failover_prefill,
+             "dp2_tp2": _dp_tp,
+             "dp2_tp2_failover": lambda s: _dp_tp(s, wedge=True)}
 
 
 @pytest.mark.parametrize("name", list(SCENARIOS))
@@ -471,8 +506,14 @@ def test_migrated_request_is_one_span_across_replicas(sides):
 
 def test_constructor_rules(sides):
     jax_side, s = sides
-    with pytest.raises(NotImplementedError, match="item 5"):
-        Router(s.model, dp=2, tp=2, **s.kw)
+    # tp 2 replicas sit on the rows of the dp x tp grid of devices
+    router = Router(s.model, dp=2, tp=2, devices=["cpu"] * 4, **s.kw)
+    assert [r.engine.dec.devices for r in router.replicas] == \
+        [[torch.device("cpu")] * 2] * 2
+    assert all(r.engine.tp == 2 for r in router.replicas)
+    router.close()
+    with pytest.raises(ValueError, match="needs 4 devices"):
+        Router(s.model, dp=2, tp=2, devices=["cpu"] * 3, **s.kw)
     with pytest.raises(ValueError, match="devices= requires"):
         Router(s.model, dp=2, devices=["cpu"], **s.kw)
     # the message JAX's engine raises for the same mistake
@@ -499,29 +540,30 @@ def test_replicas_share_one_weight_tree(sides):
     cfg = s.model.cfg
     base = PagedLlamaDecoder.from_model(s.model, num_blocks=24,
                                         block_size=8, device="cpu")
-    raw = {k: v for k, v in base.weights.items() if k != "layers"}
+    tree = base.weights[0]
+    raw = {k: v for k, v in tree.items() if k != "layers"}
     raw["layers"] = []
-    for lw in base.weights["layers"]:
+    for lw in tree["layers"]:
         q, k, v = torch.split(lw["wqkv"], [cfg.hidden_size, 32, 32], dim=1)
         g, u = torch.split(lw["wgu"], [cfg.intermediate_size] * 2, dim=1)
         raw["layers"].append(dict(lw, wq=q, wk=k, wv=v, wg=g, wu=u))
         del raw["layers"][-1]["wqkv"], raw["layers"][-1]["wgu"]
     names = [sorted(lw) for lw in raw["layers"]]
-    decs = [PagedLlamaDecoder(cfg, tree, num_blocks=24, block_size=8,
+    decs = [PagedLlamaDecoder(cfg, t, num_blocks=24, block_size=8,
                               device="cpu")
-            for tree in (raw, raw, base.weights)]
+            for t in (raw, raw, tree)]
     assert [sorted(lw) for lw in raw["layers"]] == names
-    assert "wqkv" in decs[0].weights["layers"][0]
-    assert decs[2].weights["layers"][0]["wqkv"] is \
-        base.weights["layers"][0]["wqkv"]
-    assert decs[0].weights["head"] is decs[2].weights["head"]
+    assert "wqkv" in decs[0].weights[0]["layers"][0]
+    assert decs[2].weights[0]["layers"][0]["wqkv"] is \
+        tree["layers"][0]["wqkv"]
+    assert decs[0].weights[0]["head"] is decs[2].weights[0]["head"]
     assert len({id(d.cache.k) for d in decs + [base]}) == 4
     prompts = _prompts(4)
     want = _oracle(s, prompts)
     router = Router(None, dp=2, breaker_threshold=1, max_dispatch_retries=1,
                     retry_backoff_s=0.0,
                     engine_factory=lambda r, d: ServingEngine(
-                        PagedLlamaDecoder(cfg, base.weights, num_blocks=24,
+                        PagedLlamaDecoder(cfg, tree, num_blocks=24,
                                           block_size=8, device="cpu"),
                         **{k: v for k, v in KW.items()
                            if k not in ("num_blocks", "block_size")}))

@@ -1,8 +1,7 @@
 """Many-LoRA serving (``ServingEngine(lora=AdapterRegistry(...))``) in the
 port against the JAX package.
 
-The workloads of tests/test_lora_serving.py, but tensor parallelism and
-the GPT twin: ``LoRALayout`` offsets equal JAX's; flattened factors
+The workloads of tests/test_lora_serving.py, but the GPT twin: ``LoRALayout`` offsets equal JAX's; flattened factors
 (``register_random``'s seeded draws and explicit factors of a smaller
 rank) bit-equal; the same acquire / release / pool-pressure sequence
 through both registries leaves equal hit, miss and eviction counters
@@ -12,7 +11,10 @@ the port sums the slots' products in another order); base traffic
 bit-identical with a registry bound; mixed-tenant streams, greedy and sampled,
 equal to JAX's engine; cross-tenant prefix isolation (the salted chain hashes
 equal JAX's in one process); preemption and resume with adapters;
-serving through (A, B) equals serving merged weights. ``llama_tiny``
+serving through (A, B) equals serving merged weights; ``check_tp`` and
+``bind(sharding=)`` against JAX's, and mixed tenants at tp 2 (each shard
+slicing its factors) equal to JAX's tp-2 engine and the port's tp 1.
+``llama_tiny``
 float32 on one torch thread, the JAX decoder's seeded weights carried
 over; the port's ragged engine is held against JAX's with
 ``overlap=False``.
@@ -43,6 +45,7 @@ from paddle_tpu_torch.inference.lora import (AdapterRegistry,  # noqa: E402
 from paddle_tpu_torch.models import llama_tiny  # noqa: E402
 from paddle_tpu_torch.ops.paged_attention import (KVCacheExhausted,  # noqa: E402
                                                   PagedKVCache)
+from _torch_serving_cases import tp_pair  # noqa: E402
 
 POOL = dict(num_blocks=64, block_size=8)
 VOCAB = 512
@@ -102,10 +105,10 @@ def _serve(eng, prompts, aids=None, new=8, temps=None):
 
 def _layout_of(tdec, rank=2, page_elems=None):
     cache = tdec.cache
-    _, kvh, bs, hd = cache.k[0].shape
+    _, kvh, bs, hd = cache.k[0][0].shape
     return LoRALayout(tdec.lora_target_modules(),
                       tdec.cfg.num_hidden_layers, rank,
-                      page_elems or 2 * len(cache.k) * kvh * bs * hd)
+                      page_elems or 2 * len(cache.k[0]) * kvh * bs * hd)
 
 
 # -- layout and registry ---------------------------------------------------------
@@ -448,3 +451,42 @@ def test_validation_exhaustion_and_stats_reset(pair):
     for key in ("adapter_cache_hits", "adapter_cache_misses",
                 "adapter_cache_evictions", "lora_rows_per_dispatch"):
         assert st[key] == 0
+
+
+@pytest.mark.parametrize("tp", [2, 3, 4])
+def test_check_tp_equals_jax(tp):
+    """A column module's out dim and a row module's in dim must divide by
+    the degree, in both packages."""
+    modules = (("wq", 6, 8, "col"), ("wd", 12, 6, "row"))
+    jl, tl = (cls(modules, 2, 2, 64) for cls in (JaxLayout, LoRALayout))
+    try:
+        jl.check_tp(tp)
+    except ValueError as e:
+        with pytest.raises(ValueError, match=str(e).split(":")[0]):
+            tl.check_tp(tp)
+    else:
+        tl.check_tp(tp)
+
+
+def test_tp2_identity(pair):
+    """tests/test_lora_serving.py:339: two adapters and a base row at tp
+    2 (the plane replicated, each shard slicing its factors, a row
+    module's delta reduced with its base product) give JAX's tp-2
+    streams and the port's tp 1 streams."""
+    jdec1, tree = pair
+    jdec, tdec = tp_pair(2, jax_tiny(), llama_tiny(), **POOL)
+    prompts = _prompts(3, seed=2)
+    aids = ["a0", None, "a1"]
+    jdec.cache.clear_prefix_cache()
+    want = _serve(JaxEngine(jdec, ragged=True, overlap=False, tp=2,
+                            lora=_registry(JaxRegistry), **ENGINE),
+                  prompts, aids)
+    reg = _registry(AdapterRegistry)
+    got = _serve(_engine(tdec, lora=reg, tp=2), prompts, aids)
+    assert got == want
+    assert got == _serve(_engine(_tdec(tree), lora=_registry(
+        AdapterRegistry)), prompts, aids)
+    assert reg.layout.modules == tuple(tdec.lora_target_modules())
+    bad = _registry(AdapterRegistry)
+    with pytest.raises(ValueError, match="replicates"):
+        bad.bind(tdec, sharding=(None, "tp"))

@@ -25,8 +25,8 @@ model. Held:
   (finished requests' reservoir plus the live slots' samples), where the
   old finished-only aggregation gives other values;
 - a prebuilt decoder keeps its pool; a contradicting ``kv_quant``, a
-  ``device`` for a prebuilt decoder, JAX's tensor-parallel arguments and
-  a foreign object raise; the telemetry arguments are accepted; without
+  ``device`` for a prebuilt decoder and a foreign object raise; JAX's
+  tensor-parallel arguments follow JAX's rules (``tp=2`` serves); the telemetry arguments are accepted; without
   ``device="cpu"`` the model form raises on a machine without a card.
 One torch thread.
 """
@@ -103,7 +103,7 @@ def test_from_model_matches_jax_decoder(which, weight_dtype, kv_quant,
                 kv_quant=kv_quant)
     jdec = JaxDecoder(jm, **pool)
     tdec = PagedLlamaDecoder.from_model(tm, device="cpu", **pool)
-    jw, tw = jdec.weights, tdec.weights
+    jw, (tw,) = jdec.weights, tdec.weights
     for name in ("embed", "norm", "head"):
         for a, b in zip(_leaves(tw[name]), _leaves(jw[name])):
             np.testing.assert_array_equal(a, b, err_msg=name)
@@ -136,8 +136,8 @@ def test_bf16_model_serves_in_float32():
                      prompt_buckets=(16,))
     teng = ServingEngine(tm, max_batch_size=2, num_blocks=16, block_size=8,
                          prompt_buckets=(16,), device="cpu")
-    assert teng.dec.cache.k[0].dtype == torch.float32
-    assert teng.dec.weights["layers"][0]["ln1"].dtype == torch.bfloat16
+    assert teng.dec.cache.k[0][0].dtype == torch.float32
+    assert teng.dec.weights[0]["layers"][0]["ln1"].dtype == torch.bfloat16
     for key in ("kv_quant", "kv_pool_bytes", "kv_bytes_per_token"):
         assert teng.stats()[key] == jeng.stats()[key]
     assert teng.stats()["kv_quant"] == "float32"
@@ -393,9 +393,29 @@ def test_prebuilt_decoder_and_refusals(untied):
     ("tp", 2, "5"), ("mesh", object(), "5"), ("devices", ["cpu"], "5"),
     ("tp_comm", "int8", "5")])
 def test_unported_arguments_raise(untied, arg, value, item):
+    """JAX's tensor-parallel arguments, once refused as ROADMAP item
+    ``item``, now take JAX's rules: tp=2 over two CPU shards serves the
+    model's streams; a mesh that is not a ProcessMesh, devices at tp 1
+    and int8 comm at tp 1 raise as JAX's engine does, naming no
+    ROADMAP item."""
     _, tm = untied
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
+    if arg == "tp":
+        p = np.random.RandomState(3).randint(0, 512, 9).astype(np.int32)
+        streams = []
+        for kw in (dict(device="cpu"), dict(tp=2, devices=["cpu"] * 2)):
+            eng = ServingEngine(tm, ragged=True, **kw)
+            rid = eng.add_request(p, SamplingParams(max_new_tokens=5))
+            eng.run_to_completion()
+            streams.append(eng.result(rid).tolist())
+        assert eng.tp == 2 and eng.ragged and streams[0] == streams[1]
+        return
+    err = {"mesh": TypeError, "devices": ValueError,
+           "tp_comm": ValueError}[arg]
+    with pytest.raises(err) as e:
         ServingEngine(tm, device="cpu", **{arg: value})
+    assert f"item {item}" not in str(e.value)
+    assert {"mesh": "ProcessMesh", "devices": "devices= requires",
+            "tp_comm": "int8"}[arg] in str(e.value)
 
 
 @pytest.mark.parametrize("arg", ["tracer", "slo", "profile_every",

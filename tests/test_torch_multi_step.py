@@ -1,14 +1,15 @@
 """Multi-step fused decode windows (``ServingEngine(multi_step=k)``) in
 the port against the JAX package.
 
-The workloads of tests/test_multi_step.py, but tensor parallelism and
-the GPT twin: the flag checks; greedy streams under k in {2, 4} equal
+The workloads of tests/test_multi_step.py, but the GPT twin: the flag
+checks; greedy streams under k in {2, 4} equal
 JAX's ``multi_step`` engine and the port's k = 1, with a mid-stream
 arrival, a prefix splice, adapter rows and preemption at a window's
 boundary; EOS inside a window (the column frozen, the tail counted in
 ``ms_frozen_token_waste``) and on the boundary; cancel and deadline at
 the boundary; a rich window, stochastic too, token-identical to JAX; a
-sealed grid with no cold key; the counters. ``llama_tiny`` float32 on
+sealed grid with no cold key; the counters; tp 2 (k = 4 against k = 1
+at tp 2, JAX's tp-2 windows and the port's tp 1). ``llama_tiny`` float32 on
 one torch thread, the JAX decoder's seeded weights carried over by
 ``weights_from_numpy``; the port's ragged engine collects within its
 step, so it is held against JAX's with ``overlap=False``. Every
@@ -31,6 +32,7 @@ from paddle_tpu_torch.inference import (PagedLlamaDecoder, SamplingParams,
 from paddle_tpu_torch.inference.lora import AdapterRegistry  # noqa: E402
 from paddle_tpu_torch.inference.spec_decode import SpecConfig  # noqa: E402
 from paddle_tpu_torch.models import llama_tiny  # noqa: E402
+from _torch_serving_cases import tp_pair  # noqa: E402
 
 POOL = dict(num_blocks=64, block_size=8)
 VOCAB = 512
@@ -295,3 +297,17 @@ def test_counters_and_reset(pair):
     assert st["multi_step_windows"] == 0
     assert st["ms_frozen_token_waste"] == 0
     assert st["multi_step_k"] == 4.0
+
+
+def test_tp2(pair):
+    """tests/test_multi_step.py:183: fused windows at tp 2 give the tp-2
+    k = 1 engine's streams, JAX's tp-2 window engine's and the port's
+    tp 1's."""
+    _, tdec1, _ = pair
+    jdec, tdec = tp_pair(2, jax_tiny(), llama_tiny(), **POOL)
+    specs = _greedy(_prompts(3), 10)
+    want = _serve(_jax_engine(jdec, 4, tp=2), specs)
+    got = _serve(_engine(tdec, 4, tp=2), specs)
+    assert got == want
+    assert got == _serve(_engine(tdec, 1, tp=2), specs) \
+        == _serve(_engine(tdec1, 1), specs)

@@ -1,8 +1,7 @@
 """Speculative decoding (``ServingEngine(spec_decode=SpecConfig(...))``)
 in the port against the JAX package.
 
-The workloads of tests/test_spec_decode.py, but tensor parallelism and
-the GPT twin: ``NGramDrafter`` proposals equal JAX's on seeded
+The workloads of tests/test_spec_decode.py, but the GPT twin: ``NGramDrafter`` proposals equal JAX's on seeded
 histories; ``_spec_accept``'s accepted mask and zeroed pools equal
 JAX's on seeded verify windows (exactly); oracle, adversarial and
 n-gram drafters give the streams of spec off and of JAX's spec engine,
@@ -10,7 +9,8 @@ with JAX's counters; chunked prefill mid-stream, a prefix splice, an
 EOS inside a draft window and preemption mid-draft keep the spec-off
 streams and give JAX's streams and counters; a rich request pauses
 speculation; a stochastic column beside a drafted one gives JAX's
-stream. ``llama_tiny`` float32 on one torch thread, the JAX decoder's
+stream; tp 2 (an oracle drafter's spec-off streams, JAX's tp-2 spec
+engine's streams and counters). ``llama_tiny`` float32 on one torch thread, the JAX decoder's
 seeded weights carried over; the port's ragged engine is held against
 JAX's with ``overlap=False``. Streams compare token for token.
 """
@@ -38,6 +38,7 @@ from paddle_tpu_torch.inference.spec_decode import (  # noqa: E402
     Drafter, NGramDrafter, SpecConfig)
 from paddle_tpu_torch.models import llama_tiny  # noqa: E402
 from paddle_tpu_torch.ops.paged_attention import PagedKVCache  # noqa: E402
+from _torch_serving_cases import tp_pair  # noqa: E402
 
 POOL = dict(num_blocks=96, block_size=8)
 VOCAB = 512
@@ -190,8 +191,8 @@ def test_spec_accept_equals_jax(seed):
     acc_j, jk, jv = JaxDecoder._spec_accept(
         None, jk, jv, jnp.asarray(toks), jnp.asarray(draft),
         jnp.asarray(slots), jnp.asarray(seg), jnp.asarray(is_draft), 0)
-    acc_t, tk, tv = PagedLlamaDecoder._spec_accept(
-        None, tk, tv, torch.from_numpy(toks), torch.from_numpy(draft),
+    acc_t, (tk,), (tv,) = PagedLlamaDecoder._spec_accept(
+        None, [tk], [tv], torch.from_numpy(toks), torch.from_numpy(draft),
         torch.from_numpy(slots), torch.from_numpy(seg),
         torch.from_numpy(is_draft.astype(np.int32)), 0)
     np.testing.assert_array_equal(acc_t.numpy(), np.asarray(acc_j))
@@ -377,3 +378,26 @@ def test_sealed_grid_and_counter_reset(pair):
     for key in ("drafted_tokens", "accepted_draft_tokens", "spec_rollbacks",
                 "draft_acceptance_ema"):
         assert st[key] == 0
+
+
+def test_tp2_identity(pair):
+    """tests/test_spec_decode.py:351: spec decode at tp 2 gives the
+    spec-off streams of tp 1 and JAX's tp-2 spec engine's streams and
+    counters, with drafts accepted."""
+    _, tdec1, _ = pair
+    jdec, tdec = tp_pair(2, jax_tiny(), llama_tiny(), **POOL)
+    prompts = _prompts((12, 20))
+    off = _run(_engine(tdec1), prompts)
+    jdec.cache.clear_prefix_cache()
+    jeng = JaxEngine(jdec, ragged=True, overlap=False, tp=2,
+                     spec_decode=JaxSpec(draft_len=6, drafter=_oracle(
+                         JaxDrafter, zip(prompts, off))), **ENGINE)
+    want = _run(jeng, prompts)
+    eng = _engine(tdec, SpecConfig(draft_len=6, drafter=_oracle(
+        Drafter, zip(prompts, off))), tp=2)
+    got = _run(eng, prompts)
+    assert got == off == want
+    st, jst = eng.stats(), jeng.stats()
+    for key in SPEC_COUNTERS:
+        assert st[key] == pytest.approx(jst[key], abs=1e-12), key
+    assert st["accepted_draft_tokens"] > 0 and st["tp"] == 2

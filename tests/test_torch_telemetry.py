@@ -57,9 +57,9 @@ GEOM = dict(hidden_size=64, num_attention_heads=4, num_key_value_heads=2,
             max_position_embeddings=256)
 KW = dict(max_batch_size=3, num_blocks=24, block_size=8,
           prompt_buckets=(8, 16, 32), chunk_size=4, prefill_chunk=8)
-# stats() keys of the port's engine that JAX's lacks: the queue length
-# and the delivered-token count behind decode_utilization
-PORT_ONLY_KEYS = {"queued", "decode_useful_tokens"}
+# stats() keys of the port's engine that JAX's lacks: the queue length,
+# the delivered-token count behind decode_utilization and the tp degree
+PORT_ONLY_KEYS = {"queued", "decode_useful_tokens", "tp"}
 # records of the program sets, which differ by design (module docstring)
 PROGRAM_RECORDS = {"compile", "programs_sealed", "unexpected_recompile"}
 

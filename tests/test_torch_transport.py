@@ -11,6 +11,8 @@ build's lock across processes.
   retried under the same message id, the step run once, every token in
   the journal once), the journal gauges, the telemetry forwarded from
   the workers with disjoint trace ids, and ``clear_finished``;
+- a tp-2 replica in a spawned worker (its row of the device grid
+  computed there) gives the in-process fleet's streams;
 - a SIGKILL: ``kill_worker`` while replica 0's requests prefill, then
   ``inject_kill`` (the worker kills itself) mid-decode on the same
   fleet: each time the Router sees the pipe close, drains the replica
@@ -179,6 +181,26 @@ def test_process_fleet_identity_journal_retry_telemetry(model):
         assert fleet["rpc_retries"] == fleet["finished"] == 0
     for rep in router.replicas:
         assert not rep.transport.alive()
+
+
+def test_process_fleet_tp2(model):
+    """A spawned worker builds a tp-2 engine on its own row of the dp x tp
+    device grid (the devices cross the pipe as strings; the worker
+    computes its row): one tp-2 replica gives the in-process fleet's
+    streams."""
+    prompts = _prompts(3)
+    want = _inproc(model, prompts, 8)
+    with Router(model, dp=1, tp=2, devices=["cpu"] * 2, **PROC,
+                **KW) as router:
+        assert isinstance(router.replicas[0].transport, ProcTransport)
+        assert router.replicas[0].transport.spec.devices == ["cpu"] * 2
+        fids = [router.add_request(p, SamplingParams(max_new_tokens=8))
+                for p in prompts]
+        _drain(router)
+        assert [router.result(f).tolist() for f in fids] == want
+        st = router.stats()
+        assert st["replicas"][0]["tp"] == 2
+        assert st["fleet"]["finished"] == 3
 
 
 def test_sigkill_migrates_then_respawns(model):
