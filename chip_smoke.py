@@ -26,8 +26,8 @@ failure ends the run with a non-zero exit code and no result:
 3. kernels       each kernel against its plain PyTorch version on the card
                  at the shapes its main path gives it (Llama-3-8B serving:
                  ragged attention on the smoke batch with a bf16 and an
-                 int8 pool, a W 8 decode ministep at ctx 512, a 128-row
-                 prefill rung, and d 64 with pages smaller than a stage;
+                 int8 pool, a W 8 decode ministep at ctx 512, a prefill
+                 rung of 8 decode and 128 prefill rows, and d 64 with pages smaller than a stage;
                  dense decode at b 8 and b 4 and at ctx 1..2100 with a
                  ctx-0 row, float32 at d 64, d 256, the int8-pool route
                  and bf16 at d 64 / bs 16; every attention case within 1e-2
@@ -56,7 +56,16 @@ failure ends the run with a non-zero exit code and no result:
                  ctx 512 with 16 / 4 heads (bf16 and int8 pools) and 8 / 2
                  heads, the int4 GEMV on the five tp-2 shard projections
                  (wqkv 4096 x 3072, wo 2048 x 4096, wgu 4096 x 14336, wd
-                 7168 x 4096, head 4096 x 64128) at b 8 and 32,
+                 7168 x 4096, head 4096 x 64128) at b 8 and 32; and
+                 the GPT family's group 1 (one query head per kv head):
+                 ragged W 8 ctx 512 at ERNIE's 20 / 20 heads with a bf16
+                 and an int8 pool and a prefill rung of 8 decode and 128
+                 prefill rows (its times on the W 8 row), paged
+                 decode b 8 ctx 512 at 20 / 20, the int4 GEMV on ERNIE's
+                 five products (wqkv 2560 x 7680, wo 2560 x 2560, wi
+                 2560 x 12288, wf 12288 x 2560, head 2560 x 103424) at b
+                 8 and 32, and flash at gpt_345m's b 8 x s 1024, 16 / 16
+                 heads of 64;
                  with its time, the plain version's time, the time of one
                  PyTorch library call that computes the same function where
                  there is one, and the least time the card could take
@@ -375,7 +384,36 @@ failure ends the run with a non-zero exit code and no result:
                  equal, or parted where the float32 logit gap is at most
                  twice the difference between the two computations'
                  logits there.
-32. capture-failure  a program with a host sync inside: its first
+32. tiny-gpt-parity  gpt_tiny(hidden_size=256) (head_dim 64, as many kv
+                 heads as heads) float32 with int4 weights, the same
+                 weights on the card (graphs) and the CPU: both engines'
+                 greedy streams and generate() equal, one prefill's
+                 logits within 1e-3, and the card ran the ragged,
+                 paged-decode, flash forward and GEMV kernels.
+33. serve-ernie-int4  THE GPT PATH: ernie_45_dense_3b at full width and
+                 all 28 layers (20 heads = 20 kv heads, d 128, vocab
+                 103,424), int4 weights from PagedGPTDecoder.from_config(
+                 seed=0), bf16 activations and pool (160 blocks of 64);
+                 the ragged and the dense engine as CUDA graphs (keys
+                 captured as the first run uses them, then sealed): 8
+                 greedy requests of 64..512 prompt tokens, 64 new. The
+                 sealed run's launches equal what its dispatches call
+                 for (the counters set to 0 just before, read just
+                 after), its tokens the capturing run's, no recompile;
+                 the schedulers' streams equal or a near-tie; tok/s,
+                 TTFT, ITL, capture seconds and pool GB; a W 8 ministep
+                 (28 ragged + 113 GEMV launches) and a dense decode step
+                 (28 paged-decode + 113 GEMV) at ctx 512 with their
+                 device ms beside the 0.76 ms byte bound; an eager leg
+                 on an int8 pool over the same weights (reported), its
+                 GEMV launches counted by weight at the launch site
+                 (the kernels line's ERNIE GEMV rows).
+34. train-gpt-345m  gpt_345m in bf16 (float32 weights, tied head), b 8 x
+                 s 1024, AdamW(1e-4, weight_decay=0.01): 1 warm and 5
+                 timed TrainSteps, exactly 24 of each flash kernel a
+                 step, every loss finite and the last below the first;
+                 step ms, tokens/s, MFU, peak memory, device time.
+35. capture-failure  a program with a host sync inside: its first
                  dispatch raises, no graph is kept and it is not run
                  eagerly in its place (last, as a failed capture may
                  leave the allocator's pool unusable).
@@ -412,10 +450,18 @@ SHAPES_8B = {"wqkv": (4096, 6144), "wo": (4096, 4096),
 SHAPES_8B_TP2 = {"wqkv_tp2": (4096, 3072), "wo_tp2": (2048, 4096),
                  "wgu_tp2": (4096, 14336), "wd_tp2": (7168, 4096),
                  "head_tp2": (4096, 64128)}
+# ernie_45_dense_3b's int4 products (serve-ernie-int4): the fused q/k/v
+# of 20 heads of 128, the output projection, the GELU MLP's fc_in and
+# fc_out and the untied head over a 103,424 vocabulary (the widest N the
+# GEMV takes)
+SHAPES_ERNIE = {"ernie_wqkv": (2560, 7680), "ernie_wo": (2560, 2560),
+                "ernie_wi": (2560, 12288), "ernie_wf": (12288, 2560),
+                "ernie_head": (2560, 103424)}
 # every GEMV case's [K, N]: the 8B projections whole and at a tp-2
-# shard, and llama_1b's gate/up (serve-model-1b's widest product,
-# float32 x)
-GEMV_SHAPES = dict(SHAPES_8B, **SHAPES_8B_TP2, **{"1b_wgu": (2048, 11264)})
+# shard, llama_1b's gate/up (serve-model-1b's widest product, float32
+# x) and ERNIE's
+GEMV_SHAPES = dict(SHAPES_8B, **SHAPES_8B_TP2, **{"1b_wgu": (2048, 11264)},
+                   **SHAPES_ERNIE)
 # flash attention cases (all causal, bf16 unless named): the llama_mid
 # training shape first; `docs` packed documents plus a padded tail. bf16
 # at d 64/128 runs the Hopper (wgmma, TMA) kernels, float32 and d 256 the
@@ -438,6 +484,9 @@ FLASH_CASES = [
     dict(name="f32_1b_b4_s256", b=4, sq=256, sk=256, h=16, hk=8, d=128,
          dtype="float32"),
     dict(name="d256", b=1, sq=300, sk=300, h=4, hk=1, d=256),
+    # train-gpt-345m's attention: multi-head (one query head per kv
+    # head), b 8 x s 1024, 16 heads of 64
+    dict(name="gpt_345m", b=8, sq=1024, sk=1024, h=16, hk=16, d=64),
 ]
 
 
@@ -1176,6 +1225,15 @@ RAGGED_CASES = [
     dict(name="tp2_int8_w8_ctx512", decode=[512] * 8, quantized=True,
          geom=dict(nh=16, kvh=4)),
     dict(name="tp4_w8_ctx512", decode=[512] * 8, geom=dict(nh=8, kvh=2)),
+    # serve-ernie-int4's attention at group 1 (ernie_45_dense_3b: 20
+    # heads, 20 kv heads, d 128, pages of 64): the W 8 decode ministep
+    # at ctx 512 with a bf16 and an int8 pool, and the prefill rung of 8
+    # decode and 128 prefill rows
+    dict(name="ernie_w8_ctx512", decode=[512] * 8, geom=dict(nh=20, kvh=20)),
+    dict(name="ernie_int8_w8_ctx512", decode=[512] * 8, quantized=True,
+         geom=dict(nh=20, kvh=20)),
+    dict(name="ernie_prefill_128", decode=[512] * 8, prefill=(128, 384),
+         geom=dict(nh=20, kvh=20)),
 ]
 
 
@@ -1277,6 +1335,8 @@ DECODE_CASES = [
     # serve-model-1b's float32 dense decode step (llama_1b, pages of 64)
     dict(name="f32_1b_b8_ctx512", ctx=[512] * 8, nh=16, kvh=8,
          dtype="float32"),
+    # serve-ernie-int4's dense decode step at group 1 (20 / 20 heads)
+    dict(name="ernie_b8_ctx512", ctx=[512] * 8, nh=20, kvh=20),
 ]
 
 
@@ -1430,8 +1490,11 @@ def main():
                                             SamplingParams, ServingEngine)
     from paddle_tpu_torch.inference.programs import ProgramSet
     from paddle_tpu_torch.jit import TrainStep
-    from paddle_tpu_torch.models import (LlamaForCausalLM, llama_1b,
-                                         llama_3_8b, llama_mid, llama_tiny)
+    from paddle_tpu_torch.inference import PagedGPTDecoder
+    from paddle_tpu_torch.models import (GPTForCausalLM, LlamaForCausalLM,
+                                         ernie_45_dense_3b, gpt_345m,
+                                         gpt_tiny, llama_1b, llama_3_8b,
+                                         llama_mid, llama_tiny)
     from paddle_tpu_torch.models.generation import _setup_decode
     from paddle_tpu_torch.ops import flash_attention as pfa
     from paddle_tpu_torch.ops import paged_attention as pa
@@ -1528,7 +1591,7 @@ def main():
                 heads[c["pool"]] = c
             if spec["name"] == "f32_1b_w8_ctx512":
                 heads["f32_ragged"] = c
-            if spec["name"].startswith(("tp2_", "tp4_")):
+            if spec["name"].startswith(("tp2_", "tp4_", "ernie_")):
                 heads[spec["name"]] = c
             torch.cuda.empty_cache()
 
@@ -1558,6 +1621,12 @@ def main():
                 c = gemv_case("int4_halves", name, b)
                 if b == 8:
                     heads[f"gemv_{name}"] = c
+        # ernie_45_dense_3b's products: decode rows and the widest rung
+        for name in SHAPES_ERNIE:
+            for b in (8, 32):
+                c = gemv_case("int4_halves", name, b)
+                if b == 8:
+                    heads[f"gemv_{name}"] = c
         for spec in DECODE_CASES:
             c = _decode_check(torch, gen, timer, spec)
             cases.append(c)
@@ -1565,6 +1634,8 @@ def main():
                 heads["paged_decode"] = c
             if spec["name"] == "f32_1b_b8_ctx512":
                 heads["f32_decode"] = c
+            if spec["name"] == "ernie_b8_ctx512":
+                heads["ernie_decode"] = c
         for spec in FLASH_CASES:
             c = flash_case(**spec)
             cases.append(c)
@@ -1572,6 +1643,8 @@ def main():
                 heads["flash"] = c
             if spec["name"] == "f32_1b_b4_s256":
                 heads["f32_flash"] = c
+            if spec["name"] == "gpt_345m":
+                heads["gpt_flash"] = c
             torch.cuda.empty_cache()
         for spec in RING_CASES:
             c = _ring_case(torch, gen, timer, **spec)
@@ -1708,12 +1781,14 @@ def main():
     _phase("kernels", kernels)
     torch.cuda.empty_cache()
 
-    def cpu_and_card(cfg, num_blocks=64):
-        """A seeded int4 decoder on the CPU and the same weights on the
-        card (``num_blocks`` blocks of 8)."""
-        cpu = PagedLlamaDecoder.from_config(cfg, seed=3, weight_dtype="int4",
-                                            num_blocks=num_blocks,
-                                            block_size=8, device="cpu")
+    def cpu_and_card(cfg, num_blocks=64, cls=None):
+        """A seeded int4 decoder (``cls``, default PagedLlamaDecoder) on
+        the CPU and the same weights on the card (``num_blocks`` blocks
+        of 8)."""
+        cls = cls or PagedLlamaDecoder
+        cpu = cls.from_config(cfg, seed=3, weight_dtype="int4",
+                              num_blocks=num_blocks, block_size=8,
+                              device="cpu")
 
         def to_cuda(w):
             if isinstance(w, QWeight):
@@ -1721,14 +1796,11 @@ def main():
             return w.cuda()
 
         tree = cpu.weights[0]
-        weights = {"embed": tree["embed"].cuda(),
-                   "norm": tree["norm"].cuda(),
-                   "head": to_cuda(tree["head"]),
-                   "layers": [{k: to_cuda(v) for k, v in lw.items()}
-                              for lw in tree["layers"]]}
-        gpu = PagedLlamaDecoder(cfg, weights, weight_dtype="int4",
-                                num_blocks=num_blocks, block_size=8,
-                                device="cuda")
+        weights = {k: ([{kk: to_cuda(vv) for kk, vv in lw.items()}
+                        for lw in v] if k == "layers" else to_cuda(v))
+                   for k, v in tree.items()}
+        gpu = cls(cfg, weights, weight_dtype="int4", num_blocks=num_blocks,
+                  block_size=8, device="cuda")
         return cpu, gpu
 
     # -- tiny model: card against the CPU's plain path -----------------------
@@ -5242,6 +5314,250 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
 
+    # -- the GPT / ERNIE family: multi-head attention (group 1) ---------------
+    gpt_launches = {}
+
+    def tiny_gpt_parity():
+        """gpt_tiny(hidden_size=256) (head_dim 64, 4 heads = 4 kv heads)
+        float32 with int4 weights, the same weights on the card (graphs,
+        captured as used) and the CPU: both engines' greedy streams and
+        generate() equal, one prefill's logits within 1e-3; the card ran
+        the ragged, paged-decode, flash forward and GEMV kernels."""
+        gcfg = gpt_tiny(hidden_size=256)
+        cpu, gpu = cpu_and_card(gcfg, cls=PagedGPTDecoder)
+        rng = np.random.RandomState(8)
+        prompts = [rng.randint(0, gcfg.vocab_size, n) for n in (5, 12, 30)]
+        ids = rng.randint(0, gcfg.vocab_size, (2, 16))
+        res = {}
+        reset_dense()
+        for name, dec in (("cpu", cpu), ("card", gpu)):
+            outs = []
+            for ragged in (True, False):
+                eng = ServingEngine(dec, ragged=ragged, max_batch_size=3,
+                                    chunk_size=4, prefill_chunk=8,
+                                    prompt_buckets=(8, 16, 32))
+                rids = [eng.add_request(p, SamplingParams(max_new_tokens=8))
+                        for p in prompts]
+                eng.run_to_completion()
+                errors = [eng.request(r).error for r in rids]
+                _require(all(e is None for e in errors),
+                         f"tiny-gpt-parity {name} "
+                         f"{'ragged' if ragged else 'dense'}: {errors}")
+                outs.append([eng.result(r).tolist() for r in rids])
+                eng.close()
+                dec.cache.debug_check()
+            res[name] = (outs, dec.generate(ids, max_new_tokens=8).tolist())
+        launched = dense_counts()
+        gpt_launches["tiny-gpt-parity"] = dict(launched)
+        _require(all(v > 0 for v in launched.values()),
+                 f"tiny-gpt-parity did not launch every kernel: {launched}")
+        row = rng.randint(0, gcfg.vocab_size, (1, 16))
+        logits = []
+        for dec in (cpu, gpu):
+            dev = dec.device
+            dec.cache.allocate(100, 16)
+            slots = [[dec.cache.extend(100) for _ in range(16)]]
+            with torch.inference_mode():
+                lg, _, _ = dec._prefill_impl(
+                    dec.weights, dec.cache.k, dec.cache.v,
+                    torch.as_tensor(row, dtype=torch.int32, device=dev),
+                    torch.as_tensor(slots, dtype=torch.int32, device=dev))
+            logits.append(lg.float().cpu())
+            dec.cache.free(100)
+        err = float((logits[0] - logits[1]).abs().max())
+        _require(err < 1e-3, f"tiny-gpt-parity prefill logits differ by "
+                             f"{err}")
+        _require(res["cpu"] == res["card"],
+                 f"tiny-gpt-parity card and CPU differ: {res}")
+        return {"tokens_equal": True, "generate_equal": True,
+                "prefill_logits_max_abs_err": err, "launches": launched}
+
+    _phase("tiny-gpt-parity", tiny_gpt_parity)
+
+    def serve_ernie_int4():
+        """ernie_45_dense_3b at full width and all 28 layers, int4 weights
+        from from_config(seed=0) (made and quantized layer by layer on
+        the card), bf16 activations and pool (160 blocks of 64), served by
+        the ragged and the dense engine as CUDA graphs: 8 greedy requests
+        of 64..512 prompt tokens, 64 new each. Each engine's first run
+        captures the keys it uses, then the set is sealed and a second
+        run is held to the launches its dispatches call for and no
+        recompile; the two schedulers' streams equal or a near-tie. Then
+        a W 8 ministep and a dense decode step at ctx 512 (launches and
+        device ms), and an eager run on an int8 pool over the same
+        weights, whose GEMV launches are counted by weight where the
+        kernel launches."""
+        ecfg = ernie_45_dense_3b(dtype="bfloat16")
+        L = ecfg.num_hidden_layers
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        edec = PagedGPTDecoder.from_config(ecfg, seed=0, weight_dtype="int4",
+                                           block_size=64, num_blocks=160,
+                                           device="cuda")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        load_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        erng = np.random.RandomState(14)
+        reqs = [(erng.randint(0, ecfg.vocab_size, int(n)),
+                 {"max_new_tokens": 64, "temperature": 0.0})
+                for n in erng.randint(64, 513, 8)]
+        info = {"model": "ernie_45_dense_3b int4 (halves), bf16 pool, 28 "
+                         "layers, 20 heads = 20 kv heads, d 128",
+                "load_s": load_s, "load_peak_mem_gb": load_peak_gb,
+                "prompt_lens": [len(p) for p, _ in reqs]}
+        outs = {}
+        for name, ragged in (("ragged", True), ("dense", False)):
+            mem0 = torch.cuda.memory_reserved()
+            eng = engine(edec, ragged, graphs=True)
+            t0 = time.perf_counter()
+            first, _, _ = drive(eng, reqs)
+            capture_s = time.perf_counter() - t0
+            cap = lazy_capture(eng, mem0)
+            got, wall, st, launched = drive_checked(
+                eng, reqs, f"serve-ernie-int4 {name}")
+            for a, b_ in zip(first, got):
+                _require(np.array_equal(a, b_),
+                         f"serve-ernie-int4 {name}: the sealed run's tokens "
+                         f"differ from the capturing run's")
+            gpt_launches[name] = dict(launched)
+            outs[name] = got
+            info[name] = {
+                "tok_per_s": st["generated_tokens"] / wall,
+                "generated_tokens": st["generated_tokens"],
+                "wall_s": wall, "ttft_p50_s": st["ttft_p50_s"],
+                "ttft_p99_s": st["ttft_p99_s"], "itl_p50_s": st["itl_p50_s"],
+                "itl_p99_s": st["itl_p99_s"],
+                "device_dispatches": st["device_dispatches"],
+                "launches": launched, "capture_run_s": capture_s,
+                "capture": cap,
+                "unexpected_recompiles": st["unexpected_recompiles"]}
+            eng.close()
+            del eng
+            torch.cuda.empty_cache()
+        info["first_divergences"] = greedy_gaps(
+            edec, reqs, outs["ragged"], outs["dense"],
+            "serve-ernie-int4 ragged vs dense")
+        one, wall_ms, prof = decode_ministep(edec)
+        _require(one == {"ragged_paged_attention": L,
+                         "decode_matmul": 4 * L + 1},
+                 f"serve-ernie-int4: a W 8 ministep launched {one}, "
+                 f"expected {L} attention and {4 * L + 1} GEMV kernels")
+        done, dwall_ms, dprof = dense_decode_step(edec)
+        _require(done["paged_attention_decode"] == L
+                 and done["decode_matmul"] == 4 * L + 1,
+                 f"serve-ernie-int4: a dense decode step launched {done}")
+        weight_bytes = sum(
+            (w.q.numel() + w.scale.numel() * 4) if isinstance(w, QWeight)
+            else 0 for lw in edec.weights[0]["layers"] for w in lw.values()) \
+            + edec.weights[0]["head"].q.numel() \
+            + edec.weights[0]["head"].scale.numel() * 4
+        kv_bytes = 8 * 513 * edec.cache.bytes_per_token()
+        info.update({
+            "ministep_W8_ctx512": {"launches": one, "wall_ms": wall_ms,
+                                   "device_ms": prof["device_ms"],
+                                   "idle_share": prof["idle_share"],
+                                   "device_ms_by_family":
+                                       prof["device_ms_by_family"]},
+            "dense_step_b8_ctx512": {"launches": done, "wall_ms": dwall_ms,
+                                     "device_ms": dprof["device_ms"],
+                                     "idle_share": dprof["idle_share"],
+                                     "device_ms_by_family":
+                                         dprof["device_ms_by_family"]},
+            "weight_bytes": weight_bytes, "kv_bytes_w8_ctx512": kv_bytes,
+            "ministep_bound_ms": 1e3 * (weight_bytes + kv_bytes)
+            / HBM_BYTES_PER_S,
+            "pool_bytes_per_token": edec.cache.bytes_per_token()})
+        # the int8 pool at group 1 on the same weights, eager, ragged
+        kdec = PagedGPTDecoder(ecfg, edec.weights[0], weight_dtype="int4",
+                               kv_quant="int8", block_size=64,
+                               num_blocks=160, device="cuda")
+        eng = engine(kdec, True)
+        reset_dense()
+        kouts, kwall, kst = drive(eng, reqs[:4])
+        # the eager leg's GEMV launches by weight, counted where the
+        # kernel launches
+        by_shape = dict(dmm.launches_by_shape)
+        gemv = {n_: by_shape.get(s_, 0) for n_, s_ in SHAPES_ERNIE.items()}
+        gpt_launches["int8_pool"] = dense_counts()
+        gpt_launches["int8_pool_gemv"] = gemv
+        _require(gpt_launches["int8_pool"]["ragged_paged_attention"] > 0
+                 and all(gemv.values()) and sum(by_shape.values())
+                 == gpt_launches["int8_pool"]["decode_matmul"],
+                 f"serve-ernie-int4 int8 pool: launched "
+                 f"{gpt_launches['int8_pool']}, GEMV by shape {by_shape}")
+        # reported, not held: int8 pages round K and V (the CPU tests
+        # hold the int8 pool to JAX's on the same pools)
+        info["int8_pool"] = {
+            "tok_per_s": kst["generated_tokens"] / kwall,
+            "launches": gpt_launches["int8_pool"],
+            "gemv_launches_by_weight": gemv,
+            "tokens_equal_bf16_pool": [
+                int((a == b_).sum()) for a, b_ in zip(outs["ragged"][:4],
+                                                      kouts)]}
+        eng.close()
+        del eng, kdec, edec
+        gc.collect()
+        torch.cuda.empty_cache()
+        return info
+
+    _phase("serve-ernie-int4", serve_ernie_int4)
+
+    def train_gpt_345m():
+        """gpt_345m in bf16 (float32 weights, tied head), b 8 x s 1024,
+        AdamW(1e-4, weight_decay=0.01): 1 warm and 5 timed TrainSteps;
+        exactly 24 launches of each flash kernel a step, no serving
+        kernel; every loss finite and the last below the first. Step
+        ms, tokens/s, MFU (bench.py's formula over 989 TFLOP/s), peak
+        memory and the device time by family."""
+        tcfg = gpt_345m(dtype="bfloat16")
+        b, s, warm, iters = 8, 1024, 1, 5
+        model = GPTForCausalLM(tcfg, seed=0, device="cuda")
+        opt = AdamW(learning_rate=1e-4, parameters=model.parameters(),
+                    weight_decay=0.01)
+        step = TrainStep(model, model.loss, opt)
+        ids = torch.as_tensor(np.random.RandomState(0).randint(
+            0, tcfg.vocab_size, size=(b, s)).astype(np.int32), device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        reset_flash()
+        losses = [step(ids, ids) for _ in range(warm)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses += [step(ids, ids) for _ in range(iters)]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = flash_counts()
+        gpt_launches["train"] = dict(launched)
+        L = tcfg.num_hidden_layers
+        n_steps = warm + iters
+        _require(launched == {k_: L * n_steps for k_ in launched},
+                 f"train-gpt-345m: {n_steps} steps launched {launched}")
+        _require(all(v == 0 for v in counts().values()),
+                 f"train-gpt-345m launched serving kernels: {counts()}")
+        losses = [float(x) for x in losses]
+        _require(all(np.isfinite(losses)) and losses[-1] < losses[0],
+                 f"train-gpt-345m losses {losses}")
+        step_ms = wall * 1e3 / iters
+        tok_s = b * s * iters / wall
+        n_params = model.num_params()
+        fpt = 6 * n_params + 12 * L * tcfg.hidden_size * s
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        prof = _device_breakdown(torch, lambda: step(ids, ids), step_ms)
+        del model, opt, step
+        gc.collect()
+        torch.cuda.empty_cache()
+        return {"model": "gpt_345m bf16 compute (float32 weights), 24 "
+                         "layers, 16 heads = 16 kv heads, d 64, b8 x s1024",
+                "num_params": n_params, "launches": launched,
+                "steps": n_steps, "losses": losses, "step_ms": step_ms,
+                "tokens_per_s": tok_s,
+                "mfu": tok_s * fpt / BF16_FLOPS_PER_S,
+                "flops_per_token": fpt, "peak_mem_gb": peak_gb,
+                "step_profile": prof}
+
+    _phase("train-gpt-345m", train_gpt_345m)
+
     # -- last, as a capture that fails may leave the allocator unusable --
     def capture_failure():
         """A program that cannot be captured (a host sync inside it):
@@ -5400,6 +5716,74 @@ def main():
             "max_abs_err": c["max_abs_err"], "ms": c["ms"],
             "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
             "bound_by": c["bound_by"], "library_ms": c["library_ms"]})
+    # the kernels at group 1 (one query head per kv head), on the GPT /
+    # ERNIE paths: launches from serve-ernie-int4's sealed runs (the
+    # int8 pool and the GEMV by weight: its eager leg, counted at the
+    # launch site) and train-gpt-345m's steps, times at b 8; the
+    # prefill rung's (8 decode + 128 prefill rows) times ride on the W 8
+    # row, which counts the kernel's launches at every row count
+    rsrc = "paddle_tpu_torch/csrc/ragged_paged_attention.cu"
+    for key, name, launches in (
+            ("ernie_w8_ctx512", "ragged_paged_attention[group 1, 20/20 "
+             "heads]", gpt_launches["ragged"]["ragged_paged_attention"]),
+            ("ernie_int8_w8_ctx512", "ragged_paged_attention[group 1, int8 "
+             "pool]", gpt_launches["int8_pool"]["ragged_paged_attention"])):
+        c = heads[key]
+        kernel_rows.append({
+            "name": name, "route": "cuda", "source": rsrc,
+            "replaces": tpu + "ragged_paged_attention.py:201",
+            "launches": launches, "max_abs_err": c["max_abs_err"],
+            "ms": c["ms"], "plain_ms": c["plain_ms"],
+            "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
+            "library_ms": c["library_ms"]})
+        if key == "ernie_w8_ctx512":
+            c = heads["ernie_prefill_128"]
+            kernel_rows[-1]["prefill_rung_8_decode_128_prefill"] = {
+                k_: c[k_] for k_ in ("max_abs_err", "ms", "plain_ms",
+                                     "bound_ms", "bound_by", "library_ms")}
+    c = heads["ernie_decode"]
+    kernel_rows.append({
+        "name": "paged_attention_decode[group 1, 20/20 heads]",
+        "route": "cuda",
+        "source": "paddle_tpu_torch/csrc/paged_attention_decode.cu",
+        "replaces": tpu + "paged_attention.py:125",
+        "launches": gpt_launches["dense"]["paged_attention_decode"],
+        "max_abs_err": c["max_abs_err"], "ms": c["ms"],
+        "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+        "bound_by": c["bound_by"], "library_ms": c["library_ms"]})
+    for name in SHAPES_ERNIE:
+        c = heads[f"gemv_{name}"]
+        kernel_rows.append({
+            "name": f"decode_matmul[int4, {name}]", "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/decode_matmul.cu",
+            "replaces": tpu + "decode_matmul.py:135",
+            "launches": gpt_launches["int8_pool_gemv"][name],
+            "launches_from": "serve-ernie-int4 int8-pool eager leg",
+            "timed_rows": 8,
+            "max_abs_err": c["max_abs_err"], "ms": c["ms"],
+            "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+            "bound_by": c["bound_by"], "library_ms": c["library_ms"]})
+    f = heads["gpt_flash"]
+    for key, name, rep in (
+            ("fwd", "flash_fwd[group 1, gpt_345m]",
+             tpu + "flash_attention.py:69"),
+            ("dq", "flash_bwd_dq[group 1, gpt_345m]",
+             tpu + "flash_attention.py:174"),
+            ("dkv", "flash_bwd_dkv[group 1, gpt_345m]",
+             tpu + "flash_attention.py:229")):
+        kernel_rows.append({
+            "name": name, "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/flash_attention_wg.cu",
+            "replaces": rep,
+            "launches": gpt_launches["train"][name.split("[")[0]],
+            "max_abs_err": f["max_abs_err"][key], "ms": f["ms"][key],
+            "plain_ms": f["plain_ms"][key], "bound_ms": f["bound_ms"][key],
+            "bound_by": f["bound_by"][key],
+            "library_ms": f["library_ms"][key]})
+        if key == "fwd":
+            kernel_rows[-1]["launches_by_phase"] = {
+                "serve-ernie-int4 dense prefill":
+                    gpt_launches["dense"]["flash_fwd"]}
     _emit({"kernels": kernel_rows})
     print(smi, flush=True)
     _emit({"ok": True, "device": device})

@@ -77,7 +77,7 @@ from .serving import (EngineOverloaded, SamplingParams, ServingEngine,
                       _normalize_prompt)
 from .transport import (InProcTransport, ProcTransport, RequestView,
                         TransportError, WorkerDied, WorkerSpec,
-                        model_state)
+                        engine_from_model, model_state)
 
 __all__ = ["Router", "Replica"]
 
@@ -162,9 +162,10 @@ class Router:
 
     Parameters
     ----------
-    model : the LlamaForCausalLM every replica serves (each replica's
-        engine builds its own decoder and pool from it). Ignored when
-        ``engine_factory`` is given.
+    model : the LlamaForCausalLM or GPTForCausalLM every replica serves
+        (each replica's engine builds its own decoder and pool from it,
+        a GPT model's through ``PagedGPTDecoder.from_model``). Ignored
+        when ``engine_factory`` is given.
     dp : replica count R.
     tp : per-replica tensor-parallel degree; tp > 1 places replica r on
         row r of ``SpecLayout.fleet_device_slices(dp, tp, devices)``.
@@ -298,8 +299,8 @@ class Router:
                 kw = dict(engine_kwargs)
                 if self._slo_policies:
                     kw["slo"] = SLOMonitor(self._slo_policies)
-                eng = ServingEngine(model, tp=self.tp, devices=slices[r],
-                                    **kw)
+                eng = engine_from_model(model, tp=self.tp,
+                                        devices=slices[r], **kw)
             if tracer is not None:
                 eng.set_telemetry(tracer, replica_id=r)
             self.replicas.append(Replica(r, eng,

@@ -11,16 +11,20 @@ pseudo-sequence of the adapter. An adapter in use is ref-counted like
 any sequence; an unused one parks in the allocator's cached-block LRU
 under synthetic page hashes, where any allocation may evict it, and
 acquiring it again revives the pages or uploads them anew. The device
-half is ``PagedLlamaDecoder.lora_context`` / ``_lora_delta`` and the
-engine's lora program families.
+half is the decoders' ``lora_context`` / ``_lora_delta``
+(``paged_decode._PagedDecoder``) at each decoder's
+``lora_target_modules`` (Llama's seven, GPT's six: ``wq wk wv wo wi
+wf``, whose q / k / v deltas add to the pieces of the fused projection)
+and the engine's lora program families.
 
 Tensor parallelism, as in JAX: the plane replicates (one plane, on the
 first shard's device; shards read their factors from it), and each
 shard slices the whole factors to its own part of the base weight: a
-COLUMN module (wq / wk / wv / wg / wu) applies A whole and takes its
-out columns of B, a ROW module (wo / wd) takes its in rows of A, and its
-partial delta is added before the block's one all-reduce, which reduces
-base and delta together. The collectives stay the base program's.
+COLUMN module (wq / wk / wv / wg / wu, GPT's wi) applies A whole and
+takes its out columns of B, a ROW module (wo / wd, GPT's wf) takes its
+in rows of A, and its partial delta is added before the block's one
+all-reduce, which reduces base and delta together. The collectives stay
+the base program's.
 """
 from __future__ import annotations
 

@@ -253,30 +253,31 @@ def _fuse_layers(weights):
     return {**weights, "layers": layers}
 
 
-class PagedLlamaDecoder:
-    """Paged-KV Llama decoder on one device (``device=None``: cuda), or
-    tensor-parallel over the ``mp_axis`` of a ``ProcessMesh``.
+class _PagedDecoder:
+    """What the paged decoders share: JAX's ``_TPDecoderMixin``,
+    ``_SpecDecodeMixin`` and ``_LoRAMixin`` (``paddle_tpu/inference/
+    paged_decode.py:269-530``) and the construction around them. The
+    base places the weights (one tree per shard, cut by the canonical
+    table; ``_fuse`` turns each into the tree the programs read) and
+    builds the pool, and holds the tensor-parallel helpers, the adapter
+    deltas, speculative acceptance, the dense decode loop and
+    ``generate``. A decoder defines its programs (``_ragged_logits``,
+    ``_prefill_impl``, ``_prefill_prefix_impl``, ``_decode_logits``,
+    ``_head_logits``), ``lora_target_modules``, ``from_model`` and the
+    weight names ``_weight_specs`` that ``from_weight_loader`` and
+    ``from_config`` load (``_is_gain``: a 1-d weight that starts at
+    ones)."""
 
-    Tensor parallelism (JAX ``_TPDecoderMixin``, ``paged_decode.py:269-
-    420``): ``mesh=`` with ``tp_shard_map=True`` is JAX's fully-manual
-    decoder. The per-projection weight tree is cut by the canonical
-    table (``distributed/spec_layout.py``) into one tree per shard, on
-    the shard's device, and each shard's q/k/v and gate/up are fused as
-    on one device. The pool splits its kv heads over the shards. Every
-    program runs each layer shard by shard on the shard's heads and
-    intermediate slice, with exactly one ``_block_reduce`` after wo and
-    one after wd (fp32 sum, or the int8 collective under
-    ``tp_comm="int8"``) and the logits' gather before sampling, which
-    leaves the whole logits on shard 0's device. ``mesh=`` without
-    ``tp_shard_map`` is JAX's GSPMD decoder: it computes the same
-    function, and the port runs it on the same sharded execution with
-    the fp32 sum (its ``_tp`` stays 1, as in JAX). Shards may share a
-    device (``devices=["cuda:0"] * 2``). ``weights`` is the list of shard trees
-    and ``cache.k`` / ``cache.v`` the lists of the shards' planes (one
-    shard on one device), the operands every program takes."""
+    _fuse = staticmethod(lambda tree: tree)
+    # the constructor's default tensor-parallel axis name
+    _MP_AXIS = "mp"
 
-    def __init__(self, cfg: LlamaConfig, weights: dict,
-                 num_blocks: int = 512, block_size: int = 16,
+    @staticmethod
+    def _is_gain(name: str) -> bool:
+        return True
+
+    def __init__(self, cfg, weights: dict, num_blocks: int = 512,
+                 block_size: int = 16,
                  max_pages_per_seq: Optional[int] = None,
                  weight_dtype: Optional[str] = None,
                  kv_quant: Optional[str] = None, device=None, mesh=None,
@@ -317,23 +318,13 @@ class PagedLlamaDecoder:
                                             strict=True)
         else:
             trees = [weights]
-        self.weights = [_fuse_layers(t) for t in trees]
+        self.weights = [self._fuse(t) for t in trees]
         dtype = self.weights[0]["embed"].dtype
         self.cache = PagedKVCache(
             num_layers=cfg.num_hidden_layers, num_blocks=num_blocks,
             block_size=block_size, kv_heads=cfg.num_key_value_heads,
             head_dim=self.head_dim, dtype=dtype, kv_quant=kv_quant,
             devices=self.devices)
-        cos, sin = build_rope_cache(cfg.max_position_embeddings,
-                                    self.head_dim, cfg.rope_theta,
-                                    torch.float32, device=self.device)
-        self._cos = cos[0, :, 0, :]   # [max_len, head_dim]
-        self._sin = sin[0, :, 0, :]
-        # the tables on each shard's device (the same tensors on one)
-        self._rope_of = {}
-        for dev in self.devices:
-            key = (self._cos.new_empty(0, device=dev).device)
-            self._rope_of[key] = (self._cos.to(dev), self._sin.to(dev))
 
     def _check_tp_divisibility(self, mp: int):
         """JAX's rule: heads, kv heads, intermediate and vocab divide by
@@ -366,20 +357,20 @@ class PagedLlamaDecoder:
     def from_weight_loader(cls, cfg, load, weight_dtype: Optional[str] = None,
                            device=None, mesh=None, **kw):
         """Build from ``load(name, shape)``, which returns one raw [in, out]
-        tensor per weight (names as in ``_weight_specs``). Each matmul
-        weight is quantized on the device as it arrives and the full-
-        precision original dropped, so the peak is about the quantized
+        tensor per weight (names as in the class's ``_weight_specs``).
+        Each matmul weight is quantized on the device as it arrives and
+        the full-precision original dropped, so the peak is about the quantized
         total plus one layer in full precision. With a ``mesh`` the
         weights load on its first device and are then cut into shards
         (the scales are those of the whole matrix, as in JAX)."""
         if weight_dtype not in _WEIGHT_DTYPES:
             raise ValueError(f"weight_dtype must be None, 'int8' or "
                              f"'int4', got {weight_dtype!r}")
-        dev = _load_device(device, mesh, kw.get("mp_axis", "mp"))
+        dev = _load_device(device, mesh, kw.get("mp_axis", cls._MP_AXIS))
         qf = _QUANTIZERS[weight_dtype]
         layers = [dict() for _ in range(cfg.num_hidden_layers)]
         flat = {}
-        for name, shape, is_mat in _weight_specs(cfg):
+        for name, shape, is_mat in cls._weight_specs(cfg):
             arr = load(name, shape).to(dev)
             if tuple(arr.shape) != tuple(shape):
                 raise ValueError(f"loader returned {tuple(arr.shape)} for "
@@ -391,13 +382,255 @@ class PagedLlamaDecoder:
             else:
                 flat[name] = val
             del arr
-        weights = {"embed": flat["embed"], "layers": layers,
-                   "norm": flat["norm"], "head": flat["head"]}
+        weights = {**flat, "layers": layers}
         if mesh is not None:
             return cls(cfg, weights, weight_dtype=weight_dtype, mesh=mesh,
                        **kw)
         return cls(cfg, weights, weight_dtype=weight_dtype, device=dev,
                    **kw)
+
+    @classmethod
+    def from_config(cls, cfg, seed: int = 0, init_scale: float = 0.02,
+                    device=None, mesh=None, **kw):
+        """Randomly initialized decoder from a config: norm gains
+        (``_is_gain``) are ones, every other weight N(0, init_scale) in
+        the config's dtype, drawn per weight from a ``torch.Generator``
+        on the device seeded by (seed, crc32(name)). Not the JAX
+        package's threefry bits. With a ``mesh`` the draws are made on
+        its first device, so a tp decoder holds the same weights as a
+        one-device decoder there."""
+        dev = _load_device(device, mesh, kw.get("mp_axis", cls._MP_AXIS))
+        dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+        gen = torch.Generator(device=dev)
+
+        def load(name, shape):
+            if len(shape) == 1 and cls._is_gain(name):
+                return torch.ones(shape, dtype=dtype, device=dev)
+            gen.manual_seed((seed * 1000003
+                             + (zlib.crc32(name.encode()) & 0x7FFFFFFF))
+                            & 0x7FFFFFFFFFFFFFFF)
+            return (torch.randn(shape, generator=gen, dtype=torch.float32,
+                                device=dev) * init_scale).to(dtype)
+
+        if mesh is not None:
+            return cls.from_weight_loader(cfg, load, mesh=mesh, **kw)
+        return cls.from_weight_loader(cfg, load, device=dev, **kw)
+
+    @classmethod
+    def from_numpy_weights(cls, cfg, tree, weight_dtype: Optional[str] = None,
+                           device=None, int4_layout: str = "halves", **kw):
+        """Build from the JAX decoder's ``weights`` tree turned into numpy
+        (see ``inference.weights.weights_from_numpy``; a JAX tp decoder's
+        tree is per-projection with ``int4_layout="interleaved"``). With
+        a ``mesh`` in ``kw`` the tree is cut into the port's shards."""
+        from .weights import weights_from_numpy
+        mesh = kw.get("mesh")
+        dev = _load_device(device, mesh, kw.get("mp_axis", cls._MP_AXIS))
+        weights = weights_from_numpy(tree, weight_dtype=weight_dtype,
+                                     device=dev, int4_layout=int4_layout)
+        if mesh is None:
+            kw["device"] = dev
+        return cls(cfg, weights, weight_dtype=weight_dtype, **kw)
+
+    # -- tensor parallelism ------------------------------------------------------
+    def _on_shards(self, *ts):
+        """[shard][i]: each of ts on each shard's device (the same tensor
+        where it already is; None stays None)."""
+        return [[None if t is None else t.to(d, non_blocking=True)
+                 for t in ts] for d in self.devices]
+
+    def _block_reduce(self, parts):
+        """The one collective of an attention or MLP block: the shards'
+        partial row-parallel products summed, fp32 or int8 per
+        ``tp_comm`` (JAX ``_block_reduce``). One shard passes through."""
+        if self.tp_comm == "int8":
+            return int8_all_reduce(parts)
+        return all_reduce(parts)
+
+    def lora_context(self, layout, lora_pool, lora_tables):
+        """A dispatch's adapter factors: each table row's pages gathered
+        out of the pool plane once (``lora_tables`` [S, n_pages]; a row
+        of scratch blocks reads the all-zero null adapter), as the JAX
+        engine's ``_lora_ctx`` gathers [S, n_pages * page_elems], then
+        laid out per module by ``lora_factors``. The plane is one, on
+        shard 0's device; shards slice the factors."""
+        s = lora_tables.shape[0]
+        flat = lora_pool.index_select(0, lora_tables.reshape(-1).long())
+        return self.lora_factors(layout, flat.reshape(s, -1))
+
+    @staticmethod
+    def lora_factors(layout, flat):
+        """(layout, {(layer, module): (A_cat [din, S * r], B_cat [S * r,
+        dout])}, S) from flat [S, capacity] float32: slot s's A in
+        columns s * r .. s * r + r - 1 of A_cat, its B in the same rows
+        of B_cat. Made once a dispatch, so a ministep's deltas are two
+        plain products a module."""
+        s, r = flat.shape[0], layout.rank
+        factors = {}
+        for (li, name), (off_a, off_b) in layout.offsets.items():
+            _, _, din, dout, _ = layout.entry(li, name)
+            a = flat[:, off_a:off_a + din * r].reshape(s, din, r)
+            factors[(li, name)] = (
+                a.permute(1, 0, 2).reshape(din, s * r),
+                flat[:, off_b:off_b + r * dout].reshape(s * r, dout))
+        return layout, factors, s
+
+    def _lora_delta(self, lora, row_seq, x, li: int, name: str,
+                    shard: int = 0):
+        """Each row's adapter delta of module (li, name), [rows, dout] in
+        x's dtype; x [rows, din], row_seq [rows] picks the row's factors.
+        JAX gathers a [rows, din, r] copy of A per row; here every row
+        meets every slot's A in one product ([rows, S * r]), a one-hot of
+        row_seq keeps its own slot's r columns, and one product with the
+        slots' B stacked sums them, so the other slots add exact zeros.
+        float32 throughout. Under tp shard ``shard`` takes its slice, as
+        JAX's: a column module B's out columns, a row module A's in rows
+        (its delta is a partial sum, reduced with the base product)."""
+        layout, factors, s = lora
+        a_cat, b_cat = factors[(li, name)]
+        n = self.n_shards
+        if n > 1:
+            if layout.entry(li, name)[4] == "col":
+                b_cat = cut(b_cat, 1, shard, n)
+            else:
+                a_cat = cut(a_cat, 0, shard, n)
+            a_cat = a_cat.to(x.device, non_blocking=True)
+            b_cat = b_cat.to(x.device, non_blocking=True)
+        x2 = x.reshape(-1, x.shape[-1]).to(torch.float32)
+        cols = torch.arange(s * layout.rank, device=x.device) // layout.rank
+        keep = row_seq.long()[:, None] == cols[None, :]     # [rows, S * r]
+        xa = (x2 @ a_cat) * keep.to(torch.float32)
+        return (xa @ b_cat).to(x.dtype)
+
+    # -- speculative decoding ---------------------------------------------------
+    def _spec_accept(self, k_pool, v_pool, toks, draft_ids, slots,
+                     seg_start, is_draft, scratch_slot: int):
+        """The verify ministep's acceptance, after its forward. toks [W]:
+        each row's sampled token (a draft row's is the model's token
+        for the position after it); draft_ids [W]: each draft row's
+        proposal; slots [W]; seg_start [W]: the row index of the row's
+        column base (a column's rows are contiguous); is_draft [W].
+        Draft row r is accepted when every draft of its column up to r
+        equals the token sampled at the row before it: a cumulative sum
+        of mismatches. Rejected draft rows wrote their K/V into their
+        own slots during the forward (later drafts attend them); one
+        zero write per layer clears them, every other row aiming at the
+        scratch slot; under tp each shard clears its own heads. Returns
+        (accepted [W] bool, k_pool, v_pool)."""
+        is_draft = is_draft != 0
+        ok = is_draft & (torch.roll(toks, 1) == draft_ids)
+        cb = torch.cumsum((is_draft & ~ok).to(torch.int32), 0)
+        accepted = is_draft & (cb - cb[seg_start.long()] == 0)
+        tgt = slots.masked_fill(~(is_draft & ~accepted), scratch_slot)
+        for kp, vp in zip(k_pool, v_pool):
+            plane = _plane_values(kp[0])
+            _, kvh, bs, hd = plane.shape
+            tgt_s = tgt.to(plane.device, non_blocking=True)
+            dtype = torch.float32 if isinstance(kp[0], tuple) \
+                else plane.dtype
+            zeros = torch.zeros((toks.shape[0], kvh, hd), dtype=dtype,
+                                device=plane.device)
+            index = pool_index(tgt_s, bs, kvh)
+            for li in range(len(kp)):
+                reshape_and_cache(zeros, zeros, kp[li], vp[li], tgt_s,
+                                  index=index)
+        return accepted, k_pool, v_pool
+
+    def _final_logits(self, ws, h, last_idx):
+        """Float32 logits of h [b, s, hidden] (per shard) at each row's
+        last_idx (None: the last position)."""
+        hl = []
+        for hs in h:
+            if last_idx is None:
+                hl.append(hs[:, -1])
+            else:
+                b = hs.shape[0]
+                hl.append(hs[torch.arange(b, device=hs.device),
+                             last_idx.to(hs.device).long()])
+        return self._head_logits(ws, hl)
+
+    def _decode_scan_impl(self, weights, k_pool, v_pool, first_ids,
+                          tables_all, ctx_all, slots_all, sample=None):
+        """T decode steps from a host-precomputed schedule (tables_all
+        [T, b, max_pages], ctx_all / slots_all [T, b]); each step's token
+        feeds the next on the device, with no host sync. ``sample`` maps
+        a step's float32 logits [b, vocab] to its int32 tokens (None:
+        greedy argmax). Returns (tokens [b, T] int32, k_pool, v_pool)."""
+        cur = first_ids
+        out = []
+        for t in range(tables_all.shape[0]):
+            logits, k_pool, v_pool = self._decode_logits(
+                weights, k_pool, v_pool, cur, tables_all[t], ctx_all[t],
+                slots_all[t])
+            cur = (logits.argmax(dim=-1).to(torch.int32) if sample is None
+                   else sample(logits))
+            out.append(cur)
+        if not out:
+            return (torch.zeros((first_ids.shape[0], 0), dtype=torch.int32,
+                                device=first_ids.device), k_pool, v_pool)
+        return torch.stack(out, dim=1), k_pool, v_pool
+
+    # -- public API ------------------------------------------------------------
+    def generate(self, input_ids, max_new_tokens: int = 32,
+                 timings: Optional[dict] = None) -> np.ndarray:
+        """Greedy batched generation. input_ids [b, prompt_len]
+        (numpy, list or tensor) of EQUAL-length prompts (mixed lengths
+        are the ServingEngine's job); returns numpy int32 [b, prompt_len
+        + max_new_tokens]. A ``timings`` dict receives prefill_s and
+        decode_s wall times (taken after a device synchronize)."""
+        with torch.inference_mode():
+            return _paged_generate(self, input_ids, max_new_tokens, timings)
+
+
+class PagedLlamaDecoder(_PagedDecoder):
+    """Paged-KV Llama decoder on one device (``device=None``: cuda), or
+    tensor-parallel over the ``mp_axis`` of a ``ProcessMesh``.
+
+    Tensor parallelism (JAX ``_TPDecoderMixin``, ``paged_decode.py:269-
+    420``): ``mesh=`` with ``tp_shard_map=True`` is JAX's fully-manual
+    decoder. The per-projection weight tree is cut by the canonical
+    table (``distributed/spec_layout.py``) into one tree per shard, on
+    the shard's device, and each shard's q/k/v and gate/up are fused as
+    on one device. The pool splits its kv heads over the shards. Every
+    program runs each layer shard by shard on the shard's heads and
+    intermediate slice, with exactly one ``_block_reduce`` after wo and
+    one after wd (fp32 sum, or the int8 collective under
+    ``tp_comm="int8"``) and the logits' gather before sampling, which
+    leaves the whole logits on shard 0's device. ``mesh=`` without
+    ``tp_shard_map`` is JAX's GSPMD decoder: it computes the same
+    function, and the port runs it on the same sharded execution with
+    the fp32 sum (its ``_tp`` stays 1, as in JAX). Shards may share a
+    device (``devices=["cuda:0"] * 2``). ``weights`` is the list of shard trees
+    and ``cache.k`` / ``cache.v`` the lists of the shards' planes (one
+    shard on one device), the operands every program takes."""
+
+    def __init__(self, cfg: LlamaConfig, weights: dict,
+                 num_blocks: int = 512, block_size: int = 16,
+                 max_pages_per_seq: Optional[int] = None,
+                 weight_dtype: Optional[str] = None,
+                 kv_quant: Optional[str] = None, device=None, mesh=None,
+                 mp_axis: str = "mp", tp_shard_map: bool = False,
+                 tp_comm: str = "fp32"):
+        super().__init__(cfg, weights, num_blocks=num_blocks,
+                         block_size=block_size,
+                         max_pages_per_seq=max_pages_per_seq,
+                         weight_dtype=weight_dtype, kv_quant=kv_quant,
+                         device=device, mesh=mesh, mp_axis=mp_axis,
+                         tp_shard_map=tp_shard_map, tp_comm=tp_comm)
+        cos, sin = build_rope_cache(cfg.max_position_embeddings,
+                                    self.head_dim, cfg.rope_theta,
+                                    torch.float32, device=self.device)
+        self._cos = cos[0, :, 0, :]   # [max_len, head_dim]
+        self._sin = sin[0, :, 0, :]
+        # the tables on each shard's device (the same tensors on one)
+        self._rope_of = {}
+        for dev in self.devices:
+            key = (self._cos.new_empty(0, device=dev).device)
+            self._rope_of[key] = (self._cos.to(dev), self._sin.to(dev))
+
+    # -- construction --------------------------------------------------------
+    _fuse = staticmethod(_fuse_layers)
+    _weight_specs = staticmethod(_weight_specs)
 
     @classmethod
     def from_model(cls, model, num_blocks: int = 512, block_size: int = 16,
@@ -440,63 +673,6 @@ class PagedLlamaDecoder:
             weight_dtype=weight_dtype, device=device, num_blocks=num_blocks,
             block_size=block_size, max_pages_per_seq=max_pages_per_seq,
             kv_quant=kv_quant, **tp_kw)
-
-    @classmethod
-    def from_config(cls, cfg, seed: int = 0, init_scale: float = 0.02,
-                    device=None, mesh=None, **kw):
-        """Randomly initialized decoder from a config: norm gains are
-        ones, every other weight N(0, init_scale) in the config's dtype,
-        drawn per weight from a ``torch.Generator`` on the device seeded
-        by (seed, crc32(name)). Not the JAX package's threefry bits. With
-        a ``mesh`` the draws are made on its first device, so a tp
-        decoder holds the same weights as a one-device decoder there."""
-        dev = _load_device(device, mesh, kw.get("mp_axis", "mp"))
-        dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
-        gen = torch.Generator(device=dev)
-
-        def load(name, shape):
-            if len(shape) == 1:
-                return torch.ones(shape, dtype=dtype, device=dev)
-            gen.manual_seed((seed * 1000003
-                             + (zlib.crc32(name.encode()) & 0x7FFFFFFF))
-                            & 0x7FFFFFFFFFFFFFFF)
-            return (torch.randn(shape, generator=gen, dtype=torch.float32,
-                                device=dev) * init_scale).to(dtype)
-
-        if mesh is not None:
-            return cls.from_weight_loader(cfg, load, mesh=mesh, **kw)
-        return cls.from_weight_loader(cfg, load, device=dev, **kw)
-
-    @classmethod
-    def from_numpy_weights(cls, cfg, tree, weight_dtype: Optional[str] = None,
-                           device=None, int4_layout: str = "halves", **kw):
-        """Build from the JAX decoder's ``weights`` tree turned into numpy
-        (see ``inference.weights.weights_from_numpy``; a JAX tp decoder's
-        tree is per-projection with ``int4_layout="interleaved"``). With
-        a ``mesh`` in ``kw`` the tree is cut into the port's shards."""
-        from .weights import weights_from_numpy
-        mesh = kw.get("mesh")
-        dev = _load_device(device, mesh, kw.get("mp_axis", "mp"))
-        weights = weights_from_numpy(tree, weight_dtype=weight_dtype,
-                                     device=dev, int4_layout=int4_layout)
-        if mesh is None:
-            kw["device"] = dev
-        return cls(cfg, weights, weight_dtype=weight_dtype, **kw)
-
-    # -- tensor parallelism ------------------------------------------------------
-    def _on_shards(self, *ts):
-        """[shard][i]: each of ts on each shard's device (the same tensor
-        where it already is; None stays None)."""
-        return [[None if t is None else t.to(d, non_blocking=True)
-                 for t in ts] for d in self.devices]
-
-    def _block_reduce(self, parts):
-        """The one collective of an attention or MLP block: the shards'
-        partial row-parallel products summed, fp32 or int8 per
-        ``tp_comm`` (JAX ``_block_reduce``). One shard passes through."""
-        if self.tp_comm == "int8":
-            return int8_all_reduce(parts)
-        return all_reduce(parts)
 
     # -- building blocks ------------------------------------------------------
     def _proj_qkv(self, w, hn):
@@ -568,61 +744,6 @@ class PagedLlamaDecoder:
                 ("wg", h, it, "col"), ("wu", h, it, "col"),
                 ("wd", it, h, "row"))
 
-    def lora_context(self, layout, lora_pool, lora_tables):
-        """A dispatch's adapter factors: each table row's pages gathered
-        out of the pool plane once (``lora_tables`` [S, n_pages]; a row
-        of scratch blocks reads the all-zero null adapter), as the JAX
-        engine's ``_lora_ctx`` gathers [S, n_pages * page_elems], then
-        laid out per module by ``lora_factors``. The plane is one, on
-        shard 0's device; shards slice the factors."""
-        s = lora_tables.shape[0]
-        flat = lora_pool.index_select(0, lora_tables.reshape(-1).long())
-        return self.lora_factors(layout, flat.reshape(s, -1))
-
-    @staticmethod
-    def lora_factors(layout, flat):
-        """(layout, {(layer, module): (A_cat [din, S * r], B_cat [S * r,
-        dout])}, S) from flat [S, capacity] float32: slot s's A in
-        columns s * r .. s * r + r - 1 of A_cat, its B in the same rows
-        of B_cat. Made once a dispatch, so a ministep's deltas are two
-        plain products a module."""
-        s, r = flat.shape[0], layout.rank
-        factors = {}
-        for (li, name), (off_a, off_b) in layout.offsets.items():
-            _, _, din, dout, _ = layout.entry(li, name)
-            a = flat[:, off_a:off_a + din * r].reshape(s, din, r)
-            factors[(li, name)] = (
-                a.permute(1, 0, 2).reshape(din, s * r),
-                flat[:, off_b:off_b + r * dout].reshape(s * r, dout))
-        return layout, factors, s
-
-    def _lora_delta(self, lora, row_seq, x, li: int, name: str,
-                    shard: int = 0):
-        """Each row's adapter delta of module (li, name), [rows, dout] in
-        x's dtype; x [rows, din], row_seq [rows] picks the row's factors.
-        JAX gathers a [rows, din, r] copy of A per row; here every row
-        meets every slot's A in one product ([rows, S * r]), a one-hot of
-        row_seq keeps its own slot's r columns, and one product with the
-        slots' B stacked sums them, so the other slots add exact zeros.
-        float32 throughout. Under tp shard ``shard`` takes its slice, as
-        JAX's: a column module B's out columns, a row module A's in rows
-        (its delta is a partial sum, reduced with the base product)."""
-        layout, factors, s = lora
-        a_cat, b_cat = factors[(li, name)]
-        n = self.n_shards
-        if n > 1:
-            if layout.entry(li, name)[4] == "col":
-                b_cat = cut(b_cat, 1, shard, n)
-            else:
-                a_cat = cut(a_cat, 0, shard, n)
-            a_cat = a_cat.to(x.device, non_blocking=True)
-            b_cat = b_cat.to(x.device, non_blocking=True)
-        x2 = x.reshape(-1, x.shape[-1]).to(torch.float32)
-        cols = torch.arange(s * layout.rank, device=x.device) // layout.rank
-        keep = row_seq.long()[:, None] == cols[None, :]     # [rows, S * r]
-        xa = (x2 @ a_cat) * keep.to(torch.float32)
-        return (xa @ b_cat).to(x.dtype)
-
     def _lora_mlp(self, w, hn, lora, row_seq, li, shard: int = 0):
         """``_mlp`` with the adapters' deltas: wg and wu deltas added to
         the gate and up products before SiLU, the wd delta to the down
@@ -635,40 +756,6 @@ class PagedLlamaDecoder:
         mid = F.silu(g_) * u_
         return _mm(mid, w["wd"]) + self._lora_delta(lora, row_seq, mid, li,
                                                      "wd", shard)
-
-    # -- speculative decoding ---------------------------------------------------
-    def _spec_accept(self, k_pool, v_pool, toks, draft_ids, slots,
-                     seg_start, is_draft, scratch_slot: int):
-        """The verify ministep's acceptance, after its forward. toks [W]:
-        each row's sampled token (a draft row's is the model's token
-        for the position after it); draft_ids [W]: each draft row's
-        proposal; slots [W]; seg_start [W]: the row index of the row's
-        column base (a column's rows are contiguous); is_draft [W].
-        Draft row r is accepted when every draft of its column up to r
-        equals the token sampled at the row before it: a cumulative sum
-        of mismatches. Rejected draft rows wrote their K/V into their
-        own slots during the forward (later drafts attend them); one
-        zero write per layer clears them, every other row aiming at the
-        scratch slot; under tp each shard clears its own heads. Returns
-        (accepted [W] bool, k_pool, v_pool)."""
-        is_draft = is_draft != 0
-        ok = is_draft & (torch.roll(toks, 1) == draft_ids)
-        cb = torch.cumsum((is_draft & ~ok).to(torch.int32), 0)
-        accepted = is_draft & (cb - cb[seg_start.long()] == 0)
-        tgt = slots.masked_fill(~(is_draft & ~accepted), scratch_slot)
-        for kp, vp in zip(k_pool, v_pool):
-            plane = _plane_values(kp[0])
-            _, kvh, bs, hd = plane.shape
-            tgt_s = tgt.to(plane.device, non_blocking=True)
-            dtype = torch.float32 if isinstance(kp[0], tuple) \
-                else plane.dtype
-            zeros = torch.zeros((toks.shape[0], kvh, hd), dtype=dtype,
-                                device=plane.device)
-            index = pool_index(tgt_s, bs, kvh)
-            for li in range(len(kp)):
-                reshape_and_cache(zeros, zeros, kp[li], vp[li], tgt_s,
-                                  index=index)
-        return accepted, k_pool, v_pool
 
     def _rope_tables(self, positions, dtype):
         """(cos, sin) [*positions.shape, 1, head_dim] at positions, in
@@ -732,19 +819,6 @@ class PagedLlamaDecoder:
         return self._head_logits(weights, h), k_pool, v_pool
 
     # -- dense per-phase programs ----------------------------------------------
-    def _final_logits(self, ws, h, last_idx):
-        """Float32 logits of h [b, s, hidden] (per shard) at each row's
-        last_idx (None: the last position)."""
-        hl = []
-        for hs in h:
-            if last_idx is None:
-                hl.append(hs[:, -1])
-            else:
-                b = hs.shape[0]
-                hl.append(hs[torch.arange(b, device=hs.device),
-                             last_idx.to(hs.device).long()])
-        return self._head_logits(ws, hl)
-
     def _prefill_impl(self, weights, k_pool, v_pool, ids, slots,
                       last_idx=None, *, logits: bool = True):
         """A bucketed prefill from position 0. ids [b, s]; slots [b, s]
@@ -855,38 +929,6 @@ class PagedLlamaDecoder:
         h = [w["embed"][o[0].long()] for w, o in zip(weights, ops)]
         h = self._layers(weights, h, attn)
         return self._head_logits(weights, h), k_pool, v_pool
-
-    def _decode_scan_impl(self, weights, k_pool, v_pool, first_ids,
-                          tables_all, ctx_all, slots_all, sample=None):
-        """T decode steps from a host-precomputed schedule (tables_all
-        [T, b, max_pages], ctx_all / slots_all [T, b]); each step's token
-        feeds the next on the device, with no host sync. ``sample`` maps
-        a step's float32 logits [b, vocab] to its int32 tokens (None:
-        greedy argmax). Returns (tokens [b, T] int32, k_pool, v_pool)."""
-        cur = first_ids
-        out = []
-        for t in range(tables_all.shape[0]):
-            logits, k_pool, v_pool = self._decode_logits(
-                weights, k_pool, v_pool, cur, tables_all[t], ctx_all[t],
-                slots_all[t])
-            cur = (logits.argmax(dim=-1).to(torch.int32) if sample is None
-                   else sample(logits))
-            out.append(cur)
-        if not out:
-            return (torch.zeros((first_ids.shape[0], 0), dtype=torch.int32,
-                                device=first_ids.device), k_pool, v_pool)
-        return torch.stack(out, dim=1), k_pool, v_pool
-
-    # -- public API ------------------------------------------------------------
-    def generate(self, input_ids, max_new_tokens: int = 32,
-                 timings: Optional[dict] = None) -> np.ndarray:
-        """Greedy batched generation. input_ids [b, prompt_len]
-        (numpy, list or tensor) of EQUAL-length prompts (mixed lengths
-        are the ServingEngine's job); returns numpy int32 [b, prompt_len
-        + max_new_tokens]. A ``timings`` dict receives prefill_s and
-        decode_s wall times (taken after a device synchronize)."""
-        with torch.inference_mode():
-            return _paged_generate(self, input_ids, max_new_tokens, timings)
 
 
 def _paged_generate(dec, input_ids, max_new_tokens, timings=None):

@@ -194,7 +194,7 @@ from ..models.llama import LlamaForCausalLM
 from ..utils.telemetry import (CompileWatch, MetricsRegistry, Reservoir,
                                SLOMonitor)
 from .lora import AdapterRegistry
-from .paged_decode import PagedLlamaDecoder
+from .paged_decode import PagedLlamaDecoder, _PagedDecoder
 from .programs import ProgramSet
 from .spec_decode import SpecConfig
 
@@ -458,9 +458,53 @@ class _ChunkRows:
         return dropped
 
 
+def decoder_from_model(model, tp: int = 1, devices=None, device=None,
+                       mesh=None, tp_comm: Optional[str] = None, **pool):
+    """The paged decoder that serves ``model``, built by its family's
+    ``from_model``: a ``PagedLlamaDecoder`` for a ``LlamaForCausalLM``, a
+    ``PagedGPTDecoder`` for a ``GPTForCausalLM``. At tp > 1 the shards
+    sit on a tp mesh over ``devices`` (None: the visible cards); else
+    the decoder is built on ``device``, or placed by ``mesh``. ``pool``:
+    ``num_blocks``, ``block_size``, ``weight_dtype``, ``kv_quant``."""
+    from ..models.gpt import GPTForCausalLM
+    from .gpt_decode import PagedGPTDecoder
+    if isinstance(model, GPTForCausalLM):
+        cls = PagedGPTDecoder
+    elif isinstance(model, LlamaForCausalLM):
+        cls = PagedLlamaDecoder
+    else:
+        raise TypeError(f"no paged decoder serves a "
+                        f"{type(model).__name__}")
+    if devices is not None and tp == 1:
+        raise ValueError(
+            "devices= requires tp > 1: a single-chip engine builds "
+            "on the default device (the fleet Router passes "
+            "devices only for tp-sharded replicas)")
+    if tp > 1:
+        devs = (list(devices) if devices is not None
+                else default_devices())
+        if len(devs) < tp:
+            raise ValueError(f"tp={tp} needs {tp} devices, found "
+                             f"{len(devs)}")
+        if device is not None and any(
+                torch.device(d).type != torch.device(device).type
+                for d in devs[:tp]):
+            raise ValueError(
+                f"device={device!r} contradicts devices="
+                f"{devs[:tp]!r}; at tp > 1 devices= places the "
+                f"shards")
+        mesh = ProcessMesh(list(range(tp)), ["tp"], devices=devs[:tp])
+    return cls.from_model(
+        model, device=device if mesh is None else None, mesh=mesh,
+        mp_axis="tp" if tp > 1 else "mp", tp_shard_map=tp > 1,
+        tp_comm=tp_comm or "fp32", **pool)
+
+
 class ServingEngine:
     """Continuous-batching serving of a ``LlamaForCausalLM`` or a prebuilt
-    ``PagedLlamaDecoder``.
+    ``PagedLlamaDecoder`` or ``PagedGPTDecoder`` (a ``GPTForCausalLM`` is
+    served through ``PagedGPTDecoder.from_model``, as JAX serves GPT
+    through its prebuilt decoder).
 
     Usage:
         eng = ServingEngine(model, weight_dtype="int4", max_batch_size=8)
@@ -534,9 +578,10 @@ class ServingEngine:
         if kv_quant not in (None, "int8"):
             raise ValueError(f"kv_quant must be None or 'int8', got "
                              f"{kv_quant!r}")
-        if isinstance(model, PagedLlamaDecoder):
-            # a prebuilt decoder keeps its pool, weights and device; the
-            # pool arguments here are ignored, as in JAX
+        if isinstance(model, _PagedDecoder):
+            # a prebuilt decoder (PagedLlamaDecoder or PagedGPTDecoder)
+            # keeps its pool, weights and device; the pool arguments here
+            # are ignored, as in JAX
             if kv_quant is not None and model.kv_quant != kv_quant:
                 raise ValueError(
                     f"ServingEngine(kv_quant={kv_quant!r}) got a prebuilt "
@@ -568,35 +613,15 @@ class ServingEngine:
                     f"instead")
             dec = model
         elif isinstance(model, LlamaForCausalLM):
-            if devices is not None and tp == 1:
-                raise ValueError(
-                    "devices= requires tp > 1: a single-chip engine builds "
-                    "on the default device (the fleet Router passes "
-                    "devices only for tp-sharded replicas)")
-            if tp > 1:
-                devs = (list(devices) if devices is not None
-                        else default_devices())
-                if len(devs) < tp:
-                    raise ValueError(f"tp={tp} needs {tp} devices, found "
-                                     f"{len(devs)}")
-                if device is not None and any(
-                        torch.device(d).type != torch.device(device).type
-                        for d in devs[:tp]):
-                    raise ValueError(
-                        f"device={device!r} contradicts devices="
-                        f"{devs[:tp]!r}; at tp > 1 devices= places the "
-                        f"shards")
-                mesh = ProcessMesh(list(range(tp)), ["tp"],
-                                   devices=devs[:tp])
-            dec = PagedLlamaDecoder.from_model(
-                model, num_blocks=num_blocks, block_size=block_size,
-                weight_dtype=weight_dtype, kv_quant=kv_quant,
-                device=device if mesh is None else None, mesh=mesh,
-                mp_axis="tp" if tp > 1 else "mp", tp_shard_map=tp > 1,
-                tp_comm=tp_comm or "fp32")
+            dec = decoder_from_model(
+                model, tp=tp, devices=devices, device=device, mesh=mesh,
+                tp_comm=tp_comm, num_blocks=num_blocks,
+                block_size=block_size, weight_dtype=weight_dtype,
+                kv_quant=kv_quant)
         else:
             raise TypeError(f"ServingEngine needs a LlamaForCausalLM or a "
-                            f"PagedLlamaDecoder, got {type(model).__name__}")
+                            f"prebuilt PagedLlamaDecoder / PagedGPTDecoder, "
+                            f"got {type(model).__name__}")
         if admission not in ("worst_case", "optimistic"):
             raise ValueError(
                 f"admission must be 'worst_case' or 'optimistic', got "

@@ -4,9 +4,9 @@ Counterpart: ``paddle_tpu/inference/spec_decode.py`` (the port keeps its
 own copy). A drafter proposes up to ``k`` continuation tokens per greedy
 decode column; the engine verifies them as extra rows of one ragged
 ministep (``ServingEngine._dispatch_spec_chunk``), accepts the longest
-prefix that matches the model's own argmax
-(``PagedLlamaDecoder._spec_accept``) and rolls the allocator back past
-the rest (``PagedKVCache.rollback``). Greedy streams are the same with
+prefix that matches the model's own argmax (``_spec_accept``, shared by
+the Llama and GPT decoders) and rolls the allocator back past the rest
+(``PagedKVCache.rollback``). Greedy streams are the same with
 speculation on or off.
 
 A drafter must be deterministic in its inputs and cheap next to a model

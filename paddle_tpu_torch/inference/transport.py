@@ -63,6 +63,7 @@ __all__ = [
     "TransportError", "RPCTimeout", "WorkerDied", "RemoteEngineError",
     "ReplicaTransport", "InProcTransport", "ProcTransport", "WorkerSpec",
     "RequestView", "StepResult", "collect_deliveries", "model_state",
+    "engine_from_model",
 ]
 
 
@@ -316,11 +317,29 @@ class InProcTransport(ReplicaTransport):
 
 # -- process transport --------------------------------------------------------
 
+def engine_from_model(model, tp: int = 1, devices=None, **kw):
+    """A replica's engine from a model: ``ServingEngine(model, ...)`` for
+    a ``LlamaForCausalLM``; a ``GPTForCausalLM`` is served through the
+    decoder ``decoder_from_model`` builds (the pool arguments
+    ``num_blocks``, ``block_size``, ``weight_dtype``, ``kv_quant``, and
+    ``device`` and ``tp_comm``, go to it), as the engine serves that
+    family only through a prebuilt decoder."""
+    from ..models.gpt import GPTForCausalLM
+    from .serving import ServingEngine, decoder_from_model
+    if not isinstance(model, GPTForCausalLM):
+        return ServingEngine(model, tp=tp, devices=devices, **kw)
+    dec_kw = {k: kw.pop(k) for k in ("num_blocks", "block_size",
+                                     "weight_dtype", "kv_quant", "device",
+                                     "tp_comm") if k in kw}
+    return ServingEngine(decoder_from_model(model, tp=tp, devices=devices,
+                                            **dec_kw), tp=tp, **kw)
+
+
 def model_state(model) -> Dict[str, tuple]:
-    """A ``LlamaForCausalLM``'s parameters as CPU numpy arrays, fit to
-    cross a pipe: ``{name: (array, dtype name)}``, a bfloat16 tensor as
-    its 16-bit integer view (numpy has no bfloat16), so the weights
-    travel bit for bit."""
+    """A ``LlamaForCausalLM``'s or ``GPTForCausalLM``'s parameters as
+    CPU numpy arrays, fit to cross a pipe: ``{name: (array, dtype
+    name)}``, a bfloat16 tensor as its 16-bit integer view (numpy has
+    no bfloat16), so the weights travel bit for bit."""
     import torch
     out = {}
     for name, p in model.named_parameters():
@@ -352,9 +371,10 @@ def _load_model_state(model, state: Dict[str, tuple]):
 class WorkerSpec:
     """Everything a spawned worker needs to build its engine; picklable.
     The default path carries the model as its config and ``model_state``
-    (CPU numpy arrays, never CUDA tensors) and the worker builds a
-    ``LlamaForCausalLM`` on the engine's device (``engine_kwargs
-    ["device"]``; None: cuda) before ``ServingEngine(model, ...)``; the
+    (CPU numpy arrays, never CUDA tensors) and the worker builds the
+    config's model (``LlamaForCausalLM`` or ``GPTForCausalLM``) on the
+    engine's device (``engine_kwargs["device"]``; None: cuda) before
+    ``engine_from_model``; the
     factory path carries a module-level callable ``f(replica_idx,
     devices)`` returning the engine. At tp > 1 the worker computes its
     own row of ``SpecLayout.fleet_device_slices(dp, tp, devices)``
@@ -380,15 +400,17 @@ def _build_worker_engine(spec: WorkerSpec, replica_id: int):
             spec.dp, spec.tp, spec.devices)[replica_id]
     if spec.factory is not None:
         return spec.factory(replica_id, devices)
+    from ..models.gpt import GPTConfig, GPTForCausalLM
     from ..models.llama import LlamaForCausalLM
-    from .serving import ServingEngine
     kw = dict(spec.engine_kwargs)
-    model = LlamaForCausalLM(spec.config, device=kw.get("device"))
+    cls = GPTForCausalLM if isinstance(spec.config, GPTConfig) \
+        else LlamaForCausalLM
+    model = cls(spec.config, device=kw.get("device"))
     _load_model_state(model, spec.state)
     if spec.slo_policies:
         from ..utils.telemetry import SLOMonitor
         kw["slo"] = SLOMonitor(list(spec.slo_policies))
-    return ServingEngine(model, tp=spec.tp, devices=devices, **kw)
+    return engine_from_model(model, tp=spec.tp, devices=devices, **kw)
 
 
 def _cuda_spec(spec: WorkerSpec) -> bool:

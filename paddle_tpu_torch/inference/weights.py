@@ -1,10 +1,15 @@
 """Carry a JAX decoder's weights into the port.
 
-``weights_from_numpy`` takes the ``weights`` tree of the JAX
-``PagedLlamaDecoder`` after the caller turned every leaf into numpy —
-``embed`` / ``norm`` / per-layer ``ln1``, ``ln2`` arrays, matmul weights
-as arrays or ``(q, scale)`` tuples, ``wqkv`` / ``wgu`` fused or not —
-and returns the port's tensors on ``device`` (``None`` means cuda).
+``weights_from_numpy`` takes the ``weights`` tree of a JAX paged
+decoder after the caller turned every leaf into numpy and returns the
+port's tensors on ``device`` (``None`` means cuda). Matmul weights
+(``MATMUL_KEYS`` and ``head``) are arrays or ``(q, scale)`` tuples;
+every other leaf is an array carried as it is: the Llama tree's
+``embed`` / ``norm`` / per-layer ``ln1``, ``ln2`` (``wqkv`` / ``wgu``
+fused or not), and the GPT tree's ``embed``, ``pos``, ``lnf_w`` /
+``lnf_b``, per-layer ``ln1_*`` / ``ln2_*`` and the biases ``bqkv`` (or
+``bq`` / ``bk`` / ``bv``), ``bo``, ``bi``, ``bf``, which stay at full
+precision.
 A tuple cannot say how its int4 values are packed, so the caller states
 ``weight_dtype`` and ``int4_layout``: a single-device JAX decoder packs
 int4 as halves (the default), a tensor-parallel one (``mesh=``) packs
@@ -24,9 +29,13 @@ from ..device import resolve_device
 from ..numpy_bridge import tensor_from_numpy
 from ..ops.qweight import QWeight, halves_from_interleaved
 
-__all__ = ["weights_from_numpy", "tensor_from_numpy"]
+__all__ = ["weights_from_numpy", "tensor_from_numpy", "MATMUL_KEYS"]
 
 _KIND_OF = {"int8": "int8", "int4": "int4_halves"}
+
+# per-layer matmul weights of both families ([in, out], quantizable)
+MATMUL_KEYS = frozenset({"wq", "wk", "wv", "wqkv", "wo", "wg", "wu", "wgu",
+                         "wd", "wi", "wf"})
 
 
 def weights_from_numpy(tree, *, weight_dtype: Optional[str],
@@ -57,10 +66,10 @@ def weights_from_numpy(tree, *, weight_dtype: Optional[str],
 
     layers = []
     for lw in tree["layers"]:
-        layers.append({k: (tensor_from_numpy(v, dev)
-                           if k in ("ln1", "ln2") else mat(v))
+        layers.append({k: (mat(v) if k in MATMUL_KEYS
+                           else tensor_from_numpy(v, dev))
                        for k, v in lw.items()})
-    return {"embed": tensor_from_numpy(tree["embed"], dev),
-            "layers": layers,
-            "norm": tensor_from_numpy(tree["norm"], dev),
-            "head": mat(tree["head"])}
+    out = {k: (mat(v) if k == "head" else tensor_from_numpy(v, dev))
+           for k, v in tree.items() if k != "layers"}
+    out["layers"] = layers
+    return out

@@ -1,5 +1,9 @@
+from .gpt import (GPTConfig, GPTForCausalLM, GPTModel,  # noqa: F401
+                  ernie_45_dense_3b, gpt_345m, gpt_tiny)
 from .llama import (LlamaConfig, LlamaForCausalLM, LlamaModel,  # noqa: F401
                     llama_1b, llama_3_8b, llama_mid, llama_small, llama_tiny)
 
 __all__ = ["LlamaConfig", "LlamaForCausalLM", "LlamaModel", "llama_tiny",
-           "llama_small", "llama_mid", "llama_1b", "llama_3_8b"]
+           "llama_small", "llama_mid", "llama_1b", "llama_3_8b",
+           "GPTConfig", "GPTForCausalLM", "GPTModel", "gpt_tiny",
+           "gpt_345m", "ernie_45_dense_3b"]

@@ -173,7 +173,10 @@ def flash_attention(q, k, v, attn_mask=None, causal=False, dropout=0.0,
         return _sdpa_core(q, k, v, attn_mask, causal, scale, dropout,
                           generator)
     if _kernel_route(q, "flash_attention"):
-        return _cuda.FlashAttention.apply(q, k, v, None, None, causal,
+        # the kernels take contiguous operands (a fused projection's
+        # q / k / v are strided views)
+        return _cuda.FlashAttention.apply(q.contiguous(), k.contiguous(),
+                                          v.contiguous(), None, None, causal,
                                           scale)
     return flash_attention_plain(q, k, v, causal, scale)[0]
 

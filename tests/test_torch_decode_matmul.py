@@ -115,9 +115,11 @@ def test_layout_tag_is_checked():
         tpd._mm(x, untagged)
     with pytest.raises(ValueError, match="kind"):
         dmm.decode_matmul(x, untagged)
-    interleaved = QWeight(w4.q, w4.scale, "int4_interleaved")
+    # an unknown kind is refused, also the name of JAX's even/odd int4
+    # packing, which the port repacks as halves at load and never holds
+    unknown_kind = QWeight(w4.q, w4.scale, "int4_interleaved")
     with pytest.raises(ValueError, match="kind"):
-        dmm.decode_matmul_reference(x, interleaved)
+        dmm.decode_matmul_reference(x, unknown_kind)
     # halves-packed bytes tagged as int8: the in-dim no longer matches
     mislabeled = QWeight(w4.q, w4.scale, "int8")
     with pytest.raises(ValueError, match="in-dim"):

@@ -12,8 +12,8 @@ and the pool invariant holds after every step (``PADDLE_TPU_POOL_DEBUG=1``
 makes the engine check it itself). The tight-pool int8 preemption case
 is held against JAX's engine on the same int8 pools: the JAX test of
 that case (tests/test_kv_quant.py, int8 against a float32 pool) is red
-in the reference. The GPT twin's preemption case waits for ROADMAP
-queue 1 item 6.
+in the reference. The GPT twin's preemption case is
+``tests/test_torch_gpt_serving.py::test_preemption_recompute_equal_jax``.
 """
 import numpy as np
 import pytest

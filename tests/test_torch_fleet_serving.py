@@ -19,8 +19,11 @@ continuous request span across replica pids with fleet events on
 ``FLEET_PID``, ``tp=2`` replicas placed on the rows of the device grid
 and ``devices`` with tp 1 raising as JAX's engine does; decoders over one weight tree (fused
 or not) sharing its tensors with pools of their own, and a Router over
-such replicas serving one engine's streams through a failover. One torch
-thread. The GPT twin's fleet case waits for ROADMAP queue 1 item 6.
+such replicas serving one engine's streams through a failover. The GPT
+twin's failover (``test_fleet_serving.py::test_gpt_twin_failover``):
+replicas built by an ``engine_factory`` over ``PagedGPTDecoder``, a
+wedge mid-decode, the streams and fleet view equal JAX's. One torch
+thread.
 """
 import time
 import types
@@ -575,3 +578,63 @@ def test_replicas_share_one_weight_tree(sides):
     router.run_to_completion()
     assert [router.result(f).tolist() for f in fids] == want
     assert router.stats()["fleet"]["migrated_requests"] >= 1
+
+
+def _gpt_failover(s):
+    """test_fleet_serving.py::test_gpt_twin_failover: replicas from a
+    factory over ``PagedGPTDecoder``; the replica serving the first
+    request is wedged after three steps and its requests finish on the
+    other, equal to one engine's streams."""
+    ekw = {k: v for k, v in s.kw.items()
+           if k not in ("num_blocks", "block_size")}
+
+    def factory(idx, devs):
+        return s.Engine(s.make_dec(), max_dispatch_retries=1,
+                        retry_backoff_s=0.0, **ekw)
+
+    prompts = _prompts(3)
+    single = factory(0, None)
+    oracle = []
+    for p in prompts:
+        rid = single.add_request(p, s.SP(max_new_tokens=10))
+        single.run_to_completion()
+        oracle.append(single.result(rid).tolist())
+    router = s.Router(None, dp=2, breaker_threshold=1,
+                      engine_factory=factory)
+    fids = [router.add_request(p, s.SP(max_new_tokens=10)) for p in prompts]
+    for _ in range(3):
+        router.step()
+    _wedge(s, router, router._record(fids[0]).replica)
+    router.run_to_completion()
+    v = _view(router, fids)
+    assert v["fleet"]["failovers"] >= 1
+    assert v["tokens"] == oracle
+    assert all(router.request(f).state == "done" for f in fids)
+    return v
+
+
+def test_gpt_twin_failover_matches_jax(sides):
+    from paddle_tpu.inference.gpt_decode import \
+        PagedGPTDecoder as JaxGPTDecoder
+    from paddle_tpu.models.gpt import GPTConfig as JaxGPTConfig
+    from paddle_tpu.models.gpt import GPTForCausalLM as JaxGPT
+    from paddle_tpu_torch.inference import PagedGPTDecoder
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+    jax_side, port = sides
+    geom = dict(vocab_size=256, hidden_size=64, num_hidden_layers=2,
+                num_attention_heads=4, max_position_embeddings=128)
+    paddle.seed(0)
+    jm = JaxGPT(JaxGPTConfig(**geom))
+    jm.eval()
+    tm = GPTForCausalLM(GPTConfig(**geom), device="cpu")
+    tm.load_numpy_state({n: np.asarray(p._value)
+                         for n, p in jm.named_parameters()})
+    jax_gpt = types.SimpleNamespace(
+        **vars(jax_side),
+        make_dec=lambda: JaxGPTDecoder(jm, num_blocks=24, block_size=8))
+    port_gpt = types.SimpleNamespace(
+        **vars(port),
+        make_dec=lambda: PagedGPTDecoder.from_model(
+            tm, num_blocks=24, block_size=8, device="cpu"))
+    port_gpt.kw = {k: v for k, v in port.kw.items() if k != "device"}
+    assert _gpt_failover(port_gpt) == _gpt_failover(jax_gpt)

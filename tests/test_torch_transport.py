@@ -18,6 +18,13 @@ build's lock across processes.
   fleet: each time the Router sees the pipe close, drains the replica
   from its journal, migrates token-identically and respawns the worker
   onto probation, which clean steps then promote.
+- the GPT twin (JAX ``test_transport_fleet.py::test_gpt_twin_process_
+  fleet_identity``): a process fleet of replicas built in the workers by
+  a module-level ``engine_factory`` over ``PagedGPTDecoder``
+  (``tests/_torch_gpt_worker.py``) gives one engine's streams; and a
+  ``GPTForCausalLM`` given to the Router crosses the pipe as its config
+  and ``model_state``, its workers' streams equal to the in-process
+  fleet's.
 The in-process streams are held against JAX's Router in
 ``test_torch_fleet_serving.py``. A spawned worker runs on the parent's
 torch thread count (one here).
@@ -41,6 +48,7 @@ from paddle_tpu_torch.utils.telemetry import Tracer  # noqa: E402
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 import _torch_build_lock_worker  # noqa: E402
+import _torch_gpt_worker  # noqa: E402
 
 GEOM = dict(hidden_size=64, num_attention_heads=4, num_key_value_heads=2,
             intermediate_size=96, num_hidden_layers=2, vocab_size=256,
@@ -242,3 +250,33 @@ def test_sigkill_migrates_then_respawns(model):
         _drain(router)
         assert router.request(f3).state == "done"
         assert victim.state == "healthy"
+
+
+def test_gpt_process_fleet_identity():
+    """A factory-built GPT process fleet gives one in-process engine's
+    streams; a GPT model given to the Router itself travels as its
+    config and parameters and gives the in-process fleet's streams."""
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+    prompts = _prompts(2, seed=4)
+    single = _torch_gpt_worker.gpt_engine(0, None)
+    oracle = []
+    for p in prompts:
+        rid = single.add_request(p, SamplingParams(max_new_tokens=8))
+        single.run_to_completion()
+        oracle.append(single.result(rid).tolist())
+    with Router(None, dp=2, engine_factory=_torch_gpt_worker.gpt_engine,
+                **PROC) as router:
+        fids = [router.add_request(p, SamplingParams(max_new_tokens=8))
+                for p in prompts]
+        _drain(router, budget_s=180.0)
+        assert [router.result(f).tolist() for f in fids] == oracle
+    gm = GPTForCausalLM(GPTConfig(**_torch_gpt_worker.GPT_GEOM), seed=0,
+                        device="cpu")
+    want = _inproc(gm, prompts, 8)
+    assert want == oracle
+    with Router(gm, dp=2, **PROC, **KW) as router:
+        assert router.replicas[0].transport.spec.config == gm.cfg
+        fids = [router.add_request(p, SamplingParams(max_new_tokens=8))
+                for p in prompts]
+        _drain(router, budget_s=180.0)
+        assert [router.result(f).tolist() for f in fids] == want
