@@ -21,8 +21,9 @@ failure ends the run with a non-zero exit code and no result:
                  decode at 64 / 128) must hold HMMA and UTMALDG, the two
                  int8 ones UBLKCP (their scale rows). Prints ptxas's
                  registers and spills of every flash, GEMV and
-                 paged-attention instantiation and the paged kernels'
-                 dynamic shared memory.
+                 paged-attention instantiation (the CUDA-core flash
+                 kernels at head_dim 72, float32 and bf16, must be
+                 there) and the paged kernels' dynamic shared memory.
 3. kernels       each kernel against its plain PyTorch version on the card
                  at the shapes its main path gives it (Llama-3-8B serving:
                  ragged attention on the smoke batch with a bf16 and an
@@ -41,7 +42,10 @@ failure ends the run with a non-zero exit code and no result:
                  the int4/int8 cases slower than torch.matmul listed;
                  flash forward
                  at the dense prefill's b x s of 1 x 256, 4 x 128, 4 x 256
-                 and 1 x 512; llama_mid training attention, plus a 4096
+                 and 1 x 512; DiT-XL/2's attention (not causal, b 32 x
+                 s 256, 16 / 16 heads of 72) in bf16 within 1e-2 and
+                 float32 within 1e-4 (the CUDA-core kernels);
+                 llama_mid training attention, plus a 4096
                  sequence, packed documents and a causal sq < sk case with
                  ragged edges; the ring blocks flash_attention_with_lse and
                  flash_attention_bwd_block at train-mid8k's shard shapes,
@@ -413,7 +417,32 @@ failure ends the run with a non-zero exit code and no result:
                  timed TrainSteps, exactly 24 of each flash kernel a
                  step, every loss finite and the last below the first;
                  step ms, tokens/s, MFU, peak memory, device time.
-35. capture-failure  a program with a host sync inside: its first
+35. tiny-dit-parity  DiT at head_dim 72 (hidden 144, 2 heads, depth 2)
+                 and 64 (hidden 128, 2 heads), every parameter drawn
+                 from a seed (normal x 0.02, so adaLN-Zero does not make
+                 the output 0), the same weights on the card and the
+                 CPU, float32 and bf16: outputs within 1e-3 / 1e-2 of the
+                 largest |out|, three TrainSteps of AdamW(1e-3) (label
+                 dropout off) with losses within 1e-3 / 1e-2 relative
+                 (a bf16 loss is itself rounded to 8 bits); each card
+                 run launches exactly depth forward, dq and dk/dv flash
+                 kernels a step and depth forwards an eval forward.
+36. train-dit-xl2  THE DiT PATH, bench.py's dit row: DiT(dit_xl_2(
+                 dtype="bfloat16", learn_sigma=False)), all 28 layers
+                 (675 M parameters), b 32 on [32, 4, 32, 32] latents
+                 with timesteps and labels from RandomState(0) as
+                 bench.py draws them, label dropout 0.1 from a seeded
+                 generator, AdamW(1e-4), F.mse_loss to the noise: 2 warm
+                 and 8 timed TrainSteps. The flash counters, set to 0
+                 just before and read just after, must read exactly 28
+                 forward, 28 dq and 28 dk/dv launches a step (d 72, the
+                 CUDA-core kernels), no serving kernel; every loss
+                 finite and the last below the first. Step ms, imgs/s,
+                 MFU by bench.py's formula (6 N T + 12 depth hidden T^2
+                 a picture over 989 TFLOP/s), peak memory, device ms by
+                 family (flash, GEMM, conv, other) and the idle share,
+                 beside the card's name and power limit.
+37. capture-failure  a program with a host sync inside: its first
                  dispatch raises, no graph is kept and it is not run
                  eagerly in its place (last, as a failed capture may
                  leave the allocator's pool unusable).
@@ -487,6 +516,13 @@ FLASH_CASES = [
     # train-gpt-345m's attention: multi-head (one query head per kv
     # head), b 8 x s 1024, 16 heads of 64
     dict(name="gpt_345m", b=8, sq=1024, sk=1024, h=16, hk=16, d=64),
+    # train-dit-xl2's attention: not causal, b 32 x s 256 (16 x 16
+    # patches), 16 heads of 72 (DiT-XL/2's 1152 / 16): the CUDA-core
+    # kernels, bf16 and float32
+    dict(name="dit_xl2", b=32, sq=256, sk=256, h=16, hk=16, d=72,
+         causal=False, tol=1e-2),
+    dict(name="f32_dit_xl2", b=32, sq=256, sk=256, h=16, hk=16, d=72,
+         causal=False, tol=1e-4, dtype="float32"),
 ]
 
 
@@ -595,48 +631,61 @@ class _Timer:
         return sum(s.elapsed_time(e) for s, e in pairs) / iters
 
 
+def _kernel_events(torch, fn):
+    """{kernel name: [launches, device us]} of what fn ran on the card
+    (torch.profiler, device activity only). Read off the raw Kineto
+    events: key_averages() first builds a Python object for every event,
+    which took most of a serving phase's profile time."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    out = {}
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() == cuda:
+            n = out.setdefault(ev.name(), [0, 0.0])
+            n[0] += 1
+            n[1] += ev.duration_ns() / 1e3
+    return out
+
+
+def _family(name):
+    """The kernel family of a kernel name, as _device_breakdown sums."""
+    low = name.lower()
+    if re.search(r"tc::tc_kernel|cc::cc_kernel|splitk_reduce_kernel", name):
+        return "decode_matmul"
+    if re.search(r"ragged_attention_(cc_)?kernel", name):
+        return "ragged_paged_attention"
+    if re.search(r"paged_decode_(cc_)?kernel", name):
+        return "paged_attention_decode"
+    if re.search(r"flash_fwd_kernel|flash_wg::.*fwd_kernel", name):
+        return "flash_fwd"
+    if re.search(r"flash_bwd_|flash_wg::.*(d(q|kv)_kernel|dkv_piece_sum)",
+                 name):
+        return "flash_bwd"
+    if re.search(r"conv|fprop|dgrad|wgrad", low):
+        return "conv"
+    if any(s in low for s in ("gemm", "gemv", "nvjet", "cutlass")):
+        return "library_gemm"
+    if "sort" in low:
+        return "sort"
+    return "other"
+
+
 def _device_breakdown(torch, fn, wall_ms):
     """Device time of fn by kernel family (torch.profiler), and the idle
     share of ``wall_ms``, the wall time of the same work measured
     without the profiler (which slows the host several fold). Reports
     what the profiler saw; an empty trace leaves the families empty
     rather than failing."""
-    from torch.profiler import ProfilerActivity, profile
     t0 = time.perf_counter()
-    torch.cuda.synchronize()
-    # device activity only: the host ops' events add nothing read here
-    # and made the trace's processing most of a serving phase's time
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
     fams, other, kernels = {}, {}, 0
-    for ev in prof.key_averages():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        us = getattr(ev, "self_device_time_total", None)
-        if us is None:
-            us = getattr(ev, "self_cuda_time_total", 0.0)
-        name = ev.key
-        kernels += ev.count
-        if re.search(r"tc::tc_kernel|cc::cc_kernel|splitk_reduce_kernel",
-                     name):
-            fam = "decode_matmul"
-        elif re.search(r"ragged_attention_(cc_)?kernel", name):
-            fam = "ragged_paged_attention"
-        elif re.search(r"paged_decode_(cc_)?kernel", name):
-            fam = "paged_attention_decode"
-        elif re.search(r"flash_fwd_kernel|flash_wg::.*fwd_kernel", name):
-            fam = "flash_fwd"
-        elif re.search(r"flash_bwd_|flash_wg::.*(d(q|kv)_kernel|"
-                       r"dkv_piece_sum)", name):
-            fam = "flash_bwd"
-        elif any(s in name.lower()
-                 for s in ("gemm", "gemv", "nvjet", "cutlass")):
-            fam = "library_gemm"
-        elif "sort" in name.lower():
-            fam = "sort"
-        else:
-            fam = "other"
+    for name, (count, us) in _kernel_events(torch, fn).items():
+        kernels += count
+        fam = _family(name)
+        if fam == "other":
             other[name[:60]] = other.get(name[:60], 0.0) + us / 1e3
         fams[fam] = fams.get(fam, 0.0) + us / 1e3
     busy = sum(fams.values())
@@ -664,21 +713,14 @@ _ROUTES = (("ragged_paged_attention cuda-core", r"ragged_attention_cc_kernel"),
 def _routes(torch, fn):
     """Launches of each kernel route of the port in fn, read off the
     kernel names torch.profiler records."""
-    from torch.profiler import ProfilerActivity, profile
     t0 = time.perf_counter()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    _PROFILE_S[0] += time.perf_counter() - t0
     out = {}
-    for ev in prof.key_averages():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
+    for name, (count, _us) in _kernel_events(torch, fn).items():
         for route, pat in _ROUTES:
-            if re.search(pat, ev.key):
-                out[route] = out.get(route, 0) + ev.count
+            if re.search(pat, name):
+                out[route] = out.get(route, 0) + count
                 break
+    _PROFILE_S[0] += time.perf_counter() - t0
     return out
 
 
@@ -826,11 +868,12 @@ def _paged_sass(sass):
 
 
 def _flash_inputs(torch, gen, b, sq, sk, h, hk, d, docs=0,
-                  dtype="bfloat16"):
+                  dtype="bfloat16", causal=True):
     """q, k, v, dout of dtype and, with docs, int32 segment ids: `docs`
     documents of random lengths and a padded tail of sq // 16 tokens (q
     ids -1, kv ids -2, so the tail sees nothing). Also the visible
-    (query, key) pairs per head under the causal mask, from these ids."""
+    (query, key) pairs per head under the mask (causal or not), from
+    these ids."""
     dev = "cuda"
 
     def rnd(*shape):
@@ -842,6 +885,8 @@ def _flash_inputs(torch, gen, b, sq, sk, h, hk, d, docs=0,
     qs = ks = None
     vis = (torch.arange(sq, device=dev)[:, None] + (sk - sq)
            >= torch.arange(sk, device=dev)[None, :])[None]
+    if not causal:
+        vis = torch.ones_like(vis)
     if docs:
         tail = sq // 16
         cuts = torch.randperm(sq - tail - 1, generator=gen,
@@ -1491,10 +1536,12 @@ def main():
     from paddle_tpu_torch.inference.programs import ProgramSet
     from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.inference import PagedGPTDecoder
-    from paddle_tpu_torch.models import (GPTForCausalLM, LlamaForCausalLM,
-                                         ernie_45_dense_3b, gpt_345m,
-                                         gpt_tiny, llama_1b, llama_3_8b,
-                                         llama_mid, llama_tiny)
+    from paddle_tpu_torch.models import (DiT, GPTForCausalLM,
+                                         LlamaForCausalLM, dit_tiny,
+                                         dit_xl_2, ernie_45_dense_3b,
+                                         gpt_345m, gpt_tiny, llama_1b,
+                                         llama_3_8b, llama_mid, llama_tiny)
+    from paddle_tpu_torch.nn import functional as F
     from paddle_tpu_torch.models.generation import _setup_decode
     from paddle_tpu_torch.ops import flash_attention as pfa
     from paddle_tpu_torch.ops import paged_attention as pa
@@ -1532,6 +1579,13 @@ def main():
         for src in ("flash_attention.cu", "flash_attention_wg.cu"):
             ptxas[src] = _flash_ptxas(
                 _build.build_info.get("ptxas", {}).get(src, ""))
+        # DiT-XL/2's head_dim: the CUDA-core kernels, float32 and bf16
+        d72 = [f"flash_{k}_kernel<{dt},72>" for k in ("fwd", "bwd_dq",
+                                                       "bwd_dkv")
+               for dt in ("f32", "bf16")]
+        _require(all(n in ptxas["flash_attention.cu"] for n in d72),
+                 f"ptxas reports no head_dim 72 flash kernels: "
+                 f"{sorted(ptxas['flash_attention.cu'])}")
         ptxas["decode_matmul.cu"] = _gemv_ptxas(
             _build.build_info.get("ptxas", {}).get("decode_matmul.cu", ""))
         smem = {f"{kern}<{dn},{d}>": cfa.smem_bytes(kern, d, dt)
@@ -1645,6 +1699,8 @@ def main():
                 heads["f32_flash"] = c
             if spec["name"] == "gpt_345m":
                 heads["gpt_flash"] = c
+            if spec["name"] in ("dit_xl2", "f32_dit_xl2"):
+                heads[spec["name"]] = c
             torch.cuda.empty_cache()
         for spec in RING_CASES:
             c = _ring_case(torch, gen, timer, **spec)
@@ -1664,16 +1720,20 @@ def main():
         return {"cases": cases, "gemv_slower_than_library": slow,
                 "ring_dq_dkv_over_sdpa_bwd": ring}
 
-    def flash_case(name, b, sq, sk, h, hk, d, docs=0, dtype="bfloat16"):
+    def flash_case(name, b, sq, sk, h, hk, d, docs=0, dtype="bfloat16",
+                   causal=True, tol=2e-2):
         """The three flash kernels against flash_attention_plain (float32
-        leaves, autograd for the grads) on one causal case."""
+        leaves, autograd for the grads) on one case: out and lse within
+        tol (absolute and relative), each grad's relative max error
+        below tol."""
         q, k, v, dout, qs, ks, pairs = _flash_inputs(
-            torch, gen, b, sq, sk, h, hk, d, docs, dtype)
+            torch, gen, b, sq, sk, h, hk, d, docs, dtype, causal)
         sc = d ** -0.5
-        fwd = lambda: cfa.flash_fwd_cuda(q, k, v, True, sc, qs, ks)  # noqa
+        fwd = lambda: cfa.flash_fwd_cuda(q, k, v, causal, sc, qs,  # noqa
+                                         ks)
         out, lse = fwd()
         delta = cfa.flash_bwd_delta(out, dout)
-        bwd_args = (q, k, v, dout, lse, delta, True, sc, qs, ks)
+        bwd_args = (q, k, v, dout, lse, delta, causal, sc, qs, ks)
         runs = [(cfa.flash_bwd_dq_cuda(*bwd_args),)
                 + cfa.flash_bwd_dkv_cuda(*bwd_args) for _ in range(2)]
         (dq, dk, dv), again = runs
@@ -1681,13 +1741,14 @@ def main():
         _require(all(torch.equal(a, b_) for a, b_ in zip(runs[0], again)),
                  f"flash {name}: two backward runs differ")
         leaves = [t.float().requires_grad_() for t in (q, k, v)]
-        r_out, r_lse = pfa.flash_attention_plain(*leaves, True, sc, qs, ks)
+        r_out, r_lse = pfa.flash_attention_plain(*leaves, causal, sc, qs,
+                                                 ks)
         (r_out * dout.float()).sum().backward()
         r_out, r_lse = r_out.detach(), r_lse.detach()
         for got, ref, what in ((out.float(), r_out, "out"),
                                (lse, r_lse, "lse")):
             err = float((got - ref).abs().max())
-            _require(torch.allclose(got, ref, atol=2e-2, rtol=2e-2),
+            _require(torch.allclose(got, ref, atol=tol, rtol=tol),
                      f"flash {name}: {what} differs from the plain "
                      f"version by {err}")
         rel = {}
@@ -1696,8 +1757,8 @@ def main():
             ref = leaf.grad
             rel[what] = float((got.float() - ref).abs().max()
                               / ref.abs().max().clamp(min=1e-9))
-            _require(rel[what] < 2e-2, f"flash {name}: {what} relative max "
-                                       f"error {rel[what]}")
+            _require(rel[what] < tol, f"flash {name}: {what} relative max "
+                                      f"error {rel[what]}")
         _require(not any(bool(torch.isnan(t).any())
                           for t in (out, lse, dq, dk, dv)),
                  f"flash {name}: NaN in an output")
@@ -1721,8 +1782,8 @@ def main():
         pl = [t.detach().requires_grad_() for t in (q, k, v)]
         with torch.no_grad():
             plain_fwd = timer(lambda: pfa.flash_attention_plain(
-                q, k, v, True, sc, qs, ks), iters=3)
-        p_out = pfa.flash_attention_plain(*pl, True, sc, qs, ks)[0]
+                q, k, v, causal, sc, qs, ks), iters=3)
+        p_out = pfa.flash_attention_plain(*pl, causal, sc, qs, ks)[0]
         plain_bwd = timer(lambda: torch.autograd.grad(
             p_out, pl, dout, retain_graph=True), iters=3)
         del p_out, pl
@@ -1731,10 +1792,10 @@ def main():
             # the yardstick only: one PyTorch call, never used by the port
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
             sdpa = torch.nn.functional.scaled_dot_product_attention
-            lib["fwd"] = timer(lambda: sdpa(qt, kt, vt, is_causal=True,
+            lib["fwd"] = timer(lambda: sdpa(qt, kt, vt, is_causal=causal,
                                             enable_gqa=True))
             ll = [t.detach().requires_grad_() for t in (qt, kt, vt)]
-            l_out = sdpa(*ll, is_causal=True, enable_gqa=True)
+            l_out = sdpa(*ll, is_causal=causal, enable_gqa=True)
             lib["dq"] = lib["dkv"] = timer(lambda: torch.autograd.grad(
                 l_out, ll, dout.transpose(1, 2), retain_graph=True))
             del l_out, ll
@@ -1765,7 +1826,8 @@ def main():
                           "bwd": (ms["dq"] + ms["dkv"]) / lib["dq"]}
         return {"kernel": "flash_attention", "case": name,
                 "shape": dict(b=b, sq=sq, sk=sk, h=h, hk=hk, d=d,
-                              docs=docs, causal=True, dtype=dtype),
+                              docs=docs, causal=causal, dtype=dtype),
+                "tol": tol,
                 "tflops": tflops, "bound_share": share,
                 "sdpa_ratio": sdpa_ratio,
                 "visible_pairs_per_head": pairs, "masked_rows": masked,
@@ -5558,6 +5620,151 @@ def main():
 
     _phase("train-gpt-345m", train_gpt_345m)
 
+    # -- DiT: Conv2D patchify, adaLN-Zero blocks, attention at head_dim 72 --
+    dit_launches = {}
+
+    def tiny_dit_parity():
+        """DiT at head_dim 72 (hidden 144 over 2 heads) and 64 (128 over
+        2), depth 2, on the card and the CPU from the same weights, every
+        one drawn N(0, 0.02) (at the model's own init adaLN-Zero makes
+        the output 0): float32 and bf16 outputs within 1e-3 / 1e-2 of the
+        largest |out|, three TrainSteps' losses within 1e-3 / 1e-2
+        relative; each card run launches exactly its depth of each flash
+        kernel a step (and of the forward an eval forward)."""
+        out = {}
+        for d, hid in ((72, 144), (64, 128)):
+            for dtype, tol in (("float32", 1e-3), ("bfloat16", 1e-2)):
+                dcfg = dit_tiny(hidden_size=hid, num_heads=2,
+                                class_dropout_prob=0.0, learn_sigma=False,
+                                dtype=dtype)
+                cpu = DiT(dcfg, seed=3, device="cpu")
+                g = torch.Generator().manual_seed(4)
+                with torch.no_grad():
+                    for p_ in cpu.parameters():
+                        p_.normal_(0.0, 0.02, generator=g)
+                gpu = DiT(dcfg, seed=0, device="cuda")
+                gpu.load_numpy_state({n: p_.detach().numpy()
+                                      for n, p_ in cpu.named_parameters()})
+                rng = np.random.RandomState(5)
+                arrays = (rng.randn(4, 4, 8, 8).astype(np.float32),
+                          rng.randint(0, 1000, 4).astype(np.int32),
+                          rng.randint(0, 10, 4).astype(np.int32),
+                          rng.randn(4, 4, 8, 8).astype(np.float32))
+                dt = getattr(torch, dtype)
+                outs, losses = [], []
+                for m in (cpu, gpu):
+                    dev = next(m.parameters()).device
+                    x, t, y, noise = (torch.as_tensor(a, device=dev)
+                                      for a in arrays)
+                    x, noise = x.to(dt), noise.to(dt)
+                    if dev.type == "cuda":
+                        reset_flash()
+                    m.eval()
+                    with torch.no_grad():
+                        outs.append(m(x, t, y).float().cpu())
+                    m.train()
+                    step = TrainStep(m, F.mse_loss, AdamW(
+                        learning_rate=1e-3, parameters=m.parameters()))
+                    losses.append([float(step((x, t, y), noise))
+                                   for _ in range(3)])
+                launched = flash_counts()
+                L = dcfg.depth
+                _require(launched == {"flash_fwd": 4 * L,
+                                      "flash_bwd_dq": 3 * L,
+                                      "flash_bwd_dkv": 3 * L},
+                         f"tiny-dit-parity d {d} {dtype}: a forward and "
+                         f"3 steps launched {launched}")
+                scale = float(outs[0].abs().max())
+                err = float((outs[0] - outs[1]).abs().max())
+                rel = max(abs(a - b_) / abs(a) for a, b_ in zip(*losses))
+                _require(scale > 1e-3 and err <= tol * scale,
+                         f"tiny-dit-parity d {d} {dtype}: output differs "
+                         f"by {err} of {scale}")
+                _require(rel < tol, f"tiny-dit-parity d {d} {dtype}: "
+                                    f"losses cpu {losses[0]} vs cuda "
+                                    f"{losses[1]}")
+                key = f"d{d}_{dtype}"
+                dit_launches[key] = launched
+                out[key] = {"max_abs_err": err, "max_abs_out": scale,
+                            "losses_cpu": losses[0],
+                            "losses_cuda": losses[1],
+                            "loss_max_rel_diff": rel, "launches": launched}
+        return out
+
+    _phase("tiny-dit-parity", tiny_dit_parity)
+
+    def train_dit_xl2():
+        """bench.py's dit row: DiT-XL/2 in bf16 (float32 weights), b 32
+        on [32, 4, 32, 32] latents, label dropout 0.1, AdamW(1e-4),
+        F.mse_loss to the noise: 2 warm and 8 timed TrainSteps; exactly
+        28 launches of each flash kernel (d 72) a step, no serving
+        kernel; every loss finite and the last below the first. Step
+        ms, imgs/s, MFU (bench.py's formula over 989 TFLOP/s), peak
+        memory and the device time by family."""
+        dcfg = dit_xl_2(dtype="bfloat16", learn_sigma=False)
+        b, warm, iters = 32, 2, 8
+        t0 = time.perf_counter()
+        model = DiT(dcfg, seed=0, device="cuda")
+        opt = AdamW(learning_rate=1e-4, parameters=model.parameters())
+        step = TrainStep(model, F.mse_loss, opt)
+        # as bench.py draws them, in its order
+        rng = np.random.RandomState(0)
+        x = torch.as_tensor(rng.randn(b, 4, 32, 32).astype(np.float32),
+                            device="cuda").to(torch.bfloat16)
+        t = torch.as_tensor(rng.randint(0, 1000, b).astype(np.int32),
+                            device="cuda")
+        y = torch.as_tensor(rng.randint(0, dcfg.num_classes, b)
+                            .astype(np.int32), device="cuda")
+        noise = torch.as_tensor(rng.randn(b, 4, 32, 32).astype(np.float32),
+                                device="cuda").to(torch.bfloat16)
+        drop = torch.Generator(device="cuda")
+        drop.manual_seed(0)
+        inputs = (x, t, y, drop)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        reset_flash()
+        losses = [step(inputs, noise) for _ in range(warm)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses += [step(inputs, noise) for _ in range(iters)]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = flash_counts()
+        dit_launches["train"] = dict(launched)
+        L, n_steps = dcfg.depth, warm + iters
+        _require(launched == {k_: L * n_steps for k_ in launched},
+                 f"train-dit-xl2: {n_steps} steps launched {launched}, "
+                 f"expected {L} of each flash kernel a step")
+        _require(all(v == 0 for v in counts().values()),
+                 f"train-dit-xl2 launched serving kernels: {counts()}")
+        losses = [float(v) for v in losses]
+        _require(all(np.isfinite(losses)) and losses[-1] < losses[0],
+                 f"train-dit-xl2 losses {losses}")
+        step_ms = wall * 1e3 / iters
+        imgs_s = b * iters / wall
+        n_params = model.num_params()
+        T = (dcfg.input_size // dcfg.patch_size) ** 2
+        fpi = 6 * n_params * T + 12 * L * dcfg.hidden_size * T ** 2
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        prof = _device_breakdown(torch, lambda: step(inputs, noise),
+                                 step_ms)
+        del model, opt, step
+        gc.collect()
+        torch.cuda.empty_cache()
+        return {"model": "DiT-XL/2 bf16 compute (float32 weights), 28 "
+                         "layers, 16 heads of 72, b32 x 256 patches, "
+                         "AdamW(1e-4)",
+                "num_params": n_params, "init_s": init_s,
+                "launches": launched, "steps": n_steps, "losses": losses,
+                "step_ms": step_ms, "imgs_per_s": imgs_s,
+                "mfu": imgs_s * fpi / BF16_FLOPS_PER_S,
+                "flops_per_img": fpi, "peak_mem_gb": peak_gb,
+                "nvidia_smi": smi, "step_profile": prof}
+
+    _phase("train-dit-xl2", train_dit_xl2)
+
     # -- last, as a capture that fails may leave the allocator unusable --
     def capture_failure():
         """A program that cannot be captured (a host sync inside it):
@@ -5784,6 +5991,30 @@ def main():
             kernel_rows[-1]["launches_by_phase"] = {
                 "serve-ernie-int4 dense prefill":
                     gpt_launches["dense"]["flash_fwd"]}
+    # head_dim 72 (the CUDA-core kernels): DiT-XL/2's attention, bf16 with
+    # train-dit-xl2's launches; float32 timed at the same shape, launched
+    # by tiny-dit-parity's float32 d 72 run
+    for key, dtn, launches in (
+            ("dit_xl2", "d 72, DiT-XL/2", dit_launches["train"]),
+            ("f32_dit_xl2", "float32, d 72",
+             dit_launches["d72_float32"])):
+        f = heads[key]
+        for kk, name, rep in (
+                ("fwd", "flash_fwd", tpu + "flash_attention.py:69"),
+                ("dq", "flash_bwd_dq", tpu + "flash_attention.py:174"),
+                ("dkv", "flash_bwd_dkv", tpu + "flash_attention.py:229")):
+            kernel_rows.append({
+                "name": f"{name}[{dtn}]", "route": "cuda",
+                "source": "paddle_tpu_torch/csrc/flash_attention.cu",
+                "replaces": rep, "launches": launches[name],
+                "max_abs_err": f["max_abs_err"][kk], "ms": f["ms"][kk],
+                "plain_ms": f["plain_ms"][kk],
+                "bound_ms": f["bound_ms"][kk],
+                "bound_by": f["bound_by"][kk],
+                "library_ms": f["library_ms"][kk]})
+            if key == "f32_dit_xl2":
+                kernel_rows[-1]["launches_from"] = \
+                    "tiny-dit-parity d 72 float32 (timed at b 32 x s 256)"
     _emit({"kernels": kernel_rows})
     print(smi, flush=True)
     _emit({"ok": True, "device": device})

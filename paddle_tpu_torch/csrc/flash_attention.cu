@@ -31,9 +31,10 @@
 // tensor cores become the limit.
 //
 // Design (the simple, right form; the fast form is later work). These
-// kernels take float32 inputs, and bfloat16 at head_dim 256; bfloat16 at
-// head_dim 64 and 128 (the training path) runs on the tensor cores in
-// flash_attention_wg.cu (wgmma, TMA) with the same semantics.
+// kernels take float32 inputs, and bfloat16 at head_dim 72 and 256;
+// bfloat16 at head_dim 64 and 128 (the Llama / GPT training path) runs on
+// the tensor cores in flash_attention_wg.cu (wgmma, TMA) with the same
+// semantics.
 // - CUDA-core float32 FMAs (67 TFLOP/s peak, not the 989 of the tensor
 //   cores): the float32 path must agree with the CPU to 1e-4, which
 //   bfloat16 or TF32 products would not.
@@ -42,6 +43,10 @@
 //   d = 256), staged in shared memory as float32 with rows padded to
 //   d + 1 floats, so the lane-per-row reads of the products hit distinct
 //   banks. 116-166 KB of dynamic shared memory at d = 128.
+// - a head_dim that is not a multiple of 16 (72: DiT-XL/2's 1152 / 16)
+//   pads the tiles to the next multiple (80): the pad columns are zeroed
+//   once, no load writes them, the q.k products stop at d, and the output
+//   columns past d are computed from zeros and never stored.
 // - a 16 x 16 thread grid: thread (ty, tx) owns score rows ty*RM + i and
 //   columns tx + 16 j, and the same rows of the [rows, d] accumulators at
 //   columns tx + 16 j; row max and sum are 16-lane shuffles.
@@ -60,16 +65,30 @@ constexpr int kFlashThreads = 256;  // a 16 x 16 grid of threads
 
 template <int D>
 struct FlashShape {
+  static_assert(D % 8 == 0, "rows are loaded in chunks of 8");
   static constexpr int kRows = D > 128 ? 32 : 64;  // rows of a q or k tile
   static constexpr int kRM = kRows / 16;            // tile rows per thread
-  static constexpr int kDC = D / 16;                // d columns per thread
-  static constexpr int kLD = D + 1;                 // padded row stride
+  static constexpr int kDP = (D + 15) / 16 * 16;    // d padded to 16 columns
+  static constexpr int kDC = kDP / 16;              // d columns per thread
+  static constexpr int kLD = kDP + 1;               // padded row stride
   static constexpr int kPS = kRows + 1;             // score tile row stride
 };
 
+// zeros into the pad columns [D, kDP) of a tile of R rows (nothing when D
+// is a multiple of 16); load_tile never writes them
+template <int D, int R>
+__device__ __forceinline__ void zero_pad(float* dst) {
+  using S = FlashShape<D>;
+  constexpr int kPad = S::kDP - D;
+  if constexpr (kPad > 0) {
+    for (int i = threadIdx.x; i < R * kPad; i += kFlashThreads)
+      dst[(i / kPad) * S::kLD + D + i % kPad] = 0.f;
+  }
+}
+
 // rows [r0, r0 + R) of one head of a [b, s, heads, D] tensor (src points
 // at row 0 of that head; rows are row_stride elements apart) into
-// dst[R][D + 1] as float32 times mul; rows at or past s are zeros
+// dst[R][kLD] as float32 times mul; rows at or past s are zeros
 template <typename T, int D, int R>
 __device__ __forceinline__ void load_tile(float* dst, const T* src,
                                           long long row_stride, int r0,
@@ -85,7 +104,7 @@ __device__ __forceinline__ void load_tile(float* dst, const T* src,
 #pragma unroll
       for (int j = 0; j < 8; ++j) v[j] = 0.f;
     }
-    float* d = dst + r * (D + 1) + c;
+    float* d = dst + r * FlashShape<D>::kLD + c;
 #pragma unroll
     for (int j = 0; j < 8; ++j) d[j] = v[j] * mul;
   }
@@ -99,19 +118,21 @@ __device__ __forceinline__ void load_seg(int* dst, const int* seg, int r0,
     dst[i] = r0 + i < s ? seg[r0 + i] : pad;
 }
 
-// acc[i][j] += sum_c A[ty*RM + i][c] * B[tx + 16 j][c]  (row stride D + 1)
+// acc[i][j] += sum_c A[ty*RM + i][c] * B[tx + 16 j][c] over the D real
+// columns (row stride kLD)
 template <int D, int RM>
 __device__ __forceinline__ void mm_abt(const float* A, const float* B,
                                        int ty, int tx, float (&acc)[RM][RM]) {
-  const float* a0 = A + ty * RM * (D + 1);
-  const float* b0 = B + tx * (D + 1);
+  constexpr int LD = FlashShape<D>::kLD;
+  const float* a0 = A + ty * RM * LD;
+  const float* b0 = B + tx * LD;
 #pragma unroll 4
   for (int c = 0; c < D; ++c) {
     float a[RM], b[RM];
 #pragma unroll
-    for (int i = 0; i < RM; ++i) a[i] = a0[i * (D + 1) + c];
+    for (int i = 0; i < RM; ++i) a[i] = a0[i * LD + c];
 #pragma unroll
-    for (int j = 0; j < RM; ++j) b[j] = b0[16 * j * (D + 1) + c];
+    for (int j = 0; j < RM; ++j) b[j] = b0[16 * j * LD + c];
 #pragma unroll
     for (int i = 0; i < RM; ++i)
 #pragma unroll
@@ -120,20 +141,20 @@ __device__ __forceinline__ void mm_abt(const float* A, const float* B,
 }
 
 // acc[i][j] += sum_k P[ty*RM + i][k] * X[k][tx + 16 j]  (P: row stride PS,
-// X: row stride D + 1, K rows of X)
+// X: row stride kLD, K rows of X; j over the padded columns)
 template <int D, int RM, int K, int PS>
 __device__ __forceinline__ void mm_px(const float* P, const float* X,
                                       int ty, int tx,
-                                      float (&acc)[RM][D / 16]) {
+                                      float (&acc)[RM][FlashShape<D>::kDC]) {
   const float* p0 = P + ty * RM * PS;
 #pragma unroll 4
   for (int k = 0; k < K; ++k) {
     float a[RM];
 #pragma unroll
     for (int i = 0; i < RM; ++i) a[i] = p0[i * PS + k];
-    const float* x = X + k * (D + 1) + tx;
+    const float* x = X + k * FlashShape<D>::kLD + tx;
 #pragma unroll
-    for (int j = 0; j < D / 16; ++j) {
+    for (int j = 0; j < FlashShape<D>::kDC; ++j) {
       const float b = x[16 * j];
 #pragma unroll
       for (int i = 0; i < RM; ++i) acc[i][j] = fmaf(a[i], b, acc[i][j]);
@@ -142,24 +163,30 @@ __device__ __forceinline__ void mm_px(const float* P, const float* X,
 }
 
 // acc[i][j] += sum_q P[q][ty*RM + i] * X[q][tx + 16 j]: the transposed
-// product of dk/dv (P: row stride PS, X: row stride D + 1, Q rows)
+// product of dk/dv (P: row stride PS, X: row stride kLD, Q rows)
 template <int D, int RM, int Q, int PS>
 __device__ __forceinline__ void mm_ptx(const float* P, const float* X,
                                        int ty, int tx,
-                                       float (&acc)[RM][D / 16]) {
+                                       float (&acc)[RM][FlashShape<D>::kDC]) {
 #pragma unroll 4
   for (int q = 0; q < Q; ++q) {
     float a[RM];
 #pragma unroll
     for (int i = 0; i < RM; ++i) a[i] = P[q * PS + ty * RM + i];
-    const float* x = X + q * (D + 1) + tx;
+    const float* x = X + q * FlashShape<D>::kLD + tx;
 #pragma unroll
-    for (int j = 0; j < D / 16; ++j) {
+    for (int j = 0; j < FlashShape<D>::kDC; ++j) {
       const float b = x[16 * j];
 #pragma unroll
       for (int i = 0; i < RM; ++i) acc[i][j] = fmaf(a[i], b, acc[i][j]);
     }
   }
+}
+
+// column tx + 16 j of the padded tile is a real column (< D)
+template <int D>
+__device__ __forceinline__ bool real_col(int tx, int j) {
+  return FlashShape<D>::kDP == D || tx + 16 * j < D;
 }
 
 // reductions over the 16 lanes that share a score row
@@ -201,6 +228,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* kb = k + ((long long)bi * sk * hk + hkv) * D;
   const T* vb = v + ((long long)bi * sk * hk + hkv) * D;
 
+  zero_pad<D, BM>(vs);  // the P.V product reads V's pad columns
   load_tile<T, D, BM>(qs, q + ((long long)bi * sq * h + hh) * D,
                       (long long)h * D, q0, sq, scale);
   if (seg) load_seg<BM>(qsg, qseg + (long long)bi * sq, q0, sq, -1);
@@ -268,7 +296,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float ls = fmaxf(l[i], 1e-30f);
     T* o = out + (((long long)bi * sq + r) * h + hh) * D + tx;
 #pragma unroll
-    for (int j = 0; j < DC; ++j) o[16 * j] = from_float<T>(acc[i][j] / ls);
+    for (int j = 0; j < DC; ++j)
+      if (real_col<D>(tx, j)) o[16 * j] = from_float<T>(acc[i][j] / ls);
     if (tx == 0) lse[((long long)bi * h + hh) * sq + r] = m[i] + logf(ls);
   }
 }
@@ -303,6 +332,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* kb = k + ((long long)bi * sk * hk + hkv) * D;
   const T* vb = v + ((long long)bi * sk * hk + hkv) * D;
 
+  zero_pad<D, BM>(ks);  // the dS.K product reads K's pad columns
   load_tile<T, D, BM>(qs, q + qoff, (long long)h * D, q0, sq, 1.f);
   load_tile<T, D, BM>(dos, dout + qoff, (long long)h * D, q0, sq, 1.f);
   if (seg) load_seg<BM>(qsg, qseg + (long long)bi * sq, q0, sq, -1);
@@ -357,7 +387,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (r >= sq) continue;
     T* o = dq + (((long long)bi * sq + r) * h + hh) * D + tx;
 #pragma unroll
-    for (int j = 0; j < DC; ++j) o[16 * j] = from_float<T>(acc[i][j]);
+    for (int j = 0; j < DC; ++j)
+      if (real_col<D>(tx, j)) o[16 * j] = from_float<T>(acc[i][j]);
   }
 }
 
@@ -393,6 +424,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const long long koff = ((long long)bi * sk * hk + hkv) * D;
   const long long qstride = (long long)h * D;
 
+  zero_pad<D, BM>(qs);  // P^T.dO and dS^T.Q read their pad columns
+  zero_pad<D, BM>(dos);
   load_tile<T, D, BM>(ks, k + koff, (long long)hk * D, k0, sk, 1.f);
   load_tile<T, D, BM>(vs, v + koff, (long long)hk * D, k0, sk, 1.f);
   if (seg) load_seg<BM>(ksg, kseg + (long long)bi * sk, k0, sk, -2);
@@ -458,6 +491,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const long long o = (((long long)bi * sk + c) * hk + hkv) * D + tx;
 #pragma unroll
     for (int j = 0; j < DC; ++j) {
+      if (!real_col<D>(tx, j)) continue;
       dk[o + 16 * j] = dk_acc[i][j];
       dv[o + 16 * j] = dv_acc[i][j];
     }
@@ -480,6 +514,7 @@ constexpr int dkv_smem() {
   using S = FlashShape<D>;
   return 4 * S::kRows * S::kLD + 2 * S::kRows * S::kPS + 4 * S::kRows;
 }
+static_assert(dkv_smem<72>() * 4 <= 227 * 1024, "dk/dv tile too large");
 static_assert(dkv_smem<128>() * 4 <= 227 * 1024, "dk/dv tile too large");
 static_assert(dkv_smem<256>() * 4 <= 227 * 1024, "dk/dv tile too large");
 
@@ -588,15 +623,17 @@ int bwd_delta(int dtype, const void* out, const void* dout, float* delta,
 }  // namespace
 }  // namespace ptt
 
-// Dispatch on dtype (0 float32, 1 bfloat16) and head_dim (64, 128, 256)
+// Dispatch on dtype (0 float32, 1 bfloat16) and head_dim (64, 72, 128, 256)
 // for the CUDA-core kernels above; bfloat16 at 64 and 128 never comes
 // here: the entry points send it to the Hopper kernels
 // (flash_attention_wg.cu), which walk the work list `sched`.
 #define PTT_FLASH_DISPATCH(FN, ...)                                       \
   switch (dtype * 1000 + d) {                                             \
     case 64: return FN<float, 64>(__VA_ARGS__);                           \
+    case 72: return FN<float, 72>(__VA_ARGS__);                           \
     case 128: return FN<float, 128>(__VA_ARGS__);                         \
     case 256: return FN<float, 256>(__VA_ARGS__);                         \
+    case 1072: return FN<__nv_bfloat16, 72>(__VA_ARGS__);                 \
     case 1256: return FN<__nv_bfloat16, 256>(__VA_ARGS__);                \
     default: return kUnsupported;                                         \
   }
@@ -698,13 +735,15 @@ extern "C" int ptt_flash_regs(int kernel, int d) {
 extern "C" int ptt_flash_smem_bytes(int kernel, int d, int dtype) {
   using namespace ptt;
   if (hopper_route(dtype, d)) return flash_wg::smem_bytes(kernel, d);
-  if (dtype != kF32 && !(dtype == kBF16 && d == 256)) return kUnsupported;
+  if (dtype != kF32 && !(dtype == kBF16 && (d == 72 || d == 256)))
+    return kUnsupported;
   const int f = static_cast<int>(sizeof(float));
 #define PTT_FLASH_SMEM(D)                                      \
   return f * (kernel == 0 ? fwd_smem<D>()                      \
                           : kernel == 1 ? dq_smem<D>() : dkv_smem<D>())
   switch (d) {
     case 64: PTT_FLASH_SMEM(64);
+    case 72: PTT_FLASH_SMEM(72);
     case 128: PTT_FLASH_SMEM(128);
     case 256: PTT_FLASH_SMEM(256);
     default: return kUnsupported;

@@ -34,7 +34,7 @@ from .. import nn as pnn
 from ..device import resolve_device
 from ..distributed.fleet import recompute
 from ..nn import functional as F
-from ..numpy_bridge import tensor_from_numpy
+from ..numpy_bridge import load_numpy_state
 
 __all__ = ["GPTConfig", "GPTModel", "GPTForCausalLM", "gpt_tiny",
            "gpt_345m", "ernie_45_dense_3b"]
@@ -223,25 +223,12 @@ class GPTForCausalLM(nn.Module):
     def num_params(self) -> int:
         return sum(p.numel() for p in self.parameters())
 
-    @torch.no_grad()
     def load_numpy_state(self, state: dict):
         """Copy ``{name: np.ndarray}`` (the JAX model's
         ``named_parameters()`` as numpy) into this model: every name must
         be present and no other (a tied model has no ``lm_head.weight``),
         shapes and dtypes must be equal."""
-        params = dict(self.named_parameters())
-        missing = sorted(set(params) - set(state))
-        extra = sorted(set(state) - set(params))
-        if missing or extra:
-            raise ValueError(f"load_numpy_state: missing {missing}, "
-                             f"unexpected {extra}")
-        for name, p in params.items():
-            t = tensor_from_numpy(state[name], p.device)
-            if tuple(t.shape) != tuple(p.shape) or t.dtype != p.dtype:
-                raise ValueError(
-                    f"load_numpy_state: {name} is {tuple(t.shape)} "
-                    f"{t.dtype}, the model holds {tuple(p.shape)} {p.dtype}")
-            p.copy_(t)
+        load_numpy_state(self, state)
 
 
 def gpt_tiny(**kw) -> GPTConfig:

@@ -52,7 +52,7 @@ from ..device import resolve_device
 from ..distributed.fleet import get_hybrid_communicate_group, recompute
 from ..distributed.ring_attention import ring_attention
 from ..nn import functional as F
-from ..numpy_bridge import tensor_from_numpy
+from ..numpy_bridge import load_numpy_state
 from ..ops.rope import build_rope_cache, rope_reference
 
 __all__ = ["LlamaConfig", "LlamaForCausalLM", "LlamaModel", "llama_tiny",
@@ -351,26 +351,13 @@ class LlamaForCausalLM(nn.Module):
             top_p=top_p, repetition_penalty=repetition_penalty,
             eos_token_id=eos_token_id, seed=seed)
 
-    @torch.no_grad()
     def load_numpy_state(self, state: dict):
         """Copy ``{name: np.ndarray}`` (the JAX model's
         ``named_parameters()`` as numpy) into this model: every name must
         be present and no other (a tied model has no ``lm_head.weight``),
         shapes and dtypes must be equal; bfloat16 arrays are carried bit
         for bit."""
-        params = dict(self.named_parameters())
-        missing = sorted(set(params) - set(state))
-        extra = sorted(set(state) - set(params))
-        if missing or extra:
-            raise ValueError(f"load_numpy_state: missing {missing}, "
-                             f"unexpected {extra}")
-        for name, p in params.items():
-            t = tensor_from_numpy(state[name], p.device)
-            if tuple(t.shape) != tuple(p.shape) or t.dtype != p.dtype:
-                raise ValueError(
-                    f"load_numpy_state: {name} is {tuple(t.shape)} "
-                    f"{t.dtype}, the model holds {tuple(p.shape)} {p.dtype}")
-            p.copy_(t)
+        load_numpy_state(self, state)
 
 
 def llama_tiny(**kw) -> LlamaConfig:

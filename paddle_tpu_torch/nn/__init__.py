@@ -2,7 +2,10 @@
 Counterpart: ``paddle_tpu/nn``. Layers are ``torch.nn.Module``s whose
 parameter names equal the JAX layers' ``named_parameters()`` names."""
 from . import functional, initializer  # noqa: F401
-from .layer import Embedding, LayerNorm, Linear, RMSNorm  # noqa: F401
+from .layer import (GELU, Conv2D, Embedding, LayerList,  # noqa: F401
+                    LayerNorm, Linear, MSELoss, RMSNorm, Sequential, SiLU,
+                    Silu)
 
-__all__ = ["Linear", "Embedding", "RMSNorm", "LayerNorm", "functional",
-           "initializer"]
+__all__ = ["Linear", "Embedding", "RMSNorm", "LayerNorm", "Sequential",
+           "LayerList", "Silu", "SiLU", "GELU", "Conv2D", "MSELoss",
+           "functional", "initializer"]

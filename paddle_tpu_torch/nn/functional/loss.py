@@ -1,4 +1,5 @@
-"""Cross entropy. Counterparts in ``paddle_tpu/nn/functional/loss.py``:
+"""Cross entropy and MSE. Counterparts in
+``paddle_tpu/nn/functional/loss.py``:
 
 - ``cross_entropy`` with hard labels (:29-75): log-softmax in float32
   over the last axis, the label's log-probability picked,
@@ -10,6 +11,10 @@
   of tokens, each chunk under ``torch.utils.checkpoint`` (JAX: a scan of
   ``jax.checkpoint`` bodies), so that the [N, V] logits are never held
   whole; the backward recomputes one chunk's logits at a time.
+- ``mse_loss`` (:85-87): the squared difference reduced in the input's
+  dtype, with no upcast (a bf16 model's loss rounds as JAX's does; the
+  mean accumulates in float32 inside torch's and jnp's reductions
+  alike); ``TrainStep`` upcasts the result.
 """
 from __future__ import annotations
 
@@ -17,7 +22,9 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 __all__ = ["cross_entropy", "chunked_softmax_cross_entropy",
-           "chunked_causal_lm_loss"]
+           "chunked_causal_lm_loss", "mse_loss"]
+
+_REDUCTIONS = ("mean", "sum", "none")
 
 
 def cross_entropy(input, label, weight=None, ignore_index=-100,
@@ -26,8 +33,8 @@ def cross_entropy(input, label, weight=None, ignore_index=-100,
     if soft_label or weight is not None or label_smoothing:
         raise NotImplementedError(
             "cross_entropy: soft labels, class weights and label "
-            "smoothing are not ported yet (ROADMAP queue 1, item 9)")
-    if reduction not in ("mean", "sum", "none"):
+            "smoothing are not ported yet (ROADMAP queue 1, item 10)")
+    if reduction not in _REDUCTIONS:
         raise ValueError(f"unknown reduction {reduction!r}")
     logp = torch.log_softmax(input.float(), dim=-1)
     valid = label != ignore_index
@@ -36,6 +43,17 @@ def cross_entropy(input, label, weight=None, ignore_index=-100,
     loss = torch.where(valid, -picked, torch.zeros((), device=logp.device))
     if reduction == "mean":
         return loss.sum() / valid.sum().clamp(min=1).float()
+    if reduction == "sum":
+        return loss.sum()
+    return loss
+
+
+def mse_loss(input, label, reduction="mean"):
+    if reduction not in _REDUCTIONS:
+        raise ValueError(f"unknown reduction {reduction!r}")
+    loss = torch.square(input - label)
+    if reduction == "mean":
+        return loss.mean()
     if reduction == "sum":
         return loss.sum()
     return loss

@@ -1,5 +1,6 @@
 """Parameter initializers. Counterpart: ``paddle_tpu/nn/initializer.py``
-(``_fans``, ``Constant``, ``Normal``, ``XavierUniform``).
+(``calculate_gain``, ``_fans``, ``Constant``, ``Normal``, ``Uniform``,
+``XavierUniform``, ``KaimingUniform``).
 
 An initializer is a callable ``(shape, dtype, generator, device) ->
 tensor`` that draws from the explicit ``torch.Generator`` it is given
@@ -12,8 +13,8 @@ import math
 import numpy as np
 import torch
 
-__all__ = ["Initializer", "Constant", "Normal", "XavierUniform",
-           "convert_dtype"]
+__all__ = ["Initializer", "Constant", "Normal", "Uniform", "XavierUniform",
+           "KaimingUniform", "calculate_gain", "convert_dtype"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -28,6 +29,21 @@ def convert_dtype(dtype) -> torch.dtype:
         raise ValueError(f"unsupported dtype {dtype!r}; expected one of "
                          f"{tuple(_DTYPES)}")
     return _DTYPES[dtype]
+
+
+def calculate_gain(nonlinearity: str, param=None) -> float:
+    table = {"sigmoid": 1.0, "linear": 1.0, "conv1d": 1.0, "conv2d": 1.0,
+             "conv3d": 1.0, "tanh": 5.0 / 3.0, "relu": math.sqrt(2.0),
+             "selu": 3.0 / 4.0}
+    if nonlinearity == "leaky_relu":
+        a = 0.01 if param is None else param
+        return math.sqrt(2.0 / (1 + a ** 2))
+    return table.get(nonlinearity, 1.0)
+
+
+def _uniform(shape, dtype, generator, device, low, high):
+    t = torch.empty(tuple(shape), dtype=convert_dtype(dtype), device=device)
+    return t.uniform_(low, high, generator=generator)
 
 
 def _fans(shape):
@@ -64,10 +80,33 @@ class Normal(Initializer):
         return t.normal_(self.mean, self.std, generator=generator)
 
 
+class Uniform(Initializer):
+    def __init__(self, low: float = -1.0, high: float = 1.0):
+        self.low, self.high = low, high
+
+    def __call__(self, shape, dtype, generator=None, device=None):
+        return _uniform(shape, dtype, generator, device, self.low,
+                        self.high)
+
+
 class XavierUniform(Initializer):
     def __call__(self, shape, dtype, generator=None, device=None):
         fi, fo = _fans(shape)
         limit = math.sqrt(6.0 / (fi + fo))
-        t = torch.empty(tuple(shape), dtype=convert_dtype(dtype),
-                        device=device)
-        return t.uniform_(-limit, limit, generator=generator)
+        return _uniform(shape, dtype, generator, device, -limit, limit)
+
+
+class KaimingUniform(Initializer):
+    """U(-gain * sqrt(3 / fan_in), +...), the gain of ``nonlinearity``
+    at ``negative_slope`` (the conv layers' default: leaky_relu at 0,
+    so sqrt(6 / fan_in))."""
+
+    def __init__(self, fan_in=None, negative_slope=0.0,
+                 nonlinearity="relu"):
+        self.fan_in = fan_in
+        self.gain = calculate_gain(nonlinearity, negative_slope)
+
+    def __call__(self, shape, dtype, generator=None, device=None):
+        fi = self.fan_in or _fans(shape)[0]
+        limit = self.gain * math.sqrt(3.0 / fi)
+        return _uniform(shape, dtype, generator, device, -limit, limit)

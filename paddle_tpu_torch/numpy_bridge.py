@@ -4,7 +4,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["tensor_from_numpy"]
+__all__ = ["tensor_from_numpy", "load_numpy_state"]
 
 
 def tensor_from_numpy(a, device) -> torch.Tensor:
@@ -16,3 +16,24 @@ def tensor_from_numpy(a, device) -> torch.Tensor:
         return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16) \
             .to(device)
     return torch.from_numpy(a).to(device)
+
+
+@torch.no_grad()
+def load_numpy_state(module: torch.nn.Module, state: dict):
+    """Copy ``{name: np.ndarray}`` (a JAX model's ``named_parameters()``
+    as numpy) into ``module``'s parameters: every name must be present
+    and no other, shapes and dtypes must be equal; bfloat16 arrays are
+    carried bit for bit."""
+    params = dict(module.named_parameters())
+    missing = sorted(set(params) - set(state))
+    extra = sorted(set(state) - set(params))
+    if missing or extra:
+        raise ValueError(f"load_numpy_state: missing {missing}, "
+                         f"unexpected {extra}")
+    for name, p in params.items():
+        t = tensor_from_numpy(state[name], p.device)
+        if tuple(t.shape) != tuple(p.shape) or t.dtype != p.dtype:
+            raise ValueError(
+                f"load_numpy_state: {name} is {tuple(t.shape)} "
+                f"{t.dtype}, the model holds {tuple(p.shape)} {p.dtype}")
+        p.copy_(t)

@@ -13,7 +13,9 @@ dispatchers there send CUDA tensors here.
 bfloat16 at head_dim 64 and 128 runs the Hopper kernels of
 ``csrc/flash_attention_wg.cu``, which walk a work list built here by
 ``flash_schedule``: the tile arithmetic lives in this one place, where
-the CPU tests check it exhaustively.
+the CPU tests check it exhaustively. float32, and bfloat16 at head_dim
+72 (DiT-XL/2) and 256, run the CUDA-core kernels of
+``csrc/flash_attention.cu``.
 """
 from __future__ import annotations
 
@@ -28,7 +30,7 @@ __all__ = ["flash_fwd_cuda", "flash_bwd_cuda", "flash_bwd_delta",
            "flash_bwd_dq_cuda", "flash_bwd_dkv_cuda", "FlashAttention",
            "smem_bytes", "HEAD_DIMS", "launches_fwd", "launches_dq",
            "launches_dkv", "TILES", "flash_schedule", "dkv_pieces",
-           "kernel_regs"]
+           "kernel_regs", "HOPPER_HEAD_DIMS"]
 
 # kernel launches since import; callers reset them to 0 to count a run
 launches_fwd = 0
@@ -36,7 +38,9 @@ launches_dq = 0
 launches_dkv = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (64, 128, 256)
+HEAD_DIMS = (64, 72, 128, 256)
+# the head_dims of the Hopper (wgmma, TMA) kernels, bfloat16 only
+HOPPER_HEAD_DIMS = (64, 128)
 
 # (own rows, streamed rows) of a CTA's tile in each Hopper kernel: the
 # forward and dq own query rows and stream key tiles, dk/dv owns key rows
@@ -164,8 +168,8 @@ def _schedule_on(device, kind, b, sq, sk, h, hk, causal, segmented, sms):
 def _schedule(kind, q, b, sq, sk, h, hk, causal, segmented):
     """(work list on q's device, its rows, pieces per key tile or None,
     workspace slots) for the Hopper kernels, or (None, 0, None, 1) for
-    the CUDA-core route (float32, head_dim 256)."""
-    if q.dtype != torch.bfloat16 or q.shape[-1] not in (64, 128):
+    the CUDA-core route (float32; bfloat16 at head_dim 72 and 256)."""
+    if q.dtype != torch.bfloat16 or q.shape[-1] not in HOPPER_HEAD_DIMS:
         return None, 0, None, 1
     t, pieces, slots = _schedule_on(
         q.device, kind, b, sq, sk, h, hk, bool(causal), bool(segmented),
@@ -175,14 +179,19 @@ def _schedule(kind, q, b, sq, sk, h, hk, causal, segmented):
 
 def _regs(lib, kernel: str, d: int):
     """A callable giving the registers a thread of the Hopper kernel
-    (for check's message)."""
+    (for check's message; -1 at a head_dim of the CUDA-core route only,
+    which never reports short registers)."""
     return lambda: lib.ptt_flash_regs(("fwd", "dq", "dkv").index(kernel), d)
 
 
 def kernel_regs(kernel: str, head_dim: int) -> int:
     """Registers a thread of the Hopper kernel ("fwd", "dq" or "dkv") at
     head_dim 64 or 128 as built: their setmaxnreg split needs 168, and
-    a launch with fewer raises."""
+    a launch with fewer raises. Other head_dims (72, 256) run only the
+    CUDA-core kernels, which have no such split: ValueError."""
+    if head_dim not in HOPPER_HEAD_DIMS:
+        raise ValueError(f"kernel_regs: head_dim {head_dim} has no Hopper "
+                         f"kernel (those take {HOPPER_HEAD_DIMS})")
     return _regs(load_library(), kernel, head_dim)()
 
 
@@ -345,7 +354,9 @@ def flash_bwd_cuda(q, k, v, out, lse, dout, causal: bool, scale: float,
 
 def smem_bytes(kernel: str, head_dim: int, dtype) -> int:
     """Dynamic shared memory of one block of kernel ("fwd", "dq" or
-    "dkv") at head_dim and dtype, as the launcher asks for it."""
+    "dkv") at head_dim and dtype, as the launcher asks for it (the
+    Hopper kernel's for bfloat16 at 64 / 128, the CUDA-core kernel's
+    otherwise)."""
     return load_library().ptt_flash_smem_bytes(
         ("fwd", "dq", "dkv").index(kernel), head_dim, _DTYPES[dtype])
 
