@@ -10,8 +10,9 @@ failure ends the run with a non-zero exit code and no result:
 
 1. env           torch / CUDA versions and the card's name and power limit.
 2. build         compiles ``paddle_tpu_torch/csrc/*.cu`` for sm_90a; the
-                 SASS of the six Hopper flash kernels (forward, dq,
-                 dk/dv at head_dim 64 and 128) must hold HGMMA (wgmma)
+                 SASS of the eight Hopper flash kernels (forward, dq,
+                 dk/dv at head_dim 64 and 128; dq and dk/dv at 72) must
+                 hold HGMMA (wgmma)
                  and UTMALDG (TMA load) instructions, and each must have
                  been built with 168 registers a thread (its setmaxnreg
                  split needs them; a launch with fewer raises); the nine
@@ -22,20 +23,25 @@ failure ends the run with a non-zero exit code and no result:
                  int8 ones UBLKCP (their scale rows). Prints ptxas's
                  registers and spills of every flash, GEMV and
                  paged-attention instantiation (the CUDA-core flash
-                 kernels at head_dim 72, float32 and bf16, must be
-                 there) and the paged kernels' dynamic shared memory.
+                 kernels at head_dim 72, float32 and the bf16 forward,
+                 must be there) and the paged kernels' dynamic shared
+                 memory.
 3. kernels       each kernel against its plain PyTorch version on the card
                  at the shapes its main path gives it (Llama-3-8B serving:
                  ragged attention on the smoke batch with a bf16 and an
                  int8 pool, a W 8 decode ministep at ctx 512, a prefill
-                 rung of 8 decode and 128 prefill rows, and d 64 with pages smaller than a stage;
+                 rung of 8 decode and 128 prefill rows, and d 64 with
+                 pages smaller than a stage;
                  dense decode at b 8 and b 4 and at ctx 1..2100 with a
                  ctx-0 row, float32 at d 64, d 256, the int8-pool route
                  and bf16 at d 64 / bs 16; every attention case within 1e-2
                  (1e-4 float32), no NaN, ctx-0 rows exact zeros, two runs
                  bit-identical, with its share of the bound, its plan and,
-                 where its rows see one ctx, SDPA's time over the same
-                 K/V rows gathered beforehand (not paged); the GEMV at b 1/4/8/32 (int4 on the
+                 where its rows see one ctx (for a prefill rung: two
+                 calls, the decode rows and the prefill rows under an
+                 end-aligned causal mask), SDPA's time over the same
+                 K/V rows gathered beforehand (not paged); the GEMV at
+                 b 1/4/8/32 (int4 on the
                  five projections, int8 and dense on wgu at b 1/8/32,
                  one float32 int4 case on the CUDA-core kernel), each
                  with its share of the bound and its split plan, and
@@ -43,8 +49,13 @@ failure ends the run with a non-zero exit code and no result:
                  flash forward
                  at the dense prefill's b x s of 1 x 256, 4 x 128, 4 x 256
                  and 1 x 512; DiT-XL/2's attention (not causal, b 32 x
-                 s 256, 16 / 16 heads of 72) in bf16 within 1e-2 and
-                 float32 within 1e-4 (the CUDA-core kernels);
+                 s 256, 16 / 16 heads of 72) in bf16 within 1e-2 (the
+                 forward on CUDA cores, dq and dk/dv on the Hopper
+                 kernels) and float32 within 1e-4 (the CUDA-core
+                 kernels), and at d 72 in bf16 within 1e-2 a causal GQA
+                 case with ragged edges (sq 300, sk 1000, its dk/dv list
+                 cut into pieces), packed documents and a non-causal
+                 sq < sk block standing in for the ring's backward;
                  llama_mid training attention, plus a 4096
                  sequence, packed documents and a causal sq < sk case with
                  ragged edges; the ring blocks flash_attention_with_lse and
@@ -435,8 +446,9 @@ failure ends the run with a non-zero exit code and no result:
                  generator, AdamW(1e-4), F.mse_loss to the noise: 2 warm
                  and 8 timed TrainSteps. The flash counters, set to 0
                  just before and read just after, must read exactly 28
-                 forward, 28 dq and 28 dk/dv launches a step (d 72, the
-                 CUDA-core kernels), no serving kernel; every loss
+                 forward, 28 dq and 28 dk/dv launches a step (d 72: the
+                 forward on CUDA cores, dq and dk/dv on the Hopper
+                 kernels), no serving kernel; every loss
                  finite and the last below the first. Step ms, imgs/s,
                  MFU by bench.py's formula (6 N T + 12 depth hidden T^2
                  a picture over 989 TFLOP/s), peak memory, device ms by
@@ -517,12 +529,23 @@ FLASH_CASES = [
     # head), b 8 x s 1024, 16 heads of 64
     dict(name="gpt_345m", b=8, sq=1024, sk=1024, h=16, hk=16, d=64),
     # train-dit-xl2's attention: not causal, b 32 x s 256 (16 x 16
-    # patches), 16 heads of 72 (DiT-XL/2's 1152 / 16): the CUDA-core
-    # kernels, bf16 and float32
+    # patches), 16 heads of 72 (DiT-XL/2's 1152 / 16): bf16 (the forward
+    # on CUDA cores, dq and dk/dv on the Hopper kernels) and float32 (the
+    # CUDA-core kernels)
     dict(name="dit_xl2", b=32, sq=256, sk=256, h=16, hk=16, d=72,
          causal=False, tol=1e-2),
     dict(name="f32_dit_xl2", b=32, sq=256, sk=256, h=16, hk=16, d=72,
          causal=False, tol=1e-4, dtype="float32"),
+    # the d-72 Hopper backward off DiT's shape: causal GQA with ragged
+    # edges (its dk/dv list, 32 rows, is cut into pieces), packed
+    # documents, and a non-causal sq < sk block as the ring's backward
+    # block gives it
+    dict(name="d72_sq300_sk1000", b=2, sq=300, sk=1000, h=8, hk=2, d=72,
+         tol=1e-2),
+    dict(name="d72_packed", b=1, sq=2048, sk=2048, h=16, hk=8, d=72,
+         docs=4, tol=1e-2),
+    dict(name="d72_block_sq1024_sk2048", b=1, sq=1024, sk=2048, h=16,
+         hk=16, d=72, causal=False, tol=1e-2),
 ]
 
 
@@ -798,13 +821,20 @@ def _flash_wg_name(mangled):
             if wg else None)
 
 
-def _flash_sass(sass):
+def _flash_wg_kernels(cfa):
+    """The Hopper flash instantiations the wrappers route to, by name."""
+    return {f"flash_wg::{kern}_kernel<bf16,{d}>": (kern, d)
+            for kern, dims in cfa.HOPPER_HEAD_DIMS.items() for d in dims}
+
+
+def _flash_sass(sass, cfa):
     """Count HGMMA (wgmma) and UTMALDG (TMA load) instructions in each
-    Hopper flash kernel of the built library; fails unless all six (fwd,
-    dq, dk/dv at head_dim 64 and 128) have both."""
+    Hopper flash kernel of the built library; fails unless every one the
+    wrappers route to (fwd at head_dim 64 and 128, dq and dk/dv at 64, 72
+    and 128) is there with both, and no other."""
     found = _count_sass(sass, _flash_wg_name, ("HGMMA", "UTMALDG"))
-    _require(len(found) == 6 and all(min(c.values()) > 0
-                                     for c in found.values()),
+    _require(set(found) == set(_flash_wg_kernels(cfa))
+             and all(min(c.values()) > 0 for c in found.values()),
              f"flash_wg kernels without HGMMA or UTMALDG in SASS: {found}")
     return found
 
@@ -1047,7 +1077,7 @@ def _ring_case(torch, gen, timer, name, sq, sk, causal, b=1, h=16, hk=8,
           "dq": timer(lambda: cfa.flash_bwd_dq_cuda(*kern_args)),
           "dkv": timer(lambda: cfa.flash_bwd_dkv_cuda(*kern_args))}
     split = None
-    if dtype == "bfloat16" and d in (64, 128):
+    if dtype == "bfloat16" and d in cfa.HOPPER_HEAD_DIMS["dkv"]:
         rows = cfa.flash_schedule(
             "dkv", b, sq, sk, h, hk, causal, False,
             torch.cuda.get_device_properties(0).multi_processor_count)
@@ -1220,6 +1250,21 @@ def _ragged_rows_case(torch, gen, decode_ctx, prefill=None, nh=32, kvh=8,
     return args, nbytes, flops
 
 
+def _gathered(q, pools, tables, ctx):
+    """The K/V rows that sequences tables[0..n) see at ctx positions each,
+    gathered from pages into contiguous [n, kv_heads, ctx, d] in q's
+    dtype (an int8 pool dequantized)."""
+    out = []
+    for pool in pools:
+        if isinstance(pool, tuple):
+            pool = (pool[0].float() * pool[1][..., None]).to(q.dtype)
+        _, kvh, bs, d = pool.shape
+        x = pool[tables[:, :-(-ctx // bs)].long()]  # [n, pages, kvh, bs, d]
+        out.append(x.permute(0, 2, 1, 3, 4).reshape(
+            x.shape[0], kvh, -1, d)[:, :, :ctx].contiguous())
+    return out
+
+
 def _sdpa_ms(torch, timer, q, k, v, tables, ctx):
     """The yardstick of a case whose rows are one sequence each and all
     see ctx positions: torch's scaled_dot_product_attention over the same
@@ -1227,21 +1272,36 @@ def _sdpa_ms(torch, timer, q, k, v, tables, ctx):
     (enable_gqa); an int8 pool dequantized beforehand too. Not paged, so
     not the same function: the port never calls it."""
     import torch.nn.functional as F
-    if isinstance(k, tuple):
-        k, v = ((p[0].float() * p[1][..., None]).to(q.dtype)
-                for p in (k, v))
-    b, nh, d = q.shape
-    _, kvh, bs, _ = k.shape
-    idx = tables[:b, :-(-ctx // bs)].long()
-
-    def gather(pool):
-        x = pool[idx]                      # [b, pages, kvh, bs, d]
-        return x.permute(0, 2, 1, 3, 4).reshape(b, kvh, -1, d)[:, :, :ctx] \
-            .contiguous()
-
-    kc, vc, qq = gather(k), gather(v), q[:, :, None, :].contiguous()
+    kc, vc = _gathered(q, (k, v), tables[:q.shape[0]], ctx)
+    qq = q[:, :, None, :].contiguous()
     return timer(lambda: F.scaled_dot_product_attention(
         qq, kc, vc, enable_gqa=True), iters=20)
+
+
+def _sdpa_rung_ms(torch, timer, q, k, v, tables, ctx, prefill):
+    """The yardstick of a prefill rung (_ragged_rows_case: one decode row
+    per sequence at ctx, then `rows` prefill rows of one more sequence at
+    offsets offset ..): two SDPA calls over the K/V rows gathered
+    beforehand, the decode rows as _sdpa_ms runs them and the prefill
+    rows against their sequence's offset + rows positions under a causal
+    mask aligned to its end. Not paged, so not the same function: the
+    port never calls it."""
+    import torch.nn.functional as F
+    rows, offset = prefill
+    n_dec = q.shape[0] - rows
+    kd, vd = _gathered(q, (k, v), tables[:n_dec], ctx)
+    kp, vp = _gathered(q, (k, v), tables[n_dec:n_dec + 1], offset + rows)
+    qd = q[:n_dec, :, None, :].contiguous()
+    qp = q[n_dec:].transpose(0, 1)[None].contiguous()  # [1, nh, rows, d]
+    mask = (torch.arange(offset + rows, device=q.device)[None, :]
+            <= offset + torch.arange(rows, device=q.device)[:, None])
+
+    def both():
+        F.scaled_dot_product_attention(qd, kd, vd, enable_gqa=True)
+        F.scaled_dot_product_attention(qp, kp, vp, attn_mask=mask,
+                                       enable_gqa=True)
+
+    return timer(both, iters=20)
 
 
 # ragged attention cases: the 8B smoke batch (24 decode rows at ctx up to
@@ -1353,11 +1413,18 @@ def _ragged_check(torch, gen, timer, spec):
         nbytes, flops, F32_FLOPS_PER_S if f32 else BF16_FLOPS_PER_S)
     case["share_of_bound"] = case["bound_ms"] / case["ms"]
     ctx = spec.get("decode", [])
-    if ctx and "prefill" not in spec and len(set(ctx)) == 1:
+    if ctx and len(set(ctx)) == 1 and "prefill" not in spec:
         case["library_ms"] = _sdpa_ms(torch, timer, q, k, args[2], args[3],
                                       ctx[0])
         case["library_note"] = ("not paged: SDPA over the same K/V rows "
                                 "gathered beforehand")
+    elif ctx and len(set(ctx)) == 1:
+        case["library_ms"] = _sdpa_rung_ms(torch, timer, q, k, args[2],
+                                           args[3], ctx[0], spec["prefill"])
+        case["library_note"] = ("not paged: two SDPA calls over the same "
+                                "K/V rows gathered beforehand, the decode "
+                                "rows and the prefill rows under an "
+                                "end-aligned causal mask")
     return case
 
 
@@ -1579,10 +1646,11 @@ def main():
         for src in ("flash_attention.cu", "flash_attention_wg.cu"):
             ptxas[src] = _flash_ptxas(
                 _build.build_info.get("ptxas", {}).get(src, ""))
-        # DiT-XL/2's head_dim: the CUDA-core kernels, float32 and bf16
-        d72 = [f"flash_{k}_kernel<{dt},72>" for k in ("fwd", "bwd_dq",
-                                                       "bwd_dkv")
-               for dt in ("f32", "bf16")]
+        # DiT-XL/2's head_dim on CUDA cores: float32, and the bf16
+        # forward (its dq and dk/dv are Hopper kernels)
+        d72 = ["flash_fwd_kernel<bf16,72>"] + [
+            f"flash_{k}_kernel<f32,72>" for k in ("fwd", "bwd_dq",
+                                                  "bwd_dkv")]
         _require(all(n in ptxas["flash_attention.cu"] for n in d72),
                  f"ptxas reports no head_dim 72 flash kernels: "
                  f"{sorted(ptxas['flash_attention.cu'])}")
@@ -1595,8 +1663,8 @@ def main():
         # the Hopper flash kernels' setmaxnreg 24/240 split over 384
         # threads waits forever below 168 registers a thread; a launch
         # refuses such a build, and so does this phase
-        regs = {f"flash_wg::{kern}_kernel<bf16,{d}>": cfa.kernel_regs(kern, d)
-                for kern in ("fwd", "dq", "dkv") for d in (64, 128)}
+        regs = {name: cfa.kernel_regs(kern, d)
+                for name, (kern, d) in _flash_wg_kernels(cfa).items()}
         _require(all(r >= 168 for r in regs.values()),
                  f"flash kernels built with fewer than 168 registers a "
                  f"thread: {regs}")
@@ -1612,7 +1680,7 @@ def main():
                 "library": _build.build_info["library"], "ptxas": ptxas,
                 "flash_dynamic_smem_bytes": smem, "flash_wg_regs": regs,
                 "paged_attention_dynamic_smem_bytes": paged_smem,
-                "flash_wg_sass": _flash_sass(sass),
+                "flash_wg_sass": _flash_sass(sass, cfa),
                 "decode_matmul_sass": _gemv_sass(sass),
                 "paged_attention_sass": _paged_sass(sass)}
 
@@ -5991,9 +6059,10 @@ def main():
             kernel_rows[-1]["launches_by_phase"] = {
                 "serve-ernie-int4 dense prefill":
                     gpt_launches["dense"]["flash_fwd"]}
-    # head_dim 72 (the CUDA-core kernels): DiT-XL/2's attention, bf16 with
-    # train-dit-xl2's launches; float32 timed at the same shape, launched
-    # by tiny-dit-parity's float32 d 72 run
+    # head_dim 72: DiT-XL/2's attention, bf16 with train-dit-xl2's
+    # launches (the forward on CUDA cores, dq and dk/dv on the Hopper
+    # kernels); float32 (CUDA cores) timed at the same shape, launched by
+    # tiny-dit-parity's float32 d 72 run
     for key, dtn, launches in (
             ("dit_xl2", "d 72, DiT-XL/2", dit_launches["train"]),
             ("f32_dit_xl2", "float32, d 72",
@@ -6003,15 +6072,21 @@ def main():
                 ("fwd", "flash_fwd", tpu + "flash_attention.py:69"),
                 ("dq", "flash_bwd_dq", tpu + "flash_attention.py:174"),
                 ("dkv", "flash_bwd_dkv", tpu + "flash_attention.py:229")):
+            hopper = key == "dit_xl2" and kk != "fwd"
             kernel_rows.append({
                 "name": f"{name}[{dtn}]", "route": "cuda",
-                "source": "paddle_tpu_torch/csrc/flash_attention.cu",
+                "source": "paddle_tpu_torch/csrc/" + (
+                    "flash_attention_wg.cu" if hopper
+                    else "flash_attention.cu"),
                 "replaces": rep, "launches": launches[name],
                 "max_abs_err": f["max_abs_err"][kk], "ms": f["ms"][kk],
                 "plain_ms": f["plain_ms"][kk],
                 "bound_ms": f["bound_ms"][kk],
                 "bound_by": f["bound_by"][kk],
-                "library_ms": f["library_ms"][kk]})
+                "library_ms": f["library_ms"][kk],
+                "share_of_bound": f["bound_share"][kk],
+                "sdpa_ratio": f["sdpa_ratio"] and f["sdpa_ratio"][
+                    "fwd" if kk == "fwd" else "bwd"]})
             if key == "f32_dit_xl2":
                 kernel_rows[-1]["launches_from"] = \
                     "tiny-dit-parity d 72 float32 (timed at b 32 x s 256)"

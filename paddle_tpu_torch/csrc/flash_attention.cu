@@ -31,9 +31,10 @@
 // tensor cores become the limit.
 //
 // Design (the simple, right form; the fast form is later work). These
-// kernels take float32 inputs, and bfloat16 at head_dim 72 and 256;
-// bfloat16 at head_dim 64 and 128 (the Llama / GPT training path) runs on
-// the tensor cores in flash_attention_wg.cu (wgmma, TMA) with the same
+// kernels take float32 inputs, bfloat16 at head_dim 256, and the bfloat16
+// forward at head_dim 72; bfloat16 at head_dim 64 and 128 (the Llama / GPT
+// training path) and the bfloat16 dq and dk/dv at 72 (DiT-XL/2) run on the
+// tensor cores in flash_attention_wg.cu (wgmma, TMA) with the same
 // semantics.
 // - CUDA-core float32 FMAs (67 TFLOP/s peak, not the 989 of the tensor
 //   cores): the float32 path must agree with the CPU to 1e-4, which
@@ -624,34 +625,38 @@ int bwd_delta(int dtype, const void* out, const void* dout, float* delta,
 }  // namespace ptt
 
 // Dispatch on dtype (0 float32, 1 bfloat16) and head_dim (64, 72, 128, 256)
-// for the CUDA-core kernels above; bfloat16 at 64 and 128 never comes
+// for the CUDA-core kernels above; what hopper_route takes never comes
 // here: the entry points send it to the Hopper kernels
-// (flash_attention_wg.cu), which walk the work list `sched`.
+// (flash_attention_wg.cu), which walk the work list `sched`. The bfloat16
+// forward at 72 is dispatched by its entry point.
 #define PTT_FLASH_DISPATCH(FN, ...)                                       \
   switch (dtype * 1000 + d) {                                             \
     case 64: return FN<float, 64>(__VA_ARGS__);                           \
     case 72: return FN<float, 72>(__VA_ARGS__);                           \
     case 128: return FN<float, 128>(__VA_ARGS__);                         \
     case 256: return FN<float, 256>(__VA_ARGS__);                         \
-    case 1072: return FN<__nv_bfloat16, 72>(__VA_ARGS__);                 \
     case 1256: return FN<__nv_bfloat16, 256>(__VA_ARGS__);                \
     default: return kUnsupported;                                         \
   }
 
 namespace ptt {
 namespace {
-bool hopper_route(int dtype, int d) {
-  return dtype == kBF16 && (d == 64 || d == 128);
+// kernel 0 (forward), 1 (dq) or 2 (dk/dv) at dtype and head_dim d runs a
+// Hopper kernel: bfloat16 at the head_dims flash_wg::takes names. The
+// route depends on these alone: a call it names goes there or fails.
+bool hopper_route(int kernel, int dtype, int d) {
+  return dtype == kBF16 && flash_wg::takes(kernel, d);
 }
 }  // namespace
 }  // namespace ptt
 
 // q [b, sq, h, d], k/v [b, sk, hk, d] of dtype, contiguous; segment ids
 // [b, sq] / [b, sk] int32 or both null. Writes out [b, sq, h, d] (dtype)
-// and lse [b, h, sq] float32. bfloat16 at head_dim 64 / 128 also takes
-// the work list sched (n_rows rows of 8 int32, built for tiles of bm own
-// and bn streamed rows); the other routes ignore it. Returns 0, a
-// cudaError_t, or -1 for an unsupported shape, type or work list.
+// and lse [b, h, sq] float32. The Hopper route (bfloat16 at head_dim 64 /
+// 128) also takes the work list sched (n_rows rows of 8 int32, built for
+// tiles of bm own and bn streamed rows); the other routes ignore it.
+// Returns 0, a cudaError_t, or -1 for an unsupported shape, type or work
+// list.
 extern "C" int ptt_flash_fwd(const void* q, const void* k, const void* v,
                              const int* q_seg, const int* kv_seg, void* out,
                              float* lse, const int* sched, int b, int sq,
@@ -662,9 +667,12 @@ extern "C" int ptt_flash_fwd(const void* q, const void* k, const void* v,
   if (!shape_ok(b, sq, sk, h, hk) || (q_seg == nullptr) != (kv_seg == nullptr))
     return kUnsupported;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (hopper_route(dtype, d))
+  if (hopper_route(0, dtype, d))
     return flash_wg::fwd(d, q, k, v, q_seg, kv_seg, out, lse, sched, n_rows,
                          bm, bn, b, sq, sk, h, hk, scale, causal, st);
+  if (dtype == kBF16 && d == 72)  // DiT-XL/2's forward
+    return fwd<__nv_bfloat16, 72>(q, k, v, q_seg, kv_seg, out, lse, b, sq,
+                                  sk, h, hk, scale, causal, st);
   PTT_FLASH_DISPATCH(fwd, q, k, v, q_seg, kv_seg, out, lse, b, sq, sk, h,
                      hk, scale, causal, st)
 }
@@ -686,7 +694,7 @@ extern "C" int ptt_flash_bwd_dq(const void* q, const void* k, const void* v,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (out != nullptr)
     if (int e = bwd_delta(dtype, out, dout, delta, b, sq, h, d, st)) return e;
-  if (hopper_route(dtype, d))
+  if (hopper_route(1, dtype, d))
     return flash_wg::bwd_dq(d, q, k, v, dout, lse, delta, q_seg, kv_seg, dq,
                             sched, n_rows, bm, bn, b, sq, sk, h, hk, scale,
                             causal, st);
@@ -712,7 +720,7 @@ extern "C" int ptt_flash_bwd_dkv(const void* q, const void* k, const void* v,
   if (!shape_ok(b, sq, sk, h, hk) || (q_seg == nullptr) != (kv_seg == nullptr))
     return kUnsupported;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (hopper_route(dtype, d))
+  if (hopper_route(2, dtype, d))
     return flash_wg::bwd_dkv(d, q, k, v, dout, lse, delta, q_seg, kv_seg, dk,
                              dv, ws, pieces, n_slots, sched, n_rows, bm, bn,
                              b, sq, sk, h, hk, scale, causal, st);
@@ -724,8 +732,8 @@ extern "C" int ptt_flash_bwd_dkv(const void* q, const void* k, const void* v,
 #undef PTT_FLASH_DISPATCH
 
 // Registers a thread of the Hopper kernel 0 (forward), 1 (dq) or 2
-// (dk/dv) at head_dim 64 or 128, as built; -1 for another pair or a
-// failed query. Their setmaxnreg split needs 168.
+// (dk/dv) at head_dim d, as built; -1 for a pair without one (the
+// forward at 72) or a failed query. Their setmaxnreg split needs 168.
 extern "C" int ptt_flash_regs(int kernel, int d) {
   return ptt::flash_wg::regs(kernel, d);
 }
@@ -734,8 +742,9 @@ extern "C" int ptt_flash_regs(int kernel, int d) {
 // 1 (dq) or 2 (dk/dv) for dtype at head_dim d; -1 for a pair not taken.
 extern "C" int ptt_flash_smem_bytes(int kernel, int d, int dtype) {
   using namespace ptt;
-  if (hopper_route(dtype, d)) return flash_wg::smem_bytes(kernel, d);
-  if (dtype != kF32 && !(dtype == kBF16 && (d == 72 || d == 256)))
+  if (hopper_route(kernel, dtype, d)) return flash_wg::smem_bytes(kernel, d);
+  const bool cuda_core_bf16 = d == 256 || (d == 72 && kernel == 0);
+  if (dtype != kF32 && !(dtype == kBF16 && cuda_core_bf16))
     return kUnsupported;
   const int f = static_cast<int>(sizeof(float));
 #define PTT_FLASH_SMEM(D)                                      \

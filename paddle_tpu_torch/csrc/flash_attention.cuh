@@ -1,6 +1,7 @@
 // Shared by the two flash-attention sources: the masking rules, and the
 // launchers of the Hopper kernels (flash_attention_wg.cu: wgmma, TMA) that
-// the C entry points (flash_attention.cu) call for bfloat16 at head_dim 64
+// the C entry points (flash_attention.cu) call for bfloat16 at the head_dims
+// flash_wg::takes names: the forward at 64 and 128, dq and dk/dv at 64, 72
 // and 128.
 #pragma once
 
@@ -30,8 +31,11 @@ __device__ __forceinline__ bool visible(int r, int c, int sq, int sk,
 
 namespace flash_wg {
 
-// Each returns 0, a cudaError_t, or kUnsupported for a head_dim other
-// than 64 or 128 or a work list built for other tiles (bm own rows, bn
+// Whether kernel 0 (fwd), 1 (dq) or 2 (dk/dv) has a Hopper instantiation
+// at head_dim d (bfloat16 only).
+bool takes(int kernel, int d);
+// Each returns 0, a cudaError_t, or kUnsupported for a head_dim it does
+// not take or a work list built for other tiles (bm own rows, bn
 // streamed rows). Layouts as the C entry points of flash_attention.cu;
 // sched is the work list of n_rows rows of 8 int32 that flash_schedule
 // (ops/cuda/flash_attention.py) builds.

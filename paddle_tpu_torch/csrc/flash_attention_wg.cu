@@ -1,13 +1,15 @@
 // Flash attention for Hopper (sm_90a) with wgmma, TMA and an mbarrier
 // ring: the training path's forward, dq and dk/dv kernels for bfloat16
-// q/k/v at head_dim 64 and 128.
+// q/k/v at head_dim 64 and 128, and the dq and dk/dv kernels at head_dim
+// 72 (DiT-XL/2's 1152 / 16; its forward runs flash_attention.cu's).
 //
-// Replaces, with flash_attention.cu (float32 inputs and head_dim 256 run
-// there on CUDA cores), the TPU kernels of
+// Replaces, with flash_attention.cu, the TPU kernels of
 // paddle_tpu/ops/pallas/flash_attention.py:
 //   _fwd_kernel (:69, called :157 by _flash_fwd)          -> fwd_kernel
 //   _bwd_dq_kernel (:174, called :326 by _bwd_pair_call)  -> dq_kernel
 //   _bwd_dkv_kernel (:229, called :358 by _bwd_pair_call) -> dkv_kernel
+// (float32, bfloat16 at head_dim 256 and the head_dim 72 forward run
+// there on CUDA cores).
 // The masking, causal alignment (row r sees column c iff r + (sk - sq) >=
 // c), GQA mapping, segment ids, guarded softmax (finite -1e30, rows that
 // see no key give 0 and lse -1e30 + log 1e-30) and outputs are those of
@@ -58,6 +60,14 @@
 //   each row's query tiles; a piece writes its float32 partial dK/dV to
 //   its own workspace slot and dkv_piece_sum adds the slots in piece
 //   order.
+// - a head_dim D that is not a multiple of 64 (72) keeps D for every
+//   global offset, stride and store and pads the tiles in shared memory
+//   to DP = the next multiple of 64 (128): the tensor map's d is D, so
+//   TMA fills the box columns [D, DP) with zeros (counted in the
+//   barrier's bytes like rows past s). The first products stop at the
+//   last k step holding a real column (5 of 8 at 72); the second
+//   products run N = DP, whose zero columns of dQ, dK and dV are never
+//   stored. Registers and shared memory are those of D = 128.
 // - setmaxnreg 24/240 over 384 threads waits forever unless the launch
 //   holds 168 registers a thread: launch() reads each kernel's numRegs
 //   once and refuses (kShortRegisters) a build with fewer, so the call
@@ -240,20 +250,29 @@ struct Layout {
   static_assert(kBytes <= 227 * 1024, "shared memory over 227 KB");
 };
 
+// the head_dim of the tiles in shared memory: D padded to whole 64-wide
+// boxes, and the k steps (16 columns) of a first product that hold a real
+// column
+__host__ __device__ constexpr int padded(int d) { return (d + 63) / 64 * 64; }
+__host__ __device__ constexpr int ksteps(int d) { return (d + 15) / 16; }
+
 template <int D>
 struct Fwd {
-  static constexpr int BM = 128, BN = 128, S = D == 64 ? 4 : 3;
-  using L = Layout<D, BM, BN, S, 1, 2, 1>;
+  static constexpr int DP = padded(D);
+  static constexpr int BM = 128, BN = 128, S = DP == 64 ? 4 : 3;
+  using L = Layout<DP, BM, BN, S, 1, 2, 1>;
 };
 template <int D>
 struct Dq {
-  static constexpr int BM = 128, BN = 64, S = D == 64 ? 4 : 3;
-  using L = Layout<D, BM, BN, S, 2, 2, 1>;
+  static constexpr int DP = padded(D);
+  static constexpr int BM = 128, BN = 64, S = DP == 64 ? 4 : 3;
+  using L = Layout<DP, BM, BN, S, 2, 2, 1>;
 };
 template <int D>
 struct Dkv {
-  static constexpr int BM = 128, BN = 64, S = D == 64 ? 4 : 3;
-  using L = Layout<D, BM, BN, S, 2, 2, 3>;
+  static constexpr int DP = padded(D);
+  static constexpr int BM = 128, BN = 64, S = DP == 64 ? 4 : 3;
+  using L = Layout<DP, BM, BN, S, 2, 2, 3>;
 };
 
 // bars: full[S], empty[S], own full, own empty, and for the forward's
@@ -288,6 +307,7 @@ fwd_kernel(const __grid_constant__ CUtensorMap tq,
   using C = Fwd<D>;
   using L = typename C::L;
   constexpr int BM = C::BM, BN = C::BN, S = C::S;
+  static_assert(C::DP == D, "the forward takes whole 64-wide boxes only");
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm = align1024(smem_raw);
   uint64_t* full = reinterpret_cast<uint64_t*>(sm + L::kBar);
@@ -552,7 +572,7 @@ dq_kernel(const __grid_constant__ CUtensorMap tq,
           int causal) {
   using C = Dq<D>;
   using L = typename C::L;
-  constexpr int BM = C::BM, BN = C::BN, S = C::S;
+  constexpr int BM = C::BM, BN = C::BN, S = C::S, DP = C::DP;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm = align1024(smem_raw);
   uint64_t* full = reinterpret_cast<uint64_t*>(sm + L::kBar);
@@ -580,9 +600,9 @@ dq_kernel(const __grid_constant__ CUtensorMap tq,
       mbar_wait(own_empty, (no & 1) ^ 1);
       if (lane == 0) {
         mbar_arrive_tx(own_full, 2 * L::kOwnTile);
-        tma_load_tile<D, BM>(sm, &tq, own_full, w.head, w.tile * BM, w.b);
-        tma_load_tile<D, BM>(sm + L::kOwnTile, &tdo, own_full, w.head,
-                             w.tile * BM, w.b);
+        tma_load_tile<DP, BM>(sm, &tq, own_full, w.head, w.tile * BM, w.b);
+        tma_load_tile<DP, BM>(sm + L::kOwnTile, &tdo, own_full, w.head,
+                              w.tile * BM, w.b);
       }
       ++no;
       const int hkv = w.head / (h / hk);
@@ -598,9 +618,9 @@ dq_kernel(const __grid_constant__ CUtensorMap tq,
         if (lane == 0) {
           uint8_t* base = sm + L::kRing + st * L::kStage;
           mbar_arrive_tx(full + st, L::kStage);
-          tma_load_tile<D, BN>(base, &tk, full + st, hkv, kt * BN, w.b);
-          tma_load_tile<D, BN>(base + L::kStreamTile, &tv, full + st, hkv,
-                               kt * BN, w.b);
+          tma_load_tile<DP, BN>(base, &tk, full + st, hkv, kt * BN, w.b);
+          tma_load_tile<DP, BN>(base + L::kStreamTile, &tv, full + st, hkv,
+                                kt * BN, w.b);
         } else {
           mbar_arrive(full + st);
         }
@@ -618,9 +638,9 @@ dq_kernel(const __grid_constant__ CUtensorMap tq,
   for (int k = 0, i = row_of(0); i < n_rows; i = row_of(++k)) {
     const Work w = load_work(sched, i);
     const int q0 = w.tile * BM;
-    float acc[D / 2];
+    float acc[DP / 2];
 #pragma unroll
-    for (int j = 0; j < D / 2; ++j) acc[j] = 0.f;
+    for (int j = 0; j < DP / 2; ++j) acc[j] = 0.f;
     float l2[2], dl[2];
     int qs[2] = {0, 0};
     const long long row0 = ((long long)w.b * h + w.head) * sq;
@@ -641,11 +661,11 @@ dq_kernel(const __grid_constant__ CUtensorMap tq,
         const uint32_t v_s = k_s + L::kStreamTile;
         wgmma_ss_z<BN, 0>(s, kmajor<BM>(q_s, 0), kmajor<BN>(k_s, 0));
 #pragma unroll
-        for (int kk = 1; kk < D / 16; ++kk)
+        for (int kk = 1; kk < ksteps(D); ++kk)
           wgmma_ss<BN, 0>(s, kmajor<BM>(q_s, kk), kmajor<BN>(k_s, kk), 1);
         wgmma_ss_z<BN, 0>(dp, kmajor<BM>(do_s, 0), kmajor<BN>(v_s, 0));
 #pragma unroll
-        for (int kk = 1; kk < D / 16; ++kk)
+        for (int kk = 1; kk < ksteps(D); ++kk)
           wgmma_ss<BN, 0>(dp, kmajor<BM>(do_s, kk), kmajor<BN>(v_s, kk), 1);
         wgmma_commit();
       };
@@ -654,7 +674,7 @@ dq_kernel(const __grid_constant__ CUtensorMap tq,
         const uint32_t k_s = smem_u32(sm + L::kRing + st * L::kStage);
 #pragma unroll
         for (int kk = 0; kk < BN / 16; ++kk)
-          wgmma_rs<D, 1>(acc, da[kk], mnmajor<BN>(k_s, kk), 1);
+          wgmma_rs<DP, 1>(acc, da[kk], mnmajor<BN>(k_s, kk), 1);
         wgmma_commit();
       };
       // ds = p (dp - delta) scale into s, p = exp2(s scale log2 e - lse
@@ -755,7 +775,7 @@ dkv_kernel(const __grid_constant__ CUtensorMap tq,
            int sq, int sk, int h, int hk, float scale, int causal) {
   using C = Dkv<D>;
   using L = typename C::L;
-  constexpr int BM = C::BM, BN = C::BN, S = C::S;
+  constexpr int BM = C::BM, BN = C::BN, S = C::S, DP = C::DP;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm = align1024(smem_raw);
   uint64_t* full = reinterpret_cast<uint64_t*>(sm + L::kBar);
@@ -787,9 +807,9 @@ dkv_kernel(const __grid_constant__ CUtensorMap tq,
       mbar_wait(own_empty, (no & 1) ^ 1);
       if (lane == 0) {
         mbar_arrive_tx(own_full, 2 * L::kOwnTile);
-        tma_load_tile<D, BM>(sm, &tk, own_full, w.head, w.tile * BM, w.b);
-        tma_load_tile<D, BM>(sm + L::kOwnTile, &tv, own_full, w.head,
-                             w.tile * BM, w.b);
+        tma_load_tile<DP, BM>(sm, &tk, own_full, w.head, w.tile * BM, w.b);
+        tma_load_tile<DP, BM>(sm + L::kOwnTile, &tv, own_full, w.head,
+                              w.tile * BM, w.b);
       }
       ++no;
       for (int gi = 0; gi < group; ++gi) {
@@ -809,9 +829,9 @@ dkv_kernel(const __grid_constant__ CUtensorMap tq,
           if (lane == 0) {
             uint8_t* base = sm + L::kRing + st * L::kStage;
             mbar_arrive_tx(full + st, L::kStage);
-            tma_load_tile<D, BN>(base, &tq, full + st, hh, qt * BN, w.b);
-            tma_load_tile<D, BN>(base + L::kStreamTile, &tdo, full + st, hh,
-                                 qt * BN, w.b);
+            tma_load_tile<DP, BN>(base, &tq, full + st, hh, qt * BN, w.b);
+            tma_load_tile<DP, BN>(base + L::kStreamTile, &tdo, full + st,
+                                  hh, qt * BN, w.b);
           } else {
             mbar_arrive(full + st);
           }
@@ -830,9 +850,9 @@ dkv_kernel(const __grid_constant__ CUtensorMap tq,
   for (int k = 0, i = row_of(0); i < n_rows; i = row_of(++k)) {
     const Work w = load_work(sched, i);
     const int k0 = w.tile * BM;
-    float dka[D / 2], dva[D / 2];
+    float dka[DP / 2], dva[DP / 2];
 #pragma unroll
-    for (int j = 0; j < D / 2; ++j) dka[j] = dva[j] = 0.f;
+    for (int j = 0; j < DP / 2; ++j) dka[j] = dva[j] = 0.f;
     int ks[2] = {0, 0};
     if (seg)
 #pragma unroll
@@ -850,11 +870,11 @@ dkv_kernel(const __grid_constant__ CUtensorMap tq,
         const uint32_t do_s = q_s + L::kStreamTile;
         wgmma_ss_z<BN, 0>(s, kmajor<BM>(k_s, 0), kmajor<BN>(q_s, 0));
 #pragma unroll
-        for (int kk = 1; kk < D / 16; ++kk)
+        for (int kk = 1; kk < ksteps(D); ++kk)
           wgmma_ss<BN, 0>(s, kmajor<BM>(k_s, kk), kmajor<BN>(q_s, kk), 1);
         wgmma_ss_z<BN, 0>(dp, kmajor<BM>(v_s, 0), kmajor<BN>(do_s, 0));
 #pragma unroll
-        for (int kk = 1; kk < D / 16; ++kk)
+        for (int kk = 1; kk < ksteps(D); ++kk)
           wgmma_ss<BN, 0>(dp, kmajor<BM>(v_s, kk), kmajor<BN>(do_s, kk), 1);
         wgmma_commit();
       };
@@ -864,10 +884,10 @@ dkv_kernel(const __grid_constant__ CUtensorMap tq,
         const uint32_t do_s = q_s + L::kStreamTile;
 #pragma unroll
         for (int kk = 0; kk < BN / 16; ++kk)
-          wgmma_rs<D, 1>(dva, pa[kk], mnmajor<BN>(do_s, kk), 1);
+          wgmma_rs<DP, 1>(dva, pa[kk], mnmajor<BN>(do_s, kk), 1);
 #pragma unroll
         for (int kk = 0; kk < BN / 16; ++kk)
-          wgmma_rs<D, 1>(dka, da[kk], mnmajor<BN>(q_s, kk), 1);
+          wgmma_rs<DP, 1>(dka, da[kk], mnmajor<BN>(q_s, kk), 1);
         wgmma_commit();
       };
       // p^T into s and ds^T into dp for query tile qt (stage st), masked
@@ -971,9 +991,15 @@ dkv_piece_sum(const float* __restrict__ ws_k, const float* __restrict__ ws_v,
   *reinterpret_cast<float4*>(dv + i) = c;
 }
 
-// numRegs of each instantiation, [fwd, dq, dk/dv][d 64, 128], read with
+// the slot of head_dim d in g_regs: one for each head_dim the kernels
+// take, so no two instantiations share a count (-1: not taken)
+constexpr int dim_slot(int d) {
+  return d == 64 ? 0 : d == 72 ? 1 : d == 128 ? 2 : -1;
+}
+
+// numRegs of each instantiation, [fwd, dq, dk/dv][dim_slot(d)], read with
 // cudaFuncGetAttributes at its first launch (0 until then)
-std::atomic<int> g_regs[3][2];
+std::atomic<int> g_regs[3][3];
 
 template <typename Kernel>
 cudaError_t kernel_regs(Kernel kernel, std::atomic<int>& cache, int* regs) {
@@ -1026,10 +1052,9 @@ int fwd_d(const void* q, const void* k, const void* v, const int* qseg,
   PTT_WG_MAP(tq, q, sq, h, C::BM)
   PTT_WG_MAP(tk, k, sk, hk, C::BN)
   PTT_WG_MAP(tv, v, sk, hk, C::BN)
-  return launch(fwd_kernel<D>, g_regs[0][D / 128], C::L::kBytes, n_rows, st,
-                tq, tk, tv, sched,
-                n_rows, qseg, kseg, static_cast<bf16*>(out), lse, sq, sk, h,
-                hk, scale, causal);
+  return launch(fwd_kernel<D>, g_regs[0][dim_slot(D)], C::L::kBytes, n_rows,
+                st, tq, tk, tv, sched, n_rows, qseg, kseg,
+                static_cast<bf16*>(out), lse, sq, sk, h, hk, scale, causal);
 }
 
 template <int D>
@@ -1043,8 +1068,8 @@ int dq_d(const void* q, const void* k, const void* v, const void* dout,
   PTT_WG_MAP(tdo, dout, sq, h, C::BM)
   PTT_WG_MAP(tk, k, sk, hk, C::BN)
   PTT_WG_MAP(tv, v, sk, hk, C::BN)
-  return launch(dq_kernel<D>, g_regs[1][D / 128], C::L::kBytes, n_rows, st,
-                tq, tdo, tk, tv, sched, n_rows, lse, delta, qseg, kseg,
+  return launch(dq_kernel<D>, g_regs[1][dim_slot(D)], C::L::kBytes, n_rows,
+                st, tq, tdo, tk, tv, sched, n_rows, lse, delta, qseg, kseg,
                 static_cast<bf16*>(dq), sq, sk, h, hk, scale, causal);
 }
 
@@ -1061,19 +1086,19 @@ int dkv_d(const void* q, const void* k, const void* v, const void* dout,
   PTT_WG_MAP(tv, v, sk, hk, C::BM)
   const long long slot = (long long)b * sk * hk * D;
   if (ws == nullptr)
-    return launch(dkv_kernel<D>, g_regs[2][D / 128], C::L::kBytes, n_rows,
+    return launch(dkv_kernel<D>, g_regs[2][dim_slot(D)], C::L::kBytes, n_rows,
                   st, tq, tdo, tk, tv, sched, n_rows, lse, delta, qseg, kseg,
                   dk, dv, slot, sq, sk, h, hk, scale, causal);
   // a split list: the pieces write slots of ws (dk's n_slots slots, then
   // dv's), which dkv_piece_sum adds in slot order into dk and dv
   if (pieces == nullptr || n_slots < 1) return kUnsupported;
   float* ws_v = ws + n_slots * slot;
-  const int e = launch(dkv_kernel<D>, g_regs[2][D / 128], C::L::kBytes,
+  const int e = launch(dkv_kernel<D>, g_regs[2][dim_slot(D)], C::L::kBytes,
                        n_rows, st, tq, tdo, tk, tv, sched, n_rows, lse, delta,
                        qseg, kseg, ws, ws_v, slot, sq, sk, h, hk, scale,
                        causal);
   if (e != 0) return e;
-  const long long quads = slot / 4;  // D is a multiple of 4
+  const long long quads = slot / 4;  // D is a multiple of 8
   dkv_piece_sum<<<(unsigned)((quads + 255) / 256), 256, 0, st>>>(
       ws, ws_v, pieces, dk, dv, slot, hk * D, sk, C::BM);
   return static_cast<int>(cudaGetLastError());
@@ -1111,6 +1136,9 @@ int bwd_dq(int d, const void* q, const void* k, const void* v,
   if (d == 64 && tiles_ok<Dq<64>>(bm, bn))
     return dq_d<64>(q, k, v, dout, lse, delta, qseg, kseg, dq, sched, n_rows,
                     b, sq, sk, h, hk, scale, causal, st);
+  if (d == 72 && tiles_ok<Dq<72>>(bm, bn))
+    return dq_d<72>(q, k, v, dout, lse, delta, qseg, kseg, dq, sched, n_rows,
+                    b, sq, sk, h, hk, scale, causal, st);
   if (d == 128 && tiles_ok<Dq<128>>(bm, bn))
     return dq_d<128>(q, k, v, dout, lse, delta, qseg, kseg, dq, sched,
                      n_rows, b, sq, sk, h, hk, scale, causal, st);
@@ -1127,6 +1155,10 @@ int bwd_dkv(int d, const void* q, const void* k, const void* v,
     return dkv_d<64>(q, k, v, dout, lse, delta, qseg, kseg, dk, dv, ws,
                      pieces, n_slots, sched, n_rows, b, sq, sk, h, hk, scale,
                      causal, st);
+  if (d == 72 && tiles_ok<Dkv<72>>(bm, bn))
+    return dkv_d<72>(q, k, v, dout, lse, delta, qseg, kseg, dk, dv, ws,
+                     pieces, n_slots, sched, n_rows, b, sq, sk, h, hk, scale,
+                     causal, st);
   if (d == 128 && tiles_ok<Dkv<128>>(bm, bn))
     return dkv_d<128>(q, k, v, dout, lse, delta, qseg, kseg, dk, dv, ws,
                       pieces, n_slots, sched, n_rows, b, sq, sk, h, hk,
@@ -1134,30 +1166,45 @@ int bwd_dkv(int d, const void* q, const void* k, const void* v,
   return kUnsupported;
 }
 
+bool takes(int kernel, int d) {
+  return kernel == 0 ? d == 64 || d == 128
+                     : (kernel == 1 || kernel == 2) && dim_slot(d) >= 0;
+}
+
+namespace {
+
+// kernel_regs of kernel 0 (fwd), 1 (dq) or 2 (dk/dv) at head_dim D; the
+// forward exists only where D fills whole boxes
+template <int D>
+cudaError_t regs_d(int kernel, int* r) {
+  std::atomic<int>& cache = g_regs[kernel][dim_slot(D)];
+  if (kernel == 1) return kernel_regs(dq_kernel<D>, cache, r);
+  if (kernel == 2) return kernel_regs(dkv_kernel<D>, cache, r);
+  if constexpr (padded(D) == D) return kernel_regs(fwd_kernel<D>, cache, r);
+  return cudaErrorInvalidValue;
+}
+
+template <int D>
+int smem_d(int kernel) {
+  return kernel == 0 ? Fwd<D>::L::kBytes
+                     : kernel == 1 ? Dq<D>::L::kBytes : Dkv<D>::L::kBytes;
+}
+
+}  // namespace
+
 int regs(int kernel, int d) {
-  if ((d != 64 && d != 128) || kernel < 0 || kernel > 2) return kUnsupported;
+  if (!takes(kernel, d)) return kUnsupported;
   int r = 0;
-  cudaError_t e = cudaSuccess;
-  std::atomic<int>& cache = g_regs[kernel][d / 128];
-  if (d == 64)
-    e = kernel == 0 ? kernel_regs(fwd_kernel<64>, cache, &r)
-        : kernel == 1 ? kernel_regs(dq_kernel<64>, cache, &r)
-                      : kernel_regs(dkv_kernel<64>, cache, &r);
-  else
-    e = kernel == 0 ? kernel_regs(fwd_kernel<128>, cache, &r)
-        : kernel == 1 ? kernel_regs(dq_kernel<128>, cache, &r)
-                      : kernel_regs(dkv_kernel<128>, cache, &r);
+  const cudaError_t e = d == 64   ? regs_d<64>(kernel, &r)
+                        : d == 72 ? regs_d<72>(kernel, &r)
+                                  : regs_d<128>(kernel, &r);
   return e == cudaSuccess ? r : kUnsupported;
 }
 
 int smem_bytes(int kernel, int d) {
-#define PTT_WG_SMEM(D)                                                   \
-  (kernel == 0 ? Fwd<D>::L::kBytes                                       \
-               : kernel == 1 ? Dq<D>::L::kBytes : Dkv<D>::L::kBytes)
-  if (d == 64) return PTT_WG_SMEM(64);
-  if (d == 128) return PTT_WG_SMEM(128);
-#undef PTT_WG_SMEM
-  return kUnsupported;
+  if (!takes(kernel, d)) return kUnsupported;
+  return d == 64 ? smem_d<64>(kernel)
+                 : d == 72 ? smem_d<72>(kernel) : smem_d<128>(kernel);
 }
 
 }  // namespace flash_wg

@@ -78,8 +78,9 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       "r"(c1), "r"(c2), "r"(c3) : "memory");
 }
 
-// rows [r0, r0 + ROWS) of head `head`, batch `b` of a [b, s, heads, D]
-// tensor as D / 64 boxes; rows past s arrive as zeros
+// rows [r0, r0 + ROWS) of head `head`, batch `b` of a [b, s, heads, d]
+// tensor as D / 64 boxes (D: d padded to a multiple of 64); rows past s
+// and columns past d arrive as zeros, and the barrier counts whole boxes
 template <int D, int ROWS>
 __device__ __forceinline__ void tma_load_tile(uint8_t* dst,
                                               const CUtensorMap* map,

@@ -10,12 +10,16 @@ The plain PyTorch version is
 ``paddle_tpu_torch.ops.flash_attention.flash_attention_plain``; the
 dispatchers there send CUDA tensors here.
 
-bfloat16 at head_dim 64 and 128 runs the Hopper kernels of
-``csrc/flash_attention_wg.cu``, which walk a work list built here by
-``flash_schedule``: the tile arithmetic lives in this one place, where
-the CPU tests check it exhaustively. float32, and bfloat16 at head_dim
-72 (DiT-XL/2) and 256, run the CUDA-core kernels of
-``csrc/flash_attention.cu``.
+Each kernel's route follows from its kind, dtype and head_dim alone
+(``HOPPER_HEAD_DIMS``): bfloat16 runs the Hopper kernels of
+``csrc/flash_attention_wg.cu`` (wgmma, TMA) for the forward at head_dim
+64 and 128 and for dq and dk/dv at 64, 72 (DiT-XL/2, its tiles padded to
+128 columns in shared memory) and 128. They walk a work list built here
+by ``flash_schedule``: the tile arithmetic lives in this one place,
+where the CPU tests check it exhaustively. float32 at every head_dim,
+bfloat16 at 256 and the bfloat16 forward at 72 run the CUDA-core kernels
+of ``csrc/flash_attention.cu``. A call on a route goes to its kernel or
+raises: nothing falls back to another route or to the plain version.
 """
 from __future__ import annotations
 
@@ -39,8 +43,9 @@ launches_dkv = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64, 72, 128, 256)
-# the head_dims of the Hopper (wgmma, TMA) kernels, bfloat16 only
-HOPPER_HEAD_DIMS = (64, 128)
+# the head_dims of each Hopper (wgmma, TMA) kernel, bfloat16 only
+HOPPER_HEAD_DIMS = {"fwd": (64, 128), "dq": (64, 72, 128),
+                    "dkv": (64, 72, 128)}
 
 # (own rows, streamed rows) of a CTA's tile in each Hopper kernel: the
 # forward and dq own query rows and stream key tiles, dk/dv owns key rows
@@ -167,9 +172,11 @@ def _schedule_on(device, kind, b, sq, sk, h, hk, causal, segmented, sms):
 
 def _schedule(kind, q, b, sq, sk, h, hk, causal, segmented):
     """(work list on q's device, its rows, pieces per key tile or None,
-    workspace slots) for the Hopper kernels, or (None, 0, None, 1) for
-    the CUDA-core route (float32; bfloat16 at head_dim 72 and 256)."""
-    if q.dtype != torch.bfloat16 or q.shape[-1] not in HOPPER_HEAD_DIMS:
+    workspace slots) for the Hopper kernel of ``kind``, or (None, 0,
+    None, 1) for the CUDA-core route (float32; bfloat16 at a head_dim
+    HOPPER_HEAD_DIMS[kind] does not name)."""
+    if (q.dtype != torch.bfloat16
+            or q.shape[-1] not in HOPPER_HEAD_DIMS[kind]):
         return None, 0, None, 1
     t, pieces, slots = _schedule_on(
         q.device, kind, b, sq, sk, h, hk, bool(causal), bool(segmented),
@@ -179,19 +186,21 @@ def _schedule(kind, q, b, sq, sk, h, hk, causal, segmented):
 
 def _regs(lib, kernel: str, d: int):
     """A callable giving the registers a thread of the Hopper kernel
-    (for check's message; -1 at a head_dim of the CUDA-core route only,
+    (for check's message; -1 where the kernel has no Hopper route,
     which never reports short registers)."""
     return lambda: lib.ptt_flash_regs(("fwd", "dq", "dkv").index(kernel), d)
 
 
 def kernel_regs(kernel: str, head_dim: int) -> int:
     """Registers a thread of the Hopper kernel ("fwd", "dq" or "dkv") at
-    head_dim 64 or 128 as built: their setmaxnreg split needs 168, and
-    a launch with fewer raises. Other head_dims (72, 256) run only the
-    CUDA-core kernels, which have no such split: ValueError."""
-    if head_dim not in HOPPER_HEAD_DIMS:
-        raise ValueError(f"kernel_regs: head_dim {head_dim} has no Hopper "
-                         f"kernel (those take {HOPPER_HEAD_DIMS})")
+    a head_dim of HOPPER_HEAD_DIMS[kernel] as built: their setmaxnreg
+    split needs 168, and a launch with fewer raises. At another head_dim
+    the kernel runs only on CUDA cores, which have no such split:
+    ValueError."""
+    if head_dim not in HOPPER_HEAD_DIMS[kernel]:
+        raise ValueError(f"kernel_regs: {kernel} at head_dim {head_dim} has "
+                         f"no Hopper kernel (it takes "
+                         f"{HOPPER_HEAD_DIMS[kernel]})")
     return _regs(load_library(), kernel, head_dim)()
 
 
@@ -355,8 +364,8 @@ def flash_bwd_cuda(q, k, v, out, lse, dout, causal: bool, scale: float,
 def smem_bytes(kernel: str, head_dim: int, dtype) -> int:
     """Dynamic shared memory of one block of kernel ("fwd", "dq" or
     "dkv") at head_dim and dtype, as the launcher asks for it (the
-    Hopper kernel's for bfloat16 at 64 / 128, the CUDA-core kernel's
-    otherwise)."""
+    Hopper kernel's for bfloat16 at HOPPER_HEAD_DIMS[kernel], the
+    CUDA-core kernel's otherwise)."""
     return load_library().ptt_flash_smem_bytes(
         ("fwd", "dq", "dkv").index(kernel), head_dim, _DTYPES[dtype])
 

@@ -22,7 +22,8 @@ Tolerances:
 Also: the port's own init gives an exactly zero output; parameter names
 and shapes equal JAX's; the configs equal JAX's; label dropout raises
 without a generator in training, never drops in eval and maps dropped
-labels to ``num_classes``; on a CPU tensor at head_dim 72
+labels to ``num_classes``; at head_dim 72 the bf16 dq and dk/dv take
+the Hopper route and the forward the CUDA-core one, and on a CPU tensor
 ``flash_attention`` takes the plain route and the CUDA wrappers raise.
 On the CPU the port's attention runs the plain version of its kernels.
 """
@@ -264,20 +265,37 @@ def test_flash_plain_d72_matches_jax(causal):
     assert tuple(lse.shape) == (2, 4, 40)
 
 
-def test_flash_routes_at_d72_on_the_cpu():
-    assert 72 in cfa.HEAD_DIMS and 72 not in cfa.HOPPER_HEAD_DIMS
+@pytest.mark.parametrize("kind", ["fwd", "dq", "dkv"])
+def test_flash_routes_at_d72_on_the_cpu(kind, monkeypatch):
+    """At head_dim 72 the bf16 dq and dk/dv take the Hopper kernels (a
+    work list is built for them) and the forward the CUDA-core one (no
+    list; kernel_regs raises); on a CPU tensor ``flash_attention`` takes
+    the plain version and every CUDA wrapper raises."""
+    assert 72 in cfa.HEAD_DIMS
+    assert (72 in cfa.HOPPER_HEAD_DIMS[kind]) == (kind != "fwd")
     rng = np.random.RandomState(4)
     q, k, v = (torch.from_numpy(rng.randn(1, 16, 2, 72).astype(np.float32))
                for _ in range(3))
     np.testing.assert_array_equal(
         tfa.flash_attention(q, k, v).numpy(),
         tfa.flash_attention_plain(q, k, v, False, 72 ** -0.5)[0].numpy())
-    with pytest.raises(ValueError, match="CUDA device"):
-        cfa.flash_fwd_cuda(q, k, v, False, 72 ** -0.5)
+    monkeypatch.setattr(cfa, "sm_count", lambda device: 132)
+    sched, n, pieces, slots = cfa._schedule(
+        kind, q.to(torch.bfloat16), 1, 16, 16, 2, 2, False, False)
+    if kind == "fwd":
+        assert sched is None and n == 0
+        with pytest.raises(ValueError, match="no Hopper kernel"):
+            cfa.kernel_regs("fwd", 72)
+    else:
+        assert n == 2 and tuple(sched.shape) == (2, 8)
+        assert pieces is None and slots == 1
+    # float32 keeps the CUDA-core route at every head_dim
+    assert cfa._schedule(kind, q, 1, 16, 16, 2, 2, False, False)[0] is None
     lse = torch.zeros(1, 2, 16)
+    call = {"fwd": lambda: cfa.flash_fwd_cuda(q, k, v, False, 72 ** -0.5),
+            "dq": lambda: cfa.flash_bwd_dq_cuda(q, k, v, q, lse, lse, False,
+                                                72 ** -0.5),
+            "dkv": lambda: cfa.flash_bwd_dkv_cuda(q, k, v, q, lse, lse,
+                                                  False, 72 ** -0.5)}[kind]
     with pytest.raises(ValueError, match="CUDA device"):
-        cfa.flash_bwd_dq_cuda(q, k, v, q, lse, lse, False, 72 ** -0.5)
-    with pytest.raises(ValueError, match="CUDA device"):
-        cfa.flash_bwd_dkv_cuda(q, k, v, q, lse, lse, False, 72 ** -0.5)
-    with pytest.raises(ValueError, match="no Hopper kernel"):
-        cfa.kernel_regs("fwd", 72)
+        call()

@@ -6,8 +6,8 @@ Run from the root of the repository:  python3 tools/decode_matmul_probe.py [DIR]
 
 Builds the kernels and prints ptxas's registers and spills of every
 decode_matmul instantiation, the HMMA count of each tensor-core one in
-the library's SASS, and the registers a thread of the six Hopper flash
-kernels (168 needed). Then, one JSON line each:
+the library's SASS, and the registers a thread of the eight Hopper
+flash kernels (168 needed). Then, one JSON line each:
 - decode_matmul at the Llama-3-8B shapes (int4 halves at b 1/4/8/32,
   int8 and dense bf16 on wgu at b 1/8/32, one float32 int4 case): the
   relative max error against decode_matmul_reference (< 2e-2), its time
@@ -48,9 +48,9 @@ def main():
     print("gemv_sass", json.dumps(cs._count_sass(
         sass, lambda m: cs._gemv_name(m) if "tc_kernel" in m else None,
         ("HMMA",))), flush=True)
-    print("flash_regs", json.dumps({f"{k}<{d}>": cfa.kernel_regs(k, d)
-                                    for k in ("fwd", "dq", "dkv")
-                                    for d in (64, 128)}), flush=True)
+    print("flash_regs", json.dumps({
+        name: cfa.kernel_regs(k, d)
+        for name, (k, d) in cs._flash_wg_kernels(cfa).items()}), flush=True)
     if len(sys.argv) > 1:
         out_dir = Path(sys.argv[1])
         out_dir.mkdir(parents=True, exist_ok=True)

@@ -7,13 +7,16 @@ Builds the kernels (printing ptxas's registers and spills of each flash
 kernel, and writing the whole ptxas report of flash_attention_wg.cu and
 the library's SASS into DIR when one is given), refuses to go on unless
 each Hopper kernel has 168 registers a thread (its setmaxnreg split
-would wait forever), runs the forward, dq and dk/dv kernels on a few
-small cases (bf16 and float32, GQA, causal with sq != sk, packed
-segments, head_dim 64/128/256) against ``flash_attention_plain`` in float32 with autograd,
-printing one JSON line per case (max abs error of out and lse, relative
-max error of dq/dk/dv, whether two backward runs are bit-identical), then
-times each kernel and the library's scaled_dot_product_attention forward
-at the llama_mid shape (b 4, s 2048, h 16, kv 8, d 128, bf16, causal).
+would wait forever) and HGMMA and UTMALDG in its SASS, runs the forward,
+dq and dk/dv kernels on a few small cases (bf16 and float32, GQA, causal
+with sq != sk, packed segments, head_dim 64/72/128/256) against
+``flash_attention_plain`` in float32 with autograd, printing one JSON
+line per case (max abs error of out and lse, relative max error of
+dq/dk/dv, whether two backward runs are bit-identical), then times each
+kernel and the library's scaled_dot_product_attention at the llama_mid
+shape (b 4, s 2048, h 16, kv 8, d 128, bf16, causal; forward) and at
+DiT-XL/2's (b 32, s 256, h 16, kv 16, d 72, bf16, not causal; forward
+and backward).
 It is the short first call after a kernel change; chip_smoke.py holds
 the full checks.
 """
@@ -52,6 +55,14 @@ def main():
                        for m in [re.search(r"(\d+) bytes spill stores", ln)]
                        if m):
                     print("flash_probe: spills in", name, flush=True)
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run(
+        [tool, "--dump-sass",
+         str(_build.BUILD_DIR / _build.build_info["library"])],
+        capture_output=True, text=True).stdout
+    found = chip_smoke._count_sass(sass, chip_smoke._flash_wg_name,
+                                   ("HGMMA", "UTMALDG"))
+    print("flash_wg_sass", json.dumps(found), flush=True)
     if len(sys.argv) > 1:
         # the whole ptxas report and the library's SASS, for reading off
         # the card
@@ -59,17 +70,14 @@ def main():
         out_dir.mkdir(parents=True, exist_ok=True)
         (out_dir / "ptxas_wg.txt").write_text(
             _build.build_info["ptxas"].get("flash_attention_wg.cu", ""))
-        tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-        sass = subprocess.run(
-            [tool, "--dump-sass",
-             str(_build.BUILD_DIR / _build.build_info["library"])],
-            capture_output=True, text=True)
-        (out_dir / "sass.txt").write_text(sass.stdout)
+        (out_dir / "sass.txt").write_text(sass)
     # the Hopper kernels move registers between warpgroups with
     # setmaxnreg, which waits forever unless the launch holds 168 a thread
+    want = set(chip_smoke._flash_wg_kernels(fa))
     bad = {k: r for k, r in regs.items() if r != 168}
-    if bad or len(regs) != 6:
-        print("flash_probe: unexpected register counts", regs,
+    if bad or set(regs) != want or set(found) != want or not all(
+            min(c.values()) > 0 for c in found.values()):
+        print("flash_probe: unexpected register counts or SASS", regs,
               file=sys.stderr)
         return 1
     gen = torch.Generator(device="cuda")
@@ -119,6 +127,12 @@ def main():
     case(1, 200, 200, 2, 2, 256, bf16, False)
     case(1, 512, 512, 4, 2, 128, bf16, True, seg=True)
     case(1, 1000, 300, 4, 4, 64, f32, True)
+    # head_dim 72: the forward on CUDA cores, dq and dk/dv on the Hopper
+    # kernels (tiles padded to 128 columns)
+    case(2, 256, 256, 4, 4, 72, bf16, False)
+    case(2, 300, 1000, 8, 2, 72, bf16, True)
+    case(1, 512, 512, 4, 2, 72, bf16, True, seg=True)
+    case(1, 200, 700, 4, 4, 72, bf16, False)
 
     b, s, h, hk, d = 4, 2048, 16, 8, 128
     q = torch.randn(b, s, h, d, device="cuda", dtype=bf16)
@@ -150,6 +164,30 @@ def main():
     print("sdpa_fwd_ms", timed(
         lambda: torch.nn.functional.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, enable_gqa=True)))
+
+    # DiT-XL/2's attention: b 32 x 256 patches, 16 heads of 72, not causal
+    b, s, h, d = 32, 256, 16, 72
+    q, k, v, do = (torch.randn(b, s, h, d, device="cuda", dtype=bf16)
+                   for _ in range(4))
+    sc = d ** -0.5
+    out, lse = fa.flash_fwd_cuda(q, k, v, False, sc)
+    delta = fa.flash_bwd_delta(out, do)
+    dq_ms = timed(lambda: fa.flash_bwd_dq_cuda(q, k, v, do, lse, delta,
+                                               False, sc))
+    dkv_ms = timed(lambda: fa.flash_bwd_dkv_cuda(q, k, v, do, lse, delta,
+                                                 False, sc))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    leaves = [t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v)]
+    l_out = sdpa(*leaves)
+    bwd_ms = timed(lambda: torch.autograd.grad(
+        l_out, leaves, do.transpose(1, 2), retain_graph=True))
+    print("dit_xl2", json.dumps(dict(
+        fwd_ms=timed(lambda: fa.flash_fwd_cuda(q, k, v, False, sc)),
+        dq_ms=dq_ms, dkv_ms=dkv_ms,
+        sdpa_fwd_ms=timed(lambda: sdpa(*(t.transpose(1, 2)
+                                         for t in (q, k, v)))),
+        sdpa_bwd_ms=bwd_ms, bwd_over_sdpa=(dq_ms + dkv_ms) / bwd_ms)),
+        flush=True)
     return 0
 
 
