@@ -10,9 +10,8 @@ failure ends the run with a non-zero exit code and no result:
 
 1. env           torch / CUDA versions and the card's name and power limit.
 2. build         compiles ``paddle_tpu_torch/csrc/*.cu`` for sm_90a; the
-                 SASS of the eight Hopper flash kernels (forward, dq,
-                 dk/dv at head_dim 64 and 128; dq and dk/dv at 72) must
-                 hold HGMMA (wgmma)
+                 SASS of the nine Hopper flash kernels (forward, dq,
+                 dk/dv at head_dim 64, 72 and 128) must hold HGMMA (wgmma)
                  and UTMALDG (TMA load) instructions, and each must have
                  been built with 168 registers a thread (its setmaxnreg
                  split needs them; a launch with fewer raises); the nine
@@ -22,9 +21,10 @@ failure ends the run with a non-zero exit code and no result:
                  decode at 64 / 128) must hold HMMA and UTMALDG, the two
                  int8 ones UBLKCP (their scale rows). Prints ptxas's
                  registers and spills of every flash, GEMV and
-                 paged-attention instantiation (the CUDA-core flash
-                 kernels at head_dim 72, float32 and the bf16 forward,
-                 must be there) and the paged kernels' dynamic shared
+                 paged-attention instantiation (the float32 CUDA-core
+                 flash kernels at head_dim 72 must be there, and the
+                 Hopper forward at 72 with at least 168 registers and
+                 no spills) and the paged kernels' dynamic shared
                  memory.
 3. kernels       each kernel against its plain PyTorch version on the card
                  at the shapes its main path gives it (Llama-3-8B serving:
@@ -50,8 +50,7 @@ failure ends the run with a non-zero exit code and no result:
                  at the dense prefill's b x s of 1 x 256, 4 x 128, 4 x 256
                  and 1 x 512; DiT-XL/2's attention (not causal, b 32 x
                  s 256, 16 / 16 heads of 72) in bf16 within 1e-2 (the
-                 forward on CUDA cores, dq and dk/dv on the Hopper
-                 kernels) and float32 within 1e-4 (the CUDA-core
+                 Hopper kernels) and float32 within 1e-4 (the CUDA-core
                  kernels), and at d 72 in bf16 within 1e-2 a causal GQA
                  case with ragged edges (sq 300, sk 1000, its dk/dv list
                  cut into pieces), packed documents and a non-causal
@@ -447,8 +446,8 @@ failure ends the run with a non-zero exit code and no result:
                  and 8 timed TrainSteps. The flash counters, set to 0
                  just before and read just after, must read exactly 28
                  forward, 28 dq and 28 dk/dv launches a step (d 72: the
-                 forward on CUDA cores, dq and dk/dv on the Hopper
-                 kernels), no serving kernel; every loss
+                 Hopper kernels, the forward read off the profile's
+                 kernel names), no serving kernel; every loss
                  finite and the last below the first. Step ms, imgs/s,
                  MFU by bench.py's formula (6 N T + 12 depth hidden T^2
                  a picture over 989 TFLOP/s), peak memory, device ms by
@@ -505,7 +504,7 @@ GEMV_SHAPES = dict(SHAPES_8B, **SHAPES_8B_TP2, **{"1b_wgu": (2048, 11264)},
                    **SHAPES_ERNIE)
 # flash attention cases (all causal, bf16 unless named): the llama_mid
 # training shape first; `docs` packed documents plus a padded tail. bf16
-# at d 64/128 runs the Hopper (wgmma, TMA) kernels, float32 and d 256 the
+# at d 64/72/128 runs the Hopper (wgmma, TMA) kernels, float32 and d 256 the
 # CUDA-core ones. The dense_* cases are the 8B dense prefill's own
 # calls: a mid chunk (b 1 x 256), grouped finals (4 rows of a 128 or 256
 # bucket; generate()'s b 4 x 256) and a lone final of the 512 bucket. Its
@@ -529,14 +528,13 @@ FLASH_CASES = [
     # head), b 8 x s 1024, 16 heads of 64
     dict(name="gpt_345m", b=8, sq=1024, sk=1024, h=16, hk=16, d=64),
     # train-dit-xl2's attention: not causal, b 32 x s 256 (16 x 16
-    # patches), 16 heads of 72 (DiT-XL/2's 1152 / 16): bf16 (the forward
-    # on CUDA cores, dq and dk/dv on the Hopper kernels) and float32 (the
-    # CUDA-core kernels)
+    # patches), 16 heads of 72 (DiT-XL/2's 1152 / 16): bf16 (the Hopper
+    # kernels) and float32 (the CUDA-core kernels)
     dict(name="dit_xl2", b=32, sq=256, sk=256, h=16, hk=16, d=72,
          causal=False, tol=1e-2),
     dict(name="f32_dit_xl2", b=32, sq=256, sk=256, h=16, hk=16, d=72,
          causal=False, tol=1e-4, dtype="float32"),
-    # the d-72 Hopper backward off DiT's shape: causal GQA with ragged
+    # the d-72 Hopper kernels off DiT's shape: causal GQA with ragged
     # edges (its dk/dv list, 32 rows, is cut into pieces), packed
     # documents, and a non-causal sq < sk block as the ring's backward
     # block gives it
@@ -697,25 +695,45 @@ def _family(name):
     return "other"
 
 
+def _flash_kernel_name(name):
+    """A flash kernel's instantiation from its demangled profiler name:
+    flash_wg::fwd_kernel<bf16,72> (Hopper) or flash_fwd_kernel<f32,72>
+    (CUDA cores); the name's head otherwise."""
+    wg = re.search(r"flash_wg::.*?(fwd|dq|dkv)_kernel<(\d+)>", name)
+    if wg:
+        return f"flash_wg::{wg.group(1)}_kernel<bf16,{wg.group(2)}>"
+    cc = re.search(r"(flash_\w+_kernel)<(float|__nv_bfloat16), (\d+)>", name)
+    if cc:
+        dt = "f32" if cc.group(2) == "float" else "bf16"
+        return f"{cc.group(1)}<{dt},{cc.group(3)}>"
+    return name[:60]
+
+
 def _device_breakdown(torch, fn, wall_ms):
-    """Device time of fn by kernel family (torch.profiler), and the idle
-    share of ``wall_ms``, the wall time of the same work measured
-    without the profiler (which slows the host several fold). Reports
-    what the profiler saw; an empty trace leaves the families empty
-    rather than failing."""
+    """Device time of fn by kernel family (torch.profiler), launches
+    and ms of each flash instantiation, and the idle share of
+    ``wall_ms``, the wall time of the same work measured without the
+    profiler (which slows the host several fold). Reports what the
+    profiler saw; an empty trace leaves the families empty rather than
+    failing."""
     t0 = time.perf_counter()
-    fams, other, kernels = {}, {}, 0
+    fams, other, flash, kernels = {}, {}, {}, 0
     for name, (count, us) in _kernel_events(torch, fn).items():
         kernels += count
         fam = _family(name)
         if fam == "other":
             other[name[:60]] = other.get(name[:60], 0.0) + us / 1e3
+        elif fam.startswith("flash"):
+            n = flash.setdefault(_flash_kernel_name(name), [0, 0.0])
+            n[0] += count
+            n[1] += us / 1e3
         fams[fam] = fams.get(fam, 0.0) + us / 1e3
     busy = sum(fams.values())
     _PROFILE_S[0] += time.perf_counter() - t0
     return {"device_ms_by_family": fams, "device_ms": busy,
             "device_kernels": kernels, "wall_ms": wall_ms,
             "idle_share": max(0.0, 1.0 - busy / wall_ms) if busy else None,
+            "flash_kernels": flash,
             "top_other": dict(sorted(other.items(),
                                      key=lambda kv: -kv[1])[:6])}
 
@@ -830,8 +848,8 @@ def _flash_wg_kernels(cfa):
 def _flash_sass(sass, cfa):
     """Count HGMMA (wgmma) and UTMALDG (TMA load) instructions in each
     Hopper flash kernel of the built library; fails unless every one the
-    wrappers route to (fwd at head_dim 64 and 128, dq and dk/dv at 64, 72
-    and 128) is there with both, and no other."""
+    wrappers route to (fwd, dq and dk/dv at head_dim 64, 72 and 128) is
+    there with both, and no other."""
     found = _count_sass(sass, _flash_wg_name, ("HGMMA", "UTMALDG"))
     _require(set(found) == set(_flash_wg_kernels(cfa))
              and all(min(c.values()) > 0 for c in found.values()),
@@ -1646,20 +1664,30 @@ def main():
         for src in ("flash_attention.cu", "flash_attention_wg.cu"):
             ptxas[src] = _flash_ptxas(
                 _build.build_info.get("ptxas", {}).get(src, ""))
-        # DiT-XL/2's head_dim on CUDA cores: float32, and the bf16
-        # forward (its dq and dk/dv are Hopper kernels)
-        d72 = ["flash_fwd_kernel<bf16,72>"] + [
-            f"flash_{k}_kernel<f32,72>" for k in ("fwd", "bwd_dq",
-                                                  "bwd_dkv")]
+        # DiT-XL/2's head_dim: float32 on CUDA cores, bf16 on the Hopper
+        # kernels, the forward's registers those of d 128 and no spills
+        d72 = [f"flash_{k}_kernel<f32,72>" for k in ("fwd", "bwd_dq",
+                                                     "bwd_dkv")]
         _require(all(n in ptxas["flash_attention.cu"] for n in d72),
                  f"ptxas reports no head_dim 72 flash kernels: "
                  f"{sorted(ptxas['flash_attention.cu'])}")
+        fwd72 = " ".join(ptxas["flash_attention_wg.cu"].get(
+            "flash_wg::fwd_kernel<bf16,72>", []))
+        used = re.search(r"Used (\d+) registers", fwd72)
+        _require(used and int(used.group(1)) >= 168
+                 and "0 bytes spill stores, 0 bytes spill loads" in fwd72,
+                 f"ptxas: fwd_kernel<72> wants >= 168 registers and no "
+                 f"spills: {fwd72!r}")
         ptxas["decode_matmul.cu"] = _gemv_ptxas(
             _build.build_info.get("ptxas", {}).get("decode_matmul.cu", ""))
         smem = {f"{kern}<{dn},{d}>": cfa.smem_bytes(kern, d, dt)
                 for kern in ("fwd", "dq", "dkv") for d in cfa.HEAD_DIMS
                 for dn, dt in (("f32", torch.float32),
                                ("bf16", torch.bfloat16))}
+        # the Hopper forward at 72 holds d 128's padded tiles
+        _require(smem["fwd<bf16,72>"] == smem["fwd<bf16,128>"],
+                 f"fwd<bf16,72> asks for {smem['fwd<bf16,72>']} B of shared "
+                 f"memory, not d 128's {smem['fwd<bf16,128>']}")
         # the Hopper flash kernels' setmaxnreg 24/240 split over 384
         # threads waits forever below 168 registers a thread; a launch
         # refuses such a build, and so does this phase
@@ -1800,6 +1828,8 @@ def main():
         fwd = lambda: cfa.flash_fwd_cuda(q, k, v, causal, sc, qs,  # noqa
                                          ks)
         out, lse = fwd()
+        _require(all(torch.equal(a, b_) for a, b_ in zip((out, lse), fwd())),
+                 f"flash {name}: two forward runs differ")
         delta = cfa.flash_bwd_delta(out, dout)
         bwd_args = (q, k, v, dout, lse, delta, causal, sc, qs, ks)
         runs = [(cfa.flash_bwd_dq_cuda(*bwd_args),)
@@ -1900,7 +1930,8 @@ def main():
                 "sdpa_ratio": sdpa_ratio,
                 "visible_pairs_per_head": pairs, "masked_rows": masked,
                 "max_abs_err": err, "grad_rel_err": rel,
-                "bwd_bit_identical": True, "ms": ms,
+                "fwd_bit_identical": True, "bwd_bit_identical": True,
+                "ms": ms,
                 "plain_ms": {"fwd": plain_fwd, "dq": plain_bwd,
                              "dkv": plain_bwd},
                 "library_ms": lib,
@@ -5818,6 +5849,12 @@ def main():
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         prof = _device_breakdown(torch, lambda: step(inputs, noise),
                                  step_ms)
+        # the profiled step's flash launches are the Hopper kernels' at 72
+        routed = {n: c for n, (c, _ms) in prof["flash_kernels"].items()
+                  if "piece_sum" not in n}
+        _require(routed == {f"flash_wg::{k}_kernel<bf16,72>": L
+                            for k in ("fwd", "dq", "dkv")},
+                 f"train-dit-xl2: a step's flash kernels were {routed}")
         del model, opt, step
         gc.collect()
         torch.cuda.empty_cache()
@@ -6060,9 +6097,8 @@ def main():
                 "serve-ernie-int4 dense prefill":
                     gpt_launches["dense"]["flash_fwd"]}
     # head_dim 72: DiT-XL/2's attention, bf16 with train-dit-xl2's
-    # launches (the forward on CUDA cores, dq and dk/dv on the Hopper
-    # kernels); float32 (CUDA cores) timed at the same shape, launched by
-    # tiny-dit-parity's float32 d 72 run
+    # launches (the Hopper kernels); float32 (CUDA cores) timed at the
+    # same shape, launched by tiny-dit-parity's float32 d 72 run
     for key, dtn, launches in (
             ("dit_xl2", "d 72, DiT-XL/2", dit_launches["train"]),
             ("f32_dit_xl2", "float32, d 72",
@@ -6072,7 +6108,7 @@ def main():
                 ("fwd", "flash_fwd", tpu + "flash_attention.py:69"),
                 ("dq", "flash_bwd_dq", tpu + "flash_attention.py:174"),
                 ("dkv", "flash_bwd_dkv", tpu + "flash_attention.py:229")):
-            hopper = key == "dit_xl2" and kk != "fwd"
+            hopper = key == "dit_xl2"
             kernel_rows.append({
                 "name": f"{name}[{dtn}]", "route": "cuda",
                 "source": "paddle_tpu_torch/csrc/" + (

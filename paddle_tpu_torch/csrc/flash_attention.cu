@@ -31,11 +31,10 @@
 // tensor cores become the limit.
 //
 // Design (the simple, right form; the fast form is later work). These
-// kernels take float32 inputs, bfloat16 at head_dim 256, and the bfloat16
-// forward at head_dim 72; bfloat16 at head_dim 64 and 128 (the Llama / GPT
-// training path) and the bfloat16 dq and dk/dv at 72 (DiT-XL/2) run on the
-// tensor cores in flash_attention_wg.cu (wgmma, TMA) with the same
-// semantics.
+// kernels take float32 inputs at every head_dim and bfloat16 at head_dim
+// 256; bfloat16 at head_dim 64, 72 and 128 (the Llama / GPT and DiT-XL/2
+// training paths) runs on the tensor cores in flash_attention_wg.cu
+// (wgmma, TMA) with the same semantics.
 // - CUDA-core float32 FMAs (67 TFLOP/s peak, not the 989 of the tensor
 //   cores): the float32 path must agree with the CPU to 1e-4, which
 //   bfloat16 or TF32 products would not.
@@ -627,8 +626,7 @@ int bwd_delta(int dtype, const void* out, const void* dout, float* delta,
 // Dispatch on dtype (0 float32, 1 bfloat16) and head_dim (64, 72, 128, 256)
 // for the CUDA-core kernels above; what hopper_route takes never comes
 // here: the entry points send it to the Hopper kernels
-// (flash_attention_wg.cu), which walk the work list `sched`. The bfloat16
-// forward at 72 is dispatched by its entry point.
+// (flash_attention_wg.cu), which walk the work list `sched`.
 #define PTT_FLASH_DISPATCH(FN, ...)                                       \
   switch (dtype * 1000 + d) {                                             \
     case 64: return FN<float, 64>(__VA_ARGS__);                           \
@@ -652,11 +650,11 @@ bool hopper_route(int kernel, int dtype, int d) {
 
 // q [b, sq, h, d], k/v [b, sk, hk, d] of dtype, contiguous; segment ids
 // [b, sq] / [b, sk] int32 or both null. Writes out [b, sq, h, d] (dtype)
-// and lse [b, h, sq] float32. The Hopper route (bfloat16 at head_dim 64 /
-// 128) also takes the work list sched (n_rows rows of 8 int32, built for
-// tiles of bm own and bn streamed rows); the other routes ignore it.
-// Returns 0, a cudaError_t, or -1 for an unsupported shape, type or work
-// list.
+// and lse [b, h, sq] float32. The Hopper route (bfloat16 at head_dim 64,
+// 72 and 128) also takes the work list sched (n_rows rows of 8 int32,
+// built for tiles of bm own and bn streamed rows); the other routes ignore
+// it. Returns 0, a cudaError_t, or -1 for an unsupported shape, type or
+// work list.
 extern "C" int ptt_flash_fwd(const void* q, const void* k, const void* v,
                              const int* q_seg, const int* kv_seg, void* out,
                              float* lse, const int* sched, int b, int sq,
@@ -670,9 +668,6 @@ extern "C" int ptt_flash_fwd(const void* q, const void* k, const void* v,
   if (hopper_route(0, dtype, d))
     return flash_wg::fwd(d, q, k, v, q_seg, kv_seg, out, lse, sched, n_rows,
                          bm, bn, b, sq, sk, h, hk, scale, causal, st);
-  if (dtype == kBF16 && d == 72)  // DiT-XL/2's forward
-    return fwd<__nv_bfloat16, 72>(q, k, v, q_seg, kv_seg, out, lse, b, sq,
-                                  sk, h, hk, scale, causal, st);
   PTT_FLASH_DISPATCH(fwd, q, k, v, q_seg, kv_seg, out, lse, b, sq, sk, h,
                      hk, scale, causal, st)
 }
@@ -732,8 +727,8 @@ extern "C" int ptt_flash_bwd_dkv(const void* q, const void* k, const void* v,
 #undef PTT_FLASH_DISPATCH
 
 // Registers a thread of the Hopper kernel 0 (forward), 1 (dq) or 2
-// (dk/dv) at head_dim d, as built; -1 for a pair without one (the
-// forward at 72) or a failed query. Their setmaxnreg split needs 168.
+// (dk/dv) at head_dim d, as built; -1 for a head_dim without one (256)
+// or a failed query. Their setmaxnreg split needs 168.
 extern "C" int ptt_flash_regs(int kernel, int d) {
   return ptt::flash_wg::regs(kernel, d);
 }
@@ -743,9 +738,7 @@ extern "C" int ptt_flash_regs(int kernel, int d) {
 extern "C" int ptt_flash_smem_bytes(int kernel, int d, int dtype) {
   using namespace ptt;
   if (hopper_route(kernel, dtype, d)) return flash_wg::smem_bytes(kernel, d);
-  const bool cuda_core_bf16 = d == 256 || (d == 72 && kernel == 0);
-  if (dtype != kF32 && !(dtype == kBF16 && cuda_core_bf16))
-    return kUnsupported;
+  if (dtype != kF32 && !(dtype == kBF16 && d == 256)) return kUnsupported;
   const int f = static_cast<int>(sizeof(float));
 #define PTT_FLASH_SMEM(D)                                      \
   return f * (kernel == 0 ? fwd_smem<D>()                      \

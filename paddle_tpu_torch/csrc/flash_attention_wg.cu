@@ -1,15 +1,14 @@
 // Flash attention for Hopper (sm_90a) with wgmma, TMA and an mbarrier
 // ring: the training path's forward, dq and dk/dv kernels for bfloat16
-// q/k/v at head_dim 64 and 128, and the dq and dk/dv kernels at head_dim
-// 72 (DiT-XL/2's 1152 / 16; its forward runs flash_attention.cu's).
+// q/k/v at head_dim 64, 72 (DiT-XL/2's 1152 / 16) and 128.
 //
 // Replaces, with flash_attention.cu, the TPU kernels of
 // paddle_tpu/ops/pallas/flash_attention.py:
 //   _fwd_kernel (:69, called :157 by _flash_fwd)          -> fwd_kernel
 //   _bwd_dq_kernel (:174, called :326 by _bwd_pair_call)  -> dq_kernel
 //   _bwd_dkv_kernel (:229, called :358 by _bwd_pair_call) -> dkv_kernel
-// (float32, bfloat16 at head_dim 256 and the head_dim 72 forward run
-// there on CUDA cores).
+// (float32 at every head_dim and bfloat16 at head_dim 256 run there on
+// CUDA cores).
 // The masking, causal alignment (row r sees column c iff r + (sk - sq) >=
 // c), GQA mapping, segment ids, guarded softmax (finite -1e30, rows that
 // see no key give 0 and lse -1e30 + log 1e-30) and outputs are those of
@@ -66,8 +65,8 @@
 //   TMA fills the box columns [D, DP) with zeros (counted in the
 //   barrier's bytes like rows past s). The first products stop at the
 //   last k step holding a real column (5 of 8 at 72); the second
-//   products run N = DP, whose zero columns of dQ, dK and dV are never
-//   stored. Registers and shared memory are those of D = 128.
+//   products run N = DP, whose zero columns of O, dQ, dK and dV are
+//   never stored. Registers and shared memory are those of D = 128.
 // - setmaxnreg 24/240 over 384 threads waits forever unless the launch
 //   holds 168 registers a thread: launch() reads each kernel's numRegs
 //   once and refuses (kShortRegisters) a build with fewer, so the call
@@ -306,8 +305,7 @@ fwd_kernel(const __grid_constant__ CUtensorMap tq,
            int h, int hk, float scale, int causal) {
   using C = Fwd<D>;
   using L = typename C::L;
-  constexpr int BM = C::BM, BN = C::BN, S = C::S;
-  static_assert(C::DP == D, "the forward takes whole 64-wide boxes only");
+  constexpr int BM = C::BM, BN = C::BN, S = C::S, DP = C::DP;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm = align1024(smem_raw);
   uint64_t* full = reinterpret_cast<uint64_t*>(sm + L::kBar);
@@ -336,7 +334,7 @@ fwd_kernel(const __grid_constant__ CUtensorMap tq,
       mbar_wait(own_empty, (no & 1) ^ 1);
       if (lane == 0) {
         mbar_arrive_tx(own_full, L::kOwnTile);
-        tma_load_tile<D, BM>(sm, &tq, own_full, w.head, w.tile * BM, w.b);
+        tma_load_tile<DP, BM>(sm, &tq, own_full, w.head, w.tile * BM, w.b);
       }
       ++no;
       const int hkv = w.head / (h / hk);
@@ -347,9 +345,9 @@ fwd_kernel(const __grid_constant__ CUtensorMap tq,
         mbar_wait(empty_v + st, ((m / S) & 1) ^ 1);
         if (lane == 0) {
           mbar_arrive_tx(full_v + st, L::kStreamTile);
-          tma_load_tile<D, BN>(sm + L::kRing + st * L::kStage +
-                                   L::kStreamTile,
-                               &tv, full_v + st, hkv, kt * BN, w.b);
+          tma_load_tile<DP, BN>(sm + L::kRing + st * L::kStage +
+                                    L::kStreamTile,
+                                &tv, full_v + st, hkv, kt * BN, w.b);
         }
       };
       for (int kt = w.lo; kt < w.hi; ++kt, ++n) {
@@ -363,8 +361,8 @@ fwd_kernel(const __grid_constant__ CUtensorMap tq,
           }
         if (lane == 0) {
           mbar_arrive_tx(full + st, L::kStreamTile);
-          tma_load_tile<D, BN>(sm + L::kRing + st * L::kStage, &tk,
-                               full + st, hkv, kt * BN, w.b);
+          tma_load_tile<DP, BN>(sm + L::kRing + st * L::kStage, &tk,
+                                full + st, hkv, kt * BN, w.b);
         } else {
           mbar_arrive(full + st);
         }
@@ -384,9 +382,9 @@ fwd_kernel(const __grid_constant__ CUtensorMap tq,
   for (int k = 0, i = row_of(0); i < n_rows; i = row_of(++k)) {
     const Work w = load_work(sched, i);
     const int q0 = w.tile * BM;
-    float o[D / 2];
+    float o[DP / 2];
 #pragma unroll
-    for (int j = 0; j < D / 2; ++j) o[j] = 0.f;
+    for (int j = 0; j < DP / 2; ++j) o[j] = 0.f;
     float m[2] = {kMasked, kMasked}, l[2] = {0.f, 0.f};
     int qs[2] = {0, 0};
     if (seg)
@@ -404,7 +402,7 @@ fwd_kernel(const __grid_constant__ CUtensorMap tq,
         const uint32_t k_s = smem_u32(sm + L::kRing + st * L::kStage);
         wgmma_ss_z<BN, 0>(s, kmajor<BM>(q_s, 0), kmajor<BN>(k_s, 0));
 #pragma unroll
-        for (int kk = 1; kk < D / 16; ++kk)
+        for (int kk = 1; kk < ksteps(D); ++kk)
           wgmma_ss<BN, 0>(s, kmajor<BM>(q_s, kk), kmajor<BN>(k_s, kk), 1);
         wgmma_commit();
       };
@@ -414,7 +412,7 @@ fwd_kernel(const __grid_constant__ CUtensorMap tq,
             smem_u32(sm + L::kRing + st * L::kStage) + L::kStreamTile;
 #pragma unroll
         for (int kk = 0; kk < BN / 16; ++kk)
-          wgmma_rs<D, 1>(o, pa[kk], mnmajor<BN>(v_s, kk), 1);
+          wgmma_rs<DP, 1>(o, pa[kk], mnmajor<BN>(v_s, kk), 1);
         wgmma_commit();
       };
       // the online softmax of key tile kt (stage st) on s: scores in
@@ -514,7 +512,7 @@ fwd_kernel(const __grid_constant__ CUtensorMap tq,
         fence_regs(pa);
         release(empty_v + prev, ln.lane);
 #pragma unroll
-        for (int j = 0; j < D / 8; ++j) {
+        for (int j = 0; j < DP / 8; ++j) {
           o[4 * j + 0] *= corr[0];
           o[4 * j + 1] *= corr[0];
           o[4 * j + 2] *= corr[1];
@@ -1122,6 +1120,9 @@ int fwd(int d, const void* q, const void* k, const void* v, const int* qseg,
   if (d == 64 && tiles_ok<Fwd<64>>(bm, bn))
     return fwd_d<64>(q, k, v, qseg, kseg, out, lse, sched, n_rows, b, sq, sk,
                      h, hk, scale, causal, st);
+  if (d == 72 && tiles_ok<Fwd<72>>(bm, bn))
+    return fwd_d<72>(q, k, v, qseg, kseg, out, lse, sched, n_rows, b, sq, sk,
+                     h, hk, scale, causal, st);
   if (d == 128 && tiles_ok<Fwd<128>>(bm, bn))
     return fwd_d<128>(q, k, v, qseg, kseg, out, lse, sched, n_rows, b, sq,
                       sk, h, hk, scale, causal, st);
@@ -1167,21 +1168,18 @@ int bwd_dkv(int d, const void* q, const void* k, const void* v,
 }
 
 bool takes(int kernel, int d) {
-  return kernel == 0 ? d == 64 || d == 128
-                     : (kernel == 1 || kernel == 2) && dim_slot(d) >= 0;
+  return kernel >= 0 && kernel <= 2 && dim_slot(d) >= 0;
 }
 
 namespace {
 
-// kernel_regs of kernel 0 (fwd), 1 (dq) or 2 (dk/dv) at head_dim D; the
-// forward exists only where D fills whole boxes
+// kernel_regs of kernel 0 (fwd), 1 (dq) or 2 (dk/dv) at head_dim D
 template <int D>
 cudaError_t regs_d(int kernel, int* r) {
   std::atomic<int>& cache = g_regs[kernel][dim_slot(D)];
   if (kernel == 1) return kernel_regs(dq_kernel<D>, cache, r);
   if (kernel == 2) return kernel_regs(dkv_kernel<D>, cache, r);
-  if constexpr (padded(D) == D) return kernel_regs(fwd_kernel<D>, cache, r);
-  return cudaErrorInvalidValue;
+  return kernel_regs(fwd_kernel<D>, cache, r);
 }
 
 template <int D>

@@ -12,13 +12,13 @@ dispatchers there send CUDA tensors here.
 
 Each kernel's route follows from its kind, dtype and head_dim alone
 (``HOPPER_HEAD_DIMS``): bfloat16 runs the Hopper kernels of
-``csrc/flash_attention_wg.cu`` (wgmma, TMA) for the forward at head_dim
-64 and 128 and for dq and dk/dv at 64, 72 (DiT-XL/2, its tiles padded to
-128 columns in shared memory) and 128. They walk a work list built here
-by ``flash_schedule``: the tile arithmetic lives in this one place,
-where the CPU tests check it exhaustively. float32 at every head_dim,
-bfloat16 at 256 and the bfloat16 forward at 72 run the CUDA-core kernels
-of ``csrc/flash_attention.cu``. A call on a route goes to its kernel or
+``csrc/flash_attention_wg.cu`` (wgmma, TMA) for the forward, dq and
+dk/dv at head_dim 64, 72 (DiT-XL/2, its tiles padded to 128 columns in
+shared memory) and 128. They walk a work list built here by
+``flash_schedule``: the tile arithmetic lives in this one place, where
+the CPU tests check it exhaustively. float32 at every head_dim and
+bfloat16 at 256 run the CUDA-core kernels of
+``csrc/flash_attention.cu``. A call on a route goes to its kernel or
 raises: nothing falls back to another route or to the plain version.
 """
 from __future__ import annotations
@@ -44,7 +44,7 @@ launches_dkv = 0
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64, 72, 128, 256)
 # the head_dims of each Hopper (wgmma, TMA) kernel, bfloat16 only
-HOPPER_HEAD_DIMS = {"fwd": (64, 128), "dq": (64, 72, 128),
+HOPPER_HEAD_DIMS = {"fwd": (64, 72, 128), "dq": (64, 72, 128),
                     "dkv": (64, 72, 128)}
 
 # (own rows, streamed rows) of a CTA's tile in each Hopper kernel: the

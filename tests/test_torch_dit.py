@@ -48,6 +48,8 @@ from paddle_tpu_torch.models import (DiT, dit_s_2, dit_tiny,  # noqa: E402
 from paddle_tpu_torch.nn import functional as TF  # noqa: E402
 from paddle_tpu_torch.ops import flash_attention as tfa  # noqa: E402
 from paddle_tpu_torch.ops.cuda import flash_attention as cfa  # noqa: E402
+from paddle_tpu_torch.ops.cuda import _build as cuda_build  # noqa: E402
+from torch.utils import cpp_extension  # noqa: E402
 from paddle_tpu_torch.optimizer import AdamW  # noqa: E402
 
 BF16_ULP = 2.0 ** -7
@@ -266,13 +268,14 @@ def test_flash_plain_d72_matches_jax(causal):
 
 
 @pytest.mark.parametrize("kind", ["fwd", "dq", "dkv"])
-def test_flash_routes_at_d72_on_the_cpu(kind, monkeypatch):
-    """At head_dim 72 the bf16 dq and dk/dv take the Hopper kernels (a
-    work list is built for them) and the forward the CUDA-core one (no
-    list; kernel_regs raises); on a CPU tensor ``flash_attention`` takes
-    the plain version and every CUDA wrapper raises."""
+def test_flash_routes_at_d72_on_the_cpu(kind, monkeypatch, tmp_path):
+    """At head_dim 72 the bf16 forward, dq and dk/dv take the Hopper
+    kernels (a work list is built for each, and kernel_regs goes to the
+    library, which cannot be built without nvcc); on a CPU tensor
+    ``flash_attention`` takes the plain version and every CUDA wrapper
+    raises."""
     assert 72 in cfa.HEAD_DIMS
-    assert (72 in cfa.HOPPER_HEAD_DIMS[kind]) == (kind != "fwd")
+    assert 72 in cfa.HOPPER_HEAD_DIMS[kind]
     rng = np.random.RandomState(4)
     q, k, v = (torch.from_numpy(rng.randn(1, 16, 2, 72).astype(np.float32))
                for _ in range(3))
@@ -282,13 +285,15 @@ def test_flash_routes_at_d72_on_the_cpu(kind, monkeypatch):
     monkeypatch.setattr(cfa, "sm_count", lambda device: 132)
     sched, n, pieces, slots = cfa._schedule(
         kind, q.to(torch.bfloat16), 1, 16, 16, 2, 2, False, False)
-    if kind == "fwd":
-        assert sched is None and n == 0
-        with pytest.raises(ValueError, match="no Hopper kernel"):
-            cfa.kernel_regs("fwd", 72)
-    else:
-        assert n == 2 and tuple(sched.shape) == (2, 8)
-        assert pieces is None and slots == 1
+    assert n == 2 and tuple(sched.shape) == (2, 8)
+    assert pieces is None and slots == 1
+    # the d-72 kernel is the library's: without nvcc its build raises
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(cuda_build, "_lib", None)
+    monkeypatch.setattr(cuda_build.shutil, "which", lambda name: None)
+    monkeypatch.setattr(cpp_extension, "CUDA_HOME", None)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        cfa.kernel_regs(kind, 72)
     # float32 keeps the CUDA-core route at every head_dim
     assert cfa._schedule(kind, q, 1, 16, 16, 2, 2, False, False)[0] is None
     lse = torch.zeros(1, 2, 16)

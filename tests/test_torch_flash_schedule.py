@@ -242,19 +242,21 @@ def test_long_lists_are_never_split():
 
 
 # DiT-XL/2's attention (b 32 x 256 patches, 16 / 16 heads, not causal):
-# the work lists of its dq and dk/dv kernels at head_dim 72
-@pytest.mark.parametrize("kind", ["dq", "dkv"])
+# the work lists of its forward, dq and dk/dv kernels at head_dim 72
+@pytest.mark.parametrize("kind", ["fwd", "dq", "dkv"])
 @pytest.mark.parametrize("sms", [None, SMS], ids=["whole", "sms"])
 def test_dit_xl2_lists(kind, sms):
     """1024 rows (32 x 16 heads x 2 own tiles of 128 rows), each over
-    all 4 streamed tiles of 64 and free of the mask throughout; no
-    pieces (the list has more rows than SMs), so the workspace is not
-    used."""
+    all 256 streamed rows (2 tiles of 128 for the forward, 4 of 64 for
+    dq and dk/dv) and free of the mask throughout; no pieces (the list
+    has more rows than SMs), so the workspace is not used."""
     rows = cfa.flash_schedule(kind, 32, 256, 256, 16, 16, False, False, sms)
     assert rows.shape == (1024, 8)
     assert len({tuple(r) for r in rows[:, :3].tolist()}) == 1024
     assert sorted(set(rows[:, 2].tolist())) == [0, 1]
-    assert (rows[:, 3] == 0).all() and (rows[:, 4] == 4).all()
+    assert cfa.TILES[kind][1] == (128 if kind == "fwd" else 64)
+    assert (rows[:, 3] == 0).all()
+    assert (rows[:, 4] == 256 // cfa.TILES[kind][1]).all()
     assert (rows[:, 5] == rows[:, 3]).all() and (rows[:, 6] == rows[:, 4]).all()
     assert (rows[:, 7] == 0).all()
     np.testing.assert_array_equal(

@@ -12,17 +12,21 @@ dq and dk/dv kernels on a few small cases (bf16 and float32, GQA, causal
 with sq != sk, packed segments, head_dim 64/72/128/256) against
 ``flash_attention_plain`` in float32 with autograd, printing one JSON
 line per case (max abs error of out and lse, relative max error of
-dq/dk/dv, whether two backward runs are bit-identical), then times each
-kernel and the library's scaled_dot_product_attention at the llama_mid
-shape (b 4, s 2048, h 16, kv 8, d 128, bf16, causal; forward) and at
+out and dq/dk/dv, whether two forward and two backward runs are
+bit-identical; at head_dim 72 the forward's device ms beside SDPA's
+forward where SDPA computes the same function), then times each kernel
+and the library's scaled_dot_product_attention at the llama_mid shape
+(b 4, s 2048, h 16, kv 8, d 128, bf16, causal; forward) and at
 DiT-XL/2's (b 32, s 256, h 16, kv 16, d 72, bf16, not causal; forward
-and backward).
+and backward; the forward and SDPA's forward alternated, the L2 flushed
+before each launch).
 It is the short first call after a kernel change; chip_smoke.py holds
 the full checks.
 """
 import json
 import re
 import shutil
+import statistics
 import subprocess
 import sys
 from pathlib import Path
@@ -82,6 +86,8 @@ def main():
         return 1
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
+    timer = chip_smoke._Timer(torch)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
 
     def case(b, sq, sk, h, hk, d, dt, causal, seg=False):
         def rnd(*shape):
@@ -96,6 +102,7 @@ def main():
             ks[:, -sq // 8:] = -2
         sc = d ** -0.5
         out, lse = fa.flash_fwd_cuda(q, k, v, causal, sc, qs, ks)
+        out2, lse2 = fa.flash_fwd_cuda(q, k, v, causal, sc, qs, ks)
         leaves = [t.float().requires_grad_() for t in (q, k, v)]
         ro, rl = flash_attention_plain(*leaves, causal, sc, qs, ks)
         do = rnd(*ro.shape)
@@ -107,16 +114,26 @@ def main():
         def rel(a, r):
             return float((a.float() - r).abs().max()
                          / r.abs().max().clamp(min=1e-9))
-        print(json.dumps(dict(
+        line = dict(
             shape=(b, sq, sk, h, hk, d, str(dt), causal, seg),
             out=float((out.float() - ro.detach()).abs().max()),
+            out_rel=rel(out, ro.detach()),
             lse=float((lse - rl.detach()).abs().max()),
             dq=rel(runs[0][0], leaves[0].grad),
             dk=rel(runs[0][1], leaves[1].grad),
             dv=rel(runs[0][2], leaves[2].grad),
+            fwd_identical=torch.equal(out, out2) and torch.equal(lse, lse2),
             identical=all(torch.equal(a, b_)
                           for a, b_ in zip(runs[0], runs[1])),
-            nan=bool(torch.isnan(out).any()))), flush=True)
+            nan=bool(torch.isnan(out).any()))
+        if d == 72 and dt == bf16:
+            line["fwd_ms"] = timer(
+                lambda: fa.flash_fwd_cuda(q, k, v, causal, sc, qs, ks))
+            if sq == sk and not seg:
+                qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+                line["sdpa_fwd_ms"] = timer(lambda: sdpa(
+                    qt, kt, vt, is_causal=causal, enable_gqa=True))
+        print(json.dumps(line), flush=True)
 
     bf16, f32 = torch.bfloat16, torch.float32
     case(2, 256, 256, 4, 2, 128, bf16, True)
@@ -127,8 +144,7 @@ def main():
     case(1, 200, 200, 2, 2, 256, bf16, False)
     case(1, 512, 512, 4, 2, 128, bf16, True, seg=True)
     case(1, 1000, 300, 4, 4, 64, f32, True)
-    # head_dim 72: the forward on CUDA cores, dq and dk/dv on the Hopper
-    # kernels (tiles padded to 128 columns)
+    # head_dim 72: the Hopper kernels (tiles padded to 128 columns)
     case(2, 256, 256, 4, 4, 72, bf16, False)
     case(2, 300, 1000, 8, 2, 72, bf16, True)
     case(1, 512, 512, 4, 2, 72, bf16, True, seg=True)
@@ -171,23 +187,42 @@ def main():
                    for _ in range(4))
     sc = d ** -0.5
     out, lse = fa.flash_fwd_cuda(q, k, v, False, sc)
+    again = fa.flash_fwd_cuda(q, k, v, False, sc)
+    ref = flash_attention_plain(q.float(), k.float(), v.float(), False,
+                                sc)[0]
+    fwd_rel = float((out.float() - ref).abs().max() / ref.abs().max())
+    del ref
     delta = fa.flash_bwd_delta(out, do)
     dq_ms = timed(lambda: fa.flash_bwd_dq_cuda(q, k, v, do, lse, delta,
                                                False, sc))
     dkv_ms = timed(lambda: fa.flash_bwd_dkv_cuda(q, k, v, do, lse, delta,
                                                  False, sc))
-    sdpa = torch.nn.functional.scaled_dot_product_attention
     leaves = [t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v)]
     l_out = sdpa(*leaves)
     bwd_ms = timed(lambda: torch.autograd.grad(
         l_out, leaves, do.transpose(1, 2), retain_graph=True))
+    # the forward and SDPA's forward alternated, 4 rounds of 20 launches
+    # each, the L2 flushed before each launch
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    fwd_ms, sdpa_ms = [], []
+    for _ in range(4):
+        fwd_ms.append(timer(lambda: fa.flash_fwd_cuda(q, k, v, False, sc),
+                            iters=20))
+        sdpa_ms.append(timer(lambda: sdpa(qt, kt, vt), iters=20))
     print("dit_xl2", json.dumps(dict(
-        fwd_ms=timed(lambda: fa.flash_fwd_cuda(q, k, v, False, sc)),
+        fwd_ms=fwd_ms, sdpa_fwd_ms=sdpa_ms,
+        fwd_over_sdpa=statistics.median(fwd_ms)
+        / statistics.median(sdpa_ms),
+        fwd_rel_err=fwd_rel,
+        fwd_identical=torch.equal(out, again[0])
+        and torch.equal(lse, again[1]),
         dq_ms=dq_ms, dkv_ms=dkv_ms,
-        sdpa_fwd_ms=timed(lambda: sdpa(*(t.transpose(1, 2)
-                                         for t in (q, k, v)))),
         sdpa_bwd_ms=bwd_ms, bwd_over_sdpa=(dq_ms + dkv_ms) / bwd_ms)),
         flush=True)
+    if fwd_rel > 1e-2 or not torch.equal(out, again[0]):
+        print("flash_probe: the d-72 forward is off its plain version or "
+              "not bit-identical", file=sys.stderr)
+        return 1
     return 0
 
 
