@@ -55,6 +55,8 @@ failure ends the run with a non-zero exit code and no result:
                  case with ragged edges (sq 300, sk 1000, its dk/dv list
                  cut into pieces), packed documents and a non-causal
                  sq < sk block standing in for the ring's backward;
+                 train-moe's attention at hidden 1024 (b 4 x s 2048, 16
+                 heads of 64 over 8 kv heads, causal);
                  llama_mid training attention, plus a 4096
                  sequence, packed documents and a causal sq < sk case with
                  ragged edges; the ring blocks flash_attention_with_lse and
@@ -453,13 +455,50 @@ failure ends the run with a non-zero exit code and no result:
                  a picture over 989 TFLOP/s), peak memory, device ms by
                  family (flash, GEMM, conv, other) and the idle share,
                  beside the card's name and power limit.
-37. capture-failure  a program with a host sync inside: its first
+37. tiny-moe-parity  moe_tiny(hidden_size=256, 4 / 2 heads: head_dim 64)
+                 with the same numpy state on the card and the CPU, dense
+                 and ragged dispatch: float32 logits within 1e-4 of the
+                 largest |logit| and five TrainSteps of AdamW(1e-3) with
+                 losses within 1e-5 relative (the ragged route's grouped
+                 product on the card: torch._grouped_mm in float32);
+                 bf16: the share of tokens whose top-k experts agree
+                 between card and CPU, those tokens' logits within 1e-2
+                 of the largest |logit| (the MoE layer is the last, so a
+                 token's routing reaches only its own logits), and the
+                 MoE layer's forward and backward under CUDA sync
+                 debugging set to raise (no host sync: for ragged the
+                 grouped route, torch._grouped_mm); exact flash
+                 launches.
+38. train-moe    THE MoE PATH, bench.py's four moe rows as it builds them
+                 (bench.py:278-318, :409-431): MoEConfig(dtype="bfloat16",
+                 8 layers, 16 / 8 heads, top-2, one shared expert, chunked
+                 CE 1024) at hidden 1024 with 8 experts of 1408 (dense and
+                 ragged dispatch) and 64 of 512 (ragged), and at hidden
+                 2048 with 8 of 2048 (ragged, bf16 AdamW moments); b 4 x
+                 s 2048, AdamW(1e-4, weight_decay=0.01), 2 warm and 8
+                 timed TrainSteps each. First the grouped product
+                 (torch._grouped_mm, bf16) at each row's expert geometry,
+                 16,384 routed rows with one empty expert: the product
+                 and its autograd dX and dW within 1e-2 of the largest
+                 |reference| of a float32 matmul per expert. The flash
+                 counters, set to 0 just before and read just after, must
+                 read 8 of each kernel a step, and a traced step must
+                 hold 8 launches of each of the three Hopper kernels at
+                 head_dim 64 (128 for the wide row) and no other flash
+                 kernel; every loss finite, the last below the first. Step ms, tokens/s,
+                 activated MFU (bench.py's formula over 989 TFLOP/s),
+                 total and activated parameters, peak memory, device ms
+                 by family and the idle share; the dense row's dropped
+                 fraction from one eager forward.
+39. capture-failure  a program with a host sync inside: its first
                  dispatch raises, no graph is kept and it is not run
                  eagerly in its place (last, as a failed capture may
                  leave the allocator's pool unusable).
 
 Each phase line carries its seconds and profile_s, the part of them its
-profiler traces took (device activity only).
+profiler traces took (device activity only; each trace opens with one-
+cycle pad kernels that take the records a long-lived process's session
+loses first, reported as pad_records_lost, None where all were lost).
 Then a {"kernels": [...]} line, the card's name and power limit as
 nvidia-smi reports them, and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -544,6 +583,9 @@ FLASH_CASES = [
          docs=4, tol=1e-2),
     dict(name="d72_block_sq1024_sk2048", b=1, sq=1024, sk=2048, h=16,
          hk=16, d=72, causal=False, tol=1e-2),
+    # train-moe's attention at hidden 1024: b 4 x s 2048, 16 heads of 64
+    # over 8 kv heads, causal (its wide row, d 128, is llama_mid's case)
+    dict(name="moe_d64", b=4, sq=2048, sk=2048, h=16, hk=8, d=64),
 ]
 
 
@@ -652,24 +694,43 @@ class _Timer:
         return sum(s.elapsed_time(e) for s, e in pairs) / iters
 
 
-def _kernel_events(torch, fn):
-    """{kernel name: [launches, device us]} of what fn ran on the card
-    (torch.profiler, device activity only). Read off the raw Kineto
-    events: key_averages() first builds a Python object for every event,
-    which took most of a serving phase's profile time."""
+# one-cycle spin kernels that open every profiler session. In a process
+# that has run many phases, a session loses the device records of its
+# first kernel launches (48 at train-moe, their runtime records kept and
+# their outputs right: tools/flash_trace_probe.py --before smoke; 57 to
+# more than 512 in a whole smoke); a fresh process loses none. The pads
+# take that loss in place of fn's kernels.
+_PAD_LAUNCHES = 4096
+
+
+def _kernel_events(torch, fn, pads=_PAD_LAUNCHES):
+    """({kernel name: [launches, device us]} of what fn ran on the card,
+    pad records lost) (torch.profiler, device activity only). The session
+    opens with ``pads`` spin kernels, left out of the result; the records
+    lost are the session's first, so fn's are whole when a pad was
+    recorded, and the count lost is None (fn's may be short) when none
+    was. Read off the raw Kineto events: key_averages() first builds a
+    Python object for every event, which took most of a serving phase's
+    profile time."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(pads):
+            torch.cuda._sleep(1)
+        torch.cuda.synchronize()
         fn()
         torch.cuda.synchronize()
     cuda = torch.autograd.DeviceType.CUDA
-    out = {}
+    out, kept = {}, 0
     for ev in prof.profiler.kineto_results.events():
         if ev.device_type() == cuda:
+            if "spin_kernel" in ev.name():
+                kept += 1
+                continue
             n = out.setdefault(ev.name(), [0, 0.0])
             n[0] += 1
             n[1] += ev.duration_ns() / 1e3
-    return out
+    return out, (pads - kept if kept else None)
 
 
 def _family(name):
@@ -681,9 +742,10 @@ def _family(name):
         return "ragged_paged_attention"
     if re.search(r"paged_decode_(cc_)?kernel", name):
         return "paged_attention_decode"
-    if re.search(r"flash_fwd_kernel|flash_wg::.*fwd_kernel", name):
+    # flash_wg's names demangled (flash_wg::...) or not (8flash_wg...)
+    if re.search(r"flash_fwd_kernel|flash_wg.*fwd_kernel", name):
         return "flash_fwd"
-    if re.search(r"flash_bwd_|flash_wg::.*(d(q|kv)_kernel|dkv_piece_sum)",
+    if re.search(r"flash_bwd_|flash_wg.*(d(q|kv)_kernel|dkv_piece_sum)",
                  name):
         return "flash_bwd"
     if re.search(r"conv|fprop|dgrad|wgrad", low):
@@ -696,10 +758,11 @@ def _family(name):
 
 
 def _flash_kernel_name(name):
-    """A flash kernel's instantiation from its demangled profiler name:
+    """A flash kernel's instantiation from its profiler name (demangled
+    or not):
     flash_wg::fwd_kernel<bf16,72> (Hopper) or flash_fwd_kernel<f32,72>
     (CUDA cores); the name's head otherwise."""
-    wg = re.search(r"flash_wg::.*?(fwd|dq|dkv)_kernel<(\d+)>", name)
+    wg = re.search(r"flash_wg.*?(fwd|dq|dkv)_kernel(?:<|ILi)(\d+)", name)
     if wg:
         return f"flash_wg::{wg.group(1)}_kernel<bf16,{wg.group(2)}>"
     cc = re.search(r"(flash_\w+_kernel)<(float|__nv_bfloat16), (\d+)>", name)
@@ -709,16 +772,18 @@ def _flash_kernel_name(name):
     return name[:60]
 
 
-def _device_breakdown(torch, fn, wall_ms):
+def _device_breakdown(torch, fn, wall_ms, pads=_PAD_LAUNCHES):
     """Device time of fn by kernel family (torch.profiler), launches
     and ms of each flash instantiation, and the idle share of
     ``wall_ms``, the wall time of the same work measured without the
     profiler (which slows the host several fold). Reports what the
-    profiler saw; an empty trace leaves the families empty rather than
+    profiler saw, and the pad records lost (None: all, so fn's trace may
+    be short); an empty trace leaves the families empty rather than
     failing."""
     t0 = time.perf_counter()
     fams, other, flash, kernels = {}, {}, {}, 0
-    for name, (count, us) in _kernel_events(torch, fn).items():
+    events, lost = _kernel_events(torch, fn, pads)
+    for name, (count, us) in events.items():
         kernels += count
         fam = _family(name)
         if fam == "other":
@@ -733,7 +798,8 @@ def _device_breakdown(torch, fn, wall_ms):
     return {"device_ms_by_family": fams, "device_ms": busy,
             "device_kernels": kernels, "wall_ms": wall_ms,
             "idle_share": max(0.0, 1.0 - busy / wall_ms) if busy else None,
-            "flash_kernels": flash,
+            "flash_kernels": flash, "pads": pads,
+            "pad_records_lost": lost,
             "top_other": dict(sorted(other.items(),
                                      key=lambda kv: -kv[1])[:6])}
 
@@ -756,7 +822,7 @@ def _routes(torch, fn):
     kernel names torch.profiler records."""
     t0 = time.perf_counter()
     out = {}
-    for name, (count, _us) in _kernel_events(torch, fn).items():
+    for name, (count, _us) in _kernel_events(torch, fn)[0].items():
         for route, pat in _ROUTES:
             if re.search(pat, name):
                 out[route] = out.get(route, 0) + count
@@ -1622,10 +1688,14 @@ def main():
     from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.inference import PagedGPTDecoder
     from paddle_tpu_torch.models import (DiT, GPTForCausalLM,
-                                         LlamaForCausalLM, dit_tiny,
+                                         LlamaForCausalLM, MoEConfig,
+                                         MoEForCausalLM, dit_tiny,
                                          dit_xl_2, ernie_45_dense_3b,
                                          gpt_345m, gpt_tiny, llama_1b,
-                                         llama_3_8b, llama_mid, llama_tiny)
+                                         llama_3_8b, llama_mid, llama_tiny,
+                                         moe_tiny)
+    from paddle_tpu_torch.nn import MoELayer
+    from paddle_tpu_torch.ops import moe as moe_ops
     from paddle_tpu_torch.nn import functional as F
     from paddle_tpu_torch.models.generation import _setup_decode
     from paddle_tpu_torch.ops import flash_attention as pfa
@@ -1795,7 +1865,7 @@ def main():
                 heads["f32_flash"] = c
             if spec["name"] == "gpt_345m":
                 heads["gpt_flash"] = c
-            if spec["name"] in ("dit_xl2", "f32_dit_xl2"):
+            if spec["name"] in ("dit_xl2", "f32_dit_xl2", "moe_d64"):
                 heads[spec["name"]] = c
             torch.cuda.empty_cache()
         for spec in RING_CASES:
@@ -5870,6 +5940,297 @@ def main():
 
     _phase("train-dit-xl2", train_dit_xl2)
 
+    # -- MoE: GShard (dense) and dropless (ragged) dispatch, aux loss --------
+    moe_launches = {}
+
+    def record_routing(model, record):
+        """Forward pre-hooks that record each MoE layer's tokens' top-k
+        expert sets (from the layer's input and router, in float32);
+        returns the hooks' handles."""
+        handles = []
+        for name, mod in model.named_modules():
+            if isinstance(mod, MoELayer):
+                def hook(mod, args, name=name):
+                    x = args[0]
+                    probs = torch.softmax(x.reshape(-1, x.shape[-1]).float()
+                                          @ mod.gate_weight.float(), dim=-1)
+                    top = torch.sort(probs, dim=-1, descending=True,
+                                     stable=True).indices[:, :mod.top_k]
+                    record[name] = top.sort(dim=-1).values.cpu()
+                handles.append(mod.register_forward_pre_hook(hook))
+        return handles
+
+    def check_moe_sync_free(model):
+        """One forward and backward of the model's last MoE layer on a
+        bf16 input with CUDA sync debugging set to raise: the card's bf16
+        route reads nothing on the host, or the phase fails."""
+        layer = model.model.layers[-1].mlp.moe
+        x = torch.randn(2, 64, layer.d_model, device="cuda",
+                        dtype=torch.bfloat16, requires_grad=True)
+
+        def run():
+            out = layer(x)
+            (out.float().square().mean() + layer.aux_loss).backward()
+
+        run()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            run()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+
+    def tiny_moe_parity():
+        """moe_tiny widened to head_dim 64 (hidden 256, 4 / 2 heads; the
+        card's flash kernels take it), the same numpy state on the card
+        and the CPU, dense and ragged dispatch. float32: logits within
+        1e-4 of the largest |logit|, five TrainSteps of AdamW(1e-3) with
+        losses within 1e-5 relative, 5 launches of each flash kernel a
+        layer (forward + 5 steps: 6 forwards). bf16: the share of tokens whose top-k
+        experts agree between card and CPU, those tokens' logits within
+        1e-2 of the largest |logit|, and the MoE layer's forward and
+        backward on the card with no host sync."""
+        out = {}
+        b, s = 2, 64
+        ids = np.random.RandomState(5).randint(0, 512, (b, s)).astype(
+            np.int32)
+        for mode in ("dense", "ragged"):
+            for dtype in ("float32", "bfloat16"):
+                mcfg = moe_tiny(hidden_size=256, num_attention_heads=4,
+                                num_key_value_heads=2, dtype=dtype,
+                                moe_dispatch_mode=mode)
+                cpu = MoEForCausalLM(mcfg, seed=3, device="cpu")
+                gpu = MoEForCausalLM(mcfg, seed=0, device="cuda")
+                gpu.load_state_dict(cpu.state_dict())
+                logits, routes, losses = [], [], []
+                for m in (cpu, gpu):
+                    dev = next(m.parameters()).device
+                    x = torch.as_tensor(ids, device=dev)
+                    if dev.type == "cuda":
+                        reset_flash()
+                    record = {}
+                    handles = record_routing(m, record)
+                    with torch.no_grad():
+                        logits.append(m(x).float().cpu())
+                    for h_ in handles:
+                        h_.remove()
+                    routes.append(record)
+                    if dtype == "float32":
+                        step = TrainStep(m, m.loss, AdamW(
+                            learning_rate=1e-3, parameters=m.parameters()))
+                        losses.append([float(step(x, x)) for _ in range(5)])
+                launched = flash_counts()
+                agree = {name: float((routes[0][name] == routes[1][name])
+                                     .all(-1).float().mean())
+                         for name in routes[0]}
+                scale = float(logits[0].abs().max())
+                err = float((logits[0] - logits[1]).abs().max())
+                key = f"{mode}_{dtype}"
+                info = {"routing_agreement": agree, "max_abs_err": err,
+                        "max_abs_logit": scale, "launches": launched}
+                L = mcfg.num_hidden_layers
+                if dtype == "float32":
+                    rel = max(abs(a - b_) / abs(a)
+                              for a, b_ in zip(*losses))
+                    _require(launched == {"flash_fwd": 6 * L,
+                                          "flash_bwd_dq": 5 * L,
+                                          "flash_bwd_dkv": 5 * L},
+                             f"tiny-moe-parity {key}: launched {launched}")
+                    _require(err <= 1e-4 * scale,
+                             f"tiny-moe-parity {key}: logits differ by "
+                             f"{err} of {scale}")
+                    _require(rel < 1e-5, f"tiny-moe-parity {key}: losses "
+                                         f"cpu {losses[0]} vs cuda "
+                                         f"{losses[1]}")
+                    info.update(losses_cpu=losses[0], losses_cuda=losses[1],
+                                loss_max_rel_diff=rel)
+                else:
+                    _require(launched == {"flash_fwd": L, "flash_bwd_dq": 0,
+                                          "flash_bwd_dkv": 0},
+                             f"tiny-moe-parity {key}: launched {launched}")
+                    # the only MoE layer is the last: a token's routing
+                    # reaches no other token's logits, so the tokens
+                    # whose top-k sets agree are held
+                    (name,) = routes[0]
+                    same = (routes[0][name] == routes[1][name]).all(-1)
+                    held = float((logits[0] - logits[1]).abs().reshape(
+                        b * s, -1)[same].max())
+                    _require(held <= 1e-2 * scale,
+                             f"tiny-moe-parity {key}: logits of tokens "
+                             f"routed alike differ by {held} of {scale}")
+                    check_moe_sync_free(gpu)
+                    info.update(held_tokens=int(same.sum()),
+                                held_max_abs_err=held, ffn_sync_free=True)
+                moe_launches[f"tiny_{key}"] = launched
+                out[key] = info
+        return out
+
+    _phase("tiny-moe-parity", tiny_moe_parity)
+
+    # bench.py's moe rows (bench.py:278-318, :409-431)
+    MOE_ROWS = {
+        "moe_dense": dict(mode="dense"),
+        "moe_ragged": dict(mode="ragged"),
+        "moe_ragged_e64": dict(mode="ragged", num_experts=64,
+                               moe_intermediate=512),
+        "moe_ragged_wide": dict(mode="ragged", hidden=2048,
+                                moe_intermediate=2048, intermediate=4096,
+                                moment_dtype="bfloat16")}
+
+    def grouped_products():
+        """ops.moe._grouped_mm (torch._grouped_mm) in bf16 at the expert
+        geometry of each row: 16,384 routed rows (b 4 x s 2048, top-2)
+        cut by a seeded top-2 routing of random logits with expert 0
+        given no row. The product and its autograd dX and dW against a
+        float32 matmul per expert on the same values: the largest error
+        over the largest |reference|, each within 1e-2."""
+        rows, out = 16384, {}
+        rng = np.random.RandomState(0)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        for name, d, h, e in (("e8_h1408", 1024, 1408, 8),
+                              ("e64_h512", 1024, 512, 64),
+                              ("e8_h2048_wide", 2048, 2048, 8)):
+            logits = rng.randn(rows // 2, e).astype(np.float32)
+            logits[:, 0] = -1e9
+            top = np.argsort(-logits, axis=1, kind="stable")[:, :2]
+            host = np.bincount(top.reshape(-1), minlength=e).tolist()
+            sizes = torch.tensor(host, device="cuda")
+            x, w, dy = (
+                (torch.randn(*shape, device="cuda", generator=gen) * sc)
+                .to(torch.bfloat16)
+                for shape, sc in (((rows, d), 0.5), ((e, d, h), d ** -0.5),
+                                  ((rows, h), 1.0)))
+            xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
+            y = moe_ops._grouped_mm(xg, wg, sizes)
+            y.backward(dy)
+            xr, wr = (t.float().requires_grad_() for t in (x, w))
+            yr = torch.cat([part @ wr[i] for i, part in
+                            enumerate(torch.split(xr, host))])
+            yr.backward(dy.float())
+            err = {}
+            for key, got, ref in (("y", y, yr), ("dx", xg.grad, xr.grad),
+                                  ("dw", wg.grad, wr.grad)):
+                err[key] = float((got.detach().float() - ref.detach())
+                                 .abs().max() / ref.detach().abs().max())
+                _require(err[key] <= 1e-2,
+                         f"train-moe grouped product {name}: {key} "
+                         f"differs by {err[key]} of its largest value")
+            out[name] = {"d": d, "h": h, "e": e, "rows": rows,
+                         "rel_err": err}
+            del x, w, dy, xg, wg, xr, wr, y, yr
+        torch.cuda.empty_cache()
+        return out
+
+    def train_moe():
+        """bench.py's four moe rows as it builds them: MoEConfig(dtype=
+        "bfloat16", 8 layers, 16 heads over 8 kv heads, top-2, one
+        shared expert, chunked CE 1024, max_position_embeddings 2048),
+        b 4 x s 2048 from RandomState(0), AdamW(1e-4,
+        weight_decay=0.01): 2 warm and 8 timed TrainSteps. The flash
+        counters, set to 0 just before and read just after, must read 8
+        of each kernel a step, and a traced step must hold 8 of each of
+        the three Hopper kernels at head_dim 64 (128 for the wide row)
+        and no other flash kernel; no serving kernel; every loss finite and the last
+        below the first. Step ms, tokens/s, activated MFU (bench.py's
+        formula over 989 TFLOP/s), total and activated parameters, peak
+        memory, device ms by family and the idle share; the dense row's
+        dropped fraction from one eager forward. First the grouped
+        product at each row's expert geometry (grouped_products)."""
+        b, s, warm, iters = 4, 2048, 2, 8
+        out = {"nvidia_smi": smi, "grouped_products": grouped_products()}
+        for tag, r in MOE_ROWS.items():
+            mcfg = MoEConfig(
+                dtype="bfloat16", hidden_size=r.get("hidden", 1024),
+                intermediate_size=r.get("intermediate", 2816),
+                moe_intermediate_size=r.get("moe_intermediate", 1408),
+                num_hidden_layers=8, num_attention_heads=16,
+                num_key_value_heads=8, num_experts=r.get("num_experts", 8),
+                num_experts_per_tok=2, max_position_embeddings=2048,
+                chunked_ce_tokens=1024, moe_dispatch_mode=r["mode"])
+            t0 = time.perf_counter()
+            model = MoEForCausalLM(mcfg, seed=0, device="cuda")
+            opt = AdamW(learning_rate=1e-4, parameters=model.parameters(),
+                        weight_decay=0.01, moment_dtype=r.get("moment_dtype"))
+            step = TrainStep(model, model.loss, opt)
+            ids = torch.as_tensor(np.random.RandomState(0).randint(
+                0, mcfg.vocab_size, size=(b, s)).astype(np.int32),
+                device="cuda")
+            torch.cuda.synchronize()
+            init_s = time.perf_counter() - t0
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            reset_flash()
+            losses = [step(ids, ids) for _ in range(warm)]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses += [step(ids, ids) for _ in range(iters)]
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launched = flash_counts()
+            L, n_steps = mcfg.num_hidden_layers, warm + iters
+            moe_launches[tag] = dict(launched)
+            _require(launched == {k_: L * n_steps for k_ in launched},
+                     f"train-moe {tag}: {n_steps} steps launched "
+                     f"{launched}, expected {L} of each flash kernel a step")
+            _require(all(v == 0 for v in counts().values()),
+                     f"train-moe {tag} launched serving kernels: {counts()}")
+            losses = [float(v) for v in losses]
+            _require(all(np.isfinite(losses)) and losses[-1] < losses[0],
+                     f"train-moe {tag} losses {losses}")
+            step_ms = wall * 1e3 / iters
+            tok_s = b * s * iters / wall
+            n_params = model.num_params()
+            n_act = model.num_activated_params()
+            hd = mcfg.hidden_size // mcfg.num_attention_heads
+            fpt = 6 * n_act + 12 * L * mcfg.num_attention_heads * hd * s
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            want = {f"flash_wg::{k}_kernel<bf16,{hd}>": L
+                    for k in ("fwd", "dq", "dkv")}
+            # a trace is whole once a pad was recorded (_kernel_events);
+            # one more step, with more pads, while none was
+            for pads in (_PAD_LAUNCHES, 32768, 131072):
+                prof = _device_breakdown(torch, lambda: step(ids, ids),
+                                         step_ms, pads)
+                if prof["pad_records_lost"] is not None:
+                    break
+            _require(prof["pad_records_lost"] is not None,
+                     f"train-moe {tag}: the profiler lost all {pads} pad "
+                     f"records of a traced step")
+            traced = {n: c for n, (c, _ms) in prof["flash_kernels"].items()
+                      if "piece_sum" not in n}
+            _require(traced == want,
+                     f"train-moe {tag}: a traced step's flash kernels were "
+                     f"{traced}, not {want}")
+            row = {"dispatch": r["mode"], "hidden": mcfg.hidden_size,
+                   "experts": mcfg.num_experts,
+                   "moe_intermediate": mcfg.moe_intermediate_size,
+                   "moment_dtype": r.get("moment_dtype") or "float32",
+                   "num_params": n_params, "num_activated_params": n_act,
+                   "init_s": init_s, "launches": launched,
+                   "flash_launches_per_step": {
+                       k_: v // n_steps for k_, v in launched.items()},
+                   "steps": n_steps, "losses": losses, "step_ms": step_ms,
+                   "tokens_per_s": tok_s,
+                   "mfu_activated": tok_s * fpt / BF16_FLOPS_PER_S,
+                   "flops_per_token": fpt, "peak_mem_gb": peak_gb,
+                   "traced_flash_launches": traced, "step_profile": prof}
+            if r["mode"] == "dense":
+                with torch.no_grad():
+                    model(ids)
+                row["dropped_fraction"] = [
+                    float(lay.mlp.moe.routing_stats["dropped_fraction"])
+                    for lay in model.model.layers if not lay.is_dense]
+                row["capacity"] = float(
+                    model.model.layers[-1].mlp.moe.routing_stats["capacity"])
+            out[tag] = row
+            del model, opt, step, losses
+            gc.collect()
+            torch.cuda.empty_cache()
+        return out
+
+    _phase("train-moe", train_moe)
+
     # -- last, as a capture that fails may leave the allocator unusable --
     def capture_failure():
         """A program that cannot be captured (a host sync inside it):
@@ -5944,6 +6305,11 @@ def main():
             "plain_ms": f["plain_ms"][key], "bound_ms": f["bound_ms"][key],
             "bound_by": f["bound_by"][key],
             "library_ms": f["library_ms"][key]})
+        # the same shape (b 4 x s 2048, 16 / 8 heads of 128) in train-moe's
+        # wide row
+        kernel_rows[-1]["launches_by_phase"] = {
+            "train-moe moe_ragged_wide":
+                moe_launches["moe_ragged_wide"][name]}
     r = heads["ring"]
     for key, name, rep, launches in (
             ("fwd", "flash_attention_with_lse", tpu + "flash_attention.py:526",
@@ -6126,6 +6492,28 @@ def main():
             if key == "f32_dit_xl2":
                 kernel_rows[-1]["launches_from"] = \
                     "tiny-dit-parity d 72 float32 (timed at b 32 x s 256)"
+    # head_dim 64 with 16 / 8 heads, b 4 x s 2048, causal: train-moe's three
+    # rows at hidden 1024, their launches summed
+    f = heads["moe_d64"]
+    d64_rows = ("moe_dense", "moe_ragged", "moe_ragged_e64")
+    for kk, name, rep in (
+            ("fwd", "flash_fwd", tpu + "flash_attention.py:69"),
+            ("dq", "flash_bwd_dq", tpu + "flash_attention.py:174"),
+            ("dkv", "flash_bwd_dkv", tpu + "flash_attention.py:229")):
+        kernel_rows.append({
+            "name": f"{name}[d 64, 16/8 heads, train-moe]", "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/flash_attention_wg.cu",
+            "replaces": rep,
+            "launches": sum(moe_launches[t][name] for t in d64_rows),
+            "launches_by_phase": {t: moe_launches[t][name]
+                                  for t in d64_rows},
+            "max_abs_err": f["max_abs_err"][kk], "ms": f["ms"][kk],
+            "plain_ms": f["plain_ms"][kk], "bound_ms": f["bound_ms"][kk],
+            "bound_by": f["bound_by"][kk],
+            "library_ms": f["library_ms"][kk],
+            "share_of_bound": f["bound_share"][kk],
+            "sdpa_ratio": f["sdpa_ratio"] and f["sdpa_ratio"][
+                "fwd" if kk == "fwd" else "bwd"]})
     _emit({"kernels": kernel_rows})
     print(smi, flush=True)
     _emit({"ok": True, "device": device})

@@ -2,10 +2,11 @@
 Counterpart: ``paddle_tpu/nn``. Layers are ``torch.nn.Module``s whose
 parameter names equal the JAX layers' ``named_parameters()`` names."""
 from . import functional, initializer  # noqa: F401
-from .layer import (GELU, Conv2D, Embedding, LayerList,  # noqa: F401
-                    LayerNorm, Linear, MSELoss, RMSNorm, Sequential, SiLU,
-                    Silu)
+from .layer import (GELU, Conv2D, Embedding, GShardGate,  # noqa: F401
+                    LayerList, LayerNorm, Linear, MoELayer, MSELoss, RMSNorm,
+                    Sequential, SiLU, Silu, SwitchGate)
 
 __all__ = ["Linear", "Embedding", "RMSNorm", "LayerNorm", "Sequential",
            "LayerList", "Silu", "SiLU", "GELU", "Conv2D", "MSELoss",
-           "functional", "initializer"]
+           "MoELayer", "SwitchGate", "GShardGate", "functional",
+           "initializer"]
