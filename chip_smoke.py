@@ -56,7 +56,9 @@ failure ends the run with a non-zero exit code and no result:
                  cut into pieces), packed documents and a non-causal
                  sq < sk block standing in for the ring's backward;
                  train-moe's attention at hidden 1024 (b 4 x s 2048, 16
-                 heads of 64 over 8 kv heads, causal);
+                 heads of 64 over 8 kv heads, causal); train-moe-full's
+                 at b 2 x s 4096, causal, d 128: DeepSeek-MoE-16B's 16 /
+                 16 heads and Qwen2-MoE-A14B's 28 / 4 (group 7);
                  llama_mid training attention, plus a 4096
                  sequence, packed documents and a causal sq < sk case with
                  ragged edges; the ring blocks flash_attention_with_lse and
@@ -88,23 +90,55 @@ failure ends the run with a non-zero exit code and no result:
                  (bound_ms); for the flash cases also the achieved TFLOP/s,
                  the share of the bound and the ratio to SDPA's time in the
                  same run. Flash backward runs must be bit-identical.
-4. tiny-parity   llama_tiny (float32, int4 weights) served on the card and,
+4. train-moe-full  THE FULL-WIDTH MoE PATH: deepseek_moe_16b_like and
+                 qwen2_moe_a14b_like (dtype bf16, ragged dispatch,
+                 chunked CE 1024, recompute "full"), depth cut, under the
+                 DeepSeekMoE recipe with its step counts cut: AdamW(β 0.9
+                 / 0.95, weight decay 0.1), LinearWarmup(MultiStepDecay(
+                 4.2e-4, [8, 9], 0.316), 4 steps from 0),
+                 ClipGradForMOEByGlobalNorm(1.0) over the experts' w1 /
+                 w2; b 2 x s 4096 from RandomState(0); eager steps
+                 (forward, loss, backward, the clip's expert / dense
+                 split, step, clear_grad, the scheduler's step). First
+                 DeepSeek at depth 3 with recompute and without, both
+                 resident, alternated: first-step losses within 1e-3
+                 relative and clip norms within 1e-2, each step's peak.
+                 Then each model at the deepest depth whose peak leaves
+                 8 GB of the card free (a probe step's peak beside 16 B of
+                 training state a parameter; one layer shallower when the
+                 warm steps leave less; the run's own free memory at its
+                 peak must be >= 8 GB): DeepSeek 2 warm + 10 timed
+                 steps, Qwen 2 + 4, each then one traced step. Every loss
+                 finite and the last timed below the first; the clip's
+                 norm equal to its split's within 1e-3; the flash
+                 counters, set to 0 just before and read just after, read
+                 2 x depth forwards (forward and recomputation) and depth
+                 dq and dk/dv a step, and so does the traced step of
+                 flash_wg::*<bf16,128> kernels, no other flash kernel and
+                 no serving kernel. Prints each step's loss, lr, clip
+                 norm, scale and expert share, the parameter arithmetic,
+                 step ms, tokens/s, activated MFU (bench.py's formula),
+                 peak and free GB, device ms by family (flash, GEMM,
+                 other), the idle share and the clip's passes timed alone.
+                 It runs right after kernels, on a card that holds
+                 nothing else.
+5. tiny-parity   llama_tiny (float32, int4 weights) served on the card and,
                  with the same weights, on the CPU through the plain
                  versions: the greedy tokens must be equal, and one
                  prefill ministep's logits within 1e-3.
-5. tiny-dense-parity  llama_tiny(hidden_size=256) (head_dim 64, int4)
+6. tiny-dense-parity  llama_tiny(hidden_size=256) (head_dim 64, int4)
                  through the dense engine (mid chunks, offset finals) and
                  generate() on the card and the CPU: equal greedy tokens,
                  one prefill's logits within 1e-3, and the card ran the
                  paged-decode, flash forward and GEMV kernels. These three
                  tiny phases run the engines' programs as CUDA graphs,
                  captured at first use.
-6. tiny-prefix-parity  llama_tiny(hidden_size=256) float32 (int4) with
+7. tiny-prefix-parity  llama_tiny(hidden_size=256) float32 (int4) with
                  prefix caching, both schedulers: 5 requests, 4 sharing
                  24 tokens; the card with caching on and off and the CPU
                  with it on give equal greedy tokens, the card and the
                  CPU equal hit tokens.
-7. tiny-rich-faults-parity  JAX's threefry key stream and fault
+8. tiny-rich-faults-parity  JAX's threefry key stream and fault
                  tolerance, card against CPU: the threefry2x32 known
                  answer on the card and the host; the bits and uniforms
                  of an [8, 128256] draw equal on card and CPU, the Gumbel
@@ -117,7 +151,7 @@ failure ends the run with a non-zero exit code and no result:
                  serving kernel launched; and optimistic admission on a
                  14-block pool (preemption with recompute) gives the
                  roomy run's greedy streams on card and CPU.
-8. serve-int4    THE MAIN PATH: Llama-3-8B at full width and all 32 layers,
+9. serve-int4    THE MAIN PATH: Llama-3-8B at full width and all 32 layers,
                  int4 weights from a seed, bf16 KV pool, block size 64,
                  served by the ragged engine (8 requests of 100..600 prompt
                  tokens, 32 new tokens each, 6 greedy and 2 at temperature
@@ -130,7 +164,7 @@ failure ends the run with a non-zero exit code and no result:
                  attention and 129 GEMV kernels; the decode_matmul and
                  attention families' device ms per serving run and per
                  ministep.
-9. serve-dense-int4  THE DENSE PATH on the same decoder, eager:
+10. serve-dense-int4  THE DENSE PATH on the same decoder, eager:
                  ServingEngine(ragged=False, max_batch_size=8, chunk_size=8,
                  prefill_chunk=256), 8 requests of 100..512 prompt tokens,
                  32 new each (6 greedy, 2 at 0.8). Counters set to 0 just
@@ -141,13 +175,13 @@ failure ends the run with a non-zero exit code and no result:
                  dispatch, no ragged launch. A repeat run gives the same
                  tokens; one decode step at mb 8 launches exactly 32
                  paged-decode and 129 GEMV kernels; its wall and device
-                 time beside the ragged ministep of phase 8; generate() at
+                 time beside the ragged ministep of phase 9; generate() at
                  b 4, prompt 256, 32 new tokens; then both engines on the
                  same 8 requests, alternately, 2 runs each, and their
                  decode steps alternately, 2 each (median, min, max);
                  the decode_matmul and attention families' device ms per
                  run and step.
-10. serve-prefix-int4  both engines on 8 requests that share a
+11. serve-prefix-int4  both engines on 8 requests that share a
                  384-token prefix (6 blocks of 64), each with 64..128
                  tokens of its own, 32 new tokens, greedy, caching on
                  against off: 2,688 hit tokens (7 readers x 6 blocks),
@@ -158,7 +192,7 @@ failure ends the run with a non-zero exit code and no result:
                  tok/s, TTFT and the prefill's
                  device ms (the same requests with one new token) on and
                  off.
-11. serve-graphs  both engines with ``warmup_programs`` +
+12. serve-graphs  both engines with ``warmup_programs`` +
                  ``seal_programs`` (graphs captured, seconds, pool
                  memory), then serve-dense-int4's requests: tokens equal a
                  fresh eager engine's, stochastic rows included; no
@@ -173,7 +207,7 @@ failure ends the run with a non-zero exit code and no result:
                  share, launches of a chunk). The grid each engine
                  captures holds every key plain and rich, greedy and
                  sampled; the sealed engines serve the next two phases.
-12. serve-rich-int4  the rich mix (phase 7's, 32 new tokens, on
+13. serve-rich-int4  the rich mix (phase 8's, 32 new tokens, on
                  serve-dense-int4's prompts) through both sealed 8B
                  engines: no unexpected recompile, launches equal what
                  the dispatches call for, streams equal a fresh eager
@@ -185,7 +219,7 @@ failure ends the run with a non-zero exit code and no result:
                  dispatched plain against rich; the sampler's parts
                  (threefry + Gumbel, sort, plain and rich samplers)
                  timed alone at 8 rows and at that width.
-13. serve-faults-int4  both 8B engines with admission="optimistic" on 21
+14. serve-faults-int4  both 8B engines with admission="optimistic" on 21
                  free blocks of 64 (the rest held by a placeholder
                  sequence), as sealed graphs: 8 requests of 300..512
                  prompt tokens and 64 new, one of priority 1; clean runs
@@ -199,7 +233,7 @@ failure ends the run with a non-zero exit code and no result:
                  failed request names one, no unexpected recompile, each
                  finished stream the clean one or a near-tie; tok/s
                  optimistic against worst-case, alternated, 2 runs each.
-14. tiny-ms-spec-lora-parity  llama_tiny float32 with int4 weights on the
+15. tiny-ms-spec-lora-parity  llama_tiny float32 with int4 weights on the
                  card (graphs) and the CPU: multi_step=4, spec decode
                  (draft_len 4, n-gram drafter, motif prompts) and a
                  mixed batch over two register_random adapters give
@@ -207,7 +241,7 @@ failure ends the run with a non-zero exit code and no result:
                  its multi_step=1, spec-off or registry-less engine
                  (base rows); one _lora_delta within 1e-4 of the plain
                  gathered formulation.
-15. serve-ms-int4  multi_step=4 (32-ministep windows) on the 8B int4
+16. serve-ms-int4  multi_step=4 (32-ministep windows) on the 8B int4
                  ragged engine as graphs (captured as first used, then
                  sealed) against serve-graphs' multi_step=1 engine,
                  serve-dense-int4's requests: launches, greedy streams
@@ -215,7 +249,7 @@ failure ends the run with a non-zero exit code and no result:
                  GB); the two alternated 3 runs each (tok/s, TTFT, ITL)
                  with no recompile; a run's device ms and idle share; a
                  window against a T 8 chunk, device ms a ministep.
-16. serve-spec-int4  spec decode at draft_len 3 (<= 32 verify rows: the
+17. serve-spec-int4  spec decode at draft_len 3 (<= 32 verify rows: the
                  GEMV) and 8 (72: cuBLAS over the unpacked int4)
                  against spec off on 8 prompts that quote their own
                  text, 64 new: with the n-gram drafter, then oracles of
@@ -227,7 +261,7 @@ failure ends the run with a non-zero exit code and no result:
                  held to no unexpected recompile), draft_len 8 captures
                  as first used, then seals; the three alternated 3 runs
                  each.
-17. serve-lora-int4  AdapterRegistry(rank=8) of 4 register_random adapters,
+18. serve-lora-int4  AdapterRegistry(rank=8) of 4 register_random adapters,
                  8 requests (2 base, 6 over 3 adapters): launches, no
                  recompile, base rows equal the registry-less engine's
                  or a near-tie, hits / misses / evictions per run (each
@@ -239,7 +273,7 @@ failure ends the run with a non-zero exit code and no result:
                  rounding, float32 within 1e-4 relative); graphs captured
                  as first used, then sealed; tok/s against the base
                  engine, alternated 3 runs each.
-18. tiny-fleet-parity  the fleet Router (dp 2, in process, the dense
+19. tiny-fleet-parity  the fleet Router (dp 2, in process, the dense
                  engine, affinity on) on llama_tiny at the fleet tests'
                  geometry with head_dim 64 (hidden 256), float32, the
                  same weights on the card and the CPU: 4 prompts sharing
@@ -247,7 +281,7 @@ failure ends the run with a non-zero exit code and no result:
                  the streams equal a single engine's and card == CPU,
                  routing counters too; the card ran the paged-decode and
                  flash forward kernels.
-19. serve-telemetry-int4  serve-graphs' sealed 8B int4 ragged engine on
+20. serve-telemetry-int4  serve-graphs' sealed 8B int4 ragged engine on
                  serve-dense-int4's requests three ways, alternated, 3
                  runs each: no telemetry, a Tracer with an SLO monitor
                  (TTFT 2 s, ITL 50 ms at p99), profile_every=8: greedy
@@ -258,7 +292,7 @@ failure ends the run with a non-zero exit code and no result:
                  the attribution p50 of host-schedule, dispatch-queue and
                  device-execute (CUDA events) per program family, and
                  the SLO headroom.
-20. fleet-int4   Router(dp=2, transport="inproc") of two ragged 8B int4
+21. fleet-int4   Router(dp=2, transport="inproc") of two ragged 8B int4
                  engines over one weight tree (pools of their own, 160
                  blocks of 64), graphs captured as used: 8 requests, 4
                  sharing the 384-token prefix (3 affinity hits), 32 new
@@ -270,7 +304,7 @@ failure ends the run with a non-zero exit code and no result:
                  migrations captured; the replica healed through
                  probation; then sealed, dp 2 against one engine
                  alternated, 3 runs each.
-21. fleet-proc-int4  the same model and traffic with transport="process":
+22. fleet-proc-int4  the same model and traffic with transport="process":
                  two spawned workers build the 8B decoder from seed 0
                  (module-level _proc_engine_factory, eager engines) and
                  find the kernel library built; greedy streams equal
@@ -279,7 +313,7 @@ failure ends the run with a non-zero exit code and no result:
                  worker respawns onto probation; spawn and respawn
                  seconds, the step RPC's round trip over the worker's
                  own step, heartbeat misses, exits and restarts.
-22. tiny-tp-parity  tensor-parallel serving, card against CPU from one
+23. tiny-tp-parity  tensor-parallel serving, card against CPU from one
                  seed: llama_tiny(hidden_size=256, num_key_value_heads=4)
                  float32 with int4 weights; the ragged engine at tp 1, 2
                  and 4 (every shard on cuda:0, or on the CPU; graphs
@@ -291,7 +325,7 @@ failure ends the run with a non-zero exit code and no result:
                  where the tp-1 engines part, a near-tie (the CPU's
                  logit gap within twice the card / CPU logit
                  difference); every kernel of each path launched.
-23. serve-tp2-int4  Llama-3-8B int4 at tp 2 with both shards on cuda:0
+24. serve-tp2-int4  Llama-3-8B int4 at tp 2 with both shards on cuda:0
                  (ServingEngine(dec, tp=2) over a decoder on
                  ProcessMesh(devices=["cuda:0"] * 2), seed 0: serve-int4's
                  weights cut by the placement table), bf16 pool of 160
@@ -313,16 +347,16 @@ failure ends the run with a non-zero exit code and no result:
                  an int8 pool and tp 4 (8 / 2 heads a shard; greedy
                  streams against tp 1's near-tie rule), each with its
                  exact launches.
-24. serve-bf16-kv8  the same model with bf16 weights and an int8 KV pool
+25. serve-bf16-kv8  the same model with bf16 weights and an int8 KV pool
                  (4 requests): the int8 branch of the attention kernel on
                  the serving path; one W 8 ministep launches exactly 32
                  attention kernels; the attention family's device ms per
                  run and per ministep.
-25. tiny-train-parity  llama_tiny(hidden_size=256) in float32 (head_dim 64)
+26. tiny-train-parity  llama_tiny(hidden_size=256) in float32 (head_dim 64)
                  with the same weights on the card and the CPU: 3 TrainSteps
                  of AdamW(1e-3) give losses within 1e-4 relative, and the
                  card ran all three flash kernels.
-26. tiny-ring-parity  llama_tiny(hidden_size=256, sep_degree=4) in
+27. tiny-ring-parity  llama_tiny(hidden_size=256, sep_degree=4) in
                  float32 (head_dim 64) at b 2 x s 256 under a sep-4 fleet
                  mesh, the same weights on the card (["cuda:0"] * 4) and on
                  the CPU (["cpu"] * 4): 3 TrainSteps of AdamW(1e-3) give
@@ -330,7 +364,7 @@ failure ends the run with a non-zero exit code and no result:
                  model's at sep_degree=1 within 1e-4, and the flash counters
                  read exactly what the ring calls for (2 layers x 4 ranks
                  x 6 blocks per step of each kernel).
-27. tiny-model-parity  LlamaForCausalLM whole: llama_tiny(hidden_size=256,
+28. tiny-model-parity  LlamaForCausalLM whole: llama_tiny(hidden_size=256,
                  tie_word_embeddings=True, use_recompute=True,
                  recompute_granularity="full_attn") in float32 with the
                  same weights on the card and the CPU (the tied table
@@ -343,7 +377,7 @@ failure ends the run with a non-zero exit code and no result:
                  beam search with 3 beams, and ServingEngine(model,
                  weight_dtype="int4") on both schedulers: tokens equal on
                  card and CPU, every kernel of each engine launched.
-28. train-mid    THE TRAINING PATH: llama_mid (0.65B) at full width and all
+29. train-mid    THE TRAINING PATH: llama_mid (0.65B) at full width and all
                  11 layers, bf16 compute, seed 0, batch 4 x seq 2048 (ids as
                  bench.py makes them), AdamW(1e-4, weight_decay=0.01): 2 warm
                  and 10 timed TrainSteps. The flash counters are set to 0
@@ -352,7 +386,7 @@ failure ends the run with a non-zero exit code and no result:
                  last below the first. Step ms, tokens/s, MFU by bench.py's
                  formula against 989 TFLOP/s, peak memory, device time by
                  kernel family and the idle share.
-29. train-mid8k  THE LONG-CONTEXT PATH: llama_mid(dtype="bfloat16",
+30. train-mid8k  THE LONG-CONTEXT PATH: llama_mid(dtype="bfloat16",
                  chunked_ce_tokens=1024, max_position_embeddings=8192,
                  sep_degree=4), all 11 layers, b 1 x s 8192 (ids as bench.py
                  makes them), AdamW(1e-4, weight_decay=0.01), under a sep-4
@@ -368,7 +402,7 @@ failure ends the run with a non-zero exit code and no result:
                  and sep 4 within 1e-2 relative. Step ms, tokens/s, MFU at
                  seq 8192, peak memory, device time by kernel family (the
                  flash family's ms apart) and the idle share of both.
-30. train-1b     bench.py's 1b row: llama_1b(dtype="bfloat16",
+31. train-1b     bench.py's 1b row: llama_1b(dtype="bfloat16",
                  use_recompute=True, recompute_granularity="full_attn",
                  chunked_ce_tokens=1024), all 18 layers, b 4 x s 2048,
                  AdamW(1e-4, weight_decay=0.01, moment_dtype="bfloat16"):
@@ -381,7 +415,7 @@ failure ends the run with a non-zero exit code and no result:
                  within 1e-3 of the recompute model's, 18 of each flash
                  kernel a step) and the two alternated, 3 runs of 2 steps
                  each: step ms, MFU and peak memory of each.
-31. serve-model-1b  the model train-1b trained, served by
+32. serve-model-1b  the model train-1b trained, served by
                  ServingEngine(model, weight_dtype="int4", block_size=64,
                  num_blocks=160) on both schedulers: float32 activations
                  and pool (the embedding's dtype, as in JAX), so every
@@ -400,13 +434,13 @@ failure ends the run with a non-zero exit code and no result:
                  equal, or parted where the float32 logit gap is at most
                  twice the difference between the two computations'
                  logits there.
-32. tiny-gpt-parity  gpt_tiny(hidden_size=256) (head_dim 64, as many kv
+33. tiny-gpt-parity  gpt_tiny(hidden_size=256) (head_dim 64, as many kv
                  heads as heads) float32 with int4 weights, the same
                  weights on the card (graphs) and the CPU: both engines'
                  greedy streams and generate() equal, one prefill's
                  logits within 1e-3, and the card ran the ragged,
                  paged-decode, flash forward and GEMV kernels.
-33. serve-ernie-int4  THE GPT PATH: ernie_45_dense_3b at full width and
+34. serve-ernie-int4  THE GPT PATH: ernie_45_dense_3b at full width and
                  all 28 layers (20 heads = 20 kv heads, d 128, vocab
                  103,424), int4 weights from PagedGPTDecoder.from_config(
                  seed=0), bf16 activations and pool (160 blocks of 64);
@@ -424,12 +458,12 @@ failure ends the run with a non-zero exit code and no result:
                  on an int8 pool over the same weights (reported), its
                  GEMV launches counted by weight at the launch site
                  (the kernels line's ERNIE GEMV rows).
-34. train-gpt-345m  gpt_345m in bf16 (float32 weights, tied head), b 8 x
+35. train-gpt-345m  gpt_345m in bf16 (float32 weights, tied head), b 8 x
                  s 1024, AdamW(1e-4, weight_decay=0.01): 1 warm and 5
                  timed TrainSteps, exactly 24 of each flash kernel a
                  step, every loss finite and the last below the first;
                  step ms, tokens/s, MFU, peak memory, device time.
-35. tiny-dit-parity  DiT at head_dim 72 (hidden 144, 2 heads, depth 2)
+36. tiny-dit-parity  DiT at head_dim 72 (hidden 144, 2 heads, depth 2)
                  and 64 (hidden 128, 2 heads), every parameter drawn
                  from a seed (normal x 0.02, so adaLN-Zero does not make
                  the output 0), the same weights on the card and the
@@ -439,7 +473,7 @@ failure ends the run with a non-zero exit code and no result:
                  (a bf16 loss is itself rounded to 8 bits); each card
                  run launches exactly depth forward, dq and dk/dv flash
                  kernels a step and depth forwards an eval forward.
-36. train-dit-xl2  THE DiT PATH, bench.py's dit row: DiT(dit_xl_2(
+37. train-dit-xl2  THE DiT PATH, bench.py's dit row: DiT(dit_xl_2(
                  dtype="bfloat16", learn_sigma=False)), all 28 layers
                  (675 M parameters), b 32 on [32, 4, 32, 32] latents
                  with timesteps and labels from RandomState(0) as
@@ -455,7 +489,7 @@ failure ends the run with a non-zero exit code and no result:
                  a picture over 989 TFLOP/s), peak memory, device ms by
                  family (flash, GEMM, conv, other) and the idle share,
                  beside the card's name and power limit.
-37. tiny-moe-parity  moe_tiny(hidden_size=256, 4 / 2 heads: head_dim 64)
+38. tiny-moe-parity  moe_tiny(hidden_size=256, 4 / 2 heads: head_dim 64)
                  with the same numpy state on the card and the CPU, dense
                  and ragged dispatch: float32 logits within 1e-4 of the
                  largest |logit| and five TrainSteps of AdamW(1e-3) with
@@ -469,7 +503,7 @@ failure ends the run with a non-zero exit code and no result:
                  debugging set to raise (no host sync: for ragged the
                  grouped route, torch._grouped_mm); exact flash
                  launches.
-38. train-moe    THE MoE PATH, bench.py's four moe rows as it builds them
+39. train-moe    THE MoE PATH, bench.py's four moe rows as it builds them
                  (bench.py:278-318, :409-431): MoEConfig(dtype="bfloat16",
                  8 layers, 16 / 8 heads, top-2, one shared expert, chunked
                  CE 1024) at hidden 1024 with 8 experts of 1408 (dense and
@@ -490,7 +524,7 @@ failure ends the run with a non-zero exit code and no result:
                  total and activated parameters, peak memory, device ms
                  by family and the idle share; the dense row's dropped
                  fraction from one eager forward.
-39. capture-failure  a program with a host sync inside: its first
+40. capture-failure  a program with a host sync inside: its first
                  dispatch raises, no graph is kept and it is not run
                  eagerly in its place (last, as a failed capture may
                  leave the allocator's pool unusable).
@@ -586,6 +620,11 @@ FLASH_CASES = [
     # train-moe's attention at hidden 1024: b 4 x s 2048, 16 heads of 64
     # over 8 kv heads, causal (its wide row, d 128, is llama_mid's case)
     dict(name="moe_d64", b=4, sq=2048, sk=2048, h=16, hk=8, d=64),
+    # train-moe-full's attention, b 2 x s 4096, causal, d 128: DeepSeek-
+    # MoE-16B's 16 / 16 heads and Qwen2-MoE-A14B's 28 / 4 (group 7)
+    dict(name="deepseek_moe_16b", b=2, sq=4096, sk=4096, h=16, hk=16,
+         d=128),
+    dict(name="qwen2_moe_a14b", b=2, sq=4096, sk=4096, h=28, hk=4, d=128),
 ]
 
 
@@ -1693,7 +1732,11 @@ def main():
                                          dit_xl_2, ernie_45_dense_3b,
                                          gpt_345m, gpt_tiny, llama_1b,
                                          llama_3_8b, llama_mid, llama_tiny,
-                                         moe_tiny)
+                                         moe_tiny, deepseek_moe_16b_like,
+                                         qwen2_moe_a14b_like)
+    from paddle_tpu_torch.incubate.distributed.models.moe import (
+        ClipGradForMOEByGlobalNorm)
+    from paddle_tpu_torch.optimizer import lr as lr_sched
     from paddle_tpu_torch.nn import MoELayer
     from paddle_tpu_torch.ops import moe as moe_ops
     from paddle_tpu_torch.nn import functional as F
@@ -1865,7 +1908,8 @@ def main():
                 heads["f32_flash"] = c
             if spec["name"] == "gpt_345m":
                 heads["gpt_flash"] = c
-            if spec["name"] in ("dit_xl2", "f32_dit_xl2", "moe_d64"):
+            if spec["name"] in ("dit_xl2", "f32_dit_xl2", "moe_d64",
+                                "deepseek_moe_16b", "qwen2_moe_a14b"):
                 heads[spec["name"]] = c
             torch.cuda.empty_cache()
         for spec in RING_CASES:
@@ -2011,6 +2055,353 @@ def main():
     heads = {}
     _phase("kernels", kernels)
     torch.cuda.empty_cache()
+
+    # -- MoE at full width: DeepSeek-MoE-16B and Qwen2-MoE-A14B, cut in depth,
+    # under the DeepSeekMoE recipe (recompute, AdamW, warmup and steps,
+    # the MoE global-norm clip). Right after the kernels, while the card is
+    # empty: the depth is what the card holds, and in a whole run the later
+    # phases leave ~14 GB with the allocator ---------------------------------
+    full_launches = {}
+
+    def full_cfg(name, depth, recompute=True):
+        fn = {"deepseek": deepseek_moe_16b_like,
+              "qwen": qwen2_moe_a14b_like}[name]
+        return fn(dtype="bfloat16", moe_dispatch_mode="ragged",
+                  chunked_ce_tokens=1024, use_recompute=recompute,
+                  recompute_granularity="full", num_hidden_layers=depth)
+
+    def moe_arith(mcfg):
+        """Parameters of the embedding + untied head + final norm, of a
+        dense layer and of a MoE layer, from the config's widths."""
+        h, v = mcfg.hidden_size, mcfg.vocab_size
+        hd = h // mcfg.num_attention_heads
+        attn = (2 * h * mcfg.num_attention_heads * hd
+                + 2 * h * mcfg.num_key_value_heads * hd + 2 * h)
+        e, hm = mcfg.num_experts, mcfg.moe_intermediate_size
+        return {"embed_head_norm": 2 * v * h + h,
+                "dense_layer": attn + 3 * h * mcfg.intermediate_size,
+                "moe_layer": (attn + h * e + 2 * e * h * hm
+                              + 3 * h * hm * mcfg.num_shared_experts),
+                "experts_of_a_layer": 2 * e * h * hm}
+
+    def full_params(mcfg, depth):
+        a = moe_arith(mcfg)
+        dense = min(mcfg.first_k_dense_replace, depth)
+        return (a["embed_head_norm"] + dense * a["dense_layer"]
+                + (depth - dense) * a["moe_layer"])
+
+    # float32 weight, grad and AdamW m / v (bf16 gains: the parameter and
+    # its grad in bf16 plus a float32 master) a parameter
+    STATE_BYTES = 16
+
+    def full_trainer(mcfg, b=2, s=4096):
+        """A model from seed 0 under the recipe (DeepSeekMoE paper §5.1,
+        its step counts cut): AdamW(β 0.9 / 0.95, weight decay 0.1),
+        LinearWarmup(MultiStepDecay(4.2e-4, [8, 9], 0.316), 4 steps from
+        0), ClipGradForMOEByGlobalNorm(1.0) over the experts' w1 / w2;
+        ids b x s from RandomState(0). step() is one eager training step
+        (forward, loss, backward, the clip's expert / dense split of the
+        squared norm, AdamW, clear_grad, the scheduler's step) and
+        appends (loss, lr, clip norm, clip scale, expert sq, dense sq),
+        the tensors unread, to the log."""
+        model = MoEForCausalLM(mcfg, seed=0, device="cuda")
+        experts = {id(p) for n, p in model.named_parameters()
+                   if ".moe.w1" in n or ".moe.w2" in n}
+        clip = ClipGradForMOEByGlobalNorm(
+            1.0, is_expert_param_func=lambda p: id(p) in experts)
+        sched = lr_sched.LinearWarmup(
+            lr_sched.MultiStepDecay(4.2e-4, milestones=[8, 9], gamma=0.316),
+            warmup_steps=4, start_lr=0.0, end_lr=4.2e-4)
+        params = list(model.parameters())
+        opt = AdamW(learning_rate=sched, beta1=0.9, beta2=0.95,
+                    weight_decay=0.1, parameters=params, grad_clip=clip)
+        ids = torch.as_tensor(np.random.RandomState(0).randint(
+            0, mcfg.vocab_size, size=(b, s)).astype(np.int32), device="cuda")
+        log = []
+
+        def step():
+            lr_now = opt.get_lr()
+            loss = model.loss(model(ids), ids)
+            loss.backward()
+            ex, dn = clip.partition_norms(params, [p.grad for p in params])
+            opt.step()
+            opt.clear_grad()
+            sched.step()
+            log.append((loss.detach(), lr_now, clip.last_global_norm,
+                        clip.last_scale, ex, dn))
+
+        return {"model": model, "opt": opt, "clip": clip, "step": step,
+                "log": log, "params": params, "ids": ids}
+
+    def read_log(log):
+        rows = []
+        for loss, lr_now, norm, scale, ex, dn in log:
+            ex, dn = float(ex), float(dn)
+            rows.append({"loss": float(loss), "lr": lr_now,
+                         "clip_global_norm": float(norm),
+                         "clip_scale": float(scale),
+                         "expert_share_of_sq_norm": ex / (ex + dn),
+                         "partition_norm": (ex + dn) ** 0.5})
+        for r in rows:
+            _require(np.isfinite(r["loss"]) and np.isfinite(
+                r["clip_global_norm"]), f"train-moe-full: step {r}")
+            # the clip's own norm is the split's, over every gradient
+            _require(abs(r["partition_norm"] - r["clip_global_norm"])
+                     <= 1e-3 * r["clip_global_norm"],
+                     f"train-moe-full: clip norm {r['clip_global_norm']} "
+                     f"against its expert / dense split "
+                     f"{r['partition_norm']}")
+        return rows
+
+    def memory_now():
+        """(free bytes on the card, bytes torch's allocator holds)."""
+        return torch.cuda.mem_get_info()[0], torch.cuda.memory_reserved()
+
+    def release():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def full_depth(name, probe_depth, free0, reserved0):
+        """The deepest depth whose peak leaves 8 GB of the card free: one
+        step of the recipe at probe_depth gives what the peak holds
+        besides the training state (activations, recompute, AdamW's
+        temporaries, the allocator's slack); the state grows by
+        STATE_BYTES a parameter of each added MoE layer."""
+        mcfg = full_cfg(name, probe_depth)
+        tr = full_trainer(mcfg)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        tr["step"]()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_reserved() - reserved0
+        n = full_params(mcfg, probe_depth)
+        _require(tr["model"].num_params() == n,
+                 f"train-moe-full {name}: {tr['model'].num_params()} "
+                 f"parameters, the arithmetic says {n}")
+        other = peak - STATE_BYTES * n
+        del tr
+        release()
+        # each added layer also keeps its bf16 input for the recompute
+        saved = 2 * 2 * 4096 * mcfg.hidden_size
+        depth = probe_depth
+        while depth < 28 and free0 - (
+                STATE_BYTES * full_params(mcfg, depth + 1) + other
+                + (depth + 1 - probe_depth) * saved) >= 8.5e9:
+            depth += 1
+        return depth, {"probe_depth": probe_depth,
+                       "probe_peak_gb": peak / 1e9,
+                       "probe_other_than_state_gb": other / 1e9}
+
+    def full_row(name, depth, warm, iters, free0, reserved0):
+        """warm + iters recipe steps at depth, then one traced step. The
+        flash counters, set to 0 just before the steps and read just
+        after, must read 2 * depth forwards (the forward and its
+        recomputation) and depth dq and dk/dv a step; the traced step
+        the same of flash_wg::*<bf16,128> and no other flash kernel. When
+        the warm steps' peak leaves under 8 GB free (the allocator's
+        slack grows with depth), the run starts again one layer
+        shallower."""
+        dropped = []
+        while True:
+            mcfg = full_cfg(name, depth)
+            t0 = time.perf_counter()
+            tr = full_trainer(mcfg)
+            torch.cuda.synchronize()
+            init_s = time.perf_counter() - t0
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            reset_flash()
+            for _ in range(warm):
+                tr["step"]()
+            torch.cuda.synchronize()
+            free_warm = free0 - (torch.cuda.max_memory_reserved() - reserved0)
+            if free_warm >= 8e9 or depth == 1:
+                break
+            dropped.append({"depth": depth, "free_gb": free_warm / 1e9})
+            del tr
+            release()
+            depth -= 1
+        model, b, s = tr["model"], *tr["ids"].shape
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            tr["step"]()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = flash_counts()
+        n_steps = warm + iters
+        full_launches[name] = dict(launched)
+        _require(launched == {"flash_fwd": 2 * depth * n_steps,
+                              "flash_bwd_dq": depth * n_steps,
+                              "flash_bwd_dkv": depth * n_steps},
+                 f"train-moe-full {name}: {n_steps} steps launched "
+                 f"{launched}, expected {2 * depth} forwards and {depth} "
+                 f"dq and dk/dv a step")
+        _require(all(v == 0 for v in counts().values()),
+                 f"train-moe-full {name} launched serving kernels: "
+                 f"{counts()}")
+        peak_reserved = torch.cuda.max_memory_reserved()
+        peak_alloc = torch.cuda.max_memory_allocated()
+        free_at_peak = free0 - (peak_reserved - reserved0)
+        _require(free_at_peak >= 8e9,
+                 f"train-moe-full {name}: {free_at_peak / 1e9:.2f} GB free "
+                 f"at the peak of depth {depth}")
+        step_ms = wall * 1e3 / iters
+        tok_s = b * s * iters / wall
+        n_params = model.num_params()
+        n_act = model.num_activated_params()
+        hd = mcfg.hidden_size // mcfg.num_attention_heads
+        fpt = 6 * n_act + 12 * depth * mcfg.num_attention_heads * hd * s
+        # the clip's passes alone on a step's gradients: the norm (a read
+        # of every gradient) and the scaling (a read and a write), which
+        # AdamW's loop runs one gradient at a time
+        loss = model.loss(model(tr["ids"]), tr["ids"])
+        loss.backward()
+        grads = [p.grad for p in tr["params"]]
+        clip = tr["clip"]
+        norm_ms = timer(lambda: clip._plan(grads), iters=3)
+        one = clip._plan(grads)
+
+        def scale_pass():
+            for g in grads:
+                one(g)
+
+        scale_ms = timer(scale_pass, iters=3)
+        split_ms = timer(lambda: clip.partition_norms(tr["params"], grads),
+                         iters=3)
+        grad_bytes = sum(g.numel() * g.element_size() for g in grads)
+        tr["opt"].clear_grad()
+        del loss, grads, one
+        # one traced step, the scheduler's 13th value: the second decay
+        want = {f"flash_wg::{k}_kernel<bf16,{hd}>": (2 if k == "fwd" else 1)
+                * depth for k in ("fwd", "dq", "dkv")}
+        for pads in (_PAD_LAUNCHES, 32768, 131072):
+            prof = _device_breakdown(torch, tr["step"], step_ms, pads)
+            if prof["pad_records_lost"] is not None:
+                break
+        _require(prof["pad_records_lost"] is not None,
+                 f"train-moe-full {name}: the profiler lost all {pads} pad "
+                 f"records of a traced step")
+        traced = {n: c for n, (c, _ms) in prof["flash_kernels"].items()
+                  if "piece_sum" not in n}
+        _require(traced == want,
+                 f"train-moe-full {name}: a traced step's flash kernels "
+                 f"were {traced}, not {want}")
+        steps = read_log(tr["log"])
+        losses = [r["loss"] for r in steps]
+        _require(losses[warm + iters - 1] < losses[0],
+                 f"train-moe-full {name}: the loss did not fall: {losses}")
+        fam = prof["device_ms_by_family"]
+        flash_ms = sum(v for k_, v in fam.items() if k_.startswith("flash"))
+        gemm_ms = fam.get("library_gemm", 0.0)
+        a = moe_arith(mcfg)
+        row = {"config": f"{name} full width, {depth} of 28 layers",
+               "depth": depth, "depths_dropped": dropped,
+               "hidden": mcfg.hidden_size,
+               "heads": [mcfg.num_attention_heads,
+                         mcfg.num_key_value_heads],
+               "experts": [mcfg.num_experts, mcfg.num_experts_per_tok,
+                           mcfg.moe_intermediate_size,
+                           mcfg.num_shared_experts],
+               "batch": [b, s], "init_s": init_s,
+               "parameter_arithmetic": dict(
+                   a, total=n_params, activated=n_act,
+                   state_bytes_per_parameter=STATE_BYTES,
+                   state_gb=STATE_BYTES * n_params / 1e9,
+                   state_gb_per_moe_layer=STATE_BYTES * a["moe_layer"] / 1e9),
+               "num_params": n_params, "num_activated_params": n_act,
+               "launches": launched,
+               "flash_launches_per_step": {
+                   k_: v // n_steps for k_, v in launched.items()},
+               "steps": steps, "warm": warm, "timed": iters,
+               "step_ms": step_ms, "tokens_per_s": tok_s,
+               "mfu_activated": tok_s * fpt / BF16_FLOPS_PER_S,
+               "flops_per_token": fpt,
+               "peak_allocated_gb": peak_alloc / 1e9,
+               "peak_reserved_gb": peak_reserved / 1e9,
+               "free_at_peak_gb": free_at_peak / 1e9,
+               "device_ms_flash_gemm_other": [
+                   flash_ms, gemm_ms, prof["device_ms"] - flash_ms - gemm_ms],
+               "clip_alone_ms": {"norm": norm_ms, "scale": scale_ms,
+                                 "expert_dense_split": split_ms,
+                                 "grad_gb": grad_bytes / 1e9,
+                                 "norm_and_scale_share_of_device_ms":
+                                     (norm_ms + scale_ms) / prof["device_ms"]},
+               "traced_flash_launches": traced, "step_profile": prof}
+        del tr, model
+        release()
+        return row
+
+    def recompute_on_off(depth=3, rounds=3):
+        """The DeepSeek recipe at depth with and without recompute, both
+        models from seed 0 and resident: each one's first step (loss
+        within 1e-3 relative, clip norm within 1e-2: the ragged combine's
+        index_add sums with atomics), then steps alternated, each with its
+        peak over what was allocated before it."""
+        runs = {rc: full_trainer(full_cfg("deepseek", depth, rc))
+                for rc in (True, False)}
+        step_ms = {True: [], False: []}
+        peak = {True: [], False: []}
+        for _ in range(rounds):
+            for rc, tr in runs.items():
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                t1 = time.perf_counter()
+                tr["step"]()
+                torch.cuda.synchronize()
+                step_ms[rc].append((time.perf_counter() - t1) * 1e3)
+                peak[rc].append((torch.cuda.max_memory_allocated() - base)
+                                / 1e9)
+        del tr
+        first = {rc: read_log(t_["log"])[0] for rc, t_ in runs.items()}
+        loss_rel = abs(first[True]["loss"] - first[False]["loss"]) \
+            / abs(first[False]["loss"])
+        norm_rel = abs(first[True]["clip_global_norm"]
+                       - first[False]["clip_global_norm"]) \
+            / first[False]["clip_global_norm"]
+        _require(loss_rel <= 1e-3 and norm_rel <= 1e-2,
+                 f"train-moe-full recompute on / off: first-step loss "
+                 f"{first[True]['loss']} / {first[False]['loss']}, clip norm "
+                 f"{first[True]['clip_global_norm']} / "
+                 f"{first[False]['clip_global_norm']}")
+        del runs
+        release()
+        key = {True: "recompute", False: "plain"}
+        return {"depth": depth, "first_step": {key[rc]: first[rc]
+                                               for rc in first},
+                "loss_rel_diff": loss_rel, "clip_norm_rel_diff": norm_rel,
+                # the first round builds AdamW's state; later ones time
+                "step_ms_alternated": {key[rc]: v for rc, v in
+                                       step_ms.items()},
+                "step_peak_over_resident_gb": {key[rc]: v for rc, v in
+                                               peak.items()}}
+
+    def train_moe_full():
+        """DeepSeek-MoE-16B and Qwen2-MoE-A14B at full width under the
+        DeepSeekMoE recipe, depth cut to what one card holds: recompute
+        on against off at depth 3; DeepSeek at the deepest depth that
+        leaves 8 GB free at its peak, 2 warm + 10 timed steps; Qwen at its
+        deepest, 2 warm + 4 timed; each then one traced step."""
+        out = {"nvidia_smi": smi}
+        release()
+        free0, reserved0 = memory_now()
+        out["free_at_start_gb"] = free0 / 1e9
+        out["reserved_at_start_gb"] = reserved0 / 1e9
+        out["recompute_on_off"] = recompute_on_off()
+        for name, probe, warm, iters in (("deepseek", 3, 2, 10),
+                                         ("qwen", 1, 2, 4)):
+            free0, reserved0 = memory_now()
+            depth, fit = full_depth(name, probe, free0, reserved0)
+            row = full_row(name, depth, warm, iters, free0, reserved0)
+            row["depth_fit"] = fit
+            # the next layer would leave less than 8 GB
+            row["free_at_peak_with_one_more_layer_gb"] = (
+                row["free_at_peak_gb"] - STATE_BYTES
+                * moe_arith(full_cfg(name, depth))["moe_layer"] / 1e9)
+            out[name] = row
+        return out
+
+    _phase("train-moe-full", train_moe_full)
 
     def cpu_and_card(cfg, num_blocks=64, cls=None):
         """A seeded int4 decoder (``cls``, default PagedLlamaDecoder) on
@@ -6514,6 +6905,29 @@ def main():
             "share_of_bound": f["bound_share"][kk],
             "sdpa_ratio": f["sdpa_ratio"] and f["sdpa_ratio"][
                 "fwd" if kk == "fwd" else "bwd"]})
+    # head_dim 128 at b 2 x s 4096, causal: train-moe-full's DeepSeek (16 /
+    # 16 heads) and Qwen (28 / 4, group 7) rows
+    for key, name, heads_name in (
+            ("deepseek_moe_16b", "deepseek", "16/16 heads"),
+            ("qwen2_moe_a14b", "qwen", "28/4 heads, group 7")):
+        f = heads[key]
+        for kk, kname, rep in (
+                ("fwd", "flash_fwd", tpu + "flash_attention.py:69"),
+                ("dq", "flash_bwd_dq", tpu + "flash_attention.py:174"),
+                ("dkv", "flash_bwd_dkv", tpu + "flash_attention.py:229")):
+            kernel_rows.append({
+                "name": f"{kname}[d 128, {heads_name}, s 4096, "
+                        f"train-moe-full]", "route": "cuda",
+                "source": "paddle_tpu_torch/csrc/flash_attention_wg.cu",
+                "replaces": rep, "launches": full_launches[name][kname],
+                "max_abs_err": f["max_abs_err"][kk], "ms": f["ms"][kk],
+                "plain_ms": f["plain_ms"][kk],
+                "bound_ms": f["bound_ms"][kk],
+                "bound_by": f["bound_by"][kk],
+                "library_ms": f["library_ms"][kk],
+                "share_of_bound": f["bound_share"][kk],
+                "sdpa_ratio": f["sdpa_ratio"] and f["sdpa_ratio"][
+                    "fwd" if kk == "fwd" else "bwd"]})
     _emit({"kernels": kernel_rows})
     print(smi, flush=True)
     _emit({"ok": True, "device": device})

@@ -23,9 +23,15 @@ Dtypes follow the JAX code: every weight is float32 (experts and the
 router included), the RMSNorm gains take ``cfg.dtype``, activations turn
 ``cfg.dtype`` after the embedding; the router runs in float32.
 
-Not ported yet (they raise ``NotImplementedError``): ``use_recompute``
-(JAX's ``_MoEBlockFn``, the aux loss as a checkpoint output; ROADMAP
-queue 1 item 9(d)) and ``tensor_parallel`` (item 5(c)).
+``use_recompute`` runs each layer under ``distributed.fleet.recompute``
+at ``recompute_granularity`` "full" (the whole layer; a MoE layer
+through ``_MoEBlockFn``, whose aux loss leaves the checkpoint as an
+output and so keeps its gradient path to the router), "full_attn" (the
+attention only) or "core_attn" (the plain forward), as JAX's
+``MoEDecoderLayer.forward`` does.
+
+Not ported yet (it raises ``NotImplementedError``): ``tensor_parallel``
+(ROADMAP queue 1, item 5(c)).
 """
 from __future__ import annotations
 
@@ -38,6 +44,7 @@ from .. import nn as pnn
 from ..device import resolve_device
 from ..nn import functional as F
 from ..numpy_bridge import load_numpy_state
+from ..distributed.fleet import recompute
 from .llama import LlamaAttention, LlamaConfig
 
 __all__ = ["MoEConfig", "MoEForCausalLM", "MoEModel", "MoEBlock",
@@ -86,10 +93,6 @@ class MoEConfig:
 
 
 def _check_ported(cfg: MoEConfig):
-    if cfg.use_recompute:
-        raise NotImplementedError(
-            "MoEConfig(use_recompute=True): recompute of MoE layers is "
-            "not ported yet (ROADMAP queue 1, item 9(d))")
     if cfg.tensor_parallel:
         raise NotImplementedError(
             "MoEConfig(tensor_parallel=True): not ported yet (ROADMAP "
@@ -151,10 +154,61 @@ class MoEDecoderLayer(nn.Module):
                                  gen, dev)
         else:
             self.mlp = MoEBlock(cfg, gen, dev)
+        self.use_recompute = cfg.use_recompute
+        self.recompute_granularity = cfg.recompute_granularity
+
+    def _attn(self, x):
+        return self.self_attn(self.input_layernorm(x))
+
+    def _block(self, x):
+        h = x + self._attn(x)
+        return h + self.mlp(self.post_attention_layernorm(h))
 
     def forward(self, x):
-        h = x + self.self_attn(self.input_layernorm(x))
-        return h + self.mlp(self.post_attention_layernorm(h))
+        if not self.use_recompute:
+            return self._block(x)
+        gran = self.recompute_granularity
+        if gran == "full":
+            if isinstance(self.mlp, MoEBlock):
+                # the aux loss crosses the checkpoint as an output; the
+                # layer keeps the forward's, not the recomputation's
+                out, aux = recompute(_MoEBlockFn(self), x)
+                self.mlp.moe._aux_loss = aux
+                return out
+            return recompute(self._block, x)
+        if gran == "full_attn":
+            h = x + recompute(self._attn, x)
+            return h + self.mlp(self.post_attention_layernorm(h))
+        if gran == "core_attn":
+            return self._block(x)
+        raise ValueError(
+            f"unknown recompute_granularity {gran!r}; expected 'full', "
+            "'full_attn' or 'core_attn'")
+
+
+class _MoEBlockFn:
+    """A MoE decoder layer as a recompute region returning (output, aux
+    loss). The backward runs it again, and the MoE layer's forward stores
+    its aux loss and routing stats on itself each time: a rerun puts the
+    forward's back, so ``aux_losses()`` and ``routing_stats`` read the
+    same before and after the backward."""
+
+    def __init__(self, layer):
+        self.layer = layer
+        self.ran = False
+
+    def __call__(self, x):
+        moe = self.layer.mlp.moe
+        kept = moe._aux_loss, moe._last_stats
+        try:
+            out = self.layer._block(x)
+            return out, moe._aux_loss
+        finally:
+            # the checkpoint may stop a rerun early by raising once it
+            # has what the backward needs
+            if self.ran:
+                moe._aux_loss, moe._last_stats = kept
+            self.ran = True
 
 
 class MoEModel(nn.Module):
@@ -265,20 +319,27 @@ def moe_tiny(**kw) -> MoEConfig:
 
 
 def deepseek_moe_16b_like(**kw) -> MoEConfig:
-    return MoEConfig(vocab_size=102400, hidden_size=2048,
-                     intermediate_size=10944, moe_intermediate_size=1408,
-                     num_hidden_layers=28, num_attention_heads=16,
-                     num_key_value_heads=16, num_experts=64,
-                     num_experts_per_tok=6, num_shared_experts=2,
-                     first_k_dense_replace=1,
-                     max_position_embeddings=4096, **kw)
+    """DeepSeek-MoE-16B's widths. Any field may be overridden, depth
+    too (JAX's raises on a field it sets itself, such as
+    ``num_hidden_layers``)."""
+    base = dict(vocab_size=102400, hidden_size=2048,
+                intermediate_size=10944, moe_intermediate_size=1408,
+                num_hidden_layers=28, num_attention_heads=16,
+                num_key_value_heads=16, num_experts=64,
+                num_experts_per_tok=6, num_shared_experts=2,
+                first_k_dense_replace=1, max_position_embeddings=4096)
+    base.update(kw)
+    return MoEConfig(**base)
 
 
 def qwen2_moe_a14b_like(**kw) -> MoEConfig:
-    return MoEConfig(vocab_size=151936, hidden_size=3584,
-                     intermediate_size=18944, moe_intermediate_size=2560,
-                     num_hidden_layers=28, num_attention_heads=28,
-                     num_key_value_heads=4, num_experts=64,
-                     num_experts_per_tok=8, num_shared_experts=1,
-                     first_k_dense_replace=0,
-                     max_position_embeddings=8192, **kw)
+    """Qwen2-MoE-A14B's widths; any field may be overridden, as in
+    ``deepseek_moe_16b_like``."""
+    base = dict(vocab_size=151936, hidden_size=3584,
+                intermediate_size=18944, moe_intermediate_size=2560,
+                num_hidden_layers=28, num_attention_heads=28,
+                num_key_value_heads=4, num_experts=64,
+                num_experts_per_tok=8, num_shared_experts=1,
+                first_k_dense_replace=0, max_position_embeddings=8192)
+    base.update(kw)
+    return MoEConfig(**base)

@@ -1,4 +1,10 @@
-"""Optimizers of the training slice. Counterpart: ``paddle_tpu/optimizer``."""
+"""Optimizers, gradient clipping and learning-rate schedulers.
+Counterpart: ``paddle_tpu/optimizer``."""
+from . import lr  # noqa: F401
+from .clip import (  # noqa: F401
+    ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue,
+)
 from .optimizer import Adam, AdamW, Optimizer  # noqa: F401
 
-__all__ = ["Optimizer", "Adam", "AdamW"]
+__all__ = ["Optimizer", "Adam", "AdamW", "lr", "ClipGradByValue",
+           "ClipGradByNorm", "ClipGradByGlobalNorm"]

@@ -15,8 +15,17 @@ bfloat16/float16 parameters in ``state["master"]``: the rule runs on the
 master and the parameter receives its rounding. ``torch.optim`` is not
 used: its handling of low-precision parameters differs.
 
-Not ported yet (they raise): ``grad_clip`` objects, regularizer objects
-as ``weight_decay``, learning-rate schedulers.
+``grad_clip`` (``optimizer.clip``, or the MoE clip of
+``incubate.distributed.models.moe``) clips the gradient list in
+``update``, before the rule, as JAX's ``_apply_clip_and_decay`` does, so
+the eager ``step()`` and ``jit.TrainStep`` both clip; each clipped
+gradient is made when the rule reaches it. ``learning_rate`` may be an
+``optimizer.lr`` scheduler, read at every step (the caller steps it).
+JAX's ``AdamW`` with a mixed ``apply_decay_param_fun`` runs its rule, and
+so a global-norm clip, one parameter at a time; the port clips the whole
+list once, as Paddle does.
+
+Not ported yet (it raises): regularizer objects as ``weight_decay``.
 """
 from __future__ import annotations
 
@@ -24,6 +33,8 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
+
+from .lr import LRScheduler
 
 __all__ = ["Optimizer", "Adam", "AdamW"]
 
@@ -37,6 +48,18 @@ def _f32(x) -> float:
     return float(np.float32(x))
 
 
+class _Clipped:
+    """The gradient list as a clip gives it, each gradient clipped when
+    it is read by index (None stays None)."""
+
+    def __init__(self, grads, one):
+        self._grads, self._one = grads, one
+
+    def __getitem__(self, i):
+        g = self._grads[i]
+        return None if g is None else self._one(g)
+
+
 class Optimizer:
     def __init__(self, learning_rate=0.001, parameters=None,
                  weight_decay=None, grad_clip=None,
@@ -45,23 +68,19 @@ class Optimizer:
             raise ValueError("parameters must be provided: tensors, or "
                              "(name, tensor) pairs as named_parameters() "
                              "gives")
-        if grad_clip is not None:
-            raise NotImplementedError(
-                "grad_clip is not ported yet (ROADMAP queue 1, item 10)")
-        if not isinstance(learning_rate, (int, float)):
-            raise NotImplementedError(
-                "learning-rate schedulers are not ported yet (ROADMAP "
-                "queue 1, item 10)")
         if weight_decay is not None and \
                 not isinstance(weight_decay, (int, float)):
             raise NotImplementedError(
-                "regularizer objects as weight_decay are not ported yet "
-                "(ROADMAP queue 1, item 10); pass a float")
+                "regularizer objects (L1Decay / L2Decay) as weight_decay "
+                "are not ported yet (ROADMAP queue 1, item 10); pass a "
+                "float")
         named = [it if isinstance(it, tuple) else ("", it)
                  for it in parameters]
         self._parameter_names = [n for n, _ in named]
         self._parameter_list = [p for _, p in named]
-        self._learning_rate = float(learning_rate)
+        self._learning_rate = learning_rate \
+            if isinstance(learning_rate, LRScheduler) else float(learning_rate)
+        self._grad_clip = grad_clip
         self._weight_decay = 0.0 if weight_decay is None else \
             float(weight_decay)
         self._multi_precision = multi_precision
@@ -69,7 +88,14 @@ class Optimizer:
         self._step_count = 0
 
     def get_lr(self) -> float:
+        if isinstance(self._learning_rate, LRScheduler):
+            return float(self._learning_rate())
         return self._learning_rate
+
+    def set_lr(self, value: float):
+        if isinstance(self._learning_rate, LRScheduler):
+            raise RuntimeError("set_lr not allowed with an LRScheduler")
+        self._learning_rate = float(value)
 
     # -- functional core ------------------------------------------------------
     def _needs_master(self, p) -> bool:
@@ -96,7 +122,9 @@ class Optimizer:
         masters = state.get("master")
         eff = params if masters is None else \
             [m if m is not None else p for p, m in zip(params, masters)]
-        self._update_impl(eff, grads, state, lr)
+        clipped = grads if self._grad_clip is None else \
+            _Clipped(grads, self._grad_clip._plan(grads))
+        self._update_impl(eff, clipped, state, lr)
         if masters is not None:
             for p, m, g in zip(params, masters, grads):
                 if m is not None and g is not None:
@@ -158,7 +186,10 @@ class Adam(Optimizer):
         bc1 = _f32(np.float32(1.0) - np.power(np.float32(b1), np.float32(t)))
         bc2 = _f32(np.float32(1.0) - np.power(np.float32(b2), np.float32(t)))
         lr32 = _f32(lr)
-        for i, (p, g) in enumerate(zip(params, grads)):
+        # by index: a zip would keep the last (clipped) gradient alive in
+        # the tuple it reuses
+        for i, p in enumerate(params):
+            g = grads[i]
             if g is None:
                 continue
             m_s, v_s = state["m"][i], state["v"][i]
@@ -166,21 +197,33 @@ class Adam(Optimizer):
             if not self._decoupled_wd and wd:
                 g = g + wd * p.to(g.dtype)
             g32 = g.to(p.dtype)
-            m = m_s.to(p.dtype) * b1 + g32 * (1 - b1)
-            v = v_s.to(p.dtype) * b2 + g32.square() * (1 - b2)
+            # in place wherever a result is not read again (moments kept
+            # in the master's dtype are updated where they lie): the same
+            # float32 operations in the same order, with at most two
+            # temporaries of the parameter's size alive at a time, a
+            # clipped gradient included
+            m = m_s.to(p.dtype).mul_(b1).add_(g32 * (1 - b1))
+            v = v_s.to(p.dtype).mul_(b2).add_(g32.square().mul_(1 - b2))
+            # a clipped gradient is a temporary: free it before the next
+            del g, g32
             v_hat = v / bc2
             if self._amsgrad:
                 vm = torch.maximum(state["vmax"][i].to(p.dtype), v_hat)
                 state["vmax"][i].copy_(vm)
-                denom = vm.sqrt() + eps
+                denom = vm.sqrt_().add_(eps)
+                del vm
             else:
-                denom = v_hat.sqrt() + eps
-            upd = (m / bc1) / denom
+                denom = v_hat.sqrt_().add_(eps)
+            upd = m.div(bc1).div_(denom)
+            del v_hat, denom
             if self._decoupled_wd and wd:
                 p.mul_(_f32(1.0 - _f32(lr32 * _f32(wd))))
-            p.sub_(upd * lr32)
-            m_s.copy_(m)
-            v_s.copy_(v)
+            p.sub_(upd.mul_(lr32))
+            if m is not m_s:
+                m_s.copy_(m)
+            if v is not v_s:
+                v_s.copy_(v)
+            del m, v, upd
         state["step"] = t
 
 

@@ -26,8 +26,9 @@ Float32 unless named. Tolerances, as a share of the largest |reference|:
 - ``num_params`` / ``num_activated_params`` equal JAX's on small models
   shaped like each of bench.py's four moe rows (E, top-k, 8 layers,
   ``first_k_dense_replace`` 1, dispatch mode).
-Also: the configs equal JAX's; ``use_recompute``, ``tensor_parallel``
-and an expert-parallel fleet mesh raise ``NotImplementedError``; entry
+Also: the configs equal JAX's; ``tensor_parallel`` and an
+expert-parallel fleet mesh raise ``NotImplementedError`` (recompute is
+held in ``tests/test_torch_moe_recompute.py``); entry
 points raise without a card unless given ``device="cpu"``; the grouped
 product (``torch._grouped_mm``) and its grads equal a matmul per expert.
 """
@@ -450,10 +451,9 @@ def test_configs_match_jax():
 
 
 def test_model_refusals():
-    for kw, item in ((dict(use_recompute=True), "9\\(d\\)"),
-                     (dict(tensor_parallel=True), "5\\(c\\)")):
-        with pytest.raises(NotImplementedError, match=item):
-            tmoe_lm.MoEForCausalLM(tmoe_lm.moe_tiny(**kw), device="cpu")
+    with pytest.raises(NotImplementedError, match="5\\(c\\)"):
+        tmoe_lm.MoEForCausalLM(tmoe_lm.moe_tiny(tensor_parallel=True),
+                               device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             tmoe_lm.MoEForCausalLM(tmoe_lm.moe_tiny())

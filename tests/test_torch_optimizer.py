@@ -93,7 +93,15 @@ def test_eager_step_and_unported_options():
     assert opt._step_count == 1 and bool((w < 1).all())
     opt.clear_grad()
     assert w.grad is None
-    with pytest.raises(NotImplementedError):
-        topt.AdamW(parameters=[w], grad_clip=object())
+    # a grad_clip is accepted and clips (tests/test_torch_clip_lr.py
+    # holds the clips against JAX's)
+    clip = topt.ClipGradByGlobalNorm(1.0)
+    opt = topt.AdamW(learning_rate=0.1, parameters=[w], grad_clip=clip)
+    w.grad = torch.full((3,), 4.0)
+    opt.step()
+    np.testing.assert_allclose(float(clip.last_global_norm), 48 ** 0.5,
+                               rtol=1e-6)
+    np.testing.assert_allclose(float(clip.last_scale), 48 ** -0.5,
+                               rtol=1e-6)
     with pytest.raises(NotImplementedError):
         topt.Adam(parameters=[w], weight_decay=object())
