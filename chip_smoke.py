@@ -122,23 +122,47 @@ failure ends the run with a non-zero exit code and no result:
                  other), the idle share and the clip's passes timed alone.
                  It runs right after kernels, on a card that holds
                  nothing else.
-5. tiny-parity   llama_tiny (float32, int4 weights) served on the card and,
+5. tiny-resnet-parity  resnet18 (BasicBlock) and resnext50_32x4d
+                 (bottleneck, groups 32), num_classes 10, float32, b 4 x
+                 3 x 64 x 64, the same state on the card and the CPU (each
+                 residual branch's last BatchNorm gain 0.1): a train-mode
+                 forward (logits within 1e-4 of the largest |logit|,
+                 running stats within 1e-5), an eval forward (1e-4), three
+                 TrainSteps of Momentum(0.01, 0.9) (losses within 1e-4
+                 relative, the stats after them within 1e-3), and
+                 max_pool2d's output and mask equal on card and CPU on the
+                 same stem activations and on the input (ceil mode,
+                 per-side padding).
+6. train-resnet50  THE RESNET PATH, bench.py's resnet row (bench.py:445-476)
+                 at full width and depth: resnet50(num_classes=1000,
+                 seed=0) with every parameter cast to bf16 (running stats
+                 float32), Momentum(0.1, 0.9) with float32 masters, cross
+                 entropy in float32, b 256 x 3 x 224 x 224 bf16 from
+                 RandomState(0) in bench.py's order: 2 warm and 10 timed
+                 TrainSteps; every loss finite, every running stat moved,
+                 no port kernel launched (convolutions are cuDNN's,
+                 BatchNorm plain ops). Step ms, imgs/s, MFU (3 x the
+                 forward FLOPs counted from the conv and fc shapes, over
+                 989 TFLOP/s), peak memory allocated / reserved, device ms
+                 by family with the top kernels and the idle share, and
+                 Momentum's update alone (device and wall ms, launches).
+7. tiny-parity   llama_tiny (float32, int4 weights) served on the card and,
                  with the same weights, on the CPU through the plain
                  versions: the greedy tokens must be equal, and one
                  prefill ministep's logits within 1e-3.
-6. tiny-dense-parity  llama_tiny(hidden_size=256) (head_dim 64, int4)
+8. tiny-dense-parity  llama_tiny(hidden_size=256) (head_dim 64, int4)
                  through the dense engine (mid chunks, offset finals) and
                  generate() on the card and the CPU: equal greedy tokens,
                  one prefill's logits within 1e-3, and the card ran the
                  paged-decode, flash forward and GEMV kernels. These three
                  tiny phases run the engines' programs as CUDA graphs,
                  captured at first use.
-7. tiny-prefix-parity  llama_tiny(hidden_size=256) float32 (int4) with
+9. tiny-prefix-parity  llama_tiny(hidden_size=256) float32 (int4) with
                  prefix caching, both schedulers: 5 requests, 4 sharing
                  24 tokens; the card with caching on and off and the CPU
                  with it on give equal greedy tokens, the card and the
                  CPU equal hit tokens.
-8. tiny-rich-faults-parity  JAX's threefry key stream and fault
+10. tiny-rich-faults-parity JAX's threefry key stream and fault
                  tolerance, card against CPU: the threefry2x32 known
                  answer on the card and the host; the bits and uniforms
                  of an [8, 128256] draw equal on card and CPU, the Gumbel
@@ -151,7 +175,7 @@ failure ends the run with a non-zero exit code and no result:
                  serving kernel launched; and optimistic admission on a
                  14-block pool (preemption with recompute) gives the
                  roomy run's greedy streams on card and CPU.
-9. serve-int4    THE MAIN PATH: Llama-3-8B at full width and all 32 layers,
+11. serve-int4   THE MAIN PATH: Llama-3-8B at full width and all 32 layers,
                  int4 weights from a seed, bf16 KV pool, block size 64,
                  served by the ragged engine (8 requests of 100..600 prompt
                  tokens, 32 new tokens each, 6 greedy and 2 at temperature
@@ -164,7 +188,7 @@ failure ends the run with a non-zero exit code and no result:
                  attention and 129 GEMV kernels; the decode_matmul and
                  attention families' device ms per serving run and per
                  ministep.
-10. serve-dense-int4  THE DENSE PATH on the same decoder, eager:
+12. serve-dense-int4  THE DENSE PATH on the same decoder, eager:
                  ServingEngine(ragged=False, max_batch_size=8, chunk_size=8,
                  prefill_chunk=256), 8 requests of 100..512 prompt tokens,
                  32 new each (6 greedy, 2 at 0.8). Counters set to 0 just
@@ -175,13 +199,13 @@ failure ends the run with a non-zero exit code and no result:
                  dispatch, no ragged launch. A repeat run gives the same
                  tokens; one decode step at mb 8 launches exactly 32
                  paged-decode and 129 GEMV kernels; its wall and device
-                 time beside the ragged ministep of phase 9; generate() at
+                 time beside the ragged ministep of phase 11; generate() at
                  b 4, prompt 256, 32 new tokens; then both engines on the
                  same 8 requests, alternately, 2 runs each, and their
                  decode steps alternately, 2 each (median, min, max);
                  the decode_matmul and attention families' device ms per
                  run and step.
-11. serve-prefix-int4  both engines on 8 requests that share a
+13. serve-prefix-int4  both engines on 8 requests that share a
                  384-token prefix (6 blocks of 64), each with 64..128
                  tokens of its own, 32 new tokens, greedy, caching on
                  against off: 2,688 hit tokens (7 readers x 6 blocks),
@@ -192,7 +216,7 @@ failure ends the run with a non-zero exit code and no result:
                  tok/s, TTFT and the prefill's
                  device ms (the same requests with one new token) on and
                  off.
-12. serve-graphs  both engines with ``warmup_programs`` +
+14. serve-graphs  both engines with ``warmup_programs`` +
                  ``seal_programs`` (graphs captured, seconds, pool
                  memory), then serve-dense-int4's requests: tokens equal a
                  fresh eager engine's, stochastic rows included; no
@@ -207,7 +231,7 @@ failure ends the run with a non-zero exit code and no result:
                  share, launches of a chunk). The grid each engine
                  captures holds every key plain and rich, greedy and
                  sampled; the sealed engines serve the next two phases.
-13. serve-rich-int4  the rich mix (phase 8's, 32 new tokens, on
+15. serve-rich-int4  the rich mix (phase 10's, 32 new tokens, on
                  serve-dense-int4's prompts) through both sealed 8B
                  engines: no unexpected recompile, launches equal what
                  the dispatches call for, streams equal a fresh eager
@@ -219,7 +243,7 @@ failure ends the run with a non-zero exit code and no result:
                  dispatched plain against rich; the sampler's parts
                  (threefry + Gumbel, sort, plain and rich samplers)
                  timed alone at 8 rows and at that width.
-14. serve-faults-int4  both 8B engines with admission="optimistic" on 21
+16. serve-faults-int4  both 8B engines with admission="optimistic" on 21
                  free blocks of 64 (the rest held by a placeholder
                  sequence), as sealed graphs: 8 requests of 300..512
                  prompt tokens and 64 new, one of priority 1; clean runs
@@ -233,7 +257,7 @@ failure ends the run with a non-zero exit code and no result:
                  failed request names one, no unexpected recompile, each
                  finished stream the clean one or a near-tie; tok/s
                  optimistic against worst-case, alternated, 2 runs each.
-15. tiny-ms-spec-lora-parity  llama_tiny float32 with int4 weights on the
+17. tiny-ms-spec-lora-parity  llama_tiny float32 with int4 weights on the
                  card (graphs) and the CPU: multi_step=4, spec decode
                  (draft_len 4, n-gram drafter, motif prompts) and a
                  mixed batch over two register_random adapters give
@@ -241,7 +265,7 @@ failure ends the run with a non-zero exit code and no result:
                  its multi_step=1, spec-off or registry-less engine
                  (base rows); one _lora_delta within 1e-4 of the plain
                  gathered formulation.
-16. serve-ms-int4  multi_step=4 (32-ministep windows) on the 8B int4
+18. serve-ms-int4  multi_step=4 (32-ministep windows) on the 8B int4
                  ragged engine as graphs (captured as first used, then
                  sealed) against serve-graphs' multi_step=1 engine,
                  serve-dense-int4's requests: launches, greedy streams
@@ -249,7 +273,7 @@ failure ends the run with a non-zero exit code and no result:
                  GB); the two alternated 3 runs each (tok/s, TTFT, ITL)
                  with no recompile; a run's device ms and idle share; a
                  window against a T 8 chunk, device ms a ministep.
-17. serve-spec-int4  spec decode at draft_len 3 (<= 32 verify rows: the
+19. serve-spec-int4  spec decode at draft_len 3 (<= 32 verify rows: the
                  GEMV) and 8 (72: cuBLAS over the unpacked int4)
                  against spec off on 8 prompts that quote their own
                  text, 64 new: with the n-gram drafter, then oracles of
@@ -261,7 +285,7 @@ failure ends the run with a non-zero exit code and no result:
                  held to no unexpected recompile), draft_len 8 captures
                  as first used, then seals; the three alternated 3 runs
                  each.
-18. serve-lora-int4  AdapterRegistry(rank=8) of 4 register_random adapters,
+20. serve-lora-int4  AdapterRegistry(rank=8) of 4 register_random adapters,
                  8 requests (2 base, 6 over 3 adapters): launches, no
                  recompile, base rows equal the registry-less engine's
                  or a near-tie, hits / misses / evictions per run (each
@@ -273,7 +297,7 @@ failure ends the run with a non-zero exit code and no result:
                  rounding, float32 within 1e-4 relative); graphs captured
                  as first used, then sealed; tok/s against the base
                  engine, alternated 3 runs each.
-19. tiny-fleet-parity  the fleet Router (dp 2, in process, the dense
+21. tiny-fleet-parity  the fleet Router (dp 2, in process, the dense
                  engine, affinity on) on llama_tiny at the fleet tests'
                  geometry with head_dim 64 (hidden 256), float32, the
                  same weights on the card and the CPU: 4 prompts sharing
@@ -281,7 +305,7 @@ failure ends the run with a non-zero exit code and no result:
                  the streams equal a single engine's and card == CPU,
                  routing counters too; the card ran the paged-decode and
                  flash forward kernels.
-20. serve-telemetry-int4  serve-graphs' sealed 8B int4 ragged engine on
+22. serve-telemetry-int4  serve-graphs' sealed 8B int4 ragged engine on
                  serve-dense-int4's requests three ways, alternated, 3
                  runs each: no telemetry, a Tracer with an SLO monitor
                  (TTFT 2 s, ITL 50 ms at p99), profile_every=8: greedy
@@ -292,7 +316,7 @@ failure ends the run with a non-zero exit code and no result:
                  the attribution p50 of host-schedule, dispatch-queue and
                  device-execute (CUDA events) per program family, and
                  the SLO headroom.
-21. fleet-int4   Router(dp=2, transport="inproc") of two ragged 8B int4
+23. fleet-int4   Router(dp=2, transport="inproc") of two ragged 8B int4
                  engines over one weight tree (pools of their own, 160
                  blocks of 64), graphs captured as used: 8 requests, 4
                  sharing the 384-token prefix (3 affinity hits), 32 new
@@ -304,7 +328,7 @@ failure ends the run with a non-zero exit code and no result:
                  migrations captured; the replica healed through
                  probation; then sealed, dp 2 against one engine
                  alternated, 3 runs each.
-22. fleet-proc-int4  the same model and traffic with transport="process":
+24. fleet-proc-int4  the same model and traffic with transport="process":
                  two spawned workers build the 8B decoder from seed 0
                  (module-level _proc_engine_factory, eager engines) and
                  find the kernel library built; greedy streams equal
@@ -313,7 +337,7 @@ failure ends the run with a non-zero exit code and no result:
                  worker respawns onto probation; spawn and respawn
                  seconds, the step RPC's round trip over the worker's
                  own step, heartbeat misses, exits and restarts.
-23. tiny-tp-parity  tensor-parallel serving, card against CPU from one
+25. tiny-tp-parity  tensor-parallel serving, card against CPU from one
                  seed: llama_tiny(hidden_size=256, num_key_value_heads=4)
                  float32 with int4 weights; the ragged engine at tp 1, 2
                  and 4 (every shard on cuda:0, or on the CPU; graphs
@@ -325,7 +349,7 @@ failure ends the run with a non-zero exit code and no result:
                  where the tp-1 engines part, a near-tie (the CPU's
                  logit gap within twice the card / CPU logit
                  difference); every kernel of each path launched.
-24. serve-tp2-int4  Llama-3-8B int4 at tp 2 with both shards on cuda:0
+26. serve-tp2-int4  Llama-3-8B int4 at tp 2 with both shards on cuda:0
                  (ServingEngine(dec, tp=2) over a decoder on
                  ProcessMesh(devices=["cuda:0"] * 2), seed 0: serve-int4's
                  weights cut by the placement table), bf16 pool of 160
@@ -347,16 +371,16 @@ failure ends the run with a non-zero exit code and no result:
                  an int8 pool and tp 4 (8 / 2 heads a shard; greedy
                  streams against tp 1's near-tie rule), each with its
                  exact launches.
-25. serve-bf16-kv8  the same model with bf16 weights and an int8 KV pool
+27. serve-bf16-kv8  the same model with bf16 weights and an int8 KV pool
                  (4 requests): the int8 branch of the attention kernel on
                  the serving path; one W 8 ministep launches exactly 32
                  attention kernels; the attention family's device ms per
                  run and per ministep.
-26. tiny-train-parity  llama_tiny(hidden_size=256) in float32 (head_dim 64)
+28. tiny-train-parity  llama_tiny(hidden_size=256) in float32 (head_dim 64)
                  with the same weights on the card and the CPU: 3 TrainSteps
                  of AdamW(1e-3) give losses within 1e-4 relative, and the
                  card ran all three flash kernels.
-27. tiny-ring-parity  llama_tiny(hidden_size=256, sep_degree=4) in
+29. tiny-ring-parity  llama_tiny(hidden_size=256, sep_degree=4) in
                  float32 (head_dim 64) at b 2 x s 256 under a sep-4 fleet
                  mesh, the same weights on the card (["cuda:0"] * 4) and on
                  the CPU (["cpu"] * 4): 3 TrainSteps of AdamW(1e-3) give
@@ -364,7 +388,7 @@ failure ends the run with a non-zero exit code and no result:
                  model's at sep_degree=1 within 1e-4, and the flash counters
                  read exactly what the ring calls for (2 layers x 4 ranks
                  x 6 blocks per step of each kernel).
-28. tiny-model-parity  LlamaForCausalLM whole: llama_tiny(hidden_size=256,
+30. tiny-model-parity  LlamaForCausalLM whole: llama_tiny(hidden_size=256,
                  tie_word_embeddings=True, use_recompute=True,
                  recompute_granularity="full_attn") in float32 with the
                  same weights on the card and the CPU (the tied table
@@ -377,7 +401,7 @@ failure ends the run with a non-zero exit code and no result:
                  beam search with 3 beams, and ServingEngine(model,
                  weight_dtype="int4") on both schedulers: tokens equal on
                  card and CPU, every kernel of each engine launched.
-29. train-mid    THE TRAINING PATH: llama_mid (0.65B) at full width and all
+31. train-mid    THE TRAINING PATH: llama_mid (0.65B) at full width and all
                  11 layers, bf16 compute, seed 0, batch 4 x seq 2048 (ids as
                  bench.py makes them), AdamW(1e-4, weight_decay=0.01): 2 warm
                  and 10 timed TrainSteps. The flash counters are set to 0
@@ -386,7 +410,7 @@ failure ends the run with a non-zero exit code and no result:
                  last below the first. Step ms, tokens/s, MFU by bench.py's
                  formula against 989 TFLOP/s, peak memory, device time by
                  kernel family and the idle share.
-30. train-mid8k  THE LONG-CONTEXT PATH: llama_mid(dtype="bfloat16",
+32. train-mid8k  THE LONG-CONTEXT PATH: llama_mid(dtype="bfloat16",
                  chunked_ce_tokens=1024, max_position_embeddings=8192,
                  sep_degree=4), all 11 layers, b 1 x s 8192 (ids as bench.py
                  makes them), AdamW(1e-4, weight_decay=0.01), under a sep-4
@@ -402,7 +426,7 @@ failure ends the run with a non-zero exit code and no result:
                  and sep 4 within 1e-2 relative. Step ms, tokens/s, MFU at
                  seq 8192, peak memory, device time by kernel family (the
                  flash family's ms apart) and the idle share of both.
-31. train-1b     bench.py's 1b row: llama_1b(dtype="bfloat16",
+33. train-1b     bench.py's 1b row: llama_1b(dtype="bfloat16",
                  use_recompute=True, recompute_granularity="full_attn",
                  chunked_ce_tokens=1024), all 18 layers, b 4 x s 2048,
                  AdamW(1e-4, weight_decay=0.01, moment_dtype="bfloat16"):
@@ -415,7 +439,7 @@ failure ends the run with a non-zero exit code and no result:
                  within 1e-3 of the recompute model's, 18 of each flash
                  kernel a step) and the two alternated, 3 runs of 2 steps
                  each: step ms, MFU and peak memory of each.
-32. serve-model-1b  the model train-1b trained, served by
+34. serve-model-1b  the model train-1b trained, served by
                  ServingEngine(model, weight_dtype="int4", block_size=64,
                  num_blocks=160) on both schedulers: float32 activations
                  and pool (the embedding's dtype, as in JAX), so every
@@ -434,13 +458,13 @@ failure ends the run with a non-zero exit code and no result:
                  equal, or parted where the float32 logit gap is at most
                  twice the difference between the two computations'
                  logits there.
-33. tiny-gpt-parity  gpt_tiny(hidden_size=256) (head_dim 64, as many kv
+35. tiny-gpt-parity  gpt_tiny(hidden_size=256) (head_dim 64, as many kv
                  heads as heads) float32 with int4 weights, the same
                  weights on the card (graphs) and the CPU: both engines'
                  greedy streams and generate() equal, one prefill's
                  logits within 1e-3, and the card ran the ragged,
                  paged-decode, flash forward and GEMV kernels.
-34. serve-ernie-int4  THE GPT PATH: ernie_45_dense_3b at full width and
+36. serve-ernie-int4  THE GPT PATH: ernie_45_dense_3b at full width and
                  all 28 layers (20 heads = 20 kv heads, d 128, vocab
                  103,424), int4 weights from PagedGPTDecoder.from_config(
                  seed=0), bf16 activations and pool (160 blocks of 64);
@@ -458,12 +482,12 @@ failure ends the run with a non-zero exit code and no result:
                  on an int8 pool over the same weights (reported), its
                  GEMV launches counted by weight at the launch site
                  (the kernels line's ERNIE GEMV rows).
-35. train-gpt-345m  gpt_345m in bf16 (float32 weights, tied head), b 8 x
+37. train-gpt-345m  gpt_345m in bf16 (float32 weights, tied head), b 8 x
                  s 1024, AdamW(1e-4, weight_decay=0.01): 1 warm and 5
                  timed TrainSteps, exactly 24 of each flash kernel a
                  step, every loss finite and the last below the first;
                  step ms, tokens/s, MFU, peak memory, device time.
-36. tiny-dit-parity  DiT at head_dim 72 (hidden 144, 2 heads, depth 2)
+38. tiny-dit-parity  DiT at head_dim 72 (hidden 144, 2 heads, depth 2)
                  and 64 (hidden 128, 2 heads), every parameter drawn
                  from a seed (normal x 0.02, so adaLN-Zero does not make
                  the output 0), the same weights on the card and the
@@ -473,7 +497,7 @@ failure ends the run with a non-zero exit code and no result:
                  (a bf16 loss is itself rounded to 8 bits); each card
                  run launches exactly depth forward, dq and dk/dv flash
                  kernels a step and depth forwards an eval forward.
-37. train-dit-xl2  THE DiT PATH, bench.py's dit row: DiT(dit_xl_2(
+39. train-dit-xl2  THE DiT PATH, bench.py's dit row: DiT(dit_xl_2(
                  dtype="bfloat16", learn_sigma=False)), all 28 layers
                  (675 M parameters), b 32 on [32, 4, 32, 32] latents
                  with timesteps and labels from RandomState(0) as
@@ -489,7 +513,7 @@ failure ends the run with a non-zero exit code and no result:
                  a picture over 989 TFLOP/s), peak memory, device ms by
                  family (flash, GEMM, conv, other) and the idle share,
                  beside the card's name and power limit.
-38. tiny-moe-parity  moe_tiny(hidden_size=256, 4 / 2 heads: head_dim 64)
+40. tiny-moe-parity  moe_tiny(hidden_size=256, 4 / 2 heads: head_dim 64)
                  with the same numpy state on the card and the CPU, dense
                  and ragged dispatch: float32 logits within 1e-4 of the
                  largest |logit| and five TrainSteps of AdamW(1e-3) with
@@ -503,7 +527,7 @@ failure ends the run with a non-zero exit code and no result:
                  debugging set to raise (no host sync: for ragged the
                  grouped route, torch._grouped_mm); exact flash
                  launches.
-39. train-moe    THE MoE PATH, bench.py's four moe rows as it builds them
+41. train-moe    THE MoE PATH, bench.py's four moe rows as it builds them
                  (bench.py:278-318, :409-431): MoEConfig(dtype="bfloat16",
                  8 layers, 16 / 8 heads, top-2, one shared expert, chunked
                  CE 1024) at hidden 1024 with 8 experts of 1408 (dense and
@@ -524,7 +548,7 @@ failure ends the run with a non-zero exit code and no result:
                  total and activated parameters, peak memory, device ms
                  by family and the idle share; the dense row's dropped
                  fraction from one eager forward.
-40. capture-failure  a program with a host sync inside: its first
+42. capture-failure  a program with a host sync inside: its first
                  dispatch raises, no graph is kept and it is not run
                  eagerly in its place (last, as a failed capture may
                  leave the allocator's pool unusable).
@@ -1705,6 +1729,32 @@ def _proc_engine_factory(replica_idx, devices):
                          cuda_graphs=False)
 
 
+def _conv_fc_flops(torch, model, size):
+    """Forward FLOPs of one picture of size x size through ``model``: 2 x
+    the multiply-adds of every Conv2D and Linear, from the shapes a
+    forward at batch 1 gives them (eval mode, so the running stats stay)."""
+    total = [0]
+
+    def hook(mod, inp, out):
+        if type(mod).__name__ == "Conv2D":
+            kh, kw = mod.kernel_size
+            total[0] += 2 * out.numel() * (mod.in_channels // mod.groups) \
+                * kh * kw
+        else:
+            total[0] += 2 * out.numel() * mod.in_features
+    hooks = [m.register_forward_hook(hook) for m in model.modules()
+             if type(m).__name__ in ("Conv2D", "Linear")]
+    was_training = model.training
+    model.eval()
+    with torch.no_grad():
+        model(torch.zeros(1, 3, size, size,
+                          device=next(model.parameters()).device))
+    model.train(was_training)
+    for h in hooks:
+        h.remove()
+    return total[0]
+
+
 def main():
     global _ONLY
     if sys.argv[1:2] == ["--only"] and len(sys.argv) == 3:
@@ -1749,7 +1799,8 @@ def main():
     from paddle_tpu_torch.ops.cuda import paged_attention_decode as pdc
     from paddle_tpu_torch.ops.cuda import ragged_paged_attention as rpa
     from paddle_tpu_torch.ops.qweight import QWeight
-    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.optimizer import AdamW, Momentum
+    from paddle_tpu_torch.vision import models as vision_models
     from paddle_tpu_torch.distributed import ProcessMesh, fleet
     from paddle_tpu_torch.utils import prng
     from paddle_tpu_torch.utils.chaos import ChaosMonkey
@@ -2402,6 +2453,209 @@ def main():
         return out
 
     _phase("train-moe-full", train_moe_full)
+
+    # -- ResNet: convolutions, BatchNorm with running stats, pooling, -------
+    # -- Momentum --------------------------------------------------------
+    def damp_residuals(model, gain=0.1):
+        """Each residual branch's last BatchNorm gain set to ``gain`` (bn2
+        of a BasicBlock, bn3 of a bottleneck), as tests/test_torch_vision
+        sets it: at gain 1 a seeded ResNeXt-50 in train mode is chaotic
+        at a batch of 4, and the card and the CPU would part by more
+        than their rounding."""
+        last = "bn3" if hasattr(model.layer1[0], "bn3") else "bn2"
+        with torch.no_grad():
+            for stage in (model.layer1, model.layer2, model.layer3,
+                          model.layer4):
+                for blk in stage:
+                    getattr(blk, last).weight.fill_(gain)
+
+    def tiny_resnet_parity():
+        """resnet18 (BasicBlock) and resnext50_32x4d (bottleneck, groups
+        32), num_classes 10, float32, b 4 x 3 x 64 x 64, the same state
+        on the card and the CPU (residual gains 0.1): a train-mode
+        forward (logits within 1e-4 of the largest |logit|, running
+        stats within 1e-5), an eval forward (1e-4), three TrainSteps of
+        Momentum(0.01, 0.9) (losses within 1e-4 relative; at lr 0.1 the
+        four pictures are fitted and the losses are exactly 0 by the
+        second step), the stats after them within 1e-3; and max_pool2d's
+        output and mask on the same stem activations and on the input
+        (ceil mode, per-side padding) equal on both."""
+        out = {}
+        rng = np.random.RandomState(5)
+        x_np = rng.randn(4, 3, 64, 64).astype(np.float32)
+        y_np = rng.randint(0, 10, 4).astype(np.int64)
+        for name in ("resnet18", "resnext50_32x4d"):
+            ctor = getattr(vision_models, name)
+            cpu = ctor(num_classes=10, seed=0, device="cpu")
+            damp_residuals(cpu)
+            gpu = ctor(num_classes=10, seed=1, device="cuda")
+            gpu.load_state_dict(cpu.state_dict())
+            stats0 = [b_.clone() for b_ in cpu.buffers()]
+            res = {}
+            for key, m in (("cpu", cpu), ("cuda", gpu)):
+                dev = next(m.parameters()).device
+                x = torch.as_tensor(x_np, device=dev)
+                y = torch.as_tensor(y_np, device=dev)
+                with torch.no_grad():
+                    logits = m(x).cpu()
+                    stats1 = [b_.cpu().clone() for b_ in m.buffers()]
+                    m.eval()
+                    logits_eval = m(x).cpu()
+                    stem = m.relu(m.bn1(m.conv1(x)))
+                    m.train()
+                step = TrainStep(m, lambda o, l: F.cross_entropy(o, l),
+                                 Momentum(learning_rate=0.01, momentum=0.9,
+                                          parameters=m.parameters()))
+                losses = [float(step(x, y)) for _ in range(3)]
+                res[key] = dict(logits=logits, logits_eval=logits_eval,
+                                stats1=stats1, losses=losses,
+                                stats3=[b_.cpu() for b_ in m.buffers()],
+                                stem=stem.cpu())
+            c, g = res["cpu"], res["cuda"]
+
+            def rel(a, b_):
+                return float((a - b_).abs().max() / b_.abs().max())
+            err = {"train_logits": rel(g["logits"], c["logits"]),
+                   "eval_logits": rel(g["logits_eval"], c["logits_eval"]),
+                   "stats_after_forward": max(
+                       float((a - b_).abs().max())
+                       for a, b_ in zip(g["stats1"], c["stats1"])),
+                   "stats_after_steps": max(
+                       float((a - b_).abs().max())
+                       for a, b_ in zip(g["stats3"], c["stats3"])),
+                   "losses": max(abs(a - b_) / abs(b_) for a, b_ in
+                                 zip(g["losses"], c["losses"]))}
+            _require(err["train_logits"] <= 1e-4
+                     and err["eval_logits"] <= 1e-4,
+                     f"tiny-resnet-parity {name}: logits differ {err}")
+            _require(err["stats_after_forward"] <= 1e-5
+                     and err["stats_after_steps"] <= 1e-3,
+                     f"tiny-resnet-parity {name}: running stats {err}")
+            _require(err["losses"] <= 1e-4 and all(
+                np.isfinite(c["losses"] + g["losses"])),
+                f"tiny-resnet-parity {name}: losses cpu {c['losses']} "
+                f"cuda {g['losses']}")
+            _require(all(not torch.equal(a, b_) for a, b_ in
+                         zip(c["stats3"], stats0)),
+                     f"tiny-resnet-parity {name}: running stats did not "
+                     f"move")
+            # the max-pool mask on identical inputs: the stem's
+            # activations (ties at 0 after the ReLU) and the input under
+            # ceil mode with per-side padding
+            masks = {}
+            for what, t, kw in (
+                    ("stem_k3s2p1", c["stem"], dict(kernel_size=3, stride=2,
+                                                     padding=1)),
+                    ("input_ceil_per_side", torch.as_tensor(x_np),
+                     dict(kernel_size=2, stride=2, padding=[[0, 1], [1, 0]],
+                          ceil_mode=True))):
+                vc, mc = F.max_pool2d(t, return_mask=True, **kw)
+                vg, mg = F.max_pool2d(t.cuda(), return_mask=True, **kw)
+                _require(torch.equal(vg.cpu(), vc)
+                         and torch.equal(mg.cpu(), mc),
+                         f"tiny-resnet-parity {name}: max_pool2d {what} "
+                         f"differs on the card")
+                masks[what] = list(mc.shape)
+            out[name] = {"errors": err, "losses_cpu": c["losses"],
+                         "losses_cuda": g["losses"], "max_pool_masks": masks}
+            del cpu, gpu, res, c, g, stats0
+        gc.collect()
+        torch.cuda.empty_cache()
+        return out
+
+    _phase("tiny-resnet-parity", tiny_resnet_parity)
+
+    def train_resnet50():
+        """bench.py's resnet row (bench.py:445-476) at full width and
+        depth: resnet50(num_classes=1000, seed=0) with every parameter
+        cast to bf16 (buffers float32), Momentum(0.1, 0.9) with float32
+        masters, cross entropy in float32, b 256 x 3 x 224 x 224 bf16
+        from RandomState(0) as bench.py draws it: 2 warm and 10 timed
+        TrainSteps. Every loss finite and the running stats moved. Step
+        ms, imgs/s, MFU (3 x the forward FLOPs counted from the layers'
+        shapes, over 989 TFLOP/s), peak memory, device ms by family and
+        the idle share of a step, and the optimizer's update alone."""
+        b, warm, iters = 256, 2, 10
+        t0 = time.perf_counter()
+        model = vision_models.resnet50(num_classes=1000, seed=0,
+                                       device="cuda")
+        fwd_flops = _conv_fc_flops(torch, model, 224)
+        for p_ in model.parameters():       # bf16 weights, f32 masters
+            p_.data = p_.data.to(torch.bfloat16)
+        opt = Momentum(learning_rate=0.1, momentum=0.9,
+                       parameters=model.parameters())
+        step = TrainStep(model, lambda o, l: F.cross_entropy(o.float(), l),
+                         opt)
+        rng = np.random.RandomState(0)
+        x = torch.as_tensor(rng.randn(b, 3, 224, 224).astype(np.float32),
+                            device="cuda").to(torch.bfloat16)
+        y = torch.as_tensor(rng.randint(0, 1000, b).astype(np.int64),
+                            device="cuda")
+        stats0 = [b_.clone() for b_ in model.buffers()]
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        reset_flash()
+        losses = [step(x, y) for _ in range(warm)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses += [step(x, y) for _ in range(iters)]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        losses = [float(v) for v in losses]
+        _require(all(np.isfinite(losses)),
+                 f"train-resnet50 losses {losses}")
+        moved = sum(int(not torch.equal(a, b_)) for a, b_ in
+                    zip(stats0, model.buffers()))
+        _require(moved == len(stats0),
+                 f"train-resnet50: {len(stats0) - moved} of {len(stats0)} "
+                 f"running stats did not move")
+        _require(all(p_.dtype == torch.bfloat16 for p_ in model.parameters())
+                 and all(b_.dtype == torch.float32 for b_ in model.buffers()),
+                 "train-resnet50: parameter / buffer dtypes changed")
+        _require(all(v == 0 for v in counts().values())
+                 and all(v == 0 for v in flash_counts().values()),
+                 f"train-resnet50 launched port kernels: {counts()} "
+                 f"{flash_counts()}")
+        step_ms = wall * 1e3 / iters
+        imgs_s = b * iters / wall
+        peak_alloc = torch.cuda.max_memory_allocated() / 1e9
+        peak_reserved = torch.cuda.max_memory_reserved() / 1e9
+        prof = _device_breakdown(torch, lambda: step(x, y), step_ms)
+        # the optimizer's update alone, on one step's gradients
+        opt.clear_grad()
+        F.cross_entropy(model(x).float(), y).backward()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        opt.step()
+        torch.cuda.synchronize()
+        opt_wall_ms = (time.perf_counter() - t1) * 1e3
+        opt_events, _lost = _kernel_events(torch, opt.step)
+        opt_device_ms = sum(us for _c, us in opt_events.values()) / 1e3
+        opt.clear_grad()
+        n_params = model.num_params()
+        del model, opt, step, x, y, stats0
+        gc.collect()
+        torch.cuda.empty_cache()
+        return {"model": "ResNet-50, bf16 parameters (float32 masters in "
+                         "Momentum(0.1, 0.9)), float32 running stats, b 256 "
+                         "x 3 x 224 x 224 bf16, cross entropy in float32",
+                "num_params": n_params, "init_s": init_s, "steps":
+                warm + iters, "losses": losses, "step_ms": step_ms,
+                "imgs_per_s": imgs_s,
+                "mfu": imgs_s * 3 * fwd_flops / BF16_FLOPS_PER_S,
+                "fwd_flops_per_img": fwd_flops,
+                "peak_mem_allocated_gb": peak_alloc,
+                "peak_mem_reserved_gb": peak_reserved,
+                "optimizer_update": {"device_ms": opt_device_ms,
+                                     "wall_ms": opt_wall_ms,
+                                     "kernels": sum(
+                                         c_ for c_, _us in
+                                         opt_events.values())},
+                "nvidia_smi": smi, "step_profile": prof}
+
+    _phase("train-resnet50", train_resnet50)
 
     def cpu_and_card(cfg, num_blocks=64, cls=None):
         """A seeded int4 decoder (``cls``, default PagedLlamaDecoder) on

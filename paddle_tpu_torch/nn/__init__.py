@@ -1,12 +1,9 @@
-"""Layers, functionals and initializers of the training slice.
+"""Layers, functionals and initializers of the training slices.
 Counterpart: ``paddle_tpu/nn``. Layers are ``torch.nn.Module``s whose
-parameter names equal the JAX layers' ``named_parameters()`` names."""
+parameter (and buffer) names equal the JAX layers' ``named_parameters()``
+(``named_buffers()``) names."""
 from . import functional, initializer  # noqa: F401
-from .layer import (GELU, Conv2D, Embedding, GShardGate,  # noqa: F401
-                    LayerList, LayerNorm, Linear, MoELayer, MSELoss, RMSNorm,
-                    Sequential, SiLU, Silu, SwitchGate)
+from .layer import *  # noqa: F401,F403
+from .layer import __all__ as _layers
 
-__all__ = ["Linear", "Embedding", "RMSNorm", "LayerNorm", "Sequential",
-           "LayerList", "Silu", "SiLU", "GELU", "Conv2D", "MSELoss",
-           "MoELayer", "SwitchGate", "GShardGate", "functional",
-           "initializer"]
+__all__ = list(_layers) + ["functional", "initializer"]

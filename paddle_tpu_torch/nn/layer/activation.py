@@ -1,4 +1,4 @@
-"""``Silu`` / ``SiLU`` and ``GELU``. Counterpart:
+"""``ReLU``, ``Silu`` / ``SiLU`` and ``GELU``. Counterpart:
 ``paddle_tpu/nn/layer/activation.py`` (``_simple`` :15-33, the table
 :36-43): layers over the functionals, GELU's exact form by default and
 the tanh form with ``approximate=True``."""
@@ -8,7 +8,12 @@ from torch import nn
 
 from .. import functional as F
 
-__all__ = ["Silu", "SiLU", "GELU"]
+__all__ = ["ReLU", "Silu", "SiLU", "GELU"]
+
+
+class ReLU(nn.Module):
+    def forward(self, x):
+        return F.relu(x)
 
 
 class Silu(nn.Module):

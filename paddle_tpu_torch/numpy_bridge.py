@@ -21,16 +21,17 @@ def tensor_from_numpy(a, device) -> torch.Tensor:
 @torch.no_grad()
 def load_numpy_state(module: torch.nn.Module, state: dict):
     """Copy ``{name: np.ndarray}`` (a JAX model's ``named_parameters()``
-    as numpy) into ``module``'s parameters: every name must be present
-    and no other, shapes and dtypes must be equal; bfloat16 arrays are
-    carried bit for bit."""
-    params = dict(module.named_parameters())
-    missing = sorted(set(params) - set(state))
-    extra = sorted(set(state) - set(params))
+    and ``named_buffers()`` as numpy) into ``module``'s parameters and
+    buffers: every name must be present and no other, shapes and dtypes
+    must be equal; bfloat16 arrays are carried bit for bit."""
+    targets = dict(module.named_parameters())
+    targets.update(module.named_buffers())
+    missing = sorted(set(targets) - set(state))
+    extra = sorted(set(state) - set(targets))
     if missing or extra:
         raise ValueError(f"load_numpy_state: missing {missing}, "
                          f"unexpected {extra}")
-    for name, p in params.items():
+    for name, p in targets.items():
         t = tensor_from_numpy(state[name], p.device)
         if tuple(t.shape) != tuple(p.shape) or t.dtype != p.dtype:
             raise ValueError(

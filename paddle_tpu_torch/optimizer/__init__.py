@@ -4,7 +4,7 @@ from . import lr  # noqa: F401
 from .clip import (  # noqa: F401
     ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue,
 )
-from .optimizer import Adam, AdamW, Optimizer  # noqa: F401
+from .optimizer import SGD, Adam, AdamW, Momentum, Optimizer  # noqa: F401
 
-__all__ = ["Optimizer", "Adam", "AdamW", "lr", "ClipGradByValue",
+__all__ = ["Optimizer", "SGD", "Momentum", "Adam", "AdamW", "lr", "ClipGradByValue",
            "ClipGradByNorm", "ClipGradByGlobalNorm"]

@@ -1,5 +1,6 @@
 """Optimizers. Counterpart: ``paddle_tpu/optimizer/optimizer.py``
-(``Optimizer`` :27-167, ``Adam`` and ``AdamW`` :241-378).
+(``Optimizer`` :27-167, ``SGD`` and ``Momentum`` :181-238, ``Adam`` and
+``AdamW`` :241-378).
 
 Every optimizer is defined by a functional core over tensors,
 ``init_state(params) -> state`` and ``update(params, grads, state, lr)
@@ -34,9 +35,10 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from ..nn.functional.activation import _const
 from .lr import LRScheduler
 
-__all__ = ["Optimizer", "Adam", "AdamW"]
+__all__ = ["Optimizer", "SGD", "Momentum", "Adam", "AdamW"]
 
 _LOW = (torch.bfloat16, torch.float16)
 _MOMENT_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
@@ -46,6 +48,14 @@ _MOMENT_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
 def _f32(x) -> float:
     """x rounded to float32, as JAX's float32 scalar arithmetic gives."""
     return float(np.float32(x))
+
+
+def _wd_grad(p, g, wd):
+    """Weight decay coupled into the gradient, ``g + wd * p`` in g's
+    dtype (JAX's ``_wd_grad`` :169)."""
+    if not wd:
+        return g
+    return g + p.to(g.dtype) * _const(wd, g.dtype)
 
 
 class _Clipped:
@@ -146,6 +156,57 @@ class Optimizer:
     def clear_grad(self):
         for p in self._parameter_list:
             p.grad = None
+
+
+class SGD(Optimizer):
+    """``m = m - lr * g`` in the master's dtype, after the clip and the
+    coupled weight decay."""
+
+    def _update_impl(self, params, grads, state, lr):
+        for i, p in enumerate(params):
+            g = grads[i]
+            if g is None:
+                continue
+            g = _wd_grad(p, g, self._weight_decay)
+            p.sub_(g.to(p.dtype) * _const(_f32(lr), p.dtype))
+            del g
+        state["step"] += 1
+
+
+class Momentum(Optimizer):
+    """Heavy ball: ``v = mu * v + g``; the update is ``g + mu * v`` with
+    ``use_nesterov``, else ``v``; ``m = m - lr * update``. The velocity
+    is kept in the master's dtype; the arithmetic is in that dtype, in
+    JAX's order, with ``mu`` and ``lr`` rounded to it."""
+
+    def __init__(self, learning_rate=0.001, momentum=0.9, parameters=None,
+                 use_nesterov=False, weight_decay=None, grad_clip=None,
+                 multi_precision=True):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         multi_precision)
+        self._momentum = momentum
+        self._nesterov = use_nesterov
+
+    def _init_state_impl(self, params):
+        return {"step": 0,
+                "velocity": [torch.zeros(p.shape, device=p.device,
+                                         dtype=self._master_dtype(p))
+                             for p in params]}
+
+    def _update_impl(self, params, grads, state, lr):
+        for i, p in enumerate(params):
+            g = grads[i]
+            if g is None:
+                continue
+            mu = _const(self._momentum, p.dtype)
+            g = _wd_grad(p, g, self._weight_decay).to(p.dtype)
+            v = state["velocity"][i]
+            v.mul_(mu).add_(g)
+            upd = v.mul(mu).add_(g) if self._nesterov else v
+            del g
+            p.sub_(upd * _const(_f32(lr), p.dtype))
+            del upd
+        state["step"] += 1
 
 
 class Adam(Optimizer):

@@ -1,0 +1,237 @@
+"""The ResNet family. Counterpart: ``paddle_tpu/vision/models/resnet.py``
+(``BasicBlock`` :15, ``BottleneckBlock`` :41, ``ResNet`` :70, the
+thirteen constructors :132-197).
+
+NCHW, as JAX's. Parameter and buffer names equal JAX's
+``named_parameters()`` / ``named_buffers()`` (``conv1.weight``,
+``layer1.0.downsample.1._mean``, ``fc.weight`` of [in, out], ...), so a
+JAX model's state carries over with ``load_numpy_state``. Weights are
+drawn from ``seed`` with a ``torch.Generator`` on ``device`` (``None``:
+cuda, raising without a card): Conv2D's KaimingUniform and Linear's
+XavierUniform and zero bias, BatchNorm's ones and zeros; the
+distributions are JAX's, the bits are not. ``groups`` and ``width`` go
+into the bottleneck's 3x3 conv (ResNeXt, wide ResNet), as in JAX;
+BasicBlock takes them and ignores them. ``pretrained=True`` raises
+``NotImplementedError``: there are no weights to download."""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from ...device import resolve_device
+from ...nn import (AdaptiveAvgPool2D, BatchNorm2D, Conv2D, Linear,
+                   MaxPool2D, ReLU, Sequential)
+from ...numpy_bridge import load_numpy_state
+
+__all__ = ["ResNet", "BasicBlock", "BottleneckBlock", "resnet18",
+           "resnet34", "resnet50", "resnet101", "resnet152",
+           "wide_resnet50_2", "wide_resnet101_2", "resnext50_32x4d",
+           "resnext101_32x4d", "resnext50_64x4d", "resnext101_64x4d",
+           "resnext152_32x4d", "resnext152_64x4d"]
+
+_LAYERS = {18: [2, 2, 2, 2], 34: [3, 4, 6, 3], 50: [3, 4, 6, 3],
+           101: [3, 4, 23, 3], 152: [3, 8, 36, 3]}
+
+
+class BasicBlock(nn.Module):
+    expansion = 1
+
+    def __init__(self, inplanes, planes, stride=1, downsample=None, groups=1,
+                 base_width=64, dilation=1, norm_layer=None, generator=None,
+                 device=None):
+        super().__init__()
+        norm_layer = norm_layer or BatchNorm2D
+        self.conv1 = Conv2D(inplanes, planes, 3, stride=stride, padding=1,
+                            bias_attr=False, generator=generator,
+                            device=device)
+        self.bn1 = norm_layer(planes, device=device)
+        self.relu = ReLU()
+        self.conv2 = Conv2D(planes, planes, 3, padding=1, bias_attr=False,
+                            generator=generator, device=device)
+        self.bn2 = norm_layer(planes, device=device)
+        self.downsample = downsample
+        self.stride = stride
+
+    def forward(self, x):
+        identity = x
+        out = self.relu(self.bn1(self.conv1(x)))
+        out = self.bn2(self.conv2(out))
+        if self.downsample is not None:
+            identity = self.downsample(x)
+        return self.relu(out + identity)
+
+
+class BottleneckBlock(nn.Module):
+    expansion = 4
+
+    def __init__(self, inplanes, planes, stride=1, downsample=None, groups=1,
+                 base_width=64, dilation=1, norm_layer=None, generator=None,
+                 device=None):
+        super().__init__()
+        norm_layer = norm_layer or BatchNorm2D
+        width = int(planes * (base_width / 64.0)) * groups
+        self.conv1 = Conv2D(inplanes, width, 1, bias_attr=False,
+                            generator=generator, device=device)
+        self.bn1 = norm_layer(width, device=device)
+        self.conv2 = Conv2D(width, width, 3, stride=stride, padding=dilation,
+                            groups=groups, dilation=dilation,
+                            bias_attr=False, generator=generator,
+                            device=device)
+        self.bn2 = norm_layer(width, device=device)
+        self.conv3 = Conv2D(width, planes * self.expansion, 1,
+                            bias_attr=False, generator=generator,
+                            device=device)
+        self.bn3 = norm_layer(planes * self.expansion, device=device)
+        self.relu = ReLU()
+        self.downsample = downsample
+        self.stride = stride
+
+    def forward(self, x):
+        identity = x
+        out = self.relu(self.bn1(self.conv1(x)))
+        out = self.relu(self.bn2(self.conv2(out)))
+        out = self.bn3(self.conv3(out))
+        if self.downsample is not None:
+            identity = self.downsample(x)
+        return self.relu(out + identity)
+
+
+class ResNet(nn.Module):
+    def __init__(self, block, depth=50, width=64, num_classes=1000,
+                 with_pool=True, groups=1, seed: int = 0, device=None):
+        super().__init__()
+        dev = resolve_device(device)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        kw = dict(generator=gen, device=dev)
+        layers = _LAYERS[depth]
+        self.depth = depth
+        self.groups = groups
+        self.base_width = width
+        self.num_classes = num_classes
+        self.with_pool = with_pool
+        self.inplanes = 64
+        self.dilation = 1
+
+        self.conv1 = Conv2D(3, self.inplanes, 7, stride=2, padding=3,
+                            bias_attr=False, generator=gen, device=dev)
+        self.bn1 = BatchNorm2D(self.inplanes, device=dev)
+        self.relu = ReLU()
+        self.maxpool = MaxPool2D(kernel_size=3, stride=2, padding=1)
+        self.layer1 = self._make_layer(block, 64, layers[0], 1, kw)
+        self.layer2 = self._make_layer(block, 128, layers[1], 2, kw)
+        self.layer3 = self._make_layer(block, 256, layers[2], 2, kw)
+        self.layer4 = self._make_layer(block, 512, layers[3], 2, kw)
+        if with_pool:
+            self.avgpool = AdaptiveAvgPool2D((1, 1))
+        if num_classes > 0:
+            self.fc = Linear(512 * block.expansion, num_classes, **kw)
+
+    def _make_layer(self, block, planes, blocks, stride, kw):
+        """One stage; ``kw``: the generator and device every layer is
+        made with."""
+        downsample = None
+        if stride != 1 or self.inplanes != planes * block.expansion:
+            downsample = Sequential(
+                Conv2D(self.inplanes, planes * block.expansion, 1,
+                       stride=stride, bias_attr=False, **kw),
+                BatchNorm2D(planes * block.expansion, device=kw["device"]),
+            )
+        layers = [block(self.inplanes, planes, stride, downsample,
+                        self.groups, self.base_width, **kw)]
+        self.inplanes = planes * block.expansion
+        for _ in range(1, blocks):
+            layers.append(block(self.inplanes, planes, groups=self.groups,
+                                base_width=self.base_width, **kw))
+        return Sequential(*layers)
+
+    def forward(self, x):
+        x = self.maxpool(self.relu(self.bn1(self.conv1(x))))
+        x = self.layer1(x)
+        x = self.layer2(x)
+        x = self.layer3(x)
+        x = self.layer4(x)
+        if self.with_pool:
+            x = self.avgpool(x)
+        if self.num_classes > 0:
+            x = self.fc(torch.flatten(x, 1))
+        return x
+
+    def num_params(self) -> int:
+        return sum(p.numel() for p in self.parameters())
+
+    def load_numpy_state(self, state: dict):
+        """Copy ``{name: np.ndarray}``, the JAX model's
+        ``named_parameters()`` and ``named_buffers()`` (the BatchNorm
+        layers' ``_mean`` / ``_variance``) as numpy, into this model:
+        every name must be present and no other, shapes and dtypes must
+        be equal; bfloat16 arrays are carried bit for bit."""
+        load_numpy_state(self, state)
+
+
+def _resnet(block, depth, pretrained=False, **kwargs):
+    if pretrained:
+        raise NotImplementedError(
+            "pretrained weights are not available: there are none to "
+            "download")
+    return ResNet(block, depth, **kwargs)
+
+
+def resnet18(pretrained=False, **kwargs):
+    return _resnet(BasicBlock, 18, pretrained, **kwargs)
+
+
+def resnet34(pretrained=False, **kwargs):
+    return _resnet(BasicBlock, 34, pretrained, **kwargs)
+
+
+def resnet50(pretrained=False, **kwargs):
+    return _resnet(BottleneckBlock, 50, pretrained, **kwargs)
+
+
+def resnet101(pretrained=False, **kwargs):
+    return _resnet(BottleneckBlock, 101, pretrained, **kwargs)
+
+
+def resnet152(pretrained=False, **kwargs):
+    return _resnet(BottleneckBlock, 152, pretrained, **kwargs)
+
+
+def wide_resnet50_2(pretrained=False, **kwargs):
+    kwargs["width"] = 128
+    return _resnet(BottleneckBlock, 50, pretrained, **kwargs)
+
+
+def wide_resnet101_2(pretrained=False, **kwargs):
+    kwargs["width"] = 128
+    return _resnet(BottleneckBlock, 101, pretrained, **kwargs)
+
+
+def _resnext(depth, groups, pretrained, kwargs):
+    kwargs["groups"] = groups
+    kwargs["width"] = 4
+    return _resnet(BottleneckBlock, depth, pretrained, **kwargs)
+
+
+def resnext50_32x4d(pretrained=False, **kwargs):
+    return _resnext(50, 32, pretrained, kwargs)
+
+
+def resnext101_32x4d(pretrained=False, **kwargs):
+    return _resnext(101, 32, pretrained, kwargs)
+
+
+def resnext50_64x4d(pretrained=False, **kwargs):
+    return _resnext(50, 64, pretrained, kwargs)
+
+
+def resnext101_64x4d(pretrained=False, **kwargs):
+    return _resnext(101, 64, pretrained, kwargs)
+
+
+def resnext152_32x4d(pretrained=False, **kwargs):
+    return _resnext(152, 32, pretrained, kwargs)
+
+
+def resnext152_64x4d(pretrained=False, **kwargs):
+    return _resnext(152, 64, pretrained, kwargs)
