@@ -146,23 +146,57 @@ failure ends the run with a non-zero exit code and no result:
                  989 TFLOP/s), peak memory allocated / reserved, device ms
                  by family with the top kernels and the idle share, and
                  Momentum's update alone (device and wall ms, launches).
-7. tiny-parity   llama_tiny (float32, int4 weights) served on the card and,
+7. tiny-vision-parity  one constructor of each zoo family at a narrow
+                 width (LeNet, AlexNet, vgg11(batch_norm=True),
+                 MobileNetV1/V2 at scale 0.25, MobileNetV3-Large at 0.5,
+                 SqueezeNet 1.1, DenseNet-121 and InceptionV3 at 128 x
+                 128, GoogLeNet, ShuffleNetV2 x0.5), num_classes 10,
+                 float32, b 4, the same state on the card and the CPU
+                 (every BatchNorm shift 1.0): train-mode and eval logits
+                 within 1e-4, running stats within 1e-5, three
+                 TrainSteps of Momentum(0.01, 0.9) within 1e-4 relative
+                 (a later step's of the first step's loss where it fell
+                 below it; InceptionV3's in eval mode); Dropout's rule on
+                 the card at p 0.2 / 0.5 over 2^20 values (kept fraction
+                 within 4 sigma, kept values x / (1 - p) bit for bit);
+                 conv2d's "SAME" at stride 2 and NHWC card against CPU.
+8. train-mobilenetv3  THE ZOO PATH: mobilenet_v3_large(num_classes=1000,
+                 seed=0) at full width and depth, bf16 parameters
+                 (running stats float32), Dropout(0.2) on a card
+                 generator, Momentum(0.1, 0.9) with float32 masters, b 256
+                 x 3 x 224 x 224 bf16: 2 warm, 10 timed and one traced
+                 step; losses finite and falling, every running stat
+                 moved, no port kernel launched. Step ms, imgs/s, MFU,
+                 peak, idle share, device ms by part with the depthwise
+                 convolutions apart from the dense ones, and each part
+                 (depthwise and dense convs, BatchNorm, activations, the
+                 SE gates) run alone at the step's shapes.
+9. train-vision-zoo  every family's ImageNet constructor at full width
+                 (LeNet, AlexNet, VGG-16 with and without BatchNorm,
+                 MobileNetV1/V2, MobileNetV3-Small, SqueezeNet 1.1,
+                 DenseNet-121, GoogLeNet with its aux losses,
+                 InceptionV3 at 299 x 299, ShuffleNetV2 x1.0 and swish),
+                 b 64 (LeNet b 256 x 1 x 28 x 28), bf16: 1 warm and 2
+                 timed steps each; losses finite, running stats moved, no
+                 port kernel launched; parameters, step ms, imgs/s, MFU
+                 and peak a model.
+10. tiny-parity   llama_tiny (float32, int4 weights) served on the card and,
                  with the same weights, on the CPU through the plain
                  versions: the greedy tokens must be equal, and one
                  prefill ministep's logits within 1e-3.
-8. tiny-dense-parity  llama_tiny(hidden_size=256) (head_dim 64, int4)
+11. tiny-dense-parity  llama_tiny(hidden_size=256) (head_dim 64, int4)
                  through the dense engine (mid chunks, offset finals) and
                  generate() on the card and the CPU: equal greedy tokens,
                  one prefill's logits within 1e-3, and the card ran the
                  paged-decode, flash forward and GEMV kernels. These three
                  tiny phases run the engines' programs as CUDA graphs,
                  captured at first use.
-9. tiny-prefix-parity  llama_tiny(hidden_size=256) float32 (int4) with
+12. tiny-prefix-parity  llama_tiny(hidden_size=256) float32 (int4) with
                  prefix caching, both schedulers: 5 requests, 4 sharing
                  24 tokens; the card with caching on and off and the CPU
                  with it on give equal greedy tokens, the card and the
                  CPU equal hit tokens.
-10. tiny-rich-faults-parity JAX's threefry key stream and fault
+13. tiny-rich-faults-parity JAX's threefry key stream and fault
                  tolerance, card against CPU: the threefry2x32 known
                  answer on the card and the host; the bits and uniforms
                  of an [8, 128256] draw equal on card and CPU, the Gumbel
@@ -175,7 +209,7 @@ failure ends the run with a non-zero exit code and no result:
                  serving kernel launched; and optimistic admission on a
                  14-block pool (preemption with recompute) gives the
                  roomy run's greedy streams on card and CPU.
-11. serve-int4   THE MAIN PATH: Llama-3-8B at full width and all 32 layers,
+14. serve-int4   THE MAIN PATH: Llama-3-8B at full width and all 32 layers,
                  int4 weights from a seed, bf16 KV pool, block size 64,
                  served by the ragged engine (8 requests of 100..600 prompt
                  tokens, 32 new tokens each, 6 greedy and 2 at temperature
@@ -188,7 +222,7 @@ failure ends the run with a non-zero exit code and no result:
                  attention and 129 GEMV kernels; the decode_matmul and
                  attention families' device ms per serving run and per
                  ministep.
-12. serve-dense-int4  THE DENSE PATH on the same decoder, eager:
+15. serve-dense-int4  THE DENSE PATH on the same decoder, eager:
                  ServingEngine(ragged=False, max_batch_size=8, chunk_size=8,
                  prefill_chunk=256), 8 requests of 100..512 prompt tokens,
                  32 new each (6 greedy, 2 at 0.8). Counters set to 0 just
@@ -199,13 +233,13 @@ failure ends the run with a non-zero exit code and no result:
                  dispatch, no ragged launch. A repeat run gives the same
                  tokens; one decode step at mb 8 launches exactly 32
                  paged-decode and 129 GEMV kernels; its wall and device
-                 time beside the ragged ministep of phase 11; generate() at
+                 time beside the ragged ministep of phase 14; generate() at
                  b 4, prompt 256, 32 new tokens; then both engines on the
                  same 8 requests, alternately, 2 runs each, and their
                  decode steps alternately, 2 each (median, min, max);
                  the decode_matmul and attention families' device ms per
                  run and step.
-13. serve-prefix-int4  both engines on 8 requests that share a
+16. serve-prefix-int4  both engines on 8 requests that share a
                  384-token prefix (6 blocks of 64), each with 64..128
                  tokens of its own, 32 new tokens, greedy, caching on
                  against off: 2,688 hit tokens (7 readers x 6 blocks),
@@ -216,7 +250,7 @@ failure ends the run with a non-zero exit code and no result:
                  tok/s, TTFT and the prefill's
                  device ms (the same requests with one new token) on and
                  off.
-14. serve-graphs  both engines with ``warmup_programs`` +
+17. serve-graphs  both engines with ``warmup_programs`` +
                  ``seal_programs`` (graphs captured, seconds, pool
                  memory), then serve-dense-int4's requests: tokens equal a
                  fresh eager engine's, stochastic rows included; no
@@ -231,7 +265,7 @@ failure ends the run with a non-zero exit code and no result:
                  share, launches of a chunk). The grid each engine
                  captures holds every key plain and rich, greedy and
                  sampled; the sealed engines serve the next two phases.
-15. serve-rich-int4  the rich mix (phase 10's, 32 new tokens, on
+18. serve-rich-int4  the rich mix (phase 13's, 32 new tokens, on
                  serve-dense-int4's prompts) through both sealed 8B
                  engines: no unexpected recompile, launches equal what
                  the dispatches call for, streams equal a fresh eager
@@ -243,7 +277,7 @@ failure ends the run with a non-zero exit code and no result:
                  dispatched plain against rich; the sampler's parts
                  (threefry + Gumbel, sort, plain and rich samplers)
                  timed alone at 8 rows and at that width.
-16. serve-faults-int4  both 8B engines with admission="optimistic" on 21
+19. serve-faults-int4  both 8B engines with admission="optimistic" on 21
                  free blocks of 64 (the rest held by a placeholder
                  sequence), as sealed graphs: 8 requests of 300..512
                  prompt tokens and 64 new, one of priority 1; clean runs
@@ -257,7 +291,7 @@ failure ends the run with a non-zero exit code and no result:
                  failed request names one, no unexpected recompile, each
                  finished stream the clean one or a near-tie; tok/s
                  optimistic against worst-case, alternated, 2 runs each.
-17. tiny-ms-spec-lora-parity  llama_tiny float32 with int4 weights on the
+20. tiny-ms-spec-lora-parity  llama_tiny float32 with int4 weights on the
                  card (graphs) and the CPU: multi_step=4, spec decode
                  (draft_len 4, n-gram drafter, motif prompts) and a
                  mixed batch over two register_random adapters give
@@ -265,7 +299,7 @@ failure ends the run with a non-zero exit code and no result:
                  its multi_step=1, spec-off or registry-less engine
                  (base rows); one _lora_delta within 1e-4 of the plain
                  gathered formulation.
-18. serve-ms-int4  multi_step=4 (32-ministep windows) on the 8B int4
+21. serve-ms-int4  multi_step=4 (32-ministep windows) on the 8B int4
                  ragged engine as graphs (captured as first used, then
                  sealed) against serve-graphs' multi_step=1 engine,
                  serve-dense-int4's requests: launches, greedy streams
@@ -273,7 +307,7 @@ failure ends the run with a non-zero exit code and no result:
                  GB); the two alternated 3 runs each (tok/s, TTFT, ITL)
                  with no recompile; a run's device ms and idle share; a
                  window against a T 8 chunk, device ms a ministep.
-19. serve-spec-int4  spec decode at draft_len 3 (<= 32 verify rows: the
+22. serve-spec-int4  spec decode at draft_len 3 (<= 32 verify rows: the
                  GEMV) and 8 (72: cuBLAS over the unpacked int4)
                  against spec off on 8 prompts that quote their own
                  text, 64 new: with the n-gram drafter, then oracles of
@@ -285,7 +319,7 @@ failure ends the run with a non-zero exit code and no result:
                  held to no unexpected recompile), draft_len 8 captures
                  as first used, then seals; the three alternated 3 runs
                  each.
-20. serve-lora-int4  AdapterRegistry(rank=8) of 4 register_random adapters,
+23. serve-lora-int4  AdapterRegistry(rank=8) of 4 register_random adapters,
                  8 requests (2 base, 6 over 3 adapters): launches, no
                  recompile, base rows equal the registry-less engine's
                  or a near-tie, hits / misses / evictions per run (each
@@ -297,7 +331,7 @@ failure ends the run with a non-zero exit code and no result:
                  rounding, float32 within 1e-4 relative); graphs captured
                  as first used, then sealed; tok/s against the base
                  engine, alternated 3 runs each.
-21. tiny-fleet-parity  the fleet Router (dp 2, in process, the dense
+24. tiny-fleet-parity  the fleet Router (dp 2, in process, the dense
                  engine, affinity on) on llama_tiny at the fleet tests'
                  geometry with head_dim 64 (hidden 256), float32, the
                  same weights on the card and the CPU: 4 prompts sharing
@@ -305,7 +339,7 @@ failure ends the run with a non-zero exit code and no result:
                  the streams equal a single engine's and card == CPU,
                  routing counters too; the card ran the paged-decode and
                  flash forward kernels.
-22. serve-telemetry-int4  serve-graphs' sealed 8B int4 ragged engine on
+25. serve-telemetry-int4  serve-graphs' sealed 8B int4 ragged engine on
                  serve-dense-int4's requests three ways, alternated, 3
                  runs each: no telemetry, a Tracer with an SLO monitor
                  (TTFT 2 s, ITL 50 ms at p99), profile_every=8: greedy
@@ -316,7 +350,7 @@ failure ends the run with a non-zero exit code and no result:
                  the attribution p50 of host-schedule, dispatch-queue and
                  device-execute (CUDA events) per program family, and
                  the SLO headroom.
-23. fleet-int4   Router(dp=2, transport="inproc") of two ragged 8B int4
+26. fleet-int4   Router(dp=2, transport="inproc") of two ragged 8B int4
                  engines over one weight tree (pools of their own, 160
                  blocks of 64), graphs captured as used: 8 requests, 4
                  sharing the 384-token prefix (3 affinity hits), 32 new
@@ -328,7 +362,7 @@ failure ends the run with a non-zero exit code and no result:
                  migrations captured; the replica healed through
                  probation; then sealed, dp 2 against one engine
                  alternated, 3 runs each.
-24. fleet-proc-int4  the same model and traffic with transport="process":
+27. fleet-proc-int4  the same model and traffic with transport="process":
                  two spawned workers build the 8B decoder from seed 0
                  (module-level _proc_engine_factory, eager engines) and
                  find the kernel library built; greedy streams equal
@@ -337,7 +371,7 @@ failure ends the run with a non-zero exit code and no result:
                  worker respawns onto probation; spawn and respawn
                  seconds, the step RPC's round trip over the worker's
                  own step, heartbeat misses, exits and restarts.
-25. tiny-tp-parity  tensor-parallel serving, card against CPU from one
+28. tiny-tp-parity  tensor-parallel serving, card against CPU from one
                  seed: llama_tiny(hidden_size=256, num_key_value_heads=4)
                  float32 with int4 weights; the ragged engine at tp 1, 2
                  and 4 (every shard on cuda:0, or on the CPU; graphs
@@ -349,7 +383,7 @@ failure ends the run with a non-zero exit code and no result:
                  where the tp-1 engines part, a near-tie (the CPU's
                  logit gap within twice the card / CPU logit
                  difference); every kernel of each path launched.
-26. serve-tp2-int4  Llama-3-8B int4 at tp 2 with both shards on cuda:0
+29. serve-tp2-int4  Llama-3-8B int4 at tp 2 with both shards on cuda:0
                  (ServingEngine(dec, tp=2) over a decoder on
                  ProcessMesh(devices=["cuda:0"] * 2), seed 0: serve-int4's
                  weights cut by the placement table), bf16 pool of 160
@@ -371,16 +405,16 @@ failure ends the run with a non-zero exit code and no result:
                  an int8 pool and tp 4 (8 / 2 heads a shard; greedy
                  streams against tp 1's near-tie rule), each with its
                  exact launches.
-27. serve-bf16-kv8  the same model with bf16 weights and an int8 KV pool
+30. serve-bf16-kv8  the same model with bf16 weights and an int8 KV pool
                  (4 requests): the int8 branch of the attention kernel on
                  the serving path; one W 8 ministep launches exactly 32
                  attention kernels; the attention family's device ms per
                  run and per ministep.
-28. tiny-train-parity  llama_tiny(hidden_size=256) in float32 (head_dim 64)
+31. tiny-train-parity  llama_tiny(hidden_size=256) in float32 (head_dim 64)
                  with the same weights on the card and the CPU: 3 TrainSteps
                  of AdamW(1e-3) give losses within 1e-4 relative, and the
                  card ran all three flash kernels.
-29. tiny-ring-parity  llama_tiny(hidden_size=256, sep_degree=4) in
+32. tiny-ring-parity  llama_tiny(hidden_size=256, sep_degree=4) in
                  float32 (head_dim 64) at b 2 x s 256 under a sep-4 fleet
                  mesh, the same weights on the card (["cuda:0"] * 4) and on
                  the CPU (["cpu"] * 4): 3 TrainSteps of AdamW(1e-3) give
@@ -388,7 +422,7 @@ failure ends the run with a non-zero exit code and no result:
                  model's at sep_degree=1 within 1e-4, and the flash counters
                  read exactly what the ring calls for (2 layers x 4 ranks
                  x 6 blocks per step of each kernel).
-30. tiny-model-parity  LlamaForCausalLM whole: llama_tiny(hidden_size=256,
+33. tiny-model-parity  LlamaForCausalLM whole: llama_tiny(hidden_size=256,
                  tie_word_embeddings=True, use_recompute=True,
                  recompute_granularity="full_attn") in float32 with the
                  same weights on the card and the CPU (the tied table
@@ -401,7 +435,7 @@ failure ends the run with a non-zero exit code and no result:
                  beam search with 3 beams, and ServingEngine(model,
                  weight_dtype="int4") on both schedulers: tokens equal on
                  card and CPU, every kernel of each engine launched.
-31. train-mid    THE TRAINING PATH: llama_mid (0.65B) at full width and all
+34. train-mid    THE TRAINING PATH: llama_mid (0.65B) at full width and all
                  11 layers, bf16 compute, seed 0, batch 4 x seq 2048 (ids as
                  bench.py makes them), AdamW(1e-4, weight_decay=0.01): 2 warm
                  and 10 timed TrainSteps. The flash counters are set to 0
@@ -410,7 +444,7 @@ failure ends the run with a non-zero exit code and no result:
                  last below the first. Step ms, tokens/s, MFU by bench.py's
                  formula against 989 TFLOP/s, peak memory, device time by
                  kernel family and the idle share.
-32. train-mid8k  THE LONG-CONTEXT PATH: llama_mid(dtype="bfloat16",
+35. train-mid8k  THE LONG-CONTEXT PATH: llama_mid(dtype="bfloat16",
                  chunked_ce_tokens=1024, max_position_embeddings=8192,
                  sep_degree=4), all 11 layers, b 1 x s 8192 (ids as bench.py
                  makes them), AdamW(1e-4, weight_decay=0.01), under a sep-4
@@ -426,7 +460,7 @@ failure ends the run with a non-zero exit code and no result:
                  and sep 4 within 1e-2 relative. Step ms, tokens/s, MFU at
                  seq 8192, peak memory, device time by kernel family (the
                  flash family's ms apart) and the idle share of both.
-33. train-1b     bench.py's 1b row: llama_1b(dtype="bfloat16",
+36. train-1b     bench.py's 1b row: llama_1b(dtype="bfloat16",
                  use_recompute=True, recompute_granularity="full_attn",
                  chunked_ce_tokens=1024), all 18 layers, b 4 x s 2048,
                  AdamW(1e-4, weight_decay=0.01, moment_dtype="bfloat16"):
@@ -439,7 +473,7 @@ failure ends the run with a non-zero exit code and no result:
                  within 1e-3 of the recompute model's, 18 of each flash
                  kernel a step) and the two alternated, 3 runs of 2 steps
                  each: step ms, MFU and peak memory of each.
-34. serve-model-1b  the model train-1b trained, served by
+37. serve-model-1b  the model train-1b trained, served by
                  ServingEngine(model, weight_dtype="int4", block_size=64,
                  num_blocks=160) on both schedulers: float32 activations
                  and pool (the embedding's dtype, as in JAX), so every
@@ -458,13 +492,13 @@ failure ends the run with a non-zero exit code and no result:
                  equal, or parted where the float32 logit gap is at most
                  twice the difference between the two computations'
                  logits there.
-35. tiny-gpt-parity  gpt_tiny(hidden_size=256) (head_dim 64, as many kv
+38. tiny-gpt-parity  gpt_tiny(hidden_size=256) (head_dim 64, as many kv
                  heads as heads) float32 with int4 weights, the same
                  weights on the card (graphs) and the CPU: both engines'
                  greedy streams and generate() equal, one prefill's
                  logits within 1e-3, and the card ran the ragged,
                  paged-decode, flash forward and GEMV kernels.
-36. serve-ernie-int4  THE GPT PATH: ernie_45_dense_3b at full width and
+39. serve-ernie-int4  THE GPT PATH: ernie_45_dense_3b at full width and
                  all 28 layers (20 heads = 20 kv heads, d 128, vocab
                  103,424), int4 weights from PagedGPTDecoder.from_config(
                  seed=0), bf16 activations and pool (160 blocks of 64);
@@ -482,12 +516,12 @@ failure ends the run with a non-zero exit code and no result:
                  on an int8 pool over the same weights (reported), its
                  GEMV launches counted by weight at the launch site
                  (the kernels line's ERNIE GEMV rows).
-37. train-gpt-345m  gpt_345m in bf16 (float32 weights, tied head), b 8 x
+40. train-gpt-345m  gpt_345m in bf16 (float32 weights, tied head), b 8 x
                  s 1024, AdamW(1e-4, weight_decay=0.01): 1 warm and 5
                  timed TrainSteps, exactly 24 of each flash kernel a
                  step, every loss finite and the last below the first;
                  step ms, tokens/s, MFU, peak memory, device time.
-38. tiny-dit-parity  DiT at head_dim 72 (hidden 144, 2 heads, depth 2)
+41. tiny-dit-parity  DiT at head_dim 72 (hidden 144, 2 heads, depth 2)
                  and 64 (hidden 128, 2 heads), every parameter drawn
                  from a seed (normal x 0.02, so adaLN-Zero does not make
                  the output 0), the same weights on the card and the
@@ -497,7 +531,7 @@ failure ends the run with a non-zero exit code and no result:
                  (a bf16 loss is itself rounded to 8 bits); each card
                  run launches exactly depth forward, dq and dk/dv flash
                  kernels a step and depth forwards an eval forward.
-39. train-dit-xl2  THE DiT PATH, bench.py's dit row: DiT(dit_xl_2(
+42. train-dit-xl2  THE DiT PATH, bench.py's dit row: DiT(dit_xl_2(
                  dtype="bfloat16", learn_sigma=False)), all 28 layers
                  (675 M parameters), b 32 on [32, 4, 32, 32] latents
                  with timesteps and labels from RandomState(0) as
@@ -513,7 +547,7 @@ failure ends the run with a non-zero exit code and no result:
                  a picture over 989 TFLOP/s), peak memory, device ms by
                  family (flash, GEMM, conv, other) and the idle share,
                  beside the card's name and power limit.
-40. tiny-moe-parity  moe_tiny(hidden_size=256, 4 / 2 heads: head_dim 64)
+43. tiny-moe-parity  moe_tiny(hidden_size=256, 4 / 2 heads: head_dim 64)
                  with the same numpy state on the card and the CPU, dense
                  and ragged dispatch: float32 logits within 1e-4 of the
                  largest |logit| and five TrainSteps of AdamW(1e-3) with
@@ -527,7 +561,7 @@ failure ends the run with a non-zero exit code and no result:
                  debugging set to raise (no host sync: for ragged the
                  grouped route, torch._grouped_mm); exact flash
                  launches.
-41. train-moe    THE MoE PATH, bench.py's four moe rows as it builds them
+44. train-moe    THE MoE PATH, bench.py's four moe rows as it builds them
                  (bench.py:278-318, :409-431): MoEConfig(dtype="bfloat16",
                  8 layers, 16 / 8 heads, top-2, one shared expert, chunked
                  CE 1024) at hidden 1024 with 8 experts of 1408 (dense and
@@ -548,7 +582,7 @@ failure ends the run with a non-zero exit code and no result:
                  total and activated parameters, peak memory, device ms
                  by family and the idle share; the dense row's dropped
                  fraction from one eager forward.
-42. capture-failure  a program with a host sync inside: its first
+45. capture-failure  a program with a host sync inside: its first
                  dispatch raises, no graph is kept and it is not run
                  eagerly in its place (last, as a failed capture may
                  leave the allocator's pool unusable).
@@ -565,6 +599,7 @@ Bounds use the H100 SXM data sheet: 3.35 TB/s of device memory and
 Serving and training leave each other's counters alone: each path resets
 and reads only its own kernels' counters.
 """
+import copy
 import gc
 import importlib
 import json
@@ -576,6 +611,9 @@ import sys
 import time
 
 HBM_BYTES_PER_S = 3.35e12
+# the BatchNorm shift tiny-vision-parity gives every BatchNorm, as
+# tests/test_torch_vision_zoo.py does (BN_SHIFT there)
+ZOO_BN_SHIFT = 1.0
 BF16_FLOPS_PER_S = 989e12
 F32_FLOPS_PER_S = 67e12     # float32 outside the tensor cores
 SHAPES_8B = {"wqkv": (4096, 6144), "wo": (4096, 4096),
@@ -1732,8 +1770,12 @@ def _proc_engine_factory(replica_idx, devices):
 def _conv_fc_flops(torch, model, size):
     """Forward FLOPs of one picture of size x size through ``model``: 2 x
     the multiply-adds of every Conv2D and Linear, from the shapes a
-    forward at batch 1 gives them (eval mode, so the running stats stay)."""
+    forward at batch 1 gives them (eval mode, so the running stats stay
+    and GoogLeNet's aux heads do not run), with as many input channels
+    as the model's first Conv2D takes (LeNet's 1)."""
     total = [0]
+    first = next(m for m in model.modules()
+                 if type(m).__name__ == "Conv2D")
 
     def hook(mod, inp, out):
         if type(mod).__name__ == "Conv2D":
@@ -1747,7 +1789,7 @@ def _conv_fc_flops(torch, model, size):
     was_training = model.training
     model.eval()
     with torch.no_grad():
-        model(torch.zeros(1, 3, size, size,
+        model(torch.zeros(1, first.in_channels, size, size,
                           device=next(model.parameters()).device))
     model.train(was_training)
     for h in hooks:
@@ -2656,6 +2698,454 @@ def main():
                 "nvidia_smi": smi, "step_profile": prof}
 
     _phase("train-resnet50", train_resnet50)
+
+    # -- the vision zoo: depthwise convolutions, ReLU6 / Hardswish /
+    # -- Hardsigmoid / Swish, squeeze-excitation, Dropout on a card
+    # -- generator, conv2d's padding forms ---------------------------------
+    from paddle_tpu_torch import nn as pnn
+    from paddle_tpu_torch.vision.models.mobilenetv3 import SqueezeExcitation
+
+    def port_launches():
+        return dict(counts(), **flash_counts(),
+                    paged_attention_decode=pdc.launches)
+
+    def reset_port_launches():
+        reset_counts()
+        reset_flash()
+        pdc.launches = 0
+
+    def no_dropout(model):
+        for m in model.modules():
+            if isinstance(m, pnn.Dropout):
+                m.p = 0.0
+
+    def zoo_loss(out, label):
+        """Cross entropy in float32; GoogLeNet's main + 0.3 x (aux1 +
+        aux2) in training (Szegedy et al.)."""
+        if isinstance(out, tuple):
+            main, aux1, aux2 = out
+            loss = F.cross_entropy(main.float(), label)
+            if aux1 is not None:
+                loss = loss + 0.3 * (F.cross_entropy(aux1.float(), label)
+                                     + F.cross_entropy(aux2.float(), label))
+            return loss
+        return F.cross_entropy(out.float(), label)
+
+    def main_out(out):
+        return out[0] if isinstance(out, tuple) else out
+
+    # one constructor of each family at a narrow width: (constructor,
+    # arguments, input shape)
+    ZOO_TINY = (
+        ("LeNet", {}, (4, 1, 28, 28)),
+        ("alexnet", {}, (4, 3, 64, 64)),
+        ("vgg11", dict(batch_norm=True), (4, 3, 64, 64)),
+        ("mobilenet_v1", dict(scale=0.25), (4, 3, 64, 64)),
+        ("mobilenet_v2", dict(scale=0.25), (4, 3, 64, 64)),
+        ("mobilenet_v3_large", dict(scale=0.5), (4, 3, 64, 64)),
+        ("squeezenet1_1", {}, (4, 3, 64, 64)),
+        ("densenet121", {}, (4, 3, 128, 128)),
+        ("googlenet", {}, (4, 3, 64, 64)),
+        ("inception_v3", {}, (4, 3, 128, 128)),
+        ("shufflenet_v2_x0_5", {}, (4, 3, 64, 64)),
+    )
+
+    def tiny_vision_parity():
+        """One constructor of each family at a narrow width, num_classes
+        10, float32 (TF32 off), the same state on the card and the CPU
+        (each BatchNorm's shift set to ZOO_BN_SHIFT, as the CPU tests set
+        it: BatchNorm stacks at init are chaotic in train mode at a batch
+        of 4, and the card and the CPU would part by more than their
+        rounding), every Dropout's p 0 (the two devices' generators draw
+        different streams): a train-mode forward (logits within 1e-4 of
+        the largest |logit|, running stats within 1e-5), an eval forward
+        (1e-4), three TrainSteps of Momentum(0.01, 0.9) (losses within
+        1e-4 relative; InceptionV3's in eval mode). Then Dropout's rule
+        on the card at p 0.2 / 0.5 over 2^20 values (the kept fraction
+        within 4 sigma of 1 - p, kept values x / (1 - p) bit for bit
+        against the CPU's division) and conv2d's "SAME" at stride 2 and
+        NHWC card against CPU (1e-5).
+        No port kernel launches. A later step's loss is held within 1e-4
+        of the larger of itself and the first step's loss: the card's own
+        third SqueezeNet loss takes two values 1.2e-4 apart from run to
+        run, cuDNN on or off (tools/vision_parity_probe.py), a near-tie
+        that the first update's last bits decide."""
+        reset_port_launches()
+        out = {}
+        for name, kw, shape in ZOO_TINY:
+            ctor = getattr(vision_models, name)
+            nc = {} if name == "LeNet" else {"num_classes": 10}
+            cpu = ctor(seed=0, device="cpu", **nc, **kw)
+            with torch.no_grad():
+                for m in cpu.modules():
+                    if isinstance(m, pnn.BatchNorm2D):
+                        m.bias.fill_(ZOO_BN_SHIFT)
+            gpu = ctor(seed=1, device="cuda", **nc, **kw)
+            gpu.load_state_dict(cpu.state_dict())
+            rng = np.random.RandomState(5)
+            x_np = rng.randn(*shape).astype(np.float32)
+            y_np = rng.randint(0, 10, shape[0]).astype(np.int64)
+            res = {}
+            for key, m in (("cpu", cpu), ("cuda", gpu)):
+                no_dropout(m)
+                dev = next(m.parameters()).device
+                x = torch.as_tensor(x_np, device=dev)
+                y = torch.as_tensor(y_np, device=dev)
+                with torch.no_grad():
+                    logits = main_out(m(x)).cpu()
+                    stats1 = [b_.cpu().clone() for b_ in m.buffers()]
+                    m.eval()
+                    logits_eval = main_out(m(x)).cpu()
+                    m.train()
+                # InceptionV3's train-mode steps are chaotic in float32
+                # at a batch of 4 (EVAL_GRADS in the CPU tests)
+                m.train(name != "inception_v3")
+                step = TrainStep(m, zoo_loss,
+                                 Momentum(learning_rate=0.01, momentum=0.9,
+                                          parameters=m.parameters()))
+                losses = [float(step(x, y)) for _ in range(3)]
+                m.train()
+                res[key] = dict(logits=logits, logits_eval=logits_eval,
+                                stats1=stats1, losses=losses)
+            c, g = res["cpu"], res["cuda"]
+
+            def rel(a, b_):
+                return float((a - b_).abs().max() / b_.abs().max())
+            err = {"train_logits": rel(g["logits"], c["logits"]),
+                   "eval_logits": rel(g["logits_eval"], c["logits_eval"]),
+                   "stats_after_forward": max(
+                       (float((a - b_).abs().max()) for a, b_ in
+                        zip(g["stats1"], c["stats1"])), default=0.0),
+                   # relative to the first step's loss where the steps
+                   # have driven it lower (docstring); AlexNet's and
+                   # VGG's heads fit four pictures to a loss of 0
+                   "losses": max(abs(a - b_) / max(abs(b_),
+                                                   abs(c["losses"][0]))
+                                 for a, b_ in zip(g["losses"],
+                                                  c["losses"]))}
+            _require(err["train_logits"] <= 1e-4
+                     and err["eval_logits"] <= 1e-4,
+                     f"tiny-vision-parity {name}: logits differ {err}")
+            _require(err["stats_after_forward"] <= 1e-5,
+                     f"tiny-vision-parity {name}: running stats {err}")
+            _require(err["losses"] <= 1e-4 and all(
+                np.isfinite(c["losses"] + g["losses"])),
+                f"tiny-vision-parity {name}: losses cpu {c['losses']} "
+                f"cuda {g['losses']}")
+            out[name] = {"errors": err, "losses_cpu": c["losses"],
+                         "losses_cuda": g["losses"]}
+            del cpu, gpu, res, c, g
+        # Dropout's rule on the card
+        dgen = torch.Generator(device="cuda")
+        dgen.manual_seed(0)
+        x = torch.randn(1 << 20, device="cuda", generator=dgen)
+        drop = {}
+        for p in (0.2, 0.5):
+            o = F.dropout(x, p, generator=dgen)
+            keep = o != 0
+            frac = float(keep.float().mean())
+            sigma = (p * (1 - p) / x.numel()) ** 0.5
+            want = x.cpu() / torch.tensor(1.0 - p, dtype=torch.float32)
+            exact = torch.equal(o.cpu()[keep.cpu()], want[keep.cpu()])
+            _require(abs(frac - (1 - p)) <= 4 * sigma and exact,
+                     f"tiny-vision-parity: dropout p {p} kept {frac} "
+                     f"(4 sigma {4 * sigma}), kept values exact {exact}")
+            drop[f"p{p}"] = {"kept": frac, "sigmas": (frac - (1 - p)) / sigma}
+        out["dropout"] = drop
+        # conv2d's padding forms
+        rng = np.random.RandomState(6)
+        conv = {}
+        for what, xs, ws, kw in (
+                ("same_s2", (2, 16, 32, 32), (8, 16, 3, 3),
+                 dict(stride=2, padding="SAME")),
+                ("nhwc_per_side", (2, 32, 32, 16), (8, 16, 3, 3),
+                 dict(padding=[1, 1, 2, 0], data_format="NHWC")),
+                ("nhwc_same_s2", (2, 32, 32, 16), (16, 1, 3, 3),
+                 dict(stride=2, padding="same", groups=16,
+                      data_format="NHWC"))):
+            xc = torch.as_tensor(rng.randn(*xs).astype(np.float32))
+            wc = torch.as_tensor(rng.randn(*ws).astype(np.float32))
+            bc = torch.as_tensor(rng.randn(ws[0]).astype(np.float32))
+            oc = F.conv2d(xc, wc, bc, **kw)
+            og = F.conv2d(xc.cuda(), wc.cuda(), bc.cuda(), **kw).cpu()
+            e = float((og - oc).abs().max() / oc.abs().max())
+            _require(og.shape == oc.shape and e <= 1e-5,
+                     f"tiny-vision-parity: conv2d {what} {tuple(og.shape)} "
+                     f"vs {tuple(oc.shape)}, error {e}")
+            conv[what] = {"shape": list(og.shape), "error": e}
+        out["conv2d"] = conv
+        _require(not any(port_launches().values()),
+                 f"tiny-vision-parity launched port kernels: "
+                 f"{port_launches()}")
+        gc.collect()
+        torch.cuda.empty_cache()
+        return out
+
+    _phase("tiny-vision-parity", tiny_vision_parity)
+
+    def zoo_family(name):
+        """A kernel's part of a vision step, from its name."""
+        low = name.lower()
+        if "depthwise" in low:
+            return "conv_depthwise"
+        if re.search(r"conv|fprop|dgrad|wgrad", low):
+            return "conv_dense"
+        if any(s in low for s in ("gemm", "gemv", "nvjet", "cutlass")):
+            return "library_gemm"
+        if "welford" in low:
+            return "batchnorm_stats"
+        if re.search(r"minimum|maximum|clamp|hardtanh|threshold|hardswish|"
+                     r"hardsigmoid|silu|sigmoid", low):
+            return "activations"
+        if "pool" in low:
+            return "pooling"
+        return "other"
+
+    def alone_ms(items):
+        """Device ms and launches of the modules of ``items`` ((module,
+        input shape) pairs, copies of the model's) run alone, forward
+        and backward, on bf16 inputs of their shapes (torch.profiler)."""
+        mods = [copy.deepcopy(m).train() for m, _ in items]
+        xs = [torch.randn(s, device="cuda", dtype=torch.bfloat16,
+                          requires_grad=True) for _, s in items]
+
+        def run():
+            for m, xi in zip(mods, xs):
+                o = m(xi)
+                o.backward(torch.ones_like(o))
+        run()
+        events, _lost = _kernel_events(torch, run)
+        return {"device_ms": sum(us for _c, us in events.values()) / 1e3,
+                "launches": sum(c_ for c_, _us in events.values()),
+                "modules": len(items)}
+
+    def train_mobilenetv3():
+        """THE ZOO PATH: mobilenet_v3_large(num_classes=1000, seed=0) at
+        full width and depth, every parameter cast to bf16 (running stats
+        float32), Dropout(0.2) active on the card generator the model
+        made, Momentum(0.1, 0.9) with float32 masters, cross entropy in
+        float32, b 256 x 3 x 224 x 224 bf16 from RandomState(0): 2 warm
+        and 10 timed TrainSteps, then one traced. Every loss finite, the
+        last timed below the first, every running stat moved, no port
+        kernel launched. Step ms, imgs/s, MFU (3 x the forward FLOPs
+        counted from the conv and fc shapes, over 989 TFLOP/s), peak
+        memory, the idle share, device ms of the traced step by part
+        (depthwise convolutions apart from the dense ones), the largest
+        "other" kernels, and the parts run alone at the step's shapes:
+        the depthwise and the dense convolutions, BatchNorm, the
+        activations and the squeeze-excitation gates."""
+        b, warm, iters = 256, 2, 10
+        t0 = time.perf_counter()
+        model = vision_models.mobilenet_v3_large(num_classes=1000, seed=0,
+                                                 device="cuda")
+        n_params = model.num_params()
+        fwd_flops = _conv_fc_flops(torch, model, 224)
+        # each part's modules and input shapes, from one forward
+        shapes = []
+        hooks = [m.register_forward_pre_hook(
+            lambda m, inp: shapes.append((m, tuple(inp[0].shape))))
+            for m in model.modules() if isinstance(
+                m, (pnn.Conv2D, pnn.BatchNorm2D, pnn.Hardswish, pnn.ReLU,
+                    SqueezeExcitation))]
+        for p_ in model.parameters():       # bf16 weights, f32 masters
+            p_.data = p_.data.to(torch.bfloat16)
+        drops = [m for m in model.modules() if isinstance(m, pnn.Dropout)]
+        _require(len(drops) == 1 and drops[0].p == 0.2
+                 and drops[0].generator.device.type == "cuda",
+                 "train-mobilenetv3: Dropout(0.2) on a card generator")
+        opt = Momentum(learning_rate=0.1, momentum=0.9,
+                       parameters=model.parameters())
+        step = TrainStep(model, zoo_loss, opt)
+        rng = np.random.RandomState(0)
+        x = torch.as_tensor(rng.randn(b, 3, 224, 224).astype(np.float32),
+                            device="cuda").to(torch.bfloat16)
+        y = torch.as_tensor(rng.randint(0, 1000, b).astype(np.int64),
+                            device="cuda")
+        model.eval()
+        with torch.no_grad():
+            model(x)
+        model.train()
+        for h in hooks:
+            h.remove()
+        stats0 = [b_.clone() for b_ in model.buffers()]
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        reset_port_launches()
+        losses = [step(x, y) for _ in range(warm)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses += [step(x, y) for _ in range(iters)]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        losses = [float(v) for v in losses]
+        _require(all(np.isfinite(losses)) and losses[-1] < losses[warm],
+                 f"train-mobilenetv3 losses {losses}")
+        moved = sum(int(not torch.equal(a, b_)) for a, b_ in
+                    zip(stats0, model.buffers()))
+        _require(moved == len(stats0),
+                 f"train-mobilenetv3: {len(stats0) - moved} of "
+                 f"{len(stats0)} running stats did not move")
+        _require(not any(port_launches().values()),
+                 f"train-mobilenetv3 launched port kernels: "
+                 f"{port_launches()}")
+        step_ms = wall * 1e3 / iters
+        imgs_s = b * iters / wall
+        peak_alloc = torch.cuda.max_memory_allocated() / 1e9
+        peak_reserved = torch.cuda.max_memory_reserved() / 1e9
+        t1 = time.perf_counter()
+        events, lost = _kernel_events(torch, lambda: step(x, y))
+        parts, other = {}, {}
+        for name, (count, us) in events.items():
+            fam = zoo_family(name)
+            n = parts.setdefault(fam, [0, 0.0])
+            n[0] += count
+            n[1] += us / 1e3
+            if fam == "other":
+                other[name[:60]] = other.get(name[:60], 0.0) + us / 1e3
+        busy = sum(ms for _c, ms in parts.values())
+        in_se = {id(m) for se in model.modules()
+                 if isinstance(se, SqueezeExcitation) for m in se.modules()}
+        outside = [(m, s) for m, s in shapes if id(m) not in in_se]
+        alone = {
+            "conv_depthwise": alone_ms([
+                (m, s) for m, s in outside if isinstance(m, pnn.Conv2D)
+                and m.groups == m.in_channels > 1]),
+            "conv_dense": alone_ms([
+                (m, s) for m, s in outside if isinstance(m, pnn.Conv2D)
+                and not m.groups == m.in_channels > 1]),
+            "batchnorm": alone_ms([(m, s) for m, s in outside
+                                   if isinstance(m, pnn.BatchNorm2D)]),
+            "activations": alone_ms([
+                (m, s) for m, s in outside
+                if isinstance(m, (pnn.Hardswish, pnn.ReLU))]),
+            "se_gate": alone_ms([(m, s) for m, s in shapes
+                                 if isinstance(m, SqueezeExcitation)])}
+        _PROFILE_S[0] += time.perf_counter() - t1
+        _require(not any(port_launches().values()),
+                 f"train-mobilenetv3 launched port kernels: "
+                 f"{port_launches()}")
+        del model, opt, step, x, y, stats0, shapes, outside
+        gc.collect()
+        torch.cuda.empty_cache()
+        return {"model": "MobileNetV3-Large, bf16 parameters (float32 "
+                         "masters in Momentum(0.1, 0.9)), float32 running "
+                         "stats, Dropout(0.2) on a card generator, b 256 x "
+                         "3 x 224 x 224 bf16, cross entropy in float32",
+                "num_params": n_params, "init_s": init_s,
+                "steps": warm + iters, "losses": losses,
+                "step_ms": step_ms, "imgs_per_s": imgs_s,
+                "mfu": imgs_s * 3 * fwd_flops / BF16_FLOPS_PER_S,
+                "fwd_flops_per_img": fwd_flops,
+                "peak_mem_allocated_gb": peak_alloc,
+                "peak_mem_reserved_gb": peak_reserved,
+                "nvidia_smi": smi,
+                "step_profile": {
+                    "device_ms": busy, "wall_ms": step_ms,
+                    "idle_share": max(0.0, 1.0 - busy / step_ms)
+                    if busy else None,
+                    "device_ms_by_part": {k: v[1] for k, v in
+                                          parts.items()},
+                    "launches_by_part": {k: v[0] for k, v in
+                                         parts.items()},
+                    "pad_records_lost": lost,
+                    "top_other": dict(sorted(other.items(),
+                                             key=lambda kv: -kv[1])[:8])},
+                "parts_alone": alone}
+
+    _phase("train-mobilenetv3", train_mobilenetv3)
+
+    # every family's ImageNet constructor at full width: (constructor,
+    # arguments, batch,
+    # picture size, Momentum's learning rate): 0.01 for VGG (its recipe)
+    # and the stacks without BatchNorm (at 0.1 AlexNet, GoogLeNet and
+    # LeNet diverge within three steps from Paddle's init), 0.1 else
+    ZOO_FULL = (
+        ("LeNet", {}, 256, 28, 0.01),
+        ("alexnet", {}, 64, 224, 0.01),
+        ("vgg16", {}, 64, 224, 0.01),
+        ("vgg16", dict(batch_norm=True), 64, 224, 0.01),
+        ("mobilenet_v1", {}, 64, 224, 0.1),
+        ("mobilenet_v2", {}, 64, 224, 0.1),
+        ("mobilenet_v3_small", {}, 64, 224, 0.1),
+        ("squeezenet1_1", {}, 64, 224, 0.01),
+        ("densenet121", {}, 64, 224, 0.1),
+        ("googlenet", {}, 64, 224, 0.01),
+        ("inception_v3", {}, 64, 299, 0.1),
+        ("shufflenet_v2_x1_0", {}, 64, 224, 0.1),
+        ("shufflenet_v2_swish", {}, 64, 224, 0.1),
+    )
+
+    def train_vision_zoo():
+        """Every family's ImageNet constructor at full width
+        (num_classes 1000, LeNet's 10 at b 256 x 1 x 28 x 28), bf16
+        parameters with float32 masters in Momentum(lr, 0.9) (lr 0.01
+        for VGG and the stacks without BatchNorm, 0.1 else: ZOO_FULL),
+        float32
+        running stats, Dropout on the model's card generator, b 64 x 3 x
+        224 x 224 bf16 (InceptionV3 at 299 x 299) from RandomState(0),
+        GoogLeNet's loss main + 0.3 x (aux1 + aux2): 1 warm and 2 timed
+        TrainSteps. Losses finite, running stats moved where there are
+        any, no port kernel launched. A line per model: parameters, step
+        ms, imgs/s, MFU (3 x the forward FLOPs, over 989 TFLOP/s), peak
+        memory."""
+        reset_port_launches()
+        rows = {}
+        for name, kw, b, size, lr in ZOO_FULL:
+            key = name + ("_bn" if kw.get("batch_norm") else "")
+            t0 = time.perf_counter()
+            nc = 10 if name == "LeNet" else 1000
+            model = getattr(vision_models, name)(num_classes=nc, seed=0,
+                                                 device="cuda", **kw)
+            fwd_flops = _conv_fc_flops(torch, model, size)
+            for p_ in model.parameters():
+                p_.data = p_.data.to(torch.bfloat16)
+            step = TrainStep(model, zoo_loss,
+                             Momentum(learning_rate=lr, momentum=0.9,
+                                      parameters=model.parameters()))
+            rng = np.random.RandomState(0)
+            c_in = 1 if name == "LeNet" else 3
+            x = torch.as_tensor(
+                rng.randn(b, c_in, size, size).astype(np.float32),
+                device="cuda").to(torch.bfloat16)
+            y = torch.as_tensor(rng.randint(0, nc, b).astype(np.int64),
+                                device="cuda")
+            stats0 = [b_.clone() for b_ in model.buffers()]
+            torch.cuda.synchronize()
+            init_s = time.perf_counter() - t0
+            torch.cuda.reset_peak_memory_stats()
+            losses = [float(step(x, y))]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses += [float(step(x, y)) for _ in range(2)]
+            wall = time.perf_counter() - t0
+            _require(all(np.isfinite(losses)),
+                     f"train-vision-zoo {key}: losses {losses}")
+            moved = sum(int(not torch.equal(a, b_)) for a, b_ in
+                        zip(stats0, model.buffers()))
+            _require(moved == len(stats0),
+                     f"train-vision-zoo {key}: {len(stats0) - moved} of "
+                     f"{len(stats0)} running stats did not move")
+            imgs_s = b * 2 / wall
+            rows[key] = {"num_params": model.num_params(), "batch": b,
+                         "size": size, "lr": lr, "init_s": init_s,
+                         "losses": losses,
+                         "step_ms": wall * 1e3 / 2, "imgs_per_s": imgs_s,
+                         "fwd_flops_per_img": fwd_flops,
+                         "mfu": imgs_s * 3 * fwd_flops / BF16_FLOPS_PER_S,
+                         "peak_mem_allocated_gb":
+                         torch.cuda.max_memory_allocated() / 1e9,
+                         "running_stats": len(stats0)}
+            _emit({"train-vision-zoo": key, **rows[key]})
+            del model, step, x, y, stats0
+            gc.collect()
+            torch.cuda.empty_cache()
+        _require(not any(port_launches().values()),
+                 f"train-vision-zoo launched port kernels: "
+                 f"{port_launches()}")
+        return {"models": rows, "nvidia_smi": smi}
+
+    _phase("train-vision-zoo", train_vision_zoo)
 
     def cpu_and_card(cfg, num_blocks=64, cls=None):
         """A seeded int4 decoder (``cls``, default PagedLlamaDecoder) on

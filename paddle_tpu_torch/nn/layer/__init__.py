@@ -1,5 +1,7 @@
-from .activation import GELU, ReLU, SiLU, Silu  # noqa: F401
-from .common import Embedding, Linear  # noqa: F401
+from .activation import (GELU, Hardsigmoid, Hardswish, ReLU,  # noqa: F401
+                         ReLU6, Sigmoid, SiLU, Silu, Swish)
+from .common import (Dropout, Dropout2D, Dropout3D,  # noqa: F401
+                     Embedding, Linear)
 from .container import LayerList, Sequential  # noqa: F401
 from .conv import Conv2D  # noqa: F401
 from .loss import MSELoss  # noqa: F401
@@ -13,7 +15,9 @@ from .pooling import (AdaptiveAvgPool1D, AdaptiveAvgPool2D,  # noqa: F401
 
 __all__ = ["Linear", "Embedding", "RMSNorm", "LayerNorm", "BatchNorm",
            "BatchNorm1D", "BatchNorm2D", "BatchNorm3D", "SyncBatchNorm",
-           "Sequential", "LayerList", "ReLU", "Silu", "SiLU", "GELU",
+           "Sequential", "LayerList", "ReLU", "ReLU6", "Silu", "SiLU",
+           "Swish", "Sigmoid", "Hardsigmoid", "Hardswish", "GELU",
+           "Dropout", "Dropout2D", "Dropout3D",
            "Conv2D", "MSELoss", "MoELayer", "SwitchGate", "GShardGate",
            "MaxPool1D", "MaxPool2D", "MaxPool3D", "AvgPool1D", "AvgPool2D",
            "AvgPool3D", "AdaptiveAvgPool1D", "AdaptiveAvgPool2D",

@@ -1,6 +1,7 @@
-"""``Linear`` and ``Embedding``. Counterparts:
-``paddle_tpu/nn/layer/common.py`` (``Linear`` :18-34, ``Embedding``
-:82-100) and ``Layer.create_parameter`` (``nn/layer/layers.py:87-100``).
+"""``Linear``, ``Embedding`` and the Dropout layers. Counterparts:
+``paddle_tpu/nn/layer/common.py`` (``Linear`` :18-34, ``Dropout``,
+``Dropout2D``, ``Dropout3D`` :39-70, ``Embedding`` :82-100) and
+``Layer.create_parameter`` (``nn/layer/layers.py:87-100``).
 
 Paddle's layouts and defaults: the Linear weight is **[in, out]**
 (XavierUniform), the bias Constant 0 (none with ``bias_attr=False``);
@@ -8,7 +9,9 @@ the Embedding table is [vocab, dim], Normal(0, 1). Parameters are
 float32 whatever the model's compute dtype: ``F.linear``
 casts the weight to the activation's dtype inside the product.
 Initializers draw from ``generator`` on ``device`` (``None``: cuda,
-raising without a card)."""
+raising without a card). A Dropout layer draws its masks from the
+``generator`` it is given (``F.dropout``: training with ``p > 0`` and
+none raises) and drops nothing in eval."""
 from __future__ import annotations
 
 import torch
@@ -18,7 +21,7 @@ from ...device import resolve_device
 from .. import functional as F
 from .. import initializer as I
 
-__all__ = ["Linear", "Embedding"]
+__all__ = ["Linear", "Embedding", "Dropout", "Dropout2D", "Dropout3D"]
 
 
 def _param(init, shape, generator, device):
@@ -63,3 +66,46 @@ class Embedding(nn.Module):
 
     def extra_repr(self):
         return f"{self.num_embeddings}, {self.embedding_dim}"
+
+
+class Dropout(nn.Module):
+    def __init__(self, p=0.5, axis=None, mode="upscale_in_train",
+                 generator=None):
+        super().__init__()
+        self.p, self.axis, self.mode = p, axis, mode
+        self.generator = generator
+
+    def forward(self, x):
+        return F.dropout(x, self.p, self.axis, self.training, self.mode,
+                         self.generator)
+
+    def extra_repr(self):
+        return f"p={self.p}, axis={self.axis}, mode={self.mode}"
+
+
+class Dropout2D(nn.Module):
+    def __init__(self, p=0.5, data_format="NCHW", generator=None):
+        super().__init__()
+        self.p, self.data_format = p, data_format
+        self.generator = generator
+
+    def forward(self, x):
+        return F.dropout2d(x, self.p, self.training, self.data_format,
+                           self.generator)
+
+    def extra_repr(self):
+        return f"p={self.p}, data_format={self.data_format}"
+
+
+class Dropout3D(nn.Module):
+    def __init__(self, p=0.5, data_format="NCDHW", generator=None):
+        super().__init__()
+        self.p, self.data_format = p, data_format
+        self.generator = generator
+
+    def forward(self, x):
+        return F.dropout3d(x, self.p, self.training, self.data_format,
+                           self.generator)
+
+    def extra_repr(self):
+        return f"p={self.p}, data_format={self.data_format}"

@@ -5,7 +5,9 @@ The weight is [out, in / groups, kh, kw] float32, KaimingUniform with
 the leaky-ReLU gain at slope 0 (bound sqrt(6 / fan_in)); the bias is
 Uniform(+-1 / sqrt(fan_in)) (none with ``bias_attr=False``); both drawn
 from ``generator`` on ``device`` (``None``: cuda, raising without a
-card). ``F.conv2d`` casts the weight to the input's dtype."""
+card). ``F.conv2d`` casts the weight to the input's dtype and takes
+every padding form and ``data_format`` ("NCHW" or "NHWC") JAX's does;
+the weight's layout is the same in both."""
 from __future__ import annotations
 
 import math

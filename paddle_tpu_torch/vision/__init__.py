@@ -1,6 +1,6 @@
-"""Vision models. Counterpart: ``paddle_tpu/vision``; of it, only the
-ResNet family of ``models`` is ported (``vision/transforms``,
-``vision/datasets`` and the other models are not)."""
+"""Vision models. Counterpart: ``paddle_tpu/vision``; of it ``models``
+is ported, the whole zoo (``vision/transforms`` and ``vision/datasets``
+are not)."""
 from . import models  # noqa: F401
 
 __all__ = ["models"]

@@ -18,10 +18,9 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ...device import resolve_device
 from ...nn import (AdaptiveAvgPool2D, BatchNorm2D, Conv2D, Linear,
                    MaxPool2D, ReLU, Sequential)
-from ...numpy_bridge import load_numpy_state
+from ._utils import ZooModel, init, no_pretrained
 
 __all__ = ["ResNet", "BasicBlock", "BottleneckBlock", "resnet18",
            "resnet34", "resnet50", "resnet101", "resnet152",
@@ -96,14 +95,12 @@ class BottleneckBlock(nn.Module):
         return self.relu(out + identity)
 
 
-class ResNet(nn.Module):
+class ResNet(ZooModel):
     def __init__(self, block, depth=50, width=64, num_classes=1000,
                  with_pool=True, groups=1, seed: int = 0, device=None):
         super().__init__()
-        dev = resolve_device(device)
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(seed)
-        kw = dict(generator=gen, device=dev)
+        kw, _ = init(seed, device)
+        gen, dev = kw["generator"], kw["device"]
         layers = _LAYERS[depth]
         self.depth = depth
         self.groups = groups
@@ -157,23 +154,9 @@ class ResNet(nn.Module):
             x = self.fc(torch.flatten(x, 1))
         return x
 
-    def num_params(self) -> int:
-        return sum(p.numel() for p in self.parameters())
-
-    def load_numpy_state(self, state: dict):
-        """Copy ``{name: np.ndarray}``, the JAX model's
-        ``named_parameters()`` and ``named_buffers()`` (the BatchNorm
-        layers' ``_mean`` / ``_variance``) as numpy, into this model:
-        every name must be present and no other, shapes and dtypes must
-        be equal; bfloat16 arrays are carried bit for bit."""
-        load_numpy_state(self, state)
-
 
 def _resnet(block, depth, pretrained=False, **kwargs):
-    if pretrained:
-        raise NotImplementedError(
-            "pretrained weights are not available: there are none to "
-            "download")
+    no_pretrained(pretrained)
     return ResNet(block, depth, **kwargs)
 
 

@@ -12,7 +12,7 @@ Tolerances:
 - ``mse_loss`` at each reduction: float32 rtol 1e-6, bfloat16 within one
   bf16 ulp (the result stays bfloat16, as JAX's does).
 Also: the containers' names ("0", "1", ...), indexing and slices as
-JAX's; the initializers' bounds; the refused paddings and layouts.
+JAX's; the initializers' bounds; the refused padding forms and layouts.
 """
 import collections
 
@@ -116,12 +116,17 @@ def test_conv2d_layer_init_bounds_and_generator():
     assert pnn.Conv2D(4, 8, 1, bias_attr=False, device="cpu").bias is None
 
 
-@pytest.mark.parametrize("kw", [dict(padding="SAME"),
-                                dict(padding=[1, 1, 1, 1]),
-                                dict(data_format="NHWC")])
+@pytest.mark.parametrize("kw", [dict(padding=[[0, 0], [0, 0], [1, 1],
+                                                 [1, 1]]),
+                                dict(padding="FULL"),
+                                dict(data_format="CHWN")])
 def test_conv2d_refuses_what_is_not_ported(kw):
+    """Padding strings, per-side lists and NHWC are ported
+    (tests/test_torch_nn_act_dropout.py); paddle's full four-pair form
+    raises ValueError as JAX's conv2d does, and so do an unknown padding
+    string and layout."""
     x, w = torch.zeros(1, 2, 4, 4), torch.zeros(3, 2, 1, 1)
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(ValueError, match="conv2d"):
         TF.conv2d(x, w, **kw)
 
 
