@@ -1,7 +1,8 @@
 """``paddle_tpu_torch.distributed``: the ring-attention and tensor-parallel
-serving slices of ``paddle_tpu/distributed``. ``ProcessMesh`` places one
-torch device per process id; ``fleet.init`` builds the hybrid mesh (only
-its sep axis is placed); ``ring_attention`` runs zigzag ring attention
+slices of ``paddle_tpu/distributed``. ``ProcessMesh`` places one torch
+device per process id; ``fleet.init`` builds the hybrid mesh (its sep or
+its mp axis is placed), and ``fleet`` holds training's Megatron layers
+and sequence parallelism; ``ring_attention`` runs zigzag ring attention
 over a mesh axis, single-controller, as JAX's does; ``spec_layout`` is
 the serving placement table and ``collective`` the tp collectives."""
 from . import fleet  # noqa: F401

@@ -7,19 +7,31 @@ returns, as JAX's does; it takes ``devices`` (one torch device per
 rank) where JAX counts ``jax.devices()``. ``distributed_model`` and
 ``distributed_optimizer`` raise: their sharding recipes are ROADMAP
 queue 1 item 10. ``recompute`` and ``recompute_sequential`` are
-``recompute.py``'s.
+``recompute.py``'s; the Megatron layers are ``mpu.py``'s and sequence
+parallelism ``sequence_parallel_utils.py``'s, exported as JAX's
+``__all__`` exports them (:34-41).
 """
 from __future__ import annotations
 
 from typing import Optional, Sequence
 
+from . import mpu, sequence_parallel_utils  # noqa: F401
+from .mpu import (ColumnParallelLinear, ParallelCrossEntropy,
+                  RowParallelLinear, VocabParallelEmbedding)
 from .recompute import recompute, recompute_sequential
+from .sequence_parallel_utils import (ColumnSequenceParallelLinear,
+                                      GatherOp, RowSequenceParallelLinear,
+                                      ScatterOp)
 from .strategy import DistributedStrategy
 from .topology import HybridCommunicateGroup
 
 __all__ = ["init", "fleet", "DistributedStrategy", "HybridCommunicateGroup",
            "get_hybrid_communicate_group", "distributed_model",
-           "distributed_optimizer", "recompute", "recompute_sequential"]
+           "distributed_optimizer", "recompute", "recompute_sequential",
+           "ColumnParallelLinear", "RowParallelLinear",
+           "VocabParallelEmbedding", "ParallelCrossEntropy", "ScatterOp",
+           "GatherOp", "ColumnSequenceParallelLinear",
+           "RowSequenceParallelLinear"]
 
 _hcg: Optional[HybridCommunicateGroup] = None
 _strategy: Optional[DistributedStrategy] = None

@@ -7,10 +7,11 @@ number of devices is the length of ``devices`` (default: every visible
 card) where JAX counts ``jax.devices()``, and dp is filled in from it as
 JAX fills it. The program is single-controller (``global_rank`` 0).
 
-Only the sep axis is placed: a degree above 1 on any other axis,
-an auto-filled dp included, raises ``NotImplementedError`` (training's
-tensor parallelism is ROADMAP queue 1 item 5(c); dp, pp and sharding
-item 10).
+The sep axis (context parallelism, ``distributed.ring_attention``) and
+the mp axis (tensor parallelism, ``fleet/mpu.py``) are placed, one of
+them at a time. A degree above 1 on dp, pp or sharding, an auto-filled
+dp included, or sep and mp both above 1, raises
+``NotImplementedError`` (ROADMAP queue 1, item 10).
 """
 from __future__ import annotations
 
@@ -24,7 +25,7 @@ from ..mesh import ProcessMesh
 __all__ = ["HybridCommunicateGroup", "hybrid_degrees"]
 
 _AXIS_ORDER = ["dp", "pp", "sharding", "sep", "mp"]
-_UNPORTED_AXIS = {"mp": "5(c)", "dp": "10", "pp": "10", "sharding": "10"}
+_UNPORTED_AXIS = ("dp", "pp", "sharding")
 
 
 def hybrid_degrees(n: int, dp_degree=1, mp_degree=1, pp_degree=1,
@@ -60,15 +61,14 @@ class HybridCommunicateGroup:
         devices = _visible_cards() if devices is None else list(devices)
         degrees = hybrid_degrees(len(devices), dp_degree, mp_degree,
                                  pp_degree, sharding_degree, sep_degree)
-        unported = {a: d for a, d in degrees.items()
-                    if d > 1 and a in _UNPORTED_AXIS}
+        unported = sorted(a for a in _UNPORTED_AXIS if degrees[a] > 1)
+        if degrees["sep"] > 1 and degrees["mp"] > 1:
+            unported.append("sep with mp")
         if unported:
-            items = sorted({_UNPORTED_AXIS[a] for a in unported})
             raise NotImplementedError(
-                f"hybrid degrees {degrees}: only the sep axis is placed; "
-                f"{sorted(unported)} > 1 is not ported yet (ROADMAP "
-                f"queue 1, item {' and '.join(items)}: training's tensor "
-                f"parallelism is item 5(c), dp / pp / sharding item 10)")
+                f"hybrid degrees {degrees}: only the sep or the mp axis "
+                f"is placed; {unported} > 1 is not ported yet (ROADMAP "
+                f"queue 1, item 10)")
         self._degrees = degrees
         shape = tuple(degrees[a] for a in _AXIS_ORDER)
         self._mesh = ProcessMesh(np.arange(len(devices)).reshape(shape),
@@ -102,6 +102,13 @@ class HybridCommunicateGroup:
 
     def get_sep_parallel_world_size(self):
         return self._degrees["sep"]
+
+    def get_model_parallel_rank(self):
+        return 0                # single-controller, as in JAX
+
+    def get_model_parallel_group(self):
+        """The mp axis's name, JAX's group object (``mp_group=``)."""
+        return "mp"
 
     def topology(self):
         return dict(self._degrees)

@@ -39,7 +39,7 @@ class ClipGradForMOEByGlobalNorm(ClipGradByGlobalNorm):
         for p, g in zip(params, grads):
             if g is None:
                 continue
-            sq = _sq_norm(g)
+            sq = _sq_norm(g).to(dev)
             if pred(p):
                 ex = ex + sq
             else:

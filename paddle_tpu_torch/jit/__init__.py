@@ -36,8 +36,8 @@ class TrainStep:
                 "TrainStep(gradient_merge=...) is not ported yet (ROADMAP "
                 "queue 1, item 10)")
         opt_ids = {id(p) for p in optimizer._parameter_list}
-        if not all(id(p) in opt_ids for p in model.parameters()
-                   if p.requires_grad):
+        held = getattr(model, "shard_parameters", model.parameters)()
+        if not all(id(p) in opt_ids for p in held if p.requires_grad):
             raise ValueError("optimizer parameters must come from the model")
         self.model = model
         self.loss_fn = loss_fn

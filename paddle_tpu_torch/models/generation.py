@@ -70,7 +70,7 @@ def _setup_decode(model, input_ids, max_new_tokens, max_length):
     (k, v) cache pair a layer, [b, max_length, kv_heads, head_dim] in the
     model's compute dtype."""
     cfg = model.cfg
-    dev = model.model.embed_tokens.weight.device
+    dev = model.model.norm.weight.device   # a tp embedding is sharded
     if isinstance(input_ids, torch.Tensor):
         ids = input_ids.to(device=dev, dtype=torch.int32)
     else:

@@ -18,10 +18,18 @@ embed.T`` in the promoted dtype, as ``jnp.matmul`` gives them.
 
 JAX's options, ported: ``tie_word_embeddings``, ``use_recompute`` with
 the three granularities of ``LlamaConfig`` ("full", "full_attn",
-"core_attn") through ``distributed.fleet.recompute``, and
-``chunked_ce_tokens``. Not ported: ``tensor_parallel`` (ROADMAP queue 1
-item 5(c)) and nonzero ``hidden_dropout`` / ``attention_dropout``; a
-config asking for either raises ``NotImplementedError``.
+"core_attn") through ``distributed.fleet.recompute``,
+``chunked_ce_tokens``, and ``tensor_parallel`` under a fleet mesh whose
+mp axis is larger than 1 (inert without one, as in JAX): qkv_proj and
+fc_in column-parallel, out_proj and fc_out row-parallel, the token
+embedding vocab-parallel, the position embedding and the untied head
+plain, as JAX's. JAX's qkv_proj is one column layer over [q | k | v]
+whose output GSPMD reshuffles onto the heads; the port cuts its weight
+and bias strided (``qkv_groups=3``), so rank r holds the q, k and v
+columns of its own heads and attends them without a reshuffle, while
+the logical parameter keeps JAX's [hidden, 3 * hidden] layout. Not
+ported: nonzero ``hidden_dropout`` / ``attention_dropout``; a config
+asking for it raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -33,6 +41,9 @@ from torch import nn
 from .. import nn as pnn
 from ..device import resolve_device
 from ..distributed.fleet import recompute
+from ..distributed.fleet.mpu import (ColumnParallelLinear, LogicalParameters,
+                                     RowParallelLinear,
+                                     VocabParallelEmbedding, mp_devices)
 from ..nn import functional as F
 from ..numpy_bridge import load_numpy_state
 
@@ -70,48 +81,78 @@ class GPTConfig:
 _GRANULARITIES = ("full", "full_attn", "core_attn")
 
 
+def _tp(cfg) -> bool:
+    """``tensor_parallel`` under a fleet mesh with mp > 1."""
+    return bool(cfg.tensor_parallel) and mp_devices() is not None
+
+
 def _check_ported(cfg: GPTConfig):
-    if cfg.tensor_parallel:
-        raise NotImplementedError(
-            "GPTConfig asks for tensor_parallel: not ported yet (ROADMAP "
-            "queue 1, item 5(c))")
     if cfg.hidden_dropout or cfg.attention_dropout:
         raise NotImplementedError(
             "GPTConfig asks for hidden_dropout / attention_dropout > 0: "
             "dropout in GPT training is not ported yet")
 
 
-class GPTAttention(nn.Module):
+class GPTAttention(LogicalParameters, nn.Module):
     def __init__(self, cfg: GPTConfig, gen, dev):
         super().__init__()
         self.num_heads = cfg.num_attention_heads
         self.head_dim = cfg.hidden_size // cfg.num_attention_heads
         h = cfg.hidden_size
+        self._tp = _tp(cfg)
+        if self._tp:
+            mp = len(mp_devices())
+            if self.num_heads % mp:
+                raise ValueError(f"num_heads {self.num_heads} must divide "
+                                 f"mp degree {mp}")
+            self.qkv_proj = ColumnParallelLinear(
+                h, 3 * h, gather_output=False, generator=gen, device=dev,
+                qkv_groups=3)
+            self.out_proj = RowParallelLinear(h, h, input_is_parallel=True,
+                                              generator=gen, device=dev)
+            return
         self.qkv_proj = pnn.Linear(h, 3 * h, generator=gen, device=dev)
         self.out_proj = pnn.Linear(h, h, generator=gen, device=dev)
 
-    def forward(self, x):
-        b, s = x.shape[0], x.shape[1]
-        qkv = self.qkv_proj(x).reshape(b, s, 3, self.num_heads,
-                                       self.head_dim)
+    def _attend(self, qkv):
+        """Causal attention of [b, s, 3 * heads * d] (all heads, or one
+        mp rank's) -> [b, s, heads * d]."""
+        b, s = qkv.shape[0], qkv.shape[1]
+        qkv = qkv.reshape(b, s, 3, -1, self.head_dim)
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
         out = F.scaled_dot_product_attention(q, k, v, is_causal=True)
-        return self.out_proj(out.reshape(b, s, self.num_heads
-                                         * self.head_dim))
+        return out.reshape(b, s, -1)
+
+    def forward(self, x):
+        if self._tp:
+            return self.out_proj.shard_forward(
+                [self._attend(y) for y in self.qkv_proj.shard_forward(x)],
+                like=x)
+        return self.out_proj(self._attend(self.qkv_proj(x)))
 
 
-class GPTMLP(nn.Module):
+class GPTMLP(LogicalParameters, nn.Module):
     def __init__(self, cfg: GPTConfig, gen, dev):
         super().__init__()
         h, i = cfg.hidden_size, cfg.intermediate_size
+        self._tp = _tp(cfg)
+        if self._tp:
+            self.fc_in = ColumnParallelLinear(h, i, gather_output=False,
+                                              generator=gen, device=dev)
+            self.fc_out = RowParallelLinear(i, h, input_is_parallel=True,
+                                            generator=gen, device=dev)
+            return
         self.fc_in = pnn.Linear(h, i, generator=gen, device=dev)
         self.fc_out = pnn.Linear(i, h, generator=gen, device=dev)
 
     def forward(self, x):
+        if self._tp:
+            return self.fc_out.shard_forward(
+                [F.gelu(y) for y in self.fc_in.shard_forward(x)], like=x)
         return self.fc_out(F.gelu(self.fc_in(x)))
 
 
-class GPTDecoderLayer(nn.Module):
+class GPTDecoderLayer(LogicalParameters, nn.Module):
     def __init__(self, cfg: GPTConfig, gen, dev):
         super().__init__()
         eps = cfg.layer_norm_epsilon
@@ -147,13 +188,22 @@ class GPTDecoderLayer(nn.Module):
                          f"expected one of {_GRANULARITIES}")
 
 
-class GPTModel(nn.Module):
+class GPTModel(LogicalParameters, nn.Module):
     def __init__(self, cfg: GPTConfig, gen, dev):
         super().__init__()
         _check_ported(cfg)
         self.cfg = cfg
-        self.embed_tokens = pnn.Embedding(cfg.vocab_size, cfg.hidden_size,
-                                          generator=gen, device=dev)
+        if _tp(cfg):
+            # the plain Embedding's initializer: one seed, one table at
+            # every mp degree
+            self.embed_tokens = VocabParallelEmbedding(
+                cfg.vocab_size, cfg.hidden_size,
+                weight_attr=pnn.initializer.Normal(0.0, 1.0), generator=gen,
+                device=dev)
+        else:
+            self.embed_tokens = pnn.Embedding(cfg.vocab_size,
+                                              cfg.hidden_size,
+                                              generator=gen, device=dev)
         self.embed_positions = pnn.Embedding(cfg.max_position_embeddings,
                                              cfg.hidden_size, generator=gen,
                                              device=dev)
@@ -178,7 +228,7 @@ class GPTModel(nn.Module):
         return self.ln_f(h)
 
 
-class GPTForCausalLM(nn.Module):
+class GPTForCausalLM(LogicalParameters, nn.Module):
     """The causal LM. Weights are made from ``seed`` with a
     ``torch.Generator`` on ``device`` (``None``: cuda, raising without a
     card); ``load_numpy_state`` replaces them with JAX's."""
@@ -200,6 +250,9 @@ class GPTForCausalLM(nn.Module):
         h = self.gpt(input_ids)
         if self.cfg.chunked_ce_tokens:
             return h
+        if self.lm_head is None and isinstance(self.gpt.embed_tokens,
+                                               VocabParallelEmbedding):
+            return self.gpt.embed_tokens.head(h)
         if self.lm_head is None:
             w = self.gpt.embed_tokens.weight
             dt = torch.promote_types(h.dtype, w.dtype)
@@ -221,7 +274,8 @@ class GPTForCausalLM(nn.Module):
                                labels[:, 1:].reshape(-1))
 
     def num_params(self) -> int:
-        return sum(p.numel() for p in self.parameters())
+        """Logical parameters (a tp model's shards add up to them)."""
+        return sum(p.numel() for p in self.shard_parameters())
 
     def load_numpy_state(self, state: dict):
         """Copy ``{name: np.ndarray}`` (the JAX model's

@@ -34,9 +34,15 @@ JAX's options, ported:
   head_dim] caches written in place at ``pos``, RoPE at that offset and
   GQA attention over the cache in float32 (plain ops: JAX's is einsums,
   not a kernel); ``generate`` and beam search are ``models/generation.py``.
-A config that asks for tensor or sequence parallelism in training raises
-``NotImplementedError`` (ROADMAP queue 1 item 5(c); serving's tensor
-parallelism is ``ServingEngine(tp=)``).
+- ``tensor_parallel`` with a fleet mesh whose mp axis is larger than 1
+  (JAX's ``_mp_active()``): q/k/v and gate/up are column-parallel, o and
+  down row-parallel, the embedding vocab-parallel and the head
+  column-parallel (``distributed/fleet/mpu.py``); each rank runs RoPE and
+  attention on its own contiguous block of q heads and of kv heads, so
+  GQA's groups stay inside a rank, and the MLP's gate on its own
+  columns. The cached forward runs on the logical q/k/v. Without such a
+  mesh the flag builds the plain model, as in JAX;
+  ``sequence_parallel`` is read by nothing, as in JAX.
 """
 from __future__ import annotations
 
@@ -50,6 +56,9 @@ from torch import nn
 from .. import nn as pnn
 from ..device import resolve_device
 from ..distributed.fleet import get_hybrid_communicate_group, recompute
+from ..distributed.fleet.mpu import (ColumnParallelLinear, LogicalParameters,
+                                     RowParallelLinear,
+                                     VocabParallelEmbedding, mp_devices)
 from ..distributed.ring_attention import ring_attention
 from ..nn import functional as F
 from ..numpy_bridge import load_numpy_state
@@ -80,14 +89,9 @@ class LlamaConfig:
     chunked_ce_tokens: int = 0
 
 
-def _check_ported(cfg: LlamaConfig):
-    asked = [name for name, on in (
-        ("tensor_parallel", cfg.tensor_parallel),
-        ("sequence_parallel", cfg.sequence_parallel)) if on]
-    if asked:
-        raise NotImplementedError(
-            f"LlamaConfig asks for {', '.join(asked)}: not ported yet "
-            f"(ROADMAP queue 1, item 5(c))")
+def _tp(cfg) -> bool:
+    """``tensor_parallel`` under a fleet mesh with mp > 1."""
+    return bool(cfg.tensor_parallel) and mp_devices() is not None
 
 
 _GRANULARITIES = ("full", "full_attn", "core_attn")
@@ -113,20 +117,35 @@ def _sep_mesh(sep_degree: int):
     return mesh
 
 
-class LlamaMLP(nn.Module):
+class LlamaMLP(LogicalParameters, nn.Module):
     def __init__(self, cfg: LlamaConfig, gen, dev):
         super().__init__()
         h, i = cfg.hidden_size, cfg.intermediate_size
+        self._tp = _tp(cfg)
+        if self._tp:
+            col = dict(has_bias=False, gather_output=False, generator=gen,
+                       device=dev)
+            self.gate_proj = ColumnParallelLinear(h, i, **col)
+            self.up_proj = ColumnParallelLinear(h, i, **col)
+            self.down_proj = RowParallelLinear(
+                i, h, has_bias=False, input_is_parallel=True, generator=gen,
+                device=dev)
+            return
         lin = dict(bias_attr=False, generator=gen, device=dev)
         self.gate_proj = pnn.Linear(h, i, **lin)
         self.up_proj = pnn.Linear(h, i, **lin)
         self.down_proj = pnn.Linear(i, h, **lin)
 
     def forward(self, x):
+        if self._tp:
+            acts = [F.silu(g) * u for g, u in zip(
+                self.gate_proj.shard_forward(x),
+                self.up_proj.shard_forward(x))]
+            return self.down_proj.shard_forward(acts, like=x)
         return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
 
 
-class LlamaAttention(nn.Module):
+class LlamaAttention(LogicalParameters, nn.Module):
     def __init__(self, cfg: LlamaConfig, gen, dev):
         super().__init__()
         self.num_heads = cfg.num_attention_heads
@@ -135,6 +154,22 @@ class LlamaAttention(nn.Module):
         self.rope_theta = cfg.rope_theta
         self.sep_degree = cfg.sep_degree
         h, kv_out = cfg.hidden_size, self.num_kv_heads * self.head_dim
+        self._tp = _tp(cfg)
+        if self._tp:
+            mp = len(mp_devices())
+            if self.num_kv_heads % mp or self.num_heads % mp:
+                raise ValueError(
+                    f"num_heads {self.num_heads} / num_kv_heads "
+                    f"{self.num_kv_heads} must divide mp degree {mp}")
+            col = dict(has_bias=False, gather_output=False, generator=gen,
+                       device=dev)
+            self.q_proj = ColumnParallelLinear(h, h, **col)
+            self.k_proj = ColumnParallelLinear(h, kv_out, **col)
+            self.v_proj = ColumnParallelLinear(h, kv_out, **col)
+            self.o_proj = RowParallelLinear(h, h, has_bias=False,
+                                            input_is_parallel=True,
+                                            generator=gen, device=dev)
+            return
         lin = dict(bias_attr=False, generator=gen, device=dev)
         self.q_proj = pnn.Linear(h, h, **lin)
         self.k_proj = pnn.Linear(h, kv_out, **lin)
@@ -148,14 +183,29 @@ class LlamaAttention(nn.Module):
         are written into the caches in place at ``pos``, and its queries
         attend cache[:pos + s]; returns (out, (k_cache, v_cache))."""
         b, s = x.shape[0], x.shape[1]
+        if self._tp and past_kv is None:
+            outs = [self._attend(q, k, v) for q, k, v in zip(
+                self.q_proj.shard_forward(x), self.k_proj.shard_forward(x),
+                self.v_proj.shard_forward(x))]
+            return self.o_proj.shard_forward(outs, like=x)
         q = self.q_proj(x).reshape(b, s, self.num_heads, self.head_dim)
         k = self.k_proj(x).reshape(b, s, self.num_kv_heads, self.head_dim)
         v = self.v_proj(x).reshape(b, s, self.num_kv_heads, self.head_dim)
         if past_kv is not None:
             out, new_kv = self._cached_attention(q, k, v, past_kv, int(pos))
             return self.o_proj(out), new_kv
-        cos, sin = build_rope_cache(s, self.head_dim, self.rope_theta,
-                                    torch.float32, device=x.device)
+        return self.o_proj(self._attend(q, k, v))
+
+    def _attend(self, q, k, v):
+        """RoPE and causal attention over q [b, s, *, d] / k, v: all of
+        the heads, or one mp rank's block of them. Returns [b, s, heads *
+        d]."""
+        b, s, d = q.shape[0], q.shape[1], self.head_dim
+        q = q.reshape(b, s, -1, d)
+        k = k.reshape(b, s, -1, d)
+        v = v.reshape(b, s, -1, d)
+        cos, sin = build_rope_cache(s, d, self.rope_theta, torch.float32,
+                                    device=q.device)
         q = rope_reference(q, cos.to(q.dtype), sin.to(q.dtype))
         k = rope_reference(k, cos.to(k.dtype), sin.to(k.dtype))
         sep_mesh = _sep_mesh(self.sep_degree)
@@ -163,7 +213,7 @@ class LlamaAttention(nn.Module):
             out = ring_attention(q, k, v, sep_mesh, axis="sep", causal=True)
         else:
             out = F.scaled_dot_product_attention(q, k, v, is_causal=True)
-        return self.o_proj(out.reshape(b, s, self.num_heads * self.head_dim))
+        return out.reshape(b, s, -1)
 
     def _cached_attention(self, q, k, v, past_kv, pos: int):
         """JAX's ``cached_attn`` (:227-254): RoPE from a max_len table
@@ -198,7 +248,7 @@ class LlamaAttention(nn.Module):
         return out, (k_cache, v_cache)
 
 
-class LlamaDecoderLayer(nn.Module):
+class LlamaDecoderLayer(LogicalParameters, nn.Module):
     def __init__(self, cfg: LlamaConfig, gen, dev):
         super().__init__()
         self.input_layernorm = pnn.RMSNorm(cfg.hidden_size, cfg.rms_norm_eps,
@@ -237,13 +287,21 @@ class LlamaDecoderLayer(nn.Module):
                          f"expected one of {_GRANULARITIES}")
 
 
-class LlamaModel(nn.Module):
+class LlamaModel(LogicalParameters, nn.Module):
     def __init__(self, cfg: LlamaConfig, gen, dev):
         super().__init__()
-        _check_ported(cfg)
         self.cfg = cfg
-        self.embed_tokens = pnn.Embedding(cfg.vocab_size, cfg.hidden_size,
-                                          generator=gen, device=dev)
+        if _tp(cfg):
+            # the plain Embedding's initializer: one seed, one table at
+            # every mp degree
+            self.embed_tokens = VocabParallelEmbedding(
+                cfg.vocab_size, cfg.hidden_size,
+                weight_attr=pnn.initializer.Normal(0.0, 1.0), generator=gen,
+                device=dev)
+        else:
+            self.embed_tokens = pnn.Embedding(cfg.vocab_size,
+                                              cfg.hidden_size,
+                                              generator=gen, device=dev)
         self.layers = nn.ModuleList(
             [LlamaDecoderLayer(cfg, gen, dev)
              for _ in range(cfg.num_hidden_layers)])
@@ -265,7 +323,7 @@ class LlamaModel(nn.Module):
         return self.norm(h)
 
 
-class LlamaForCausalLM(nn.Module):
+class LlamaForCausalLM(LogicalParameters, nn.Module):
     """The causal LM. Weights are made from ``seed`` with a
     ``torch.Generator`` on ``device`` (``None``: cuda, raising without a
     card); ``load_numpy_state`` replaces them with JAX's."""
@@ -277,9 +335,16 @@ class LlamaForCausalLM(nn.Module):
         gen.manual_seed(seed)
         self.cfg = cfg
         self.model = LlamaModel(cfg, gen, dev)
-        self.lm_head = None if cfg.tie_word_embeddings else pnn.Linear(
-            cfg.hidden_size, cfg.vocab_size, bias_attr=False, generator=gen,
-            device=dev)
+        if cfg.tie_word_embeddings:
+            self.lm_head = None
+        elif _tp(cfg):
+            self.lm_head = ColumnParallelLinear(
+                cfg.hidden_size, cfg.vocab_size, has_bias=False,
+                gather_output=True, generator=gen, device=dev)
+        else:
+            self.lm_head = pnn.Linear(cfg.hidden_size, cfg.vocab_size,
+                                      bias_attr=False, generator=gen,
+                                      device=dev)
 
     def forward(self, input_ids, caches=None, pos=None):
         """Logits [b, s, vocab]; with ``chunked_ce_tokens`` the hidden
@@ -292,8 +357,12 @@ class LlamaForCausalLM(nn.Module):
             h = self.model(input_ids)
             if self.cfg.chunked_ce_tokens:
                 return h
-        if self.lm_head is None:
-            w = self.model.embed_tokens.weight
+        embed = self.model.embed_tokens
+        if self.lm_head is None and isinstance(embed,
+                                               VocabParallelEmbedding):
+            logits = embed.head(h)
+        elif self.lm_head is None:
+            w = embed.weight
             dt = torch.promote_types(h.dtype, w.dtype)
             logits = torch.matmul(h.to(dt), w.t().to(dt))
         else:
@@ -319,7 +388,8 @@ class LlamaForCausalLM(nn.Module):
             self.model.embed_tokens.weight, int(self.cfg.chunked_ce_tokens))
 
     def num_params(self) -> int:
-        return sum(p.numel() for p in self.parameters())
+        """Logical parameters (a tp model's shards add up to them)."""
+        return sum(p.numel() for p in self.shard_parameters())
 
     def generate(self, input_ids, max_new_tokens: int = 32,
                  max_length: Optional[int] = None,

@@ -30,8 +30,10 @@ output and so keeps its gradient path to the router), "full_attn" (the
 attention only) or "core_attn" (the plain forward), as JAX's
 ``MoEDecoderLayer.forward`` does.
 
-Not ported yet (it raises ``NotImplementedError``): ``tensor_parallel``
-(ROADMAP queue 1, item 5(c)).
+``tensor_parallel`` without a fleet mesh, or at mp 1, builds the plain
+model, as in JAX. Under an mp mesh the MoE layer raises: JAX shards its
+experts over mp when there is no ep axis, which is expert parallelism
+(ROADMAP queue 1, item 2).
 """
 from __future__ import annotations
 
@@ -90,13 +92,6 @@ class MoEConfig:
             max_position_embeddings=self.max_position_embeddings,
             rms_norm_eps=self.rms_norm_eps, rope_theta=self.rope_theta,
             dtype=self.dtype, tensor_parallel=self.tensor_parallel)
-
-
-def _check_ported(cfg: MoEConfig):
-    if cfg.tensor_parallel:
-        raise NotImplementedError(
-            "MoEConfig(tensor_parallel=True): not ported yet (ROADMAP "
-            "queue 1, item 5(c))")
 
 
 class _DenseMLP(nn.Module):
@@ -214,7 +209,6 @@ class _MoEBlockFn:
 class MoEModel(nn.Module):
     def __init__(self, cfg: MoEConfig, gen, dev):
         super().__init__()
-        _check_ported(cfg)
         self.cfg = cfg
         self.embed_tokens = pnn.Embedding(cfg.vocab_size, cfg.hidden_size,
                                           generator=gen, device=dev)

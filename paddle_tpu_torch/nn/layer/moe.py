@@ -62,8 +62,9 @@ def _check_no_expert_mesh(ep_axis: str):
     if sharded:
         raise NotImplementedError(
             f"MoELayer under a fleet mesh with {sharded[0]!r} of size "
-            f"{mesh.get_dim_size(sharded[0])}: expert parallelism is not "
-            f"ported yet (ROADMAP queue 1, item 11(c))")
+            f"{mesh.get_dim_size(sharded[0])}: expert parallelism (the "
+            f"experts sharded over ep, or over mp without ep) is not "
+            f"ported yet (ROADMAP queue 1, item 2)")
 
 
 class MoELayer(nn.Module):

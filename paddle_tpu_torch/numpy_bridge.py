@@ -23,7 +23,9 @@ def load_numpy_state(module: torch.nn.Module, state: dict):
     """Copy ``{name: np.ndarray}`` (a JAX model's ``named_parameters()``
     and ``named_buffers()`` as numpy) into ``module``'s parameters and
     buffers: every name must be present and no other, shapes and dtypes
-    must be equal; bfloat16 arrays are carried bit for bit."""
+    must be equal; bfloat16 arrays are carried bit for bit. The copy goes
+    through ``load_state_dict``, so a module that holds a parameter in
+    another form (a tp layer's shards) loads it its own way."""
     targets = dict(module.named_parameters())
     targets.update(module.named_buffers())
     missing = sorted(set(targets) - set(state))
@@ -31,10 +33,14 @@ def load_numpy_state(module: torch.nn.Module, state: dict):
     if missing or extra:
         raise ValueError(f"load_numpy_state: missing {missing}, "
                          f"unexpected {extra}")
+    tensors = {}
     for name, p in targets.items():
         t = tensor_from_numpy(state[name], p.device)
         if tuple(t.shape) != tuple(p.shape) or t.dtype != p.dtype:
             raise ValueError(
                 f"load_numpy_state: {name} is {tuple(t.shape)} "
                 f"{t.dtype}, the model holds {tuple(p.shape)} {p.dtype}")
-        p.copy_(t)
+        tensors[name] = t
+    # strict=False: a weight tied under two names is loaded once, by the
+    # name named_parameters() keeps
+    module.load_state_dict(tensors, strict=False)

@@ -26,6 +26,13 @@ JAX's ``AdamW`` with a mixed ``apply_decay_param_fun`` runs its rule, and
 so a global-norm clip, one parameter at a time; the port clips the whole
 list once, as Paddle does.
 
+A tensor-parallel model's ``parameters()`` are logical views
+(``distributed/fleet/mpu.py``); the optimizer steps their shards in
+place, each under its logical parameter's name (``expand_shards``):
+the rules are elementwise, so a shard's update is the logical update's
+slice, a global norm sums over every shard, and ``ClipGradByNorm``
+norms each logical parameter over its shards.
+
 Not ported yet (it raises): regularizer objects as ``weight_decay``.
 """
 from __future__ import annotations
@@ -38,7 +45,8 @@ import torch
 from ..nn.functional.activation import _const
 from .lr import LRScheduler
 
-__all__ = ["Optimizer", "SGD", "Momentum", "Adam", "AdamW"]
+__all__ = ["Optimizer", "SGD", "Momentum", "Adam", "AdamW",
+           "expand_shards"]
 
 _LOW = (torch.bfloat16, torch.float16)
 _MOMENT_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
@@ -58,6 +66,17 @@ def _wd_grad(p, g, wd):
     return g + p.to(g.dtype) * _const(wd, g.dtype)
 
 
+def expand_shards(named):
+    """(k, name, tensor) for each (name, tensor) pair (or bare tensor,
+    named ""), k its index: a logical view of a tp model's parameter
+    gives its shards, each under its name. A generator, so that a
+    model's views (full copies) are dropped as they are read."""
+    for k, it in enumerate(named):
+        n, p = it if isinstance(it, tuple) else ("", it)
+        for s in getattr(p, "_mp_shards", (p,)):
+            yield k, n, s
+
+
 class _Clipped:
     """The gradient list as a clip gives it, each gradient clipped when
     it is read by index (None stays None)."""
@@ -67,7 +86,7 @@ class _Clipped:
 
     def __getitem__(self, i):
         g = self._grads[i]
-        return None if g is None else self._one(g)
+        return None if g is None else self._one(g, i)
 
 
 class Optimizer:
@@ -84,10 +103,13 @@ class Optimizer:
                 "regularizer objects (L1Decay / L2Decay) as weight_decay "
                 "are not ported yet (ROADMAP queue 1, item 10); pass a "
                 "float")
-        named = [it if isinstance(it, tuple) else ("", it)
-                 for it in parameters]
-        self._parameter_names = [n for n, _ in named]
-        self._parameter_list = [p for _, p in named]
+        # a shard's group is its logical parameter's index
+        self._groups, self._parameter_names, self._parameter_list = \
+            [], [], []
+        for k, n, p in expand_shards(parameters):
+            self._groups.append(k)
+            self._parameter_names.append(n)
+            self._parameter_list.append(p)
         self._learning_rate = learning_rate \
             if isinstance(learning_rate, LRScheduler) else float(learning_rate)
         self._grad_clip = grad_clip
@@ -133,7 +155,7 @@ class Optimizer:
         eff = params if masters is None else \
             [m if m is not None else p for p, m in zip(params, masters)]
         clipped = grads if self._grad_clip is None else \
-            _Clipped(grads, self._grad_clip._plan(grads))
+            _Clipped(grads, self._grad_clip._plan(grads, self._groups))
         self._update_impl(eff, clipped, state, lr)
         if masters is not None:
             for p, m, g in zip(params, masters, grads):

@@ -7,8 +7,9 @@ against the JAX package on the CPU.
   explicit list may repeat a device).
 - ``hybrid_degrees`` fills dp from the device count as JAX's
   ``HybridCommunicateGroup`` does over its 8 virtual devices.
-- ``HybridCommunicateGroup``'s axis order, mesh and query API; a degree
-  above 1 on a non-sep axis (an auto-filled dp included) raises
+- ``HybridCommunicateGroup``'s axis order, mesh and query API; the sep
+  or the mp axis is placed; a degree above 1 on dp, pp or sharding (an
+  auto-filled dp included), or sep with mp, raises
   ``NotImplementedError`` naming its ROADMAP item.
 - ``DistributedStrategy.hybrid_configs``: JAX's defaults and key order,
   merge on assign, loud errors; ``fleet.init`` and the namespace.
@@ -102,15 +103,28 @@ def test_hcg_sep_mesh_and_queries():
 
 
 @pytest.mark.parametrize("degrees,n,item", [
-    (dict(mp_degree=2), 2, "item 5"), (dict(sep_degree=2), 4, "item 10"),
+    (dict(sep_degree=2, mp_degree=2), 4, "item 10"),
+    (dict(sep_degree=2), 4, "item 10"),
     (dict(pp_degree=2, sep_degree=2), 4, "item 10"),
     (dict(sharding_degree=2), 2, "item 10")])
 def test_non_sep_axis_raises(degrees, n, item):
     with pytest.raises(NotImplementedError, match=item) as err:
         tdist.fleet.HybridCommunicateGroup(devices=["cpu"] * n, **degrees)
-    if item == "item 5":
-        # serving's tp is ported; training's mp axis waits for item 5(c)
-        assert "item 5(c)" in str(err.value)
+    if "mp_degree" in degrees:
+        # the mp axis is placed alone; with sep it waits for item 10
+        assert "sep with mp" in str(err.value)
+
+
+@pytest.mark.parametrize("mp", [2, 4])
+def test_mp_axis_is_placed(mp):
+    j = jtopology.HybridCommunicateGroup(mp_degree=mp)
+    t = tdist.fleet.HybridCommunicateGroup(mp_degree=mp,
+                                           devices=["cpu"] * mp)
+    assert t.mesh.shape == [1, 1, 1, 1, mp]
+    assert t.mesh.axis_devices("mp") == [torch.device("cpu")] * mp
+    assert t.get_model_parallel_world_size() == \
+        j.get_model_parallel_world_size() == mp
+    assert t.get_parallel_mode() == j.get_parallel_mode()
 
 
 def test_hcg_default_devices_are_the_cards():

@@ -137,6 +137,32 @@ def test_forward_and_loss_match_jax(tied):
                                   for p in jm.parameters())
 
 
+@pytest.mark.parametrize("tied", [True, False])
+def test_inert_tensor_parallel_matches_jax(tied):
+    """tensor_parallel=True with no fleet mesh is the plain model, as
+    JAX's _mp_active() gating makes it: JAX's logits, loss and grads."""
+    jm, tm = _pair(tensor_parallel=True, tie_word_embeddings=tied)
+    ids = _ids(512)
+    jstep = paddle.jit.TrainStep(
+        jm, lambda o, l: jm.loss(o, l),
+        jopt.AdamW(learning_rate=1e-3, parameters=jm.parameters()))
+    params = [p._value for p in jstep._p_tensors]
+    j_logits, _ = jax.jit(
+        lambda ps, x: paddle.jit.functional_call(jm, ps, [], (x,)))(
+        params, ids)
+    j_loss, _, j_grads = jax.jit(jstep._make_loss_and_grads())(
+        params, [], jax.random.PRNGKey(0), (ids,), (ids,))
+    tx = torch.as_tensor(ids)
+    t_logits = tm(tx)
+    t_loss = tm.loss(t_logits, tx)
+    t_loss.backward()
+    _close_to_scale(t_logits.detach().numpy(), j_logits, 1e-5)
+    np.testing.assert_allclose(float(t_loss), float(j_loss), atol=1e-5)
+    t_grads = dict(tm.named_parameters())
+    for name, g in zip(jstep._param_names, j_grads):
+        _close_to_scale(t_grads[name].grad.numpy(), g, 1e-4)
+
+
 def test_train_steps_match_jax():
     jm, tm = _pair()
     ids = _ids(512)
@@ -209,8 +235,17 @@ def test_recompute_granularities_equal_plain():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="item 5"):
-        GPTForCausalLM(gpt_tiny(tensor_parallel=True), device="cpu")
+    # tensor_parallel is ported; under an mp mesh the heads must divide
+    from paddle_tpu_torch.distributed import fleet as tfleet
+    strategy = tfleet.DistributedStrategy()
+    strategy.hybrid_configs = {"mp_degree": 3}
+    tfleet.init(strategy=strategy, devices=["cpu"] * 3)
+    try:
+        with pytest.raises(ValueError, match="must divide"):
+            GPTForCausalLM(gpt_tiny(tensor_parallel=True, vocab_size=513),
+                           device="cpu")
+    finally:
+        tfleet._hcg = tfleet._strategy = None
     with pytest.raises(NotImplementedError, match="dropout"):
         GPTForCausalLM(gpt_tiny(hidden_dropout=0.1), device="cpu")
 

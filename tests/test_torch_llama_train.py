@@ -26,7 +26,11 @@ port's model by ``load_numpy_state``. Then, on the same token ids:
 - ``fleet.recompute`` replays an explicit generator's draws (attention
   dropout) in the recomputation when it is named in ``generators``: the
   grads equal the plain run's, which they do not without it.
-- Only tensor and sequence parallelism still raise.
+- ``tensor_parallel`` / ``sequence_parallel`` with no fleet mesh give
+  JAX's logits, loss and grads (the plain model, as JAX's gating
+  builds); under an mp mesh that does not divide the kv heads the model
+  raises ``ValueError`` as JAX's does (``tests/test_torch_tp.py`` holds
+  the tp model itself).
 On the CPU the port's attention runs ``flash_attention_plain``, JAX's its
 dense ``_sdpa_core``.
 """
@@ -283,10 +287,35 @@ def test_recompute_replays_generator_draws():
 
 
 @pytest.mark.parametrize("field", [
-    dict(tensor_parallel=True), dict(sequence_parallel=True)])
+    dict(tensor_parallel=True),
+    dict(tensor_parallel=True, sequence_parallel=True)])
 def test_unported_training_configs_raise(field):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        LlamaForCausalLM(llama_tiny(**field), device="cpu")
+    """tp is ported; under an mp mesh the kv heads (2) must divide mp 4,
+    as JAX checks; sequence_parallel is read by nothing, as in JAX."""
+    strategy = tfleet.DistributedStrategy()
+    strategy.hybrid_configs = {"mp_degree": 4}
+    tfleet.init(strategy=strategy, devices=["cpu"] * 4)
+    try:
+        with pytest.raises(ValueError, match="must divide mp degree 4"):
+            LlamaForCausalLM(llama_tiny(**field), device="cpu")
+    finally:
+        tfleet._hcg = tfleet._strategy = None
+
+
+@pytest.mark.parametrize("field", [
+    dict(tensor_parallel=True), dict(sequence_parallel=True)])
+def test_inert_parallel_flags_match_jax(field):
+    """With no fleet mesh both flags build the plain model, as JAX's
+    _mp_active() gating (and its Llama, which never reads
+    sequence_parallel) does: JAX's logits, loss and grads."""
+    jm, tm = _pair(**field)
+    ids = _ids(tm.cfg)
+    j_loss, j_grads = _jax_grads(jm, ids, ids)
+    t_logits, t_loss, t_grads = _port_grads(tm, ids)
+    np.testing.assert_allclose(float(t_loss), j_loss, atol=1e-4)
+    for n, g in j_grads.items():
+        np.testing.assert_allclose(t_grads[n].numpy(), np.asarray(g),
+                                   atol=5e-5, rtol=5e-4, err_msg=n)
 
 
 @pytest.mark.parametrize("name", ["llama_tiny", "llama_small", "llama_mid",

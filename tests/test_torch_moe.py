@@ -275,7 +275,7 @@ def test_moe_layer_refusals():
         mesh = ProcessMesh([0, 1], [axis], devices=["cpu"] * 2)
         tfleet._hcg = type("HCG", (), {"mesh": mesh})()
         try:
-            with pytest.raises(NotImplementedError, match="11\\(c\\)"):
+            with pytest.raises(NotImplementedError, match="item 2"):
                 tnn.MoELayer(8, 16, 2, device="cpu")
         finally:
             tfleet._hcg = None
@@ -354,6 +354,24 @@ def test_model_forward_loss_grads_match_jax(mode, chunked):
             continue
         _close(grads[name].numpy(), g, 1e-4, name)
         assert np.abs(np.asarray(g)).max() > 0, name
+
+
+def test_inert_tensor_parallel_matches_jax():
+    """tensor_parallel=True with no fleet mesh builds the plain model,
+    as JAX's _mp_active() gating does: JAX's logits and grads."""
+    jm, tm = _pair(tensor_parallel=True)
+    ids = _ids()
+    jstep = _jax_step(jm)
+    params = [p._value for p in jstep._p_tensors]
+    j_out, _ = jax.jit(lambda ps, x: paddle.jit.functional_call(
+        jm, ps, [], (x,)))(params, ids)
+    j_loss, _, j_grads = jax.jit(jstep._make_loss_and_grads())(
+        params, [], jax.random.PRNGKey(0), (ids,), (ids,))
+    out, loss, grads = _port_grads(tm, ids)
+    _close(out.numpy(), j_out, 1e-5, "logits")
+    np.testing.assert_allclose(loss, float(j_loss), rtol=1e-5)
+    for name, g in zip(jstep._param_names, j_grads):
+        _close(grads[name].numpy(), g, 1e-4, name)
 
 
 @pytest.mark.parametrize("mode", ["dense", "ragged"])
@@ -451,9 +469,16 @@ def test_configs_match_jax():
 
 
 def test_model_refusals():
-    with pytest.raises(NotImplementedError, match="5\\(c\\)"):
-        tmoe_lm.MoEForCausalLM(tmoe_lm.moe_tiny(tensor_parallel=True),
-                               device="cpu")
+    # under an mp mesh JAX shards the experts over mp: expert parallelism
+    strategy = tfleet.DistributedStrategy()
+    strategy.hybrid_configs = {"mp_degree": 2}
+    tfleet.init(strategy=strategy, devices=["cpu"] * 2)
+    try:
+        with pytest.raises(NotImplementedError, match="item 2"):
+            tmoe_lm.MoEForCausalLM(tmoe_lm.moe_tiny(tensor_parallel=True),
+                                   device="cpu")
+    finally:
+        tfleet._hcg = tfleet._strategy = None
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             tmoe_lm.MoEForCausalLM(tmoe_lm.moe_tiny())
